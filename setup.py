@@ -3,6 +3,6 @@ from setuptools import find_packages, setup
 setup(
     name="streaming-vlm-tpu",
     version="0.1.0",
-    packages=find_packages(include=["streaming_vlm_tpu*"]),
+    packages=find_packages(include=["streaming_vlm_tpu*", "streaming_vlm_tpu_torch*"]),
     python_requires=">=3.10",
 )

@@ -1,0 +1,11 @@
+"""streaming-vlm-tpu's PyTorch + CUDA port (one NVIDIA H100).
+
+Mirrors the layout of the JAX package `streaming_vlm_tpu`, which stays the
+reference it is tested against. The single-stream serving path runs here:
+`serve.streaming_inference` / `serve.streaming_inference_frames` ->
+`streaming.engine.StreamingEngine` -> `models.qwen25_vl` with the
+hand-written Hopper kernels of `ops.attention` (sources in `csrc/`).
+Imports torch and numpy, never jax.
+"""
+
+__version__ = "0.1.0"
