@@ -7,19 +7,32 @@ Phases; any failure exits non-zero:
 
 1. device: requires CUDA; prints `nvidia-smi` name and power limit.
 2. build: compiles the port's kernels (streaming_vlm_tpu_torch/csrc, nvcc,
-   sm_90a) into build/torch_kernels/.
+   sm_90a, one nvcc per source in parallel) into build/torch_kernels/.
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the slice's shapes (bf16, Qwen2.5-VL-7B attention geometry: H=28,
-   Hkv=4, hd=128, arena C=10240), with times from CUDA events.
-4. reference: at 7B width (decoder cut to 4 layers), the streaming
-   forward through the kernels (chunk prefill, then one decode token) in
-   bf16 against the plain full-attention oracle `language_forward` in f32
-   on the same random weights.
-5. slice: Qwen2.5-VL-7B (random bf16 weights from a seed) served through
-   `serve.streaming_inference_frames` with the default StreamConfig /
-   SamplingConfig: 20 one-second chunks of 2 synthetic 476x840 frames.
-   Asserts an eviction, kv <= kv_capacity, and that every K1/K2 call of
-   the run went through the kernels (launch counts).
+   the main path's shapes (Qwen2.5-VL-7B attention geometry: H=28, Hkv=4,
+   hd=128, arena C=10240): K1 prefill (both arena modes), K2 decode over
+   the pre-rotated arena, K3 decode over the raw arena (int8 and bf16
+   storage, shrink- and append-range positions), K4 decode partials (and
+   their merge with the small block against K2). The decode kernels are
+   held to one bf16 ulp of each output value, and phase 3 is run again on
+   copies of the port with K3 broken on purpose (fast-math sin/cos, no bf16
+   rounding of the dequantized K, K scales rounded to bf16): each copy
+   must fail, on K3's checks only. Times from CUDA events,
+   beside each kernel's bound and, where one PyTorch call computes the same
+   function, that call's time.
+4. reference: at 7B width (decoder cut to 4 layers), the streaming forward
+   through the kernels (chunk prefill, then one decode token) in bf16
+   against the plain full-attention oracle `language_forward` in f32 on the
+   same random weights: over the pre-rotated bf16 arena (K1, K2) and over
+   the int8 raw arena (K1 raw mode, K3).
+5. slices: Qwen2.5-VL-7B (random bf16 weights from a seed) served through
+   `serve.streaming_inference_frames`, 20 one-second chunks of 2 synthetic
+   476x840 frames each, twice: slice A with the default StreamConfig (the
+   pre-rotated bf16 arena: K1 + K2) and slice B with
+   StreamConfig(kv_quant="int8", prerotate_arena=False) (the int8 raw
+   arena: K1 raw mode + K3). Each asserts an eviction, kv <= kv_capacity,
+   and from launch counts reset just before it that every K1/K2/K3 call of
+   its run went through the kernels.
 
 The second-to-last line is a JSON object with each kernel's numbers; the
 last line is {"ok": true, "device": {...}}.
@@ -31,6 +44,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -38,18 +52,70 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-# bf16 kernel vs the plain f32-math version on the same bf16 unit-normal
+# K1 (bf16) vs the plain f32-math version on the same bf16 unit-normal
 # inputs: both round the output to bf16; K1 also rounds the scaled q and P
 # to bf16 for the tensor cores
 ATOL = RTOL = 2e-2
+# the decode kernels (K2, K3, K4 merged) vs their plain versions: every step
+# before the output's bf16 rounding is f32 in both (K3 rounds the
+# dequantized and the rotated K to bf16 exactly where the plain version
+# does), so they may differ by one bf16 ulp of each value (<= 2^-7 |ref|),
+# plus 2^-12 of the largest |ref| for f32 summation noise near zero
+DEC_RTOL, DEC_ATOL_FRAC = 2.0**-7, 2.0**-12
+# K4's f32 partials vs the plain f32 sums of the same bf16 inputs, taken in
+# another order
+PART_TOL = 1e-3
 # 7B-width streaming forward (kernels, bf16, REF_LAYERS decoder layers) vs
 # the plain oracle in f32, as max |diff| of the last-token logits over max
 # |oracle logit|: the kernel path may be at most REF_NOISE_FACTOR times as
 # far from the f32 oracle as the plain bf16 path is (bf16 rounding of the
-# residual stream and of the logits alone costs ~2e-2 here)
+# residual stream and of the logits alone costs ~2e-2 here; over the int8
+# arena the plain path's error includes the quantization)
 REF_LAYERS = 4
 N_CHUNKS = 20  # slice length: past visual_round=16, so eviction runs
 REF_NOISE_FACTOR = 2.0
+# the H100 SXM's published peaks (dense bf16, HBM3)
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+# deliberate faults of K3 that phase 3 must reject: name ->
+# (source under streaming_vlm_tpu_torch/csrc, text, replacement)
+MUTANTS = {
+    "fast-math sin/cos": (
+        "decode_attention_raw.cu",
+        "sincosf(a, ssin + i, scos + i);",
+        "__sincosf(a, ssin + i, scos + i);",
+    ),
+    "dequantized K not rounded to bf16": (
+        "decode_attention_raw.cu",
+        "out[e] = round_bf16(__fmul_rn(s8(w[e >> 2], e & 3), scale));",
+        "out[e] = __fmul_rn(s8(w[e >> 2], e & 3), scale);",
+    ),
+    "K scales rounded to bf16": (
+        "decode_attention_raw.cu",
+        "const float kscale = QUANT ? ks[ri] : 1.f;",
+        "const float kscale = QUANT ? round_bf16(ks[ri]) : 1.f;",
+    ),
+}
+_FAILED = []  # the checks of phase 3 that failed
+
+SRC = {  # kernel -> (source, the TPU kernel's pallas_call it replaces)
+    "streaming_prefill_attention": (
+        "streaming_vlm_tpu_torch/csrc/prefill_attention.cu",
+        "streaming_vlm_tpu/ops/attention.py:854",
+    ),
+    "streaming_decode_attention_full": (
+        "streaming_vlm_tpu_torch/csrc/decode_attention.cu",
+        "streaming_vlm_tpu/ops/attention.py:280",
+    ),
+    "streaming_decode_attention_int8": (
+        "streaming_vlm_tpu_torch/csrc/decode_attention_raw.cu",
+        "streaming_vlm_tpu/ops/attention.py:627",
+    ),
+    "streaming_decode_attention": (
+        "streaming_vlm_tpu_torch/csrc/decode_attention.cu",
+        "streaming_vlm_tpu/ops/attention.py:362",
+    ),
+}
 
 
 def _median_ms(fn, reps: int = 10, batch: int = 10) -> float:
@@ -72,24 +138,59 @@ def _median_ms(fn, reps: int = 10, batch: int = 10) -> float:
     return statistics.median(times)
 
 
-def _check(name, got, want, cases):
+def _check(name, got, want, cases, atol=ATOL, rtol=RTOL):
+    """|got - want| <= atol + rtol |want| elementwise; prints the largest
+    error and its largest ratio to the limit. A failure is recorded in
+    _FAILED (phase 3 fails at its end, after printing every case)."""
     import torch
 
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs()
-    bound = ATOL + RTOL * want.float().abs()
-    ok = bool(torch.isfinite(got.float()).all()) and bool((err <= bound).all())
-    e = float(err.max())
-    print(f"  {name} {cases}: max_abs_err={e:.3e} (atol=rtol={ATOL}) {'ok' if ok else 'FAIL'}")
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    bound = (atol + rtol * want.abs()).clamp_min(1e-30)
+    ok = bool(torch.isfinite(got).all()) and bool((err <= bound).all())
+    e = float(err.max()) if err.numel() else 0.0
+    r = float((err / bound).max()) if err.numel() else 0.0
+    print(f"  {name} {cases}: max_abs_err={e:.3e} err/limit={r:.3f} "
+          f"(atol={atol:.3e}, rtol={rtol:.3e}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"{name} {cases} disagrees with its plain version")
+        _FAILED.append(f"{name} {cases}")
     return e
+
+
+def _check_decode(name, got, want, cases):
+    """A decode kernel's bf16 output: one bf16 ulp of each value, plus
+    DEC_ATOL_FRAC of the largest |want|."""
+    atol = DEC_ATOL_FRAC * float(want.float().abs().max())
+    return _check(name, got, want, cases, atol, DEC_RTOL)
+
+
+def _bound(nbytes: float, flops: float):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the bf16 peak. Returns (ms, by)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _sdpa_inputs(q, ks, vs, mask):
+    """[T, H, hd] queries, [S, Hkv, hd] keys/values and a [T, S] mask in
+    F.scaled_dot_product_attention's layout (kv heads repeated per query
+    head), prepared outside the timed call."""
+    H, Hkv = q.shape[1], ks.shape[1]
+    rep = lambda x: x.repeat_interleave(H // Hkv, dim=1).transpose(0, 1)[None].contiguous()  # noqa: E731
+    return q.transpose(0, 1)[None].contiguous(), rep(ks), rep(vs), mask
 
 
 def phase_kernels():
     import torch
+    import torch.nn.functional as F
 
     from streaming_vlm_tpu_torch.ops import attention as A
+    from streaming_vlm_tpu_torch.ops.quant import quantize_kv
 
     dev = "cuda"
     H, Hkv, hd, C = 28, 4, 128, 10240
@@ -98,10 +199,17 @@ def phase_kernels():
     def rn(*shape):
         return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
 
+    def sdpa_ms(q, ks, vs, mask):
+        qq, kk, vv, mm = _sdpa_inputs(q, ks, vs, mask)
+        return _median_ms(lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mm))
+
+    stats = {}
     ka, va = rn(C, Hkv, hd), rn(C, Hkv, hd)
     ang = torch.randn(C, hd // 2, generator=g, device=dev)
     acos2 = torch.cat([ang.cos(), ang.cos()], -1).contiguous()
     asin2 = torch.cat([ang.sin(), ang.sin()], -1).contiguous()
+
+    # ---- K1: chunk prefill
     k1_err = 0.0
     for T in (640, 64):
         q, ks, vs = rn(T, H, hd), rn(T, Hkv, hd), rn(T, Hkv, hd)
@@ -112,10 +220,24 @@ def phase_kernels():
                 k1_err = max(k1_err, _check("K1", out, ref, dict(T=T, visible_len=vis, mode=mode)))
     T, vis = 640, C - 640
     q, ks, vs = rn(T, H, hd), rn(T, Hkv, hd), rn(T, Hkv, hd)
-    k1_ms = _median_ms(lambda: A.streaming_prefill_attention(q, ka, va, None, None, ks, vs, vis))
-    k1_plain = _median_ms(lambda: A.prefill_attention_plain(q, ka, va, None, None, ks, vs, vis))
-    print(f"  K1 T={T} visible_len={vis} prerotated: kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} ms")
+    k1 = dict(
+        ms=_median_ms(lambda: A.streaming_prefill_attention(q, ka, va, None, None, ks, vs, vis)),
+        plain_ms=_median_ms(lambda: A.prefill_attention_plain(q, ka, va, None, None, ks, vs, vis)),
+    )
+    k1["ms_raw_mode"] = _median_ms(
+        lambda: A.streaming_prefill_attention(q, ka, va, acos2, asin2, ks, vs, vis))
+    mask = torch.cat([torch.ones(T, vis, dtype=torch.bool, device=dev),
+                      torch.ones(T, T, dtype=torch.bool, device=dev).tril()], 1)
+    k1["library_ms"] = sdpa_ms(q, torch.cat([ka[:vis], ks]), torch.cat([va[:vis], vs]), mask)
+    flops = 4 * T * H * hd * (vis + (T + 1) / 2)  # QK^T and PV over the visible keys
+    k1["bound_ms"], k1["bound_by"] = _bound(
+        _nbytes(q, ka[:vis], va[:vis], ks, vs) + _nbytes(q), flops)
+    stats["streaming_prefill_attention"] = dict(max_abs_err=k1_err, **k1)
+    print(f"  K1 T={T} visible_len={vis}: kernel {k1['ms']:.4f} ms (raw mode "
+          f"{k1['ms_raw_mode']:.4f}), plain {k1['plain_ms']:.4f} ms, sdpa {k1['library_ms']:.4f} ms, "
+          f"bound {k1['bound_ms']:.4f} ms ({k1['bound_by']})")
 
+    # ---- K2: decode over the pre-rotated arena + delta + self
     e_delta = 20
     k2_err = 0.0
     qd = rn(H, hd)
@@ -125,22 +247,120 @@ def phase_kernels():
             args = (qd, ka, va, ksm, vsm, vis, evis)
             out = A.streaming_decode_attention_full(*args, e_delta=e_delta)
             ref = A.decode_attention_plain(*args, e_delta=e_delta)
-            k2_err = max(k2_err, _check("K2", out, ref, dict(visible_len=vis, extra_visible=evis)))
-    args = (qd, ka, va, ksm, vsm, 9000, 7)
-    k2_ms = _median_ms(lambda: A.streaming_decode_attention_full(*args, e_delta=e_delta))
-    k2_plain = _median_ms(lambda: A.decode_attention_plain(*args, e_delta=e_delta))
-    print(f"  K2 visible_len=9000 extra_visible=7: kernel {k2_ms:.4f} ms, plain {k2_plain:.4f} ms")
-    return {
-        "streaming_prefill_attention": dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain),
-        "streaming_decode_attention_full": dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain),
-    }
+            k2_err = max(k2_err, _check_decode("K2", out, ref, dict(visible_len=vis, extra_visible=evis)))
+    vis, evis = 9000, 7
+    args = (qd, ka, va, ksm, vsm, vis, evis)
+    k2 = dict(
+        ms=_median_ms(lambda: A.streaming_decode_attention_full(*args, e_delta=e_delta)),
+        plain_ms=_median_ms(lambda: A.decode_attention_plain(*args, e_delta=e_delta)),
+    )
+    col = torch.arange(e_delta + 1, device=dev)
+    small_mask = (col < evis) | (col >= e_delta)
+    mask = torch.cat([torch.ones(vis, dtype=torch.bool, device=dev), small_mask])[None]
+    k2["library_ms"] = sdpa_ms(qd[None], torch.cat([ka[:vis], ksm]), torch.cat([va[:vis], vsm]), mask)
+    k2["bound_ms"], k2["bound_by"] = _bound(
+        _nbytes(qd, ka[:vis], va[:vis], ksm, vsm, qd), 4 * H * hd * (vis + e_delta + 1))
+    stats["streaming_decode_attention_full"] = dict(max_abs_err=k2_err, **k2)
+    print(f"  K2 visible_len={vis} extra_visible={evis}: kernel {k2['ms']:.4f} ms, plain "
+          f"{k2['plain_ms']:.4f} ms, sdpa {k2['library_ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms "
+          f"({k2['bound_by']})")
+
+    # ---- K3: decode over the raw arena in storage form (int8 + scales, or bf16)
+    kw = dict(e_delta=e_delta, mrope_section=(16, 24, 24), rope_theta=1e6)
+    (kq, kscale), (vq, vscale) = quantize_kv(ka), quantize_kv(va)
+    forms = {"int8": (kq, kscale, vq, vscale), "bf16": (ka, None, va, None)}
+
+    def positions(top):
+        # mRoPE-shaped per-slot positions: shrink mode keeps them below C;
+        # append mode grows them without bound (~1e5 after a long stream)
+        p = torch.rand(C, 3, generator=g, device=dev) * torch.tensor([C, 50.0, 50.0], device=dev)
+        if top:
+            p = top + torch.rand(C, 3, generator=g, device=dev) * C
+        return p.floor().contiguous()
+
+    pos_ranges = {"shrink": positions(0), "append": positions(100_000)}
+    k3_err = 0.0
+    for form, arena in forms.items():
+        for rng_name, pos_t in pos_ranges.items():
+            for vis in (0, 100, 9000):  # none, two splits (ragged), the main path's
+                for evis in (0, 7, 20):
+                    a3 = (qd, *arena, pos_t, ksm, vsm, vis, evis)
+                    out = A.streaming_decode_attention_int8(*a3, **kw)
+                    ref = A.decode_attention_int8_plain(*a3, **kw)
+                    k3_err = max(k3_err, _check_decode("K3", out, ref, dict(
+                        form=form, positions=rng_name, visible_len=vis, extra_visible=evis)))
+    vis, evis = 9000, 7
+    pos_t = pos_ranges["shrink"]
+    ms_by_form = {}
+    for form, arena in forms.items():
+        a3 = (qd, *arena, pos_t, ksm, vsm, vis, evis)
+        ms_by_form[form] = _median_ms(lambda: A.streaming_decode_attention_int8(*a3, **kw))
+    a3 = (qd, *forms["int8"], pos_t, ksm, vsm, vis, evis)
+    k3 = dict(ms=ms_by_form["int8"], ms_by_form=ms_by_form,
+              plain_ms=_median_ms(lambda: A.decode_attention_int8_plain(*a3, **kw)),
+              library_ms=None)
+    k3["bound_ms"], k3["bound_by"] = _bound(
+        _nbytes(qd, kq[:vis], kscale[:vis], vq[:vis], vscale[:vis], pos_t[:vis], ksm, vsm, qd),
+        4 * H * hd * (vis + e_delta + 1))
+    stats["streaming_decode_attention_int8"] = dict(max_abs_err=k3_err, **k3)
+    print(f"  K3 visible_len={vis} extra_visible={evis}: kernel int8 {ms_by_form['int8']:.4f} ms, "
+          f"bf16 {ms_by_form['bf16']:.4f} ms, plain (int8) {k3['plain_ms']:.4f} ms, no single "
+          f"PyTorch call, bound {k3['bound_ms']:.4f} ms ({k3['bound_by']})")
+
+    # ---- K4: the arena's partials; merged with the small block == K2
+    k4_err = 0.0
+    for vis in (0, 9000):
+        got = A.streaming_decode_attention(qd, ka, va, vis)
+        want = A.decode_attention_partials_plain(qd, ka, va, vis)
+        for part, a, b in zip("mla", got, want):
+            k4_err = max(k4_err, _check("K4", a, b, dict(visible_len=vis, part=part),
+                                        PART_TOL, PART_TOL))
+        for evis in (0, 7, 20):
+            small = [(ksm[:e_delta], vsm[:e_delta],
+                      (torch.arange(e_delta, device=dev) < evis)[None]),
+                     (ksm[e_delta:], vsm[e_delta:], torch.ones(1, 1, dtype=torch.bool, device=dev))]
+            merged = A.decode_attention_merge(qd[None], small, ka, va, vis).reshape(H, hd)
+            k2_out = A.streaming_decode_attention_full(qd, ka, va, ksm, vsm, vis, evis,
+                                                       e_delta=e_delta)
+            _check_decode("K4 merged vs K2", merged, k2_out,
+                          dict(visible_len=vis, extra_visible=evis))
+    vis = 9000
+    k4 = dict(ms=_median_ms(lambda: A.streaming_decode_attention(qd, ka, va, vis)),
+              plain_ms=_median_ms(lambda: A.decode_attention_partials_plain(qd, ka, va, vis)),
+              library_ms=None)
+    k4["bound_ms"], k4["bound_by"] = _bound(
+        _nbytes(qd, ka[:vis], va[:vis]) + 4 * H * (hd + 2), 4 * H * hd * vis)
+    stats["streaming_decode_attention"] = dict(max_abs_err=k4_err, **k4)
+    print(f"  K4 visible_len={vis}: kernel {k4['ms']:.4f} ms, plain {k4['plain_ms']:.4f} ms, "
+          f"no single PyTorch call, bound {k4['bound_ms']:.4f} ms ({k4['bound_by']})")
+    if _FAILED:
+        raise AssertionError("kernels disagree with their plain versions: " + "; ".join(_FAILED))
+    return stats
+
+
+@contextlib.contextmanager
+def _plain_raw_decode():
+    """Bind K3's plain version where the decoder calls K3 (phase 4's noise
+    floor; the serving path has no such route)."""
+    from streaming_vlm_tpu_torch.models.qwen25_vl import language as lang
+    from streaming_vlm_tpu_torch.ops import attention as A
+
+    kernel = lang.streaming_decode_attention_int8
+    lang.streaming_decode_attention_int8 = A.decode_attention_int8_plain
+    try:
+        yield
+    finally:
+        lang.streaming_decode_attention_int8 = kernel
 
 
 def phase_reference(cfg):
     """At 7B width with the decoder cut to REF_LAYERS layers: the streaming
-    forward through K1 (chunk prefill) and K2 (one decode step) in bf16
-    against the plain full-attention oracle in f32 on the same weights. The
-    plain oracle in bf16 is measured beside it as the bf16 noise floor."""
+    forward through the kernels in bf16 against the plain full-attention
+    oracle in f32 on the same weights, (a) over the pre-rotated bf16 arena
+    (K1 prefill, one K2 decode step; noise floor: the plain oracle in
+    bf16), (b) over the int8 raw arena (K1 raw-mode prefill, the block
+    quantized into the arena, one K3 decode step; noise floor: the same
+    decode step with K3's plain version over the same quantized arena)."""
     import copy
 
     import numpy as np
@@ -148,6 +368,7 @@ def phase_reference(cfg):
 
     from streaming_vlm_tpu_torch.models.qwen25_vl import language as lang
     from streaming_vlm_tpu_torch.models.qwen25_vl.model import init_params
+    from streaming_vlm_tpu_torch.ops.quant import QuantKV, quantize_kv
 
     tcfg = dataclasses.replace(cfg.text, num_hidden_layers=REF_LAYERS)
     rcfg = dataclasses.replace(cfg, text=tcfg)
@@ -162,33 +383,55 @@ def phase_reference(cfg):
     emb = lang.embed_tokens(tcfg, lm, ids)
     oracle32 = lang.lm_logits(tcfg, lm32, lang.language_forward(tcfg, lm32, emb.float(), pos))[-1]
     oracle16 = lang.lm_logits(tcfg, lm, lang.language_forward(tcfg, lm, emb, pos))[-1]
+    scale = oracle32.abs().max()
+
+    def rel(x):
+        return float((x - oracle32).abs().max() / scale)
 
     L, Hkv, hd = tcfg.num_hidden_layers, tcfg.num_key_value_heads, tcfg.head_dim
+    dk = torch.zeros(L, E, Hkv, hd, dtype=torch.bfloat16, device=dev)
+    delta = dict(extra=(dk, dk.clone()), extra_visible=0)
+    errs = {}
+
+    # (a) the pre-rotated bf16 arena: K1, then K2
     ka, va = lang.init_kv_arena(tcfg, C, torch.bfloat16, dev)
     _, (_, kbr, vb) = lang.language_forward_streaming(
         tcfg, lm, emb[:T], pos[:, :T], arena=(ka, va), arena_rotated=True, visible_len=0
     )
     ka[:, :T], va[:, :T] = kbr, vb  # the pre-rotated arena holds the prefix
-    dk = torch.zeros(L, E, Hkv, hd, dtype=torch.bfloat16, device=dev)
     hidden, _ = lang.language_forward_streaming(
-        tcfg, lm, emb[T:], pos[:, T:], arena=(ka, va), arena_rotated=True, visible_len=T,
-        extra=(dk, dk.clone()), extra_visible=0,
+        tcfg, lm, emb[T:], pos[:, T:], arena=(ka, va), arena_rotated=True, visible_len=T, **delta
     )
-    got = lang.lm_logits(tcfg, lm, hidden)[0]
+    errs["bf16 pre-rotated (K1, K2)"] = (rel(lang.lm_logits(tcfg, lm, hidden)[0]), rel(oracle16))
+
+    # (b) the int8 raw arena: K1 raw mode, quantize the block, then K3
+    apos = torch.zeros(3, C, device=dev)
+    apos[:, : T + 1] = pos
+    kq, vq = lang.init_kv_arena(tcfg, C, torch.bfloat16, dev, quant="int8")
+    _, (kb, _, vb) = lang.language_forward_streaming(
+        tcfg, lm, emb[:T], pos[:, :T], arena=(kq, vq), arena_positions=apos, visible_len=0
+    )
+    for arena, block in ((kq, kb), (vq, vb)):
+        qb = quantize_kv(block)
+        arena.q[:, :T], arena.s[:, :T] = qb.q, qb.s
+    assert isinstance(kq, QuantKV)
+    raw = dict(arena=(kq, vq), arena_positions=apos, visible_len=T, **delta)
+    h_k3, _ = lang.language_forward_streaming(tcfg, lm, emb[T:], pos[:, T:], **raw)
+    with _plain_raw_decode():
+        h_plain, _ = lang.language_forward_streaming(tcfg, lm, emb[T:], pos[:, T:], **raw)
+    errs["int8 raw (K1 raw, K3)"] = (rel(lang.lm_logits(tcfg, lm, h_k3)[0]),
+                                    rel(lang.lm_logits(tcfg, lm, h_plain)[0]))
     torch.cuda.synchronize()
-    scale = oracle32.abs().max()
-    err = float((got - oracle32).abs().max() / scale)
-    floor = float((oracle16 - oracle32).abs().max() / scale)
-    ok = (bool(torch.isfinite(got).all()) and got.shape == oracle32.shape
-          and err <= REF_NOISE_FACTOR * floor)
-    print(f"  last-token logits, {L} layers, T={T} prefill + 1 decode, max|diff|/max|logit| "
-          f"vs the f32 oracle: kernels (bf16) {err:.3e}, plain bf16 oracle {floor:.3e} "
-          f"(bound {REF_NOISE_FACTOR} x plain) {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("streaming forward disagrees with the plain oracle")
+    for name, (err, floor) in errs.items():
+        ok = math.isfinite(err) and err <= REF_NOISE_FACTOR * floor
+        print(f"  {name}: last-token logits, {L} layers, T={T} prefill + 1 decode, "
+              f"max|diff|/max|logit| vs the f32 oracle: kernels (bf16) {err:.3e}, plain bf16 "
+              f"{floor:.3e} (bound {REF_NOISE_FACTOR} x plain) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"streaming forward ({name}) disagrees with the plain oracle")
     del lm, lm32
     torch.cuda.empty_cache()
-    return err
+    return errs
 
 
 def _profiler():
@@ -199,9 +442,8 @@ def _profiler():
 
 
 def _report_profile(prof, wall: float, out: Path) -> None:
-    """Device time by kernel over the traced slice -> out/profile_slice.txt.
-    Only device-side events count (an aten op's device time is its
-    kernels')."""
+    """Device time by kernel over the traced slice -> out. Only device-side
+    events count (an aten op's device time is its kernels')."""
     rows = []
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
@@ -209,29 +451,31 @@ def _report_profile(prof, wall: float, out: Path) -> None:
             rows.append((t / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    out.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     lines = [f"device busy {busy:.1f} ms of {wall * 1e3:.1f} ms wall (traced run)"]
     lines += [f"{ms:12.3f} ms {n:8d} calls  {key}" for ms, n, key in rows]
-    (out / "profile_slice.txt").write_text("\n".join(lines) + "\n")
+    out.write_text("\n".join(lines) + "\n")
     print("  profile: " + lines[0])
     for line in lines[1:16]:
         print("   " + line[:160])
 
 
-def phase_slice(cfg, model, n_chunks: int, profile: Path | None = None):
+def phase_slice(cfg, model, n_chunks: int, stream, expect: dict, profile: Path | None = None):
+    """Serve n_chunks through streaming_inference_frames with `stream`.
+    `expect` maps each kernel to its launch count per (layer, chunk): 1 for
+    the prefill kernel, max_new for the decode kernel, 0 for the others."""
     import numpy as np
     import torch
 
-    from streaming_vlm_tpu_torch.config import StreamConfig
     from streaming_vlm_tpu_torch.ops import attention as A
     from streaming_vlm_tpu_torch.serve import streaming_inference_frames
     from streaming_vlm_tpu_torch.streaming.protocol import FakeTokenizer
 
-    stream = StreamConfig()
     rng = np.random.default_rng(0)
     # 16:9 under max_pixels_for_window(16) -> grid (1, 34, 60), 510 tokens
     frames = [rng.integers(0, 256, (2, 476, 840, 3), dtype=np.uint8) for _ in range(n_chunks)]
     prof = _profiler() if profile else contextlib.nullcontext()
+    torch.cuda.synchronize()
     A.reset_launch_counts()
     t0 = time.perf_counter()
     with prof:
@@ -241,9 +485,9 @@ def phase_slice(cfg, model, n_chunks: int, profile: Path | None = None):
         )
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches = dict(A.launch_counts)
     if profile:
         _report_profile(prof, wall, profile)
-    launches = dict(A.launch_counts)
     for i, t in enumerate(times):
         print(f"  chunk {i:2d}: {t['gen_time_sec'] * 1e3:9.2f} ms  tokens={t['decoded_tokens']:2d}  "
               f"kv={t['kv']} (evict {t['kv_pre_evict']} -> {t['kv_post_evict']})")
@@ -261,16 +505,57 @@ def phase_slice(cfg, model, n_chunks: int, profile: Path | None = None):
         assert any(
             t["kv_post_evict"] < t["kv_pre_evict"] for t in times[stream.visual_round:]
         ), "no eviction happened"
-    assert launches["streaming_prefill_attention"] == L * n_chunks, launches
-    assert launches["streaming_decode_attention_full"] == L * n_chunks * stream.max_tokens_per_chunk, launches
+    want = {k: L * n_chunks * expect.get(k, 0) for k in launches}
+    assert launches == want, (launches, want)
     assert all(isinstance(r["response"], str) for r in responses)
     return launches
+
+
+def phase_mutants() -> dict:
+    """For each fault in MUTANTS: copy the port and this script into
+    build/mutants/<i>/ (git-ignored), apply the fault there, and run phase 3
+    in that copy in a subprocess. Each must fail, on K3 checks only.
+    Returns {fault: {"failed": checks failed, "of": K3 checks, "max_err_over_limit": r}}."""
+    import re
+    import shutil
+
+    root = REPO / "build" / "mutants"
+    shutil.rmtree(root, ignore_errors=True)
+    found = {}
+    for i, (name, (src, text, repl)) in enumerate(MUTANTS.items()):
+        d = root / str(i)
+        shutil.copytree(REPO / "streaming_vlm_tpu_torch", d / "streaming_vlm_tpu_torch",
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        shutil.copy2(REPO / "chip_smoke.py", d)
+        f = d / "streaming_vlm_tpu_torch" / "csrc" / src
+        code = f.read_text()
+        if code.count(text) != 1:
+            raise AssertionError(f"mutant {name!r}: {text!r} is not once in {src}")
+        f.write_text(code.replace(text, repl))
+        r = subprocess.run(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke.phase_kernels()"],
+            cwd=d, capture_output=True, text=True, timeout=600,
+        )
+        lines = r.stdout.splitlines()
+        failed = [line.strip() for line in lines if line.endswith("FAIL")]
+        print(f"  mutant {name!r}: exit {r.returncode}, {len(failed)} checks failed")
+        for line in failed:
+            print("    " + line)
+        if r.returncode == 0 or not failed or any(not x.startswith("K3 ") for x in failed):
+            print(r.stdout[-4000:] + r.stderr[-4000:])
+            raise AssertionError(f"mutant {name!r} was not rejected by K3's checks alone")
+        ratios = [float(m.group(1)) for x in failed if (m := re.search(r"err/limit=([0-9.]+)", x))]
+        found[name] = {"failed": len(failed), "of": sum(x.startswith("  K3 {") for x in lines),
+                       "max_err_over_limit": max(ratios)}
+    shutil.rmtree(root, ignore_errors=True)
+    return found
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=Path, metavar="DIR",
-                    help="trace the slice with torch.profiler; kernel table -> DIR/profile_slice.txt")
+                    help="trace the slices with torch.profiler; kernel tables -> "
+                         "DIR/profile_slice_{a,b}.txt")
     args = ap.parse_args()
     if not (REPO / "streaming_vlm_tpu_torch").is_dir():
         raise SystemExit("chip_smoke.py must run from a checkout of the repository")
@@ -299,38 +584,42 @@ def main() -> int:
 
     print("[3/5] kernels vs plain versions")
     kstats = phase_kernels()
+    print("  phase 3 against copies of the port with K3 broken on purpose")
+    print("  " + json.dumps({"mutants": phase_mutants()}))
 
-    from streaming_vlm_tpu_torch.config import qwen25_vl_7b
+    from streaming_vlm_tpu_torch.config import StreamConfig, qwen25_vl_7b
     from streaming_vlm_tpu_torch.models.qwen25_vl.model import init_params
 
     cfg = qwen25_vl_7b()
     print("[4/5] reference: streaming forward vs plain oracle at 7B width")
     phase_reference(cfg)
 
-    print("[5/5] slice: streaming_inference_frames at 7B width")
+    print("[5/5] slices: streaming_inference_frames at 7B width")
     t0 = time.perf_counter()
     model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                         device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
     print(f"  {cfg.name}: {cfg.text.num_hidden_layers} layers, random bf16 weights "
           f"in {time.perf_counter() - t0:.2f} s")
-
-    launches = phase_slice(cfg, model, N_CHUNKS, args.profile)
-
-    src = {
-        "streaming_prefill_attention": (
-            "streaming_vlm_tpu_torch/csrc/prefill_attention.cu",
-            "streaming_vlm_tpu/ops/attention.py:752",
-        ),
-        "streaming_decode_attention_full": (
-            "streaming_vlm_tpu_torch/csrc/decode_attention.cu",
-            "streaming_vlm_tpu/ops/attention.py:233",
-        ),
+    max_new = StreamConfig().max_tokens_per_chunk
+    slices = {
+        "A": (StreamConfig(), {"streaming_prefill_attention": 1,
+                               "streaming_decode_attention_full": max_new}),
+        "B": (StreamConfig(kv_quant="int8", prerotate_arena=False),
+              {"streaming_prefill_attention": 1, "streaming_decode_attention_int8": max_new}),
     }
+    by_slice = {}
+    for name, (stream, expect) in slices.items():
+        print(f"  slice {name}: kv_quant={stream.kv_quant} prerotate={stream.effective_prerotate}")
+        prof = args.profile / f"profile_slice_{name.lower()}.txt" if args.profile else None
+        by_slice[name] = phase_slice(cfg, model, N_CHUNKS, stream, expect, prof)
+
     kernels = [
-        {"name": n, "route": "cuda", "source": src[n][0], "replaces": src[n][1],
-         "launches": launches[n], **kstats[n]}
-        for n in src
+        {"name": n, "route": "cuda", "source": SRC[n][0], "replaces": SRC[n][1],
+         "launches": sum(c[n] for c in by_slice.values()),
+         "launches_by_slice": {s: c[n] for s, c in by_slice.items()},
+         **kstats[n]}
+        for n in SRC
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

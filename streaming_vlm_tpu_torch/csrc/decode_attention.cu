@@ -1,60 +1,38 @@
-// Single-token decode attention over the pre-rotated arena + the decode
-// delta + the token's own row, under one joint softmax (kernel K2 of the
-// port).
+// Single-token decode attention over the pre-rotated arena: kernel K2 of
+// the port (arena + decode delta + self under one joint softmax) and kernel
+// K4 (the arena's log2-space partials alone).
 //
-// Replaces the TPU kernel streaming_vlm_tpu/ops/attention.py
+// K2 replaces the TPU kernel streaming_vlm_tpu/ops/attention.py
 // `streaming_decode_attention_full` / `_decode_full_kernel`. Three parts
 // share one softmax: arena slots < visible_len, delta rows
 // k_small[:e_delta] below extra_visible, and the always-visible self rows
 // k_small[e_delta:].
 //
-// What bounds it on an H100: bytes. One token reads every visible arena
+// K4 replaces `streaming_decode_attention` / `_decode_kernel`, the JAX
+// package's test-only cross-check of K2: the same split pass, then a
+// combine that returns the merged unnormalised partials (m [H], l [H], acc
+// [H, HD], log2 space) instead of dividing. At visible_len == 0 it returns
+// m = -1e30, l = 0, acc = 0, as the TPU kernel does.
+//
+// What bounds them on an H100: bytes. One token reads every visible arena
 // slot's K and V once: 28 layers x 10240 slots x 4 kv heads x 128 x 2 B x 2
 // ~ 587 MB per decode token at 7B, against ~0.3 GFLOP of math. The design
 // spreads that read over the whole card (split-K flash decoding):
-//   * pass 1, grid (kv head, arena splits / 4): each warp owns one split of
-//     SPLIT=64 consecutive visible slots, one slot per lane for Q.K (the
+//   * split pass, grid (kv head, arena splits / 4): each warp owns one split
+//     of SPLIT=64 consecutive visible slots, one slot per lane for Q.K (the
 //     lane reads its key's 256-byte row; the G queries of the kv head sit
 //     in shared memory as f32 and are read by broadcast), then one head-dim
 //     slice per lane for P.V (coalesced row reads). It writes the split's
 //     partial (m, l, acc) in log2 space to scratch the wrapper allocates.
 //     Splits end at visible_len: slots past it are never read;
-//   * pass 2, one CTA per query head, folds the splits and the small
-//     delta + self rows into the final softmax and writes its [HD] row.
+//   * K2's combine (decode_common.cuh), one CTA per query head, folds the
+//     splits and the small delta + self rows into the final softmax and
+//     writes its [HD] row; K4's folds the splits alone into partials.
 // q stays in f32 (scaled by softmax-scale * log2(e)); sums are f32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-using bf16 = __nv_bfloat16;
+#include "decode_common.cuh"
 
 namespace {
-
-constexpr int HD = 128;
-constexpr int GMAX = 8;        // largest GQA group the kernels take
-constexpr int SPLIT = 64;      // arena slots per warp in pass 1
-constexpr int EMAX = 256;      // largest k_small row count
-constexpr int THREADS = 128;   // 4 warps; pass 2 maps one thread per head-dim lane
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ void load_q(float* sq, const bf16* __restrict__ q, int kvh,
-                                       int G, float qscale) {
-  for (int i = threadIdx.x; i < G * HD; i += blockDim.x) {
-    sq[i] = __bfloat162float(q[(size_t)kvh * G * HD + i]) * qscale;
-  }
-}
 
 __global__ void __launch_bounds__(THREADS) decode_split_kernel(
     const bf16* __restrict__ q,    // [H, HD]
@@ -66,12 +44,14 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
     int Hkv, int G, int visible_len, int n_splits, float qscale) {
   __shared__ __align__(16) float sq[GMAX * HD];
   const int kvh = blockIdx.x;
-  load_q(sq, q, kvh, G, qscale);
+  for (int i = threadIdx.x; i < G * HD; i += blockDim.x) {
+    sq[i] = __bfloat162float(q[(size_t)kvh * G * HD + i]) * qscale;
+  }
   __syncthreads();
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int split = blockIdx.y * (THREADS / 32) + warp;
+  const int split = blockIdx.y * NWARPS + warp;
   if (split >= n_splits) return;
   const int c_lo = split * SPLIT;
   const int c_hi = min(c_lo + SPLIT, visible_len);
@@ -116,23 +96,7 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
       }
     }
     float p[GMAX];
-#pragma unroll
-    for (int g = 0; g < GMAX; ++g) {
-      if (g < G) {
-        const float sg = valid ? s[g] : -INFINITY;
-        const float m_new = fmaxf(m[g], warp_max(sg));
-        p[g] = valid ? exp2f(sg - m_new) : 0.f;
-        const float alpha = (m[g] == -INFINITY) ? 0.f : exp2f(m[g] - m_new);
-        l[g] = l[g] * alpha + warp_sum(p[g]);
-        acc[g][0] *= alpha;
-        acc[g][1] *= alpha;
-        acc[g][2] *= alpha;
-        acc[g][3] *= alpha;
-        m[g] = m_new;
-      } else {
-        p[g] = 0.f;
-      }
-    }
+    online_softmax_step(s, valid, G, m, l, acc, p);
     // P.V: lane owns head-dim slice [4*lane, 4*lane + 4); unrolled so that
     // several V rows are in flight
     const int n = min(32, c_hi - c0);
@@ -156,96 +120,81 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
     }
   }
 
-  const size_t base = ((size_t)kvh * n_splits + split) * G;
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    if (g < G) {
-      if (lane == 0) {
-        part_m[base + g] = m[g];
-        part_l[base + g] = l[g];
-      }
-      *reinterpret_cast<float4*>(part_acc + (base + g) * HD + 4 * lane) =
-          make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
-    }
-  }
+  store_partials(part_m, part_l, part_acc, ((size_t)kvh * n_splits + split) * G, G, m, l,
+                 acc, lane);
 }
 
-__global__ void __launch_bounds__(THREADS) decode_combine_kernel(
-    const bf16* __restrict__ q,         // [H, HD]
-    const bf16* __restrict__ ksm,       // [E1, Hkv, HD] rotated delta ++ self rows
-    const bf16* __restrict__ vsm,       // [E1, Hkv, HD]
-    const float* __restrict__ part_m,   // [Hkv, n_splits, G]
+// K4's combine: one CTA per (kv head, query head of its group), thread d
+// owns head-dim d; folds the splits into merged partials without dividing.
+__global__ void __launch_bounds__(THREADS) decode_partials_combine_kernel(
+    const float* __restrict__ part_m,    // [Hkv, n_splits, G]
     const float* __restrict__ part_l,
-    const float* __restrict__ part_acc, // [Hkv, n_splits, G, HD]
-    bf16* __restrict__ out,             // [H, HD]
-    int Hkv, int G, int n_splits, int e1, int e_delta, int extra_visible,
-    float qscale) {
-  // one CTA per (kv head, query head of its group); thread d owns head-dim d
-  __shared__ __align__(16) float sq[HD];
-  __shared__ float s_small[EMAX];  // small-part logits, then softmax weights
-  __shared__ float s_den;
-  extern __shared__ float s_w[];   // [n_splits] split maxima, then weights
+    const float* __restrict__ part_acc,  // [Hkv, n_splits, G, HD]
+    float* __restrict__ m_out,           // [H]
+    float* __restrict__ l_out,           // [H]
+    float* __restrict__ acc_out,         // [H, HD]
+    int G, int n_splits) {
+  __shared__ float s_mx;
+  __shared__ float s_l;
+  extern __shared__ float s_w[];  // [n_splits] split maxima, then weights
   const int kvh = blockIdx.x;
   const int g = blockIdx.y;
   const int h = kvh * G + g;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  for (int d = threadIdx.x; d < HD; d += THREADS) {
-    sq[d] = __bfloat162float(q[(size_t)h * HD + d]) * qscale;
-  }
   for (int s = threadIdx.x; s < n_splits; s += THREADS) {
     s_w[s] = part_m[((size_t)kvh * n_splits + s) * G + g];
   }
   __syncthreads();
-
-  // small-part logits: one row per warp iteration
-  for (int j = warp; j < e1; j += THREADS / 32) {
-    const bf16* row = ksm + ((size_t)j * Hkv + kvh) * HD;
-    float part = 0.f;
-#pragma unroll
-    for (int d = lane; d < HD; d += 32) part += sq[d] * __bfloat162float(row[d]);
-    part = warp_sum(part);
-    if (lane == 0) {
-      const bool vis = j < extra_visible || j >= e_delta;
-      s_small[j] = vis ? part : -INFINITY;
-    }
-  }
-  __syncthreads();
-
-  // joint max, weights and denominator (warp 0; each lane owns its indices)
   if (warp == 0) {
     float mx = -INFINITY;
     for (int s = lane; s < n_splits; s += 32) mx = fmaxf(mx, s_w[s]);
-    for (int j = lane; j < e1; j += 32) mx = fmaxf(mx, s_small[j]);
     mx = warp_max(mx);
-    float den = 0.f;
+    float l = 0.f;
     for (int s = lane; s < n_splits; s += 32) {
-      const float m = s_w[s];
-      const float w = (m == -INFINITY) ? 0.f : exp2f(m - mx);
+      const float w = exp2f(s_w[s] - mx);
       s_w[s] = w;
-      den += w * part_l[((size_t)kvh * n_splits + s) * G + g];
+      l += w * part_l[((size_t)kvh * n_splits + s) * G + g];
     }
-    for (int j = lane; j < e1; j += 32) {
-      const float sj = s_small[j];
-      const float w = (sj == -INFINITY) ? 0.f : exp2f(sj - mx);
-      s_small[j] = w;
-      den += w;
+    l = warp_sum(l);
+    if (lane == 0) {
+      s_mx = mx;
+      s_l = l;
     }
-    den = warp_sum(den);
-    if (lane == 0) s_den = fmaxf(den, 1e-20f);
   }
   __syncthreads();
-
   const int d = threadIdx.x;  // THREADS == HD
   float a = 0.f;
 #pragma unroll 4
   for (int s = 0; s < n_splits; ++s) {
     a += s_w[s] * part_acc[(((size_t)kvh * n_splits + s) * G + g) * HD + d];
   }
-  for (int j = 0; j < e1; ++j) {
-    a += s_small[j] * __bfloat162float(vsm[((size_t)j * Hkv + kvh) * HD + d]);
+  acc_out[(size_t)h * HD + d] = a;
+  if (d == 0) {
+    m_out[h] = s_mx;
+    l_out[h] = s_l;
   }
-  out[(size_t)h * HD + d] = __float2bfloat16(a / s_den);
+}
+
+__global__ void decode_partials_empty_kernel(float* m_out, float* l_out, float* acc_out,
+                                             int H) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < H * HD;
+       i += gridDim.x * blockDim.x) {
+    acc_out[i] = 0.f;
+    if (i < H) {
+      m_out[i] = -1e30f;
+      l_out[i] = 0.f;
+    }
+  }
+}
+
+void launch_split(const void* q, const void* ka, const void* va, void* part_m,
+                  void* part_l, void* part_acc, int Hkv, int G, int visible_len,
+                  int n_splits, float qscale, cudaStream_t s) {
+  const dim3 grid(Hkv, (n_splits + NWARPS - 1) / NWARPS);
+  decode_split_kernel<<<grid, THREADS, 0, s>>>(
+      (const bf16*)q, (const bf16*)ka, (const bf16*)va, (float*)part_m, (float*)part_l,
+      (float*)part_acc, Hkv, G, visible_len, n_splits, qscale);
 }
 
 }  // namespace
@@ -266,23 +215,42 @@ extern "C" int svt_decode_attention(
     return (int)cudaErrorInvalidValue;
   }
   const int G = H / Hkv;
-  const float qscale = 1.4426950408889634f / sqrtf((float)hd);
+  const float qscale = LOG2E / sqrtf((float)hd);
   const int n_splits = (visible_len + SPLIT - 1) / SPLIT;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (n_splits > 0) {
-    const dim3 grid(Hkv, (n_splits + THREADS / 32 - 1) / (THREADS / 32));
-    decode_split_kernel<<<grid, THREADS, 0, s>>>(
-        (const bf16*)q, (const bf16*)ka, (const bf16*)va, (float*)part_m,
-        (float*)part_l, (float*)part_acc, Hkv, G, visible_len, n_splits, qscale);
+    launch_split(q, ka, va, part_m, part_l, part_acc, Hkv, G, visible_len, n_splits, qscale,
+                 s);
   }
+  launch_decode_combine((const bf16*)q, (const bf16*)ksm, (const bf16*)vsm,
+                        (const float*)part_m, (const float*)part_l, (const float*)part_acc,
+                        (bf16*)out, Hkv, G, n_splits, e1, e_delta, extra_visible, qscale, s);
+  return (int)cudaGetLastError();
+}
+
+// K4: merged log2-space partials of one token over arena slots < visible_len.
+extern "C" int svt_decode_partials(
+    const void* q, const void* ka, const void* va, void* part_m, void* part_l,
+    void* part_acc, void* m_out, void* l_out, void* acc_out, int H, int Hkv, int hd,
+    int visible_len, void* stream) {
+  if (hd != HD || H % Hkv != 0 || H / Hkv > GMAX) return (int)cudaErrorInvalidValue;
+  const int G = H / Hkv;
+  const float qscale = LOG2E / sqrtf((float)hd);
+  const int n_splits = (visible_len + SPLIT - 1) / SPLIT;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (n_splits == 0) {
+    decode_partials_empty_kernel<<<(H * HD + THREADS - 1) / THREADS, THREADS, 0, s>>>(
+        (float*)m_out, (float*)l_out, (float*)acc_out, H);
+    return (int)cudaGetLastError();
+  }
+  launch_split(q, ka, va, part_m, part_l, part_acc, Hkv, G, visible_len, n_splits, qscale, s);
   const size_t dyn = sizeof(float) * (size_t)n_splits;
-  if (dyn > 40 * 1024) {  // static shared memory takes ~1.5 KB of the default 48
-    cudaFuncSetAttribute(decode_combine_kernel,
+  if (dyn > 40 * 1024) {
+    cudaFuncSetAttribute(decode_partials_combine_kernel,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
   }
-  decode_combine_kernel<<<dim3(Hkv, G), THREADS, dyn, s>>>(
-      (const bf16*)q, (const bf16*)ksm, (const bf16*)vsm, (const float*)part_m,
-      (const float*)part_l, (const float*)part_acc, (bf16*)out, Hkv, G, n_splits,
-      e1, e_delta, extra_visible, qscale);
+  decode_partials_combine_kernel<<<dim3(Hkv, G), THREADS, dyn, s>>>(
+      (const float*)part_m, (const float*)part_l, (const float*)part_acc, (float*)m_out,
+      (float*)l_out, (float*)acc_out, G, n_splits);
   return (int)cudaGetLastError();
 }

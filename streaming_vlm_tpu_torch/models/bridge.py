@@ -52,10 +52,11 @@ def _linear(lin: nn.Linear, w: np.ndarray, b=None) -> None:
 
 @torch.no_grad()
 def from_jax_params(
-    cfg: ModelConfig, params: Dict[str, Any], *, device="cpu", dtype=torch.float32
+    cfg: ModelConfig, params: Dict[str, Any], *, device="cuda", dtype=torch.float32
 ) -> Qwen25VL:
     """Build the port's model from a JAX `model.init_params` pytree (leaves
-    as numpy arrays or anything np.asarray accepts)."""
+    as numpy arrays or anything np.asarray accepts), on the card unless the
+    caller passes device="cpu"."""
     with torch.device("meta"):
         m = Qwen25VL(cfg, dtype=dtype)
     m.to_empty(device=device)

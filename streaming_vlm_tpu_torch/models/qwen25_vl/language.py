@@ -5,18 +5,22 @@ Port of streaming_vlm_tpu/models/qwen25_vl/language.py. Layers are an
 weights). Weights are stored as `nn.Linear` ([out, in]); the bridge in
 models/bridge.py transposes the JAX [in, out] layout.
 
-The KV arena is a pair of [L, C, Hkv, hd] tensors holding UN-rotated K.
-`language_forward_streaming` reads it and returns the block's new K/V as
-[L, T, Hkv, hd] for the caller to merge:
+The KV arena is a pair of [L, C, Hkv, hd] tensors holding UN-rotated K, or,
+with `kv_quant="int8"`, a pair of `ops.quant.QuantKV` (int8 [L, C, Hkv, hd]
++ f32 [L, C, Hkv] scales). `language_forward_streaming` reads it and
+returns the block's new K/V as [L, T, Hkv, hd] for the caller to merge:
 
 * prefill mode (no `extra`) runs kernel K1 (`streaming_prefill_attention`)
-  over the arena (pre-rotated, or raw and rotated in the kernel) plus the
-  block's own causal keys;
-* decode mode (`extra` = the rotated decode delta, T == 1) runs kernel K2
-  (`streaming_decode_attention_full`) over the pre-rotated arena, the
-  delta and the token itself.
+  over each layer's arena slice, dequantized to the compute dtype (one
+  [C, Hkv, hd] transient), pre-rotated or raw and rotated in the kernel,
+  plus the block's own causal keys;
+* decode mode (`extra` = the rotated decode delta, T == 1) runs, over a
+  pre-rotated arena, kernel K2 (`streaming_decode_attention_full`) with V
+  dequantized per layer; over a raw arena, kernel K3
+  (`streaming_decode_attention_int8`), which reads the arena in its storage
+  form and dequantizes and rotates in the kernel.
 
-On CPU tensors both kernels' wrappers run their plain versions.
+On CPU tensors the kernels' wrappers run their plain versions.
 """
 
 from __future__ import annotations
@@ -31,8 +35,10 @@ from ...config import TextConfig
 from ...ops.attention import (
     gqa_attention_multi,
     streaming_decode_attention_full,
+    streaming_decode_attention_int8,
     streaming_prefill_attention,
 )
+from ...ops.quant import Arena, QuantKV, as_float, layer_slice, quantize_kv, storage
 from .rope import apply_rope, make_inv_freq, mrope_cos_sin
 
 
@@ -130,20 +136,19 @@ def _layer_body(
     q_cos,
     q_sin,
     self_mask=None,  # [T, T] mask over the block's own keys (plain attention)
-    decode=None,  # (ak, av, ek, ev, visible_len, extra_visible): T == 1 through
-    # K2 over the pre-rotated arena, the rotated decode delta and the token
+    decode=None,  # callable (q [H, hd], k_small, v_small) -> [H, hd]: T == 1
+    # attention over the arena, the rotated decode delta and the token itself
+    # (the token's own rotated K/V row ends k_small/v_small)
+    delta=None,  # (ek, ev): this layer's rotated decode delta
 ):
     """One decoder layer over the block's own K/V (plain attention under
-    self_mask), or, in decode mode, over arena + delta + self through K2.
-    Returns (hidden, k_new, k_new_rot, v_new)."""
+    self_mask), or, in decode mode, through `decode`. Returns (hidden,
+    k_new, k_new_rot, v_new)."""
     H, hd = cfg.num_attention_heads, cfg.head_dim
     q, k_new, k_new_rot, v_new = _qkv(cfg, hidden, layer, q_cos, q_sin)
     if decode is not None:
-        ak, av, ek, ev, vis, evis = decode
-        out = streaming_decode_attention_full(
-            q[0], ak, av, torch.cat([ek, k_new_rot], dim=0),
-            torch.cat([ev, v_new], dim=0), vis, evis, e_delta=ek.shape[0],
-        )
+        ek, ev = delta
+        out = decode(q[0], torch.cat([ek, k_new_rot], dim=0), torch.cat([ev, v_new], dim=0))
         attn = out.reshape(1, H * hd)
     else:
         attn = gqa_attention_multi(q, [(k_new_rot, v_new, self_mask)])
@@ -177,7 +182,7 @@ def language_forward_streaming(
     inputs_embeds: torch.Tensor,  # [T, D]
     q_positions: torch.Tensor,  # [3, T] float32
     *,
-    arena: Tuple[torch.Tensor, torch.Tensor],  # READ-ONLY [L, C, Hkv, hd] x2
+    arena: Tuple[Arena, Arena],  # READ-ONLY [L, C, Hkv, hd] x2, float or QuantKV
     arena_positions: Optional[torch.Tensor] = None,  # [3, C] (raw-K arena)
     visible_len: int,  # arena slots < visible_len are attendable
     arena_rotated: bool = False,  # arena K already rotated for these positions
@@ -186,14 +191,17 @@ def language_forward_streaming(
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
     """Streaming decoder stack over a read-only KV arena. Returns (hidden
     [T, D] post-final-norm, (k_block, k_block_rot, v_block) each [L, T, Hkv,
-    hd]).
+    hd] in the compute dtype).
 
     Prefill mode (no `extra`): K1 over the arena (pre-rotated, or raw and
     rotated in the kernel from `arena_positions`) + the causal block.
     Decode mode: `extra` is the ROTATED decode delta with rows <
-    `extra_visible` visible, T == 1 and the arena pre-rotated; K2."""
+    `extra_visible` visible and T == 1; K2 over a pre-rotated arena, K3 over
+    a raw one. An int8 arena is dequantized per layer (K1, K2) or in the
+    kernel (K3)."""
     T = inputs_embeds.shape[0]
     H, hd = cfg.num_attention_heads, cfg.head_dim
+    cdt = inputs_embeds.dtype  # compute dtype of dequantized arena slices
     inv_freq = lm.inv_freq(inputs_embeds.device)
     q_cos, q_sin = mrope_cos_sin(q_positions, inv_freq, cfg.mrope_section)
     outs: List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = []
@@ -205,20 +213,40 @@ def language_forward_streaming(
             acos2 = torch.cat([a_cos, a_cos], dim=-1).contiguous()
             asin2 = torch.cat([a_sin, a_sin], dim=-1).contiguous()
         for l, layer in enumerate(lm.layers):
+            ak = as_float(layer_slice(arena[0], l), cdt)
+            av = as_float(layer_slice(arena[1], l), cdt)
             q, k_new, k_new_rot, v_new = _qkv(cfg, hidden, layer, q_cos, q_sin)
             attn = streaming_prefill_attention(
-                q, arena[0][l], arena[1][l], acos2, asin2, k_new_rot, v_new, visible_len
+                q, ak, av, acos2, asin2, k_new_rot, v_new, visible_len
             ).reshape(T, H * hd)
             hidden = _layer_tail(layer, hidden, attn)
             outs.append((k_new, k_new_rot, v_new))
     else:
-        if T != 1 or not arena_rotated:
-            raise ValueError("decode mode takes one token over a pre-rotated arena")
+        if T != 1:
+            raise ValueError("decode mode takes one token")
+        if not arena_rotated:
+            pos_t = arena_positions.float().T.contiguous()  # [C, 3], once per call
         for l, layer in enumerate(lm.layers):
+            ak, av = layer_slice(arena[0], l), layer_slice(arena[1], l)
+            if arena_rotated:
+                ak, av = as_float(ak, cdt), as_float(av, cdt)
+
+                def decode(q, ks, vs, ak=ak, av=av):
+                    return streaming_decode_attention_full(
+                        q, ak, av, ks, vs, visible_len, extra_visible, e_delta=ks.shape[0] - 1
+                    )
+            else:
+                (kq, kscale), (vq, vscale) = storage(ak), storage(av)
+
+                def decode(q, ks, vs, kq=kq, kscale=kscale, vq=vq, vscale=vscale):
+                    return streaming_decode_attention_int8(
+                        q, kq, kscale, vq, vscale, pos_t, ks, vs, visible_len, extra_visible,
+                        e_delta=ks.shape[0] - 1, mrope_section=cfg.mrope_section,
+                        rope_theta=cfg.rope_theta,
+                    )
             hidden, k_new, k_new_rot, v_new = _layer_body(
-                cfg, hidden, layer, q_cos=q_cos, q_sin=q_sin,
-                decode=(arena[0][l], arena[1][l], extra[0][l], extra[1][l],
-                        visible_len, extra_visible),
+                cfg, hidden, layer, q_cos=q_cos, q_sin=q_sin, decode=decode,
+                delta=(extra[0][l], extra[1][l]),
             )
             outs.append((k_new, k_new_rot, v_new))
     k_block, k_block_rot, v_block = (torch.stack(x) for x in zip(*outs))
@@ -238,15 +266,18 @@ def lm_logits(cfg: TextConfig, lm: LanguageModel, hidden: torch.Tensor) -> torch
 
 
 def init_kv_arena(
-    cfg: TextConfig, capacity: int, dtype=torch.bfloat16, device=None
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Allocate the zeroed [L, C, Hkv, hd] K/V arenas (float arena only)."""
+    cfg: TextConfig, capacity: int, dtype=torch.bfloat16, device=None, quant: str = "none"
+) -> Tuple[Arena, Arena]:
+    """Allocate the zeroed [L, C, Hkv, hd] K/V arenas: float in `dtype`, or
+    with quant="int8" QuantKV pairs (the quantization of zeros: q = 0,
+    s = 1e-12), half the bytes."""
     shape = (cfg.num_hidden_layers, capacity, cfg.num_key_value_heads, cfg.head_dim)
+    if quant == "int8":
+        z = quantize_kv(torch.zeros(shape, dtype=dtype, device=device))
+        return z, QuantKV(z.q.clone(), z.s.clone())
+    if quant != "none":
+        raise ValueError(f"kv_quant must be 'none' or 'int8', got {quant!r}")
     return (
         torch.zeros(shape, dtype=dtype, device=device),
         torch.zeros(shape, dtype=dtype, device=device),
     )
-
-
-def arena_capacity(arena: torch.Tensor) -> int:
-    return arena.shape[1]

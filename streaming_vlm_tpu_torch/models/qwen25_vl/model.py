@@ -29,14 +29,15 @@ def init_params(
     cfg: ModelConfig,
     generator: torch.Generator,
     *,
-    device="cpu",
+    device="cuda",
     dtype=torch.float32,
 ) -> Qwen25VL:
     """Random model with the JAX package's scheme (language.py and
     vision.py init_*_params): matrices and embeddings ~ N(0, 1) * 0.02 drawn
-    in f32 then cast, norms 1, biases 0. The generator must live on
-    `device`; the values differ from jax.random's (tests build both sides
-    from one set of numpy weights through models/bridge.py instead)."""
+    in f32 then cast, norms 1, biases 0. Built on the card unless the
+    caller passes device="cpu"; the generator must live on `device`. The
+    values differ from jax.random's (tests build both sides from one set of
+    numpy weights through models/bridge.py instead)."""
     with torch.device("meta"):
         m = Qwen25VL(cfg, dtype=dtype)
     m.to_empty(device=device)

@@ -3,8 +3,10 @@
 The sources under `streaming_vlm_tpu_torch/csrc/` are compiled by `nvcc`
 for `sm_90a` into one plain-C shared library, loaded with ctypes. The build
 runs at first use into `build/torch_kernels/` at the repository root (listed
-in .gitignore) and is keyed by a hash of the sources, so an edited source
-rebuilds and an unchanged one loads the existing library.
+in .gitignore) and is keyed by a hash of the sources and headers, so an
+edited source rebuilds and an unchanged one loads the existing library.
+Each source compiles in its own nvcc process, all started together, and one
+more nvcc call links the objects.
 """
 
 from __future__ import annotations
@@ -19,15 +21,14 @@ from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("prefill_attention.cu", "decode_attention.cu")
+SOURCES = ("prefill_attention.cu", "decode_attention.cu", "decode_attention_raw.cu")
+HEADERS = ("decode_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _lib: Optional[ctypes.CDLL] = None
-build_seconds: Optional[float] = None  # wall time of the last nvcc run, if any
+build_seconds: Optional[float] = None  # wall time of the last nvcc build, if any
 
 
 def _nvcc() -> str:
@@ -40,11 +41,23 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libsvt_torch_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run(cmds):
+    """Run nvcc commands in parallel; raise with the output of any that
+    failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    failed = [(c, p.returncode, o) for c, p, o in zip(cmds, procs, outs) if p.returncode]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"({rc}) {' '.join(c)}\n{o}" for c, rc, o in failed))
 
 
 def build() -> Path:
@@ -55,16 +68,20 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    try:
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+              for s, o in zip(SOURCES, objs)])
+        _run([[nvcc, *GENCODE, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
+        for o in objs:
+            o.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
     return out
 
@@ -79,11 +96,15 @@ def lib() -> ctypes.CDLL:
         so.svt_prefill_attention.restype = I
         so.svt_decode_attention.argtypes = [P] * 9 + [I] * 7 + [P]
         so.svt_decode_attention.restype = I
+        so.svt_decode_attention_raw.argtypes = [P] * 13 + [I] * 8 + [P]
+        so.svt_decode_attention_raw.restype = I
+        so.svt_decode_partials.argtypes = [P] * 9 + [I] * 4 + [P]
+        so.svt_decode_partials.restype = I
         so.svt_decode_split_size.argtypes = []
         so.svt_decode_split_size.restype = I
         so.svt_decode_max_small_rows.argtypes = []
         so.svt_decode_max_small_rows.restype = I
-        # compile-time constants of the decode kernel, read once
+        # compile-time constants of the decode kernels, read once
         so.decode_split_size = so.svt_decode_split_size()
         so.decode_max_small_rows = so.svt_decode_max_small_rows()
         _lib = so

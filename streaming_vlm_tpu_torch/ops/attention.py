@@ -1,10 +1,19 @@
-"""Streaming attention: the port's two hand-written CUDA kernels, their plain
-PyTorch versions, and the plain multi-source softmax they are held against.
+"""Streaming attention: the port's four hand-written CUDA kernels, their
+plain PyTorch versions, and the plain multi-source softmax they are held
+against. Each replaces the function of the same name in the JAX package's
+streaming_vlm_tpu/ops/attention.py:
 
-* `streaming_prefill_attention` (K1, csrc/prefill_attention.cu) replaces
-  streaming_vlm_tpu/ops/attention.py `streaming_prefill_attention`.
-* `streaming_decode_attention_full` (K2, csrc/decode_attention.cu) replaces
-  streaming_vlm_tpu/ops/attention.py `streaming_decode_attention_full`.
+* `streaming_prefill_attention` (K1, csrc/prefill_attention.cu): chunk
+  prefill over the arena (pre-rotated, or raw and rotated in the kernel).
+* `streaming_decode_attention_full` (K2, csrc/decode_attention.cu): one
+  token over the pre-rotated arena + decode delta + self.
+* `streaming_decode_attention_int8` (K3, csrc/decode_attention_raw.cu): one
+  token over the RAW arena in its storage form (int8 + scales, or bf16),
+  dequantized and mRoPE-rotated in the kernel, + decode delta + self.
+* `streaming_decode_attention` (K4, csrc/decode_attention.cu): the arena's
+  log2-space softmax partials of one token; `decode_attention_merge` folds
+  them with the small parts (K2's independent cross-check, on no runtime
+  path).
 
 Each wrapper keeps the JAX function's layout ([T, H, hd] queries, [C, Hkv,
 hd] arenas). On a CUDA tensor it checks what the kernel takes (bf16,
@@ -16,18 +25,27 @@ tensor it runs the plain version. There is no other fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from ..models.qwen25_vl.rope import rotate_half
+from ..models.qwen25_vl.rope import apply_rope, make_inv_freq, mrope_cos_sin, rotate_half
+from .quant import QuantKV, dequantize_kv
 
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634
 
-# one count per wrapper call that launched its kernel (a K2 call launches a
-# split pass and a combine pass; it counts once)
-launch_counts = {"streaming_prefill_attention": 0, "streaming_decode_attention_full": 0}
+# one count per wrapper call that launched its kernel (a K2, K3 or K4 call
+# launches a split pass and a combine pass; it counts once)
+launch_counts = {
+    "streaming_prefill_attention": 0,
+    "streaming_decode_attention_full": 0,
+    "streaming_decode_attention_int8": 0,
+    "streaming_decode_attention": 0,
+}
 
 
 def reset_launch_counts() -> None:
@@ -195,6 +213,15 @@ def decode_attention_plain(
     return gqa_attention_multi(q_rot[None], parts).reshape(H, hd).to(v_small.dtype)
 
 
+def _split_scratch(so, Hkv: int, G: int, hd: int, visible_len: int, device):
+    """The split passes' partials (m, l, acc), one split per
+    so.decode_split_size visible slots."""
+    n_splits = -(-int(visible_len) // so.decode_split_size)
+    part_m = torch.empty(Hkv, n_splits, G, dtype=torch.float32, device=device)
+    part_acc = torch.empty(Hkv, n_splits, G, hd, dtype=torch.float32, device=device)
+    return part_m, torch.empty_like(part_m), part_acc
+
+
 def streaming_decode_attention_full(
     q_rot: torch.Tensor,  # [H, hd] rotated single-token queries (unscaled)
     k_arena: torch.Tensor,  # [C, Hkv, hd] pre-rotated arena K
@@ -235,11 +262,7 @@ def streaming_decode_attention_full(
         raise ValueError(f"{name}: k_small must be [<= {so.decode_max_small_rows}, Hkv, hd]")
     if not 0 <= int(visible_len) <= C or not 0 <= int(extra_visible) <= e_delta:
         raise ValueError(f"{name}: visible_len {visible_len} / extra_visible {extra_visible} out of range")
-    G = H // Hkv
-    n_splits = -(-int(visible_len) // so.decode_split_size)
-    part_m = torch.empty(Hkv, n_splits, G, dtype=torch.float32, device=q_rot.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty(Hkv, n_splits, G, hd, dtype=torch.float32, device=q_rot.device)
+    part_m, part_l, part_acc = _split_scratch(so, Hkv, H // Hkv, hd, visible_len, q_rot.device)
     out = torch.empty(H, hd, dtype=v_small.dtype, device=q_rot.device)
     err = so.svt_decode_attention(
         _ptr(q_rot), _ptr(k_arena), _ptr(v_arena), _ptr(k_small), _ptr(v_small),
@@ -250,3 +273,212 @@ def streaming_decode_attention_full(
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
     launch_counts[name] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K3: decode attention over the raw arena (int8 or bf16 storage form)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=8)
+def _mrope_freq_table(hd: int, mrope_section: Tuple[int, int, int], rope_theta: float,
+                      device: torch.device) -> torch.Tensor:
+    """[3, hd/2] f32 inverse frequencies masked per mRoPE axis: row a holds
+    inv_freq[ch] where channel ch belongs to axis a, else 0, so that
+    pos0*f0 + pos1*f1 + pos2*f2 is the one product pos[axis(ch)] * inv_freq[ch]
+    (the JAX wrapper's table). Built once per device and geometry."""
+    h2 = hd // 2
+    inv = make_inv_freq(hd, rope_theta)
+    s0, s1, _ = mrope_section
+    ch = np.arange(h2)
+    axis = np.where(ch < s0, 0, np.where(ch < s0 + s1, 1, 2))
+    f = np.where(np.arange(3)[:, None] == axis[None, :], inv[None, :], 0.0).astype(np.float32)
+    return torch.from_numpy(f).to(device)
+
+
+def decode_attention_int8_plain(
+    q_rot, k_q, k_s, v_q, v_s, pos_t, k_small, v_small, visible_len: int,
+    extra_visible: int, *, e_delta: int, mrope_section: Tuple[int, int, int],
+    rope_theta: float,
+) -> torch.Tensor:
+    """Plain version of K3 (and the JAX package's jnp route): dequantize the
+    visible arena slots to the compute dtype (v_small's), rotate K in f32
+    from the slots' positions and cast back, then K2's plain joint softmax.
+    Returns [H, hd] in v_small's dtype."""
+    cdt = v_small.dtype
+    vis = int(visible_len)
+    if k_s is None:
+        kf, vf = k_q[:vis].to(cdt), v_q[:vis].to(cdt)
+    else:
+        kf = dequantize_kv(QuantKV(k_q[:vis], k_s[:vis]), cdt)
+        vf = dequantize_kv(QuantKV(v_q[:vis], v_s[:vis]), cdt)
+    inv_freq = torch.from_numpy(make_inv_freq(q_rot.shape[-1], rope_theta)).to(q_rot.device)
+    cos, sin = mrope_cos_sin(pos_t[:vis].T, inv_freq, mrope_section)
+    k_rot = apply_rope(kf, cos[:, None, :], sin[:, None, :])
+    return decode_attention_plain(
+        q_rot, k_rot, vf, k_small, v_small, vis, extra_visible, e_delta=e_delta
+    )
+
+
+def streaming_decode_attention_int8(
+    q_rot: torch.Tensor,  # [H, hd] rotated single-token queries (unscaled)
+    k_q: torch.Tensor,  # [C, Hkv, hd] RAW (un-rotated) arena K: int8, or bf16
+    k_s: Optional[torch.Tensor],  # [C, Hkv] f32 scales, or None (unquantized)
+    v_q: torch.Tensor,  # [C, Hkv, hd] arena V, same representation
+    v_s: Optional[torch.Tensor],
+    pos_t: torch.Tensor,  # [C, 3] f32 per-slot mRoPE positions
+    k_small: torch.Tensor,  # [e_delta + 1, Hkv, hd] ROTATED delta rows ++ self row
+    v_small: torch.Tensor,
+    visible_len: int,
+    extra_visible: int,
+    *,
+    e_delta: int,
+    mrope_section: Tuple[int, int, int],
+    rope_theta: float,
+) -> torch.Tensor:
+    """K3. Returns [H, hd] in v_small's dtype (the compute dtype the arena
+    is dequantized to). Same no-padding contract for k_small as K2."""
+    E1 = k_small.shape[0]
+    if E1 <= e_delta or v_small.shape != k_small.shape:
+        raise ValueError(f"no-padding contract: k_small rows {E1} must exceed e_delta {e_delta}")
+    if (k_s is None) != (v_s is None):
+        raise ValueError("pass scales for both K and V, or for neither")
+    if sum(mrope_section) != q_rot.shape[-1] // 2:
+        raise ValueError(f"mrope_section {mrope_section} must sum to head_dim / 2")
+    if q_rot.device.type == "cpu":
+        return decode_attention_int8_plain(
+            q_rot, k_q, k_s, v_q, v_s, pos_t, k_small, v_small, visible_len, extra_visible,
+            e_delta=e_delta, mrope_section=mrope_section, rope_theta=rope_theta,
+        )
+    name = "streaming_decode_attention_int8"
+    H, hd = q_rot.shape
+    C, Hkv, _ = k_q.shape
+    quantized = k_s is not None
+    store = torch.int8 if quantized else torch.bfloat16
+    tensors = [q_rot, k_q, v_q, pos_t, k_small, v_small]
+    _check_cuda(name, *tensors)
+    if (q_rot.dtype, k_small.dtype, v_small.dtype) != (torch.bfloat16,) * 3:
+        raise ValueError(f"{name}: the CUDA kernel takes bf16 q and k_small/v_small")
+    if k_q.dtype != store or v_q.dtype != store or v_q.shape != k_q.shape:
+        raise ValueError(f"{name}: arena K/V must both be {store} [C, Hkv, hd]")
+    if pos_t.dtype != torch.float32 or pos_t.shape != (C, 3):
+        raise ValueError(f"{name}: pos_t must be f32 [C, 3]")
+    if quantized:
+        _check_cuda(name, k_s, v_s)
+        if k_s.dtype != torch.float32 or k_s.shape != (C, Hkv) or v_s.shape != (C, Hkv):
+            raise ValueError(f"{name}: scales must be f32 [C, Hkv]")
+    from ._kernels import lib
+
+    so = lib()
+    if hd != 128 or H % Hkv or H // Hkv > 8:
+        raise ValueError(f"{name}: unsupported shapes q={tuple(q_rot.shape)} arena={tuple(k_q.shape)}")
+    if k_small.shape[1:] != (Hkv, hd) or E1 > so.decode_max_small_rows:
+        raise ValueError(f"{name}: k_small must be [<= {so.decode_max_small_rows}, Hkv, hd]")
+    if not 0 <= int(visible_len) <= C or not 0 <= int(extra_visible) <= e_delta:
+        raise ValueError(f"{name}: visible_len {visible_len} / extra_visible {extra_visible} out of range")
+    freqs = _mrope_freq_table(hd, tuple(mrope_section), float(rope_theta), q_rot.device)
+    part_m, part_l, part_acc = _split_scratch(so, Hkv, H // Hkv, hd, visible_len, q_rot.device)
+    out = torch.empty(H, hd, dtype=v_small.dtype, device=q_rot.device)
+    err = so.svt_decode_attention_raw(
+        _ptr(q_rot), _ptr(k_q), _ptr(k_s), _ptr(v_q), _ptr(v_s), _ptr(pos_t), _ptr(freqs),
+        _ptr(k_small), _ptr(v_small), _ptr(part_m), _ptr(part_l), _ptr(part_acc), _ptr(out),
+        H, Hkv, hd, E1, int(e_delta), int(visible_len), int(extra_visible), int(quantized),
+        _stream(),
+    )
+    if err:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+    launch_counts[name] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K4: the arena's softmax partials of one token, and their merge
+# ---------------------------------------------------------------------------
+
+
+def decode_attention_partials_plain(q_rot, k_arena, v_arena, visible_len: int):
+    """Plain version of K4: f32 log2-space online-softmax partials of one
+    token over arena slots < visible_len. Returns (m [H], l [H], acc [H,
+    hd]), unnormalised; at visible_len == 0, m = -1e30, l = 0, acc = 0."""
+    H, hd = q_rot.shape
+    Hkv = k_arena.shape[1]
+    G = H // Hkv
+    vis = int(visible_len)
+    if vis == 0:
+        z = torch.zeros(H, dtype=torch.float32, device=q_rot.device)
+        return z + NEG_INF, z, torch.zeros(H, hd, dtype=torch.float32, device=q_rot.device)
+    qg = q_rot.float().reshape(Hkv, G, hd) * (LOG2E / math.sqrt(hd))
+    lg = torch.einsum("kgd,skd->kgs", qg, k_arena[:vis].float())
+    m = lg.amax(dim=-1)
+    p = torch.exp2(lg - m[..., None])
+    acc = torch.einsum("kgs,skd->kgd", p, v_arena[:vis].float())
+    return m.reshape(H), p.sum(dim=-1).reshape(H), acc.reshape(H, hd)
+
+
+def streaming_decode_attention(
+    q_rot: torch.Tensor,  # [H, hd] rotated single-token queries (unscaled)
+    k_arena: torch.Tensor,  # [C, Hkv, hd] PRE-ROTATED arena K
+    v_arena: torch.Tensor,
+    visible_len: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4. Returns the log2-space partials (m [H], l [H], acc [H, hd]), f32."""
+    if q_rot.device.type == "cpu":
+        return decode_attention_partials_plain(q_rot, k_arena, v_arena, visible_len)
+    name = "streaming_decode_attention"
+    H, hd = q_rot.shape
+    C, Hkv, _ = k_arena.shape
+    _check_cuda(name, q_rot, k_arena, v_arena)
+    if any(t.dtype != torch.bfloat16 for t in (q_rot, k_arena, v_arena)):
+        raise ValueError(f"{name}: the CUDA kernel takes bf16 q/k/v")
+    if hd != 128 or H % Hkv or H // Hkv > 8 or v_arena.shape != k_arena.shape:
+        raise ValueError(f"{name}: unsupported shapes q={tuple(q_rot.shape)} arena={tuple(k_arena.shape)}")
+    if not 0 <= int(visible_len) <= C:
+        raise ValueError(f"{name}: visible_len {visible_len} outside [0, {C}]")
+    from ._kernels import lib
+
+    so = lib()
+    part_m, part_l, part_acc = _split_scratch(so, Hkv, H // Hkv, hd, visible_len, q_rot.device)
+    m = torch.empty(H, dtype=torch.float32, device=q_rot.device)
+    l = torch.empty_like(m)
+    acc = torch.empty(H, hd, dtype=torch.float32, device=q_rot.device)
+    err = so.svt_decode_partials(
+        _ptr(q_rot), _ptr(k_arena), _ptr(v_arena), _ptr(part_m), _ptr(part_l), _ptr(part_acc),
+        _ptr(m), _ptr(l), _ptr(acc), H, Hkv, hd, int(visible_len), _stream(),
+    )
+    if err:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+    launch_counts[name] += 1
+    return m, l, acc
+
+
+def decode_attention_merge(
+    q: torch.Tensor,  # [1, H, hd] rotated (unscaled)
+    small_parts,  # list of (k [S, Hkv, hd] rotated, v, mask [1, S]), tiny
+    ak: torch.Tensor,  # [C, Hkv, hd] pre-rotated arena K
+    av: torch.Tensor,
+    visible_len: int,
+) -> torch.Tensor:
+    """Decode attention as K4's arena partials merged in log2 space with an
+    exact f32 softmax over the small parts (decode delta + the token
+    itself). Port of the JAX package's `_decode_attention_merge`
+    (models/qwen25_vl/language.py); equal to one softmax over the
+    concatenated keys. Returns [1, H * hd] in av's dtype."""
+    _, H, hd = q.shape
+    Hkv = ak.shape[1]
+    G = H // Hkv
+    m_a, l_a, acc_a = streaming_decode_attention(q[0], ak, av, visible_len)
+    ks = torch.cat([k for k, _, _ in small_parts], dim=0).float()
+    vs = torch.cat([v for _, v, _ in small_parts], dim=0).float()
+    msk = torch.cat([m[0] for _, _, m in small_parts], dim=0)
+    lg = torch.einsum("kgd,skd->kgs", q.float().reshape(Hkv, G, hd), ks) * (LOG2E / math.sqrt(hd))
+    lg = lg.masked_fill(~msk[None, None, :], NEG_INF)
+    m_b = lg.amax(dim=-1).reshape(H)
+    p = torch.exp2(lg - m_b.reshape(Hkv, G, 1))
+    l_b = p.sum(dim=-1).reshape(H)
+    acc_b = torch.einsum("kgs,skd->kgd", p, vs).reshape(H, hd)
+    m_ab = torch.maximum(m_a, m_b)
+    wa = torch.exp2(m_a - m_ab)
+    wb = torch.exp2(m_b - m_ab)
+    acc = acc_a * wa[:, None] + acc_b * wb[:, None]
+    out = acc / (l_a * wa + l_b * wb).clamp_min(1e-20)[:, None]
+    return out.reshape(1, H * hd).to(av.dtype)

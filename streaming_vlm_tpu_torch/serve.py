@@ -23,13 +23,13 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from streaming_vlm_tpu.utils.profiling import SectionTimer
-from streaming_vlm_tpu.utils.vtt import open_vtt, sec2ts
-
 from .config import ModelConfig, SamplingConfig, StreamConfig, VideoConfig
 from .models.qwen25_vl import model as vlm
 from .streaming.engine import StreamingEngine
 from .streaming.protocol import PromptBuilder, build_round_segs, hf_encode_fn
+from .utils.profiling import SectionTimer
+from .utils.vtt import open_vtt, sec2ts
+from .video.ingest import ChunkedVideoSource, patchify_frames
 
 DEFAULT_QUERY = "Commentate on this match"
 
@@ -241,8 +241,6 @@ def streaming_inference(
     """Chunked streaming inference over a video file (decoded by the native
     FFmpeg ingest library). Returns the per-chunk responses, plus per-chunk
     section timings when time_test=True."""
-    from streaming_vlm_tpu.video.ingest import ChunkedVideoSource
-
     stream = stream or StreamConfig()
     video = video or VideoConfig(fps=stream.fps)
     session = StreamingSession(
@@ -294,8 +292,6 @@ def streaming_inference_frames(
     `frames` is one chunk's uint8 RGB frames, already sized to the pixel
     budget (H and W multiples of patch_size * merge_size). The stream ends
     when the iterable does. Returns what `streaming_inference` returns."""
-    from streaming_vlm_tpu.video.ingest import patchify_frames
-
     session = StreamingSession(
         cfg, model, tokenizer, stream=stream, sampling=sampling,
         previous_text=previous_text, query=query, dtype=dtype,

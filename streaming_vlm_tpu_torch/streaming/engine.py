@@ -1,19 +1,24 @@
 """Streaming engine: chunk prefill + decode over the KV arena, in PyTorch.
 
-Port of streaming_vlm_tpu/streaming/engine.py for one stream with the
-pre-rotated arena (`StreamConfig.effective_prerotate`) and a float arena
-(`kv_quant="none"`, `rot_quant="none"`). One `chunk_step` per chunk does
-what the JAX package's jitted step does, as eager launches:
+Port of streaming_vlm_tpu/streaming/engine.py for one stream. The arena is
+float (`kv_quant="none"`) or int8 with per-(slot, head) scales
+(`kv_quant="int8"`), and K is either rotated once per chunk into a copy
+(`StreamConfig.effective_prerotate`) or read raw and rotated at attention
+time. One `chunk_step` per chunk does what the JAX package's jitted step
+does, as eager launches:
 
-  rotate the arena K once for the chunk's positions -> embed + vision-embed
-  scatter -> chunk prefill (kernel K1) -> a `max_new`-step decode loop
-  (kernel K2, repetition-penalty sampling) -> merge the new K/V.
+  [pre-rotated: dequantize + rotate the arena K once for the chunk's
+  positions, layer by layer] -> embed + vision-embed scatter -> chunk prefill (kernel K1,
+  pre-rotated or raw mode) -> a `max_new`-step decode loop (kernel K2 over
+  the rotated copy, or K3 over the raw arena; repetition-penalty sampling)
+  -> merge the new K/V (quantized per slot into an int8 arena).
 
 The arenas are updated IN PLACE (the JAX package donates them instead);
 eviction gathers into fresh tensors with index_select, never in place. The
 decode loop always runs `max_new` steps and keeps every token on the device
 (tokens after `done` are eos, n_gen = sum(~was_done)), so a chunk needs one
-host sync, in `finish_chunk`.
+host sync, in `finish_chunk`. `rot_quant="int8"` (a requantized rotated
+copy) is not ported yet.
 """
 
 from __future__ import annotations
@@ -25,8 +30,6 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from streaming_vlm_tpu.utils.buckets import bucket_for
-
 from ..config import ModelConfig, SamplingConfig, StreamConfig
 from ..models.qwen25_vl import language, model as vlm
 from ..models.qwen25_vl.rope import (
@@ -35,7 +38,17 @@ from ..models.qwen25_vl.rope import (
     mrope_cos_sin,
     mrope_positions_from_segments,
 )
+from ..ops.quant import (
+    Arena,
+    arena_capacity,
+    as_float,
+    compute_dtype,
+    gather_slots,
+    layer_slice,
+    write_slots,
+)
 from ..ops.sampling import sample_token
+from ..utils.buckets import bucket_for
 from .segments import ASST_BODY, ASST_TAIL, Seg, SegmentTable
 
 # ---------------------------------------------------------------------------
@@ -64,18 +77,10 @@ def positions_from_descriptors(desc: Dict[str, torch.Tensor], capacity: int) -> 
 def compact_arena(k_arena, v_arena, ids_arena, src_idx: torch.Tensor):
     """new[:, i] = old[:, src_idx[i]], gathered into fresh tensors."""
     return (
-        k_arena.index_select(1, src_idx),
-        v_arena.index_select(1, src_idx),
+        gather_slots(k_arena, src_idx),
+        gather_slots(v_arena, src_idx),
         ids_arena.index_select(0, src_idx),
     )
-
-
-def _merge_block(arena: torch.Tensor, block: torch.Tensor, at: int) -> None:
-    """Write a [L, T, Hkv, hd] block into arena slots [at, at + T), in place."""
-    T = block.shape[1]
-    if not (0 <= at and at + T <= arena.shape[1]):
-        raise ValueError(f"block [{at}, {at + T}) outside the arena's {arena.shape[1]} slots")
-    arena[:, at : at + T] = block.to(arena.dtype)
 
 
 @dataclasses.dataclass
@@ -102,14 +107,17 @@ class ChunkStatics:
     do_sample: bool
     # positions arrive as a descriptor table (shrink mode) instead of [3, C]
     use_descriptors: bool = False
+    # rotate the arena K once per chunk into a copy (K1 pre-rotated, K2) vs
+    # rotate at attention time from per-slot positions (K1 raw, K3)
+    prerotate: bool = True
 
 
 @torch.no_grad()
 def chunk_step(
     statics: ChunkStatics,
     model: vlm.Qwen25VL,
-    k_arena: torch.Tensor,  # [L, C, Hkv, hd], updated in place
-    v_arena: torch.Tensor,
+    k_arena: Arena,  # [L, C, Hkv, hd] (float or QuantKV), updated in place
+    v_arena: Arena,
     slot_positions,  # [3, C] f32, or the descriptor dict of device tensors
     tokens: torch.Tensor,  # [t_pad] int64 (padded)
     vis_embeds: Optional[torch.Tensor],  # [N_vis, D] or None
@@ -125,16 +133,29 @@ def chunk_step(
     cfg = statics.cfg
     tcfg = cfg.text
     lm = model.text
-    C = k_arena.shape[1]
-    dev = k_arena.device
+    C = arena_capacity(k_arena)
+    dev = ids_arena.device
+    L, Hkv, hd = tcfg.num_hidden_layers, tcfg.num_key_value_heads, tcfg.head_dim
+    # compute dtype of the K/V blocks and the decode delta
+    adt = compute_dtype(k_arena, lm.embed.weight.dtype)
     if statics.use_descriptors:
         slot_positions = positions_from_descriptors(slot_positions, C)
 
-    # rotate the whole arena K once for this chunk's (fixed) positions: the
-    # prefill and every decode step read the rotated copy; the raw arena is
-    # what persists across chunks
-    a_cos, a_sin = mrope_cos_sin(slot_positions, lm.inv_freq(dev), tcfg.mrope_section)
-    k_rot = apply_rope(k_arena, a_cos[:, None, :], a_sin[:, None, :])
+    if statics.prerotate:
+        # rotate the whole arena K once for this chunk's (fixed) positions
+        # (an int8 arena is dequantized in the same pass), layer by layer so
+        # that the transients are one [C, Hkv, hd] layer: the prefill and
+        # every decode step read the rotated copy; the raw arena is what
+        # persists across chunks
+        a_cos, a_sin = mrope_cos_sin(slot_positions, lm.inv_freq(dev), tcfg.mrope_section)
+        a_cos, a_sin = a_cos[:, None, :], a_sin[:, None, :]
+        k_rot = torch.empty(L, C, Hkv, hd, dtype=adt, device=dev)
+        for l in range(L):
+            k_rot[l] = apply_rope(as_float(layer_slice(k_arena, l), adt), a_cos, a_sin)
+        arena_kw = dict(arena=(k_rot, v_arena), arena_rotated=True)
+    else:
+        # the raw arena is read in its storage form; K1 and K3 rotate it
+        arena_kw = dict(arena=(k_arena, v_arena), arena_positions=slot_positions)
 
     # chunk token ids, then the repetition-penalty presence mask (slot V
     # takes the dropped ids of invisible slots)
@@ -151,19 +172,18 @@ def chunk_step(
 
     q_pos = slot_positions[:, insert_at : insert_at + statics.t_pad]
     hidden, (k_block, k_block_rot, v_block) = language.language_forward_streaming(
-        tcfg, lm, embeds, q_pos, arena=(k_rot, v_arena), arena_rotated=True,
-        visible_len=insert_at,
+        tcfg, lm, embeds, q_pos, visible_len=insert_at, **arena_kw
     )
-    _merge_block(k_arena, k_block, insert_at)
-    _merge_block(k_rot, k_block_rot, insert_at)
-    _merge_block(v_arena, v_block, insert_at)
+    write_slots(k_arena, k_block, insert_at)
+    if statics.prerotate:
+        write_slots(k_rot, k_block_rot, insert_at)
+    write_slots(v_arena, v_block, insert_at)
     logits = language.lm_logits(tcfg, lm, hidden[n_real - 1 : n_real])[0]
 
     decode_base = insert_at + n_real
     max_new = statics.max_new
     delta_pos = slot_positions[:, decode_base : decode_base + max_new]
-    L, Hkv, hd = tcfg.num_hidden_layers, tcfg.num_key_value_heads, tcfg.head_dim
-    dk = torch.zeros(L, max_new, Hkv, hd, dtype=k_arena.dtype, device=dev)
+    dk = torch.zeros(L, max_new, Hkv, hd, dtype=adt, device=dev)
     dkr = torch.zeros_like(dk)
     dv = torch.zeros_like(dk)
     gen = torch.empty(max_new, dtype=torch.long, device=dev)
@@ -186,17 +206,16 @@ def chunk_step(
 
         emb = language.embed_tokens(tcfg, lm, tok.view(1))
         hidden, (k1, k1_rot, v1) = language.language_forward_streaming(
-            tcfg, lm, emb, delta_pos[:, step : step + 1],
-            arena=(k_rot, v_arena), arena_rotated=True, visible_len=decode_base,
-            extra=(dkr, dv), extra_visible=step,
+            tcfg, lm, emb, delta_pos[:, step : step + 1], visible_len=decode_base,
+            extra=(dkr, dv), extra_visible=step, **arena_kw,
         )
         dk[:, step] = k1[:, 0]
         dkr[:, step] = k1_rot[:, 0]
         dv[:, step] = v1[:, 0]
         logits = language.lm_logits(tcfg, lm, hidden)[0]
 
-    _merge_block(k_arena, dk, decode_base)
-    _merge_block(v_arena, dv, decode_base)
+    write_slots(k_arena, dk, decode_base)
+    write_slots(v_arena, dv, decode_base)
     ids_arena[decode_base : decode_base + max_new] = gen
     return gen, (~was_done).sum()
 
@@ -225,10 +244,15 @@ class StreamingEngine:
         sampling: SamplingConfig,
         dtype: torch.dtype = torch.bfloat16,
     ):
-        if not stream.effective_prerotate or stream.kv_quant != "none" or stream.rot_quant != "none":
-            raise NotImplementedError(
-                "the port runs the pre-rotated float arena only: prerotate_arena "
-                "must not be False, kv_quant and rot_quant must be 'none'"
+        if stream.kv_quant not in ("none", "int8"):
+            raise ValueError(f"kv_quant must be 'none' or 'int8', got {stream.kv_quant!r}")
+        if stream.rot_quant != "none":
+            raise NotImplementedError("the port does not run rot_quant='int8' yet")
+        if stream.decode_int8_kernel is False:
+            raise ValueError(
+                "decode_int8_kernel=False (the JAX package's jnp decode route) is not "
+                "offered: the port decodes a raw arena through kernel K3 only. Fix: leave "
+                "StreamConfig.decode_int8_kernel at None."
             )
         self.cfg = cfg
         self.model = model
@@ -239,7 +263,9 @@ class StreamingEngine:
         self.table = SegmentTable(all_text=stream.all_text)
         C = stream.kv_capacity
         self._check_memory_budget()
-        self.k_arena, self.v_arena = language.init_kv_arena(cfg.text, C, dtype, self.device)
+        self.k_arena, self.v_arena = language.init_kv_arena(
+            cfg.text, C, dtype, self.device, quant=stream.kv_quant
+        )
         self.ids_arena = torch.zeros(C, dtype=torch.long, device=self.device)
         self.cached = 0  # arena slots holding valid KV (table prefix)
         # the last eviction's effect on `cached` (observability)
@@ -260,23 +286,35 @@ class StreamingEngine:
     def _check_memory_budget(self) -> None:
         """Fail BEFORE allocating if the K/V arenas and the per-chunk
         rotated K copy do not fit the card's free memory (10% headroom for
-        prefill/decode transients). No check on the CPU."""
+        prefill/decode transients, each at most one [C, Hkv, hd] layer: the
+        rotated copy is built and an int8 arena dequantized layer by layer).
+        An int8 arena costs 1 + 4/hd bytes per element (data + f32
+        per-(slot, head) scales); a raw arena has no rotated copy. No check
+        on the CPU."""
         if self.device.type != "cuda":
             return
         t = self.cfg.text
-        C = self.stream.kv_capacity
+        st = self.stream
+        C = st.kv_capacity
         item = torch.empty((), dtype=self.dtype).element_size()
-        per_copy = t.num_hidden_layers * C * t.num_key_value_heads * t.head_dim * item
-        need = int(3 * per_copy * 1.1)  # K, V, rotated K
+        kv_elems = t.num_hidden_layers * C * t.num_key_value_heads * t.head_dim
+        if st.kv_quant == "int8":
+            arena = 2 * int(kv_elems * (1 + 4.0 / t.head_dim))
+        else:
+            arena = 2 * kv_elems * item
+        rot = kv_elems * item if st.effective_prerotate else 0
+        need = int((arena + rot) * 1.1)
         free, _ = torch.cuda.mem_get_info(self.device)
         if need > free:
             gb = 2**30
-            max_c = int(free / 1.1 / (3 * per_copy / C) // 512 * 512)
+            max_c = int(free / 1.1 / ((arena + rot) / C) // 512 * 512)
             raise ValueError(
-                f"device memory exceeded before streaming: KV arena + rotated copy "
-                f"{need / gb:.2f} GiB > free {free / gb:.2f} GiB. Fix: lower "
-                f"kv_capacity to <= {max_c}, or shorten the window so fewer tokens "
-                f"survive eviction."
+                f"device memory exceeded before streaming: KV arena {arena / gb:.2f} GiB"
+                + (f" + rotated copy {rot / gb:.2f} GiB" if rot else "")
+                + f" > free {free / gb:.2f} GiB. Fix: lower kv_capacity to <= {max_c}, "
+                f"or set StreamConfig.kv_quant='int8' to halve the arena, or "
+                f"prerotate_arena=False to drop the rotated copy, or shorten the "
+                f"window so fewer tokens survive eviction."
             )
 
     def _sync(self) -> None:
@@ -367,6 +405,7 @@ class StreamingEngine:
             repetition_penalty=self.sampling.repetition_penalty,
             do_sample=self.sampling.do_sample,
             use_descriptors=(st.pos_mode == "shrink"),
+            prerotate=st.effective_prerotate,
         )
         gen, n_gen = chunk_step(
             statics, self.model, self.k_arena, self.v_arena, prep["slot_pos"],

@@ -36,21 +36,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 @pytest.fixture(scope="module")
 def both():
     params = jm.init_params(CFG, jax.random.PRNGKey(7), dtype=jnp.float32)
-    return params, from_jax_params(CFG, jax.tree_util.tree_map(np.asarray, params))
+    return params, from_jax_params(CFG, jax.tree_util.tree_map(np.asarray, params), device="cpu")
 
 
-@pytest.mark.parametrize("pos_mode", ["shrink", "append"])
-def test_engine_matches_jax_across_evictions(both, pos_mode):
-    """7 chunks, text/visual rounds of 2 and a 4+3 previous-text sink/window:
-    relocation, vision pruning and the sink/window cut all fire. Greedy
-    tokens, surviving ids, cached / uncached_tail and positions must agree."""
+def _engine_parity(both, stream, jax_stream=None):
+    """7 chunks through the JAX engine and the port's with one StreamConfig
+    (the JAX engine may take a variant of it): greedy tokens, surviving ids,
+    cached / uncached_tail and positions must agree after every chunk.
+    Returns the number of evictions."""
     params, model = both
-    stream = StreamConfig(
-        text_round=2, window_size=2, chunk_duration=1, text_sink=4, text_sliding_window=3,
-        max_tokens_per_chunk=8, kv_capacity=1024, prefill_buckets=(64, 128, 256),
-        pos_mode=pos_mode,
-    )
-    jeng = JaxEngine(CFG, params, stream, GREEDY, dtype=jnp.float32)
+    jeng = JaxEngine(CFG, params, jax_stream or stream, GREEDY, dtype=jnp.float32)
     teng = StreamingEngine(CFG, model, stream, GREEDY, dtype=torch.float32)
     ftok = FakeTokenizer(TOK)
     jb, tb = PromptBuilder(TOK, ftok), tp.PromptBuilder(TOK, ftok)
@@ -80,7 +75,22 @@ def test_engine_matches_jax_across_evictions(both, pos_mode):
         np.testing.assert_array_equal(teng.table.token_ids(), jeng.table.token_ids())
         assert (teng.cached, teng.uncached_tail) == (jeng.cached, jeng.uncached_tail)
         np.testing.assert_allclose(teng._positions(), jeng._positions(), atol=1e-5)
-    assert evictions >= 2
+    return evictions
+
+
+def _parity_stream(**kw):
+    """text/visual rounds of 2 and a 4+3 previous-text sink/window:
+    relocation, vision pruning and the sink/window cut all fire."""
+    return StreamConfig(
+        text_round=2, window_size=2, chunk_duration=1, text_sink=4, text_sliding_window=3,
+        max_tokens_per_chunk=8, kv_capacity=1024, prefill_buckets=(64, 128, 256), **kw,
+    )
+
+
+@pytest.mark.parametrize("pos_mode", ["shrink", "append"])
+def test_engine_matches_jax_across_evictions(both, pos_mode):
+    """The pre-rotated float arena over 7 chunks across evictions."""
+    assert _engine_parity(both, _parity_stream(pos_mode=pos_mode)) >= 2
 
 
 def test_frames_entry_point_matches_jax_session(both, tmp_path):

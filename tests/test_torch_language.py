@@ -13,9 +13,12 @@ from streaming_vlm_tpu.config import qwen25_vl_tiny
 from streaming_vlm_tpu.models.qwen25_vl import language as jl
 from streaming_vlm_tpu.models.qwen25_vl import model as jm
 from streaming_vlm_tpu.models.qwen25_vl import rope as jr
+from streaming_vlm_tpu.ops.quant import quantize_kv as jax_quantize_kv
 from streaming_vlm_tpu_torch.models.bridge import from_jax_params
 from streaming_vlm_tpu_torch.models.qwen25_vl import language as tl
 from streaming_vlm_tpu_torch.models.qwen25_vl import rope as tr
+from streaming_vlm_tpu_torch.ops import attention as ta
+from streaming_vlm_tpu_torch.ops.quant import QuantKV, arena_capacity
 
 CFG = qwen25_vl_tiny()
 TCFG = CFG.text
@@ -26,7 +29,7 @@ ATOL, RTOL = 3e-5, 1e-4  # f32 through 4 layers (tests/test_pallas_attention.py 
 def both():
     params = jm.init_params(CFG, jax.random.PRNGKey(3), dtype=jnp.float32)
     np_params = jax.tree_util.tree_map(np.asarray, params)
-    return params, from_jax_params(CFG, np_params)
+    return params, from_jax_params(CFG, np_params, device="cpu")
 
 
 def _close(a, b, atol=ATOL, rtol=RTOL):
@@ -147,6 +150,122 @@ def test_streaming_decode_mode(both, extra_visible):
     _close(h, h_ref)
     for b, br in zip(blocks, blocks_ref):
         _close(b, br)
+
+
+def _arenas(rng, C, quant):
+    """(JAX arena pair, port arena pair): float, or int8 with the JAX
+    package's quantization handed bitwise to the port's QuantKV."""
+    ka, va = _arena(rng, C)
+    if not quant:
+        return (jnp.asarray(ka), jnp.asarray(va)), (torch.from_numpy(ka), torch.from_numpy(va))
+    jk, jv = jax_quantize_kv(jnp.asarray(ka)), jax_quantize_kv(jnp.asarray(va))
+    t = lambda d: QuantKV(torch.from_numpy(np.array(d["q"])), torch.from_numpy(np.array(d["s"])))  # noqa: E731
+    return (jk, jv), (t(jk), t(jv))
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("rotated", [True, False])
+def test_streaming_prefill_mode_int8_arena(both, rotated, quant):
+    """Prefill over an int8 (or float) arena: the JAX jnp path dequantizes
+    each layer, the port dequantizes each layer before K1 (raw mode rotates
+    in the kernel from the arena positions)."""
+    params, model = both
+    rng = np.random.default_rng(6)
+    T, C, vis = 16, 64, 37
+    emb = (rng.normal(size=(T, TCFG.hidden_size)) * 0.1).astype(np.float32)
+    qpos = _positions(T, 40.0)
+    apos = _positions(C)
+    jarena, tarena = _arenas(rng, C, quant)
+    if rotated:
+        kw, tkw = dict(arena_rotated=True), dict(arena_rotated=True)
+    else:
+        kw = dict(arena_positions=jnp.asarray(apos))
+        tkw = dict(arena_positions=torch.from_numpy(apos))
+    h_ref, blocks_ref = jl.language_forward_streaming(
+        TCFG, params["text"], jnp.asarray(emb), jnp.asarray(qpos), arena=jarena,
+        visible_len=jnp.asarray(vis, jnp.int32), **kw,
+    )
+    h, blocks = tl.language_forward_streaming(
+        TCFG, model.text, torch.from_numpy(emb), torch.from_numpy(qpos), arena=tarena,
+        visible_len=vis, **tkw,
+    )
+    _close(h, h_ref)
+    for b, br in zip(blocks, blocks_ref):
+        _close(b, br)
+
+
+@pytest.mark.parametrize("use_decode_int8", [None, False])
+@pytest.mark.parametrize("quant", [False, True])
+def test_streaming_decode_raw_arena(both, quant, use_decode_int8, monkeypatch):
+    """Decode over the RAW arena (int8 or float): the JAX function through
+    its raw-arena decode kernel (use_decode_int8=True, interpret mode) vs
+    the port through K3's wrapper (None; on the CPU it runs the plain
+    version) and through K3's plain version bound in the wrapper's place
+    (False: the noise-floor route of chip_smoke.py's phase 4). As
+    tests/test_pallas_attention.py:279."""
+    params, model = both
+    if use_decode_int8 is False:
+        monkeypatch.setattr(tl, "streaming_decode_attention_int8", ta.decode_attention_int8_plain)
+    rng = np.random.default_rng(7)
+    C, E, vis, e_vis = 512, 6, 300, 4  # C a multiple of the TPU kernel's tile
+    emb = (rng.normal(size=(1, TCFG.hidden_size)) * 0.1).astype(np.float32)
+    qpos = np.full((3, 1), 700.0, np.float32)
+    apos = _positions(C)
+    jarena, tarena = _arenas(rng, C, quant)
+    ek, ev = _arena(rng, E)
+    h_ref, blocks_ref = jl.language_forward_streaming(
+        TCFG, params["text"], jnp.asarray(emb), jnp.asarray(qpos), arena=jarena,
+        arena_positions=jnp.asarray(apos), visible_len=jnp.asarray(vis, jnp.int32),
+        extra=(jnp.asarray(ek), jnp.asarray(ev)), extra_rotated=True,
+        extra_visible=jnp.asarray(e_vis, jnp.int32), use_decode_int8=True,
+    )
+    h, blocks = tl.language_forward_streaming(
+        TCFG, model.text, torch.from_numpy(emb), torch.from_numpy(qpos), arena=tarena,
+        arena_positions=torch.from_numpy(apos), visible_len=vis,
+        extra=(torch.from_numpy(ek), torch.from_numpy(ev)), extra_visible=e_vis,
+    )
+    _close(h, h_ref)
+    for b, br in zip(blocks, blocks_ref):
+        _close(b, br)
+
+
+def test_streaming_decode_prerotated_arena_int8_v(both):
+    """Decode over a pre-rotated float K copy with an int8 V arena (the
+    engine's kv_quant="int8" + prerotate layout): V dequantized per layer,
+    then K2's route."""
+    params, model = both
+    rng = np.random.default_rng(8)
+    C, E, vis, e_vis = 64, 6, 50, 2
+    emb = (rng.normal(size=(1, TCFG.hidden_size)) * 0.1).astype(np.float32)
+    qpos = np.full((3, 1), 70.0, np.float32)
+    ka, _ = _arena(rng, C)
+    (_, jv), (_, tv) = _arenas(rng, C, True)
+    ek, ev = _arena(rng, E)
+    h_ref, blocks_ref = jl.language_forward_streaming(
+        TCFG, params["text"], jnp.asarray(emb), jnp.asarray(qpos),
+        arena=(jnp.asarray(ka), jv), arena_rotated=True, visible_len=jnp.asarray(vis, jnp.int32),
+        extra=(jnp.asarray(ek), jnp.asarray(ev)), extra_rotated=True,
+        extra_visible=jnp.asarray(e_vis, jnp.int32),
+    )
+    h, blocks = tl.language_forward_streaming(
+        TCFG, model.text, torch.from_numpy(emb), torch.from_numpy(qpos),
+        arena=(torch.from_numpy(ka), tv), arena_rotated=True, visible_len=vis,
+        extra=(torch.from_numpy(ek), torch.from_numpy(ev)), extra_visible=e_vis,
+    )
+    _close(h, h_ref)
+    for b, br in zip(blocks, blocks_ref):
+        _close(b, br)
+
+
+def test_init_kv_arena_int8(both):
+    _, model = both
+    k, v = tl.init_kv_arena(TCFG, 32, torch.float32, "cpu", quant="int8")
+    assert isinstance(k, QuantKV) and k.q.dtype == torch.int8 and k.s.shape == (4, 32, 2)
+    assert arena_capacity(k) == 32 and k.q.data_ptr() != v.q.data_ptr()
+    ref = jl.init_kv_arena(TCFG, 32, jnp.float32, quant="int8")[0]
+    np.testing.assert_array_equal(k.s.numpy(), np.asarray(ref["s"]))
+    with pytest.raises(ValueError, match="kv_quant"):
+        tl.init_kv_arena(TCFG, 32, torch.float32, "cpu", quant="int4")
 
 
 def test_bridge_layout(both):

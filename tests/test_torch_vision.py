@@ -30,7 +30,7 @@ GRIDS = [(1, 4, 4), (1, 6, 10), (2, 4, 4)]
 @pytest.fixture(scope="module")
 def both():
     params = jm.init_params(CFG, jax.random.PRNGKey(11), dtype=jnp.float32)
-    return params, from_jax_params(CFG, jax.tree_util.tree_map(np.asarray, params))
+    return params, from_jax_params(CFG, jax.tree_util.tree_map(np.asarray, params), device="cpu")
 
 
 @pytest.mark.parametrize("grid", GRIDS)
