@@ -13,26 +13,32 @@ Phases; any failure exits non-zero:
    hd=128, arena C=10240): K1 prefill (both arena modes), K2 decode over
    the pre-rotated arena, K3 decode over the raw arena (int8 and bf16
    storage, shrink- and append-range positions), K4 decode partials (and
-   their merge with the small block against K2). The decode kernels are
-   held to one bf16 ulp of each output value, and phase 3 is run again on
-   copies of the port with K3 broken on purpose (fast-math sin/cos, no bf16
-   rounding of the dequantized K, K scales rounded to bf16): each copy
-   must fail, on K3's checks only. Times from CUDA events,
-   beside each kernel's bound and, where one PyTorch call computes the same
-   function, that call's time.
+   their merge with the small block against K2), K5 W8A8 products (the
+   int32 form at the TPU probe's 4096^3 and at ragged shapes; the serving
+   form at every (M, K, N) of the 7B path, bf16 and f32 out). The decode
+   kernels are held to one bf16 ulp of each output value, K5 to bitwise
+   equality, and phase 3 is run again on copies of the port with K3 or K5
+   broken on purpose (MUTANTS): each copy must fail, on the broken
+   kernel's checks only. Times from CUDA events, beside each kernel's
+   bound and, where one PyTorch call computes the same function, that
+   call's time.
 4. reference: at 7B width (decoder cut to 4 layers), the streaming forward
    through the kernels (chunk prefill, then one decode token) in bf16
    against the plain full-attention oracle `language_forward` in f32 on the
-   same random weights: over the pre-rotated bf16 arena (K1, K2) and over
-   the int8 raw arena (K1 raw mode, K3).
-5. slices: Qwen2.5-VL-7B (random bf16 weights from a seed) served through
-   `serve.streaming_inference_frames`, 20 one-second chunks of 2 synthetic
-   476x840 frames each, twice: slice A with the default StreamConfig (the
-   pre-rotated bf16 arena: K1 + K2) and slice B with
+   same random weights: over the pre-rotated bf16 arena (K1, K2), over the
+   int8 raw arena (K1 raw mode, K3), and with W8A8 weights over the int8
+   pre-rotated arena (K5, K1, K2; the oracle runs the dequantized weights).
+5. slices: Qwen2.5-VL-7B served through `serve.streaming_inference_frames`,
+   20 one-second chunks of 2 synthetic 476x840 frames each, three times:
+   slice A with random bf16 weights and the default StreamConfig (the
+   pre-rotated bf16 arena: K1 + K2), slice B with the same weights and
    StreamConfig(kv_quant="int8", prerotate_arena=False) (the int8 raw
-   arena: K1 raw mode + K3). Each asserts an eviction, kv <= kv_capacity,
-   and from launch counts reset just before it that every K1/K2/K3 call of
-   its run went through the kernels.
+   arena: K1 raw mode + K3), and slice C with random W8A8 weights
+   (`random_quantized_model`) and StreamConfig(kv_quant="int8") (the int8
+   arena, pre-rotated: K5 + K1 + K2). Each asserts an eviction, kv <=
+   kv_capacity, and from launch counts reset just before it that every
+   kernel call of its run went through the kernels, as many times as the
+   path makes them.
 
 The second-to-last line is a JSON object with each kernel's numbers; the
 last line is {"ok": true, "device": {...}}.
@@ -74,26 +80,38 @@ PART_TOL = 1e-3
 REF_LAYERS = 4
 N_CHUNKS = 20  # slice length: past visual_round=16, so eviction runs
 REF_NOISE_FACTOR = 2.0
-# the H100 SXM's published peaks (dense bf16, HBM3)
+# the H100 SXM's published peaks (dense bf16 and int8, HBM3)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
-# deliberate faults of K3 that phase 3 must reject: name ->
-# (source under streaming_vlm_tpu_torch/csrc, text, replacement)
+INT8_OPS = 1979e12
+# deliberate faults that phase 3 must reject: name -> (the kernel whose
+# checks alone must fail, source under streaming_vlm_tpu_torch/csrc, text,
+# replacement, a text every failed check must contain or None)
 MUTANTS = {
     "fast-math sin/cos": (
-        "decode_attention_raw.cu",
+        "K3", "decode_attention_raw.cu",
         "sincosf(a, ssin + i, scos + i);",
-        "__sincosf(a, ssin + i, scos + i);",
+        "__sincosf(a, ssin + i, scos + i);", None,
     ),
     "dequantized K not rounded to bf16": (
-        "decode_attention_raw.cu",
+        "K3", "decode_attention_raw.cu",
         "out[e] = round_bf16(__fmul_rn(s8(w[e >> 2], e & 3), scale));",
-        "out[e] = __fmul_rn(s8(w[e >> 2], e & 3), scale);",
+        "out[e] = __fmul_rn(s8(w[e >> 2], e & 3), scale);", None,
     ),
     "K scales rounded to bf16": (
-        "decode_attention_raw.cu",
+        "K3", "decode_attention_raw.cu",
         "const float kscale = QUANT ? ks[ri] : 1.f;",
-        "const float kscale = QUANT ? round_bf16(ks[ri]) : 1.f;",
+        "const float kscale = QUANT ? round_bf16(ks[ri]) : 1.f;", None,
+    ),
+    "K tail dropped": (
+        "K5", "int8_gemm.cu",
+        "const int KT = (K + BK - 1) / BK;",
+        "const int KT = K / BK;", "'K': 3420",
+    ),
+    "activations truncated, not rounded half to even": (
+        "K5", "int8_gemm.cu",
+        "const float r = rintf(__fdiv_rn(x, sx));",
+        "const float r = truncf(__fdiv_rn(x, sx));", None,
     ),
 }
 _FAILED = []  # the checks of phase 3 that failed
@@ -114,6 +132,10 @@ SRC = {  # kernel -> (source, the TPU kernel's pallas_call it replaces)
     "streaming_decode_attention": (
         "streaming_vlm_tpu_torch/csrc/decode_attention.cu",
         "streaming_vlm_tpu/ops/attention.py:362",
+    ),
+    "int8_gemm": (
+        "streaming_vlm_tpu_torch/csrc/int8_gemm.cu",
+        "tools/profile_s8_mxu.py:78",
     ),
 }
 
@@ -136,6 +158,24 @@ def _median_ms(fn, reps: int = 10, batch: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / batch)
     return statistics.median(times)
+
+
+def _device_ms(fn, n: int = 20) -> float:
+    """Device time of one call of fn: the CUDA kernels' time over n calls
+    traced with torch.profiler, divided by n (no host time; the CUDA-event
+    time of _median_ms includes the host's when it issues slower than the
+    card runs)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with _profiler() as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+                for e in prof.key_averages() if str(e.device_type).endswith("CUDA"))
+    return total / 1e3 / n
 
 
 def _check(name, got, want, cases, atol=ATOL, rtol=RTOL):
@@ -165,10 +205,28 @@ def _check_decode(name, got, want, cases):
     return _check(name, got, want, cases, atol, DEC_RTOL)
 
 
-def _bound(nbytes: float, flops: float):
+def _check_equal(name, got, want, cases):
+    """Bitwise equality (a K5 check); prints the count of differing values
+    and the largest difference. A failure is recorded in _FAILED."""
+    import torch
+
+    torch.cuda.synchronize()
+    ok = got.dtype == want.dtype and got.shape == want.shape and torch.equal(got, want)
+    diff = (got.double() - want.double()).abs() if got.shape == want.shape else None
+    n = int((diff > 0).sum()) if diff is not None else -1
+    e = float(diff.max()) if diff is not None and diff.numel() else 0.0
+    print(f"  {name} {cases}: bitwise, {n} values differ, max_abs_err={e:.3e} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        _FAILED.append(f"{name} {cases}")
+    return e
+
+
+def _bound(nbytes: float, ops: float, peak: float = BF16_FLOPS):
     """The least time the card could take: the larger of the bytes over the
-    memory rate and the operations over the bf16 peak. Returns (ms, by)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    memory rate and the operations over the peak rate of their type (bf16
+    unless given). Returns (ms, by)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -333,9 +391,139 @@ def phase_kernels():
     stats["streaming_decode_attention"] = dict(max_abs_err=k4_err, **k4)
     print(f"  K4 visible_len={vis}: kernel {k4['ms']:.4f} ms, plain {k4['plain_ms']:.4f} ms, "
           f"no single PyTorch call, bound {k4['bound_ms']:.4f} ms ({k4['bound_by']})")
+    stats["int8_gemm"] = _phase_k5(g)
     if _FAILED:
         raise AssertionError("kernels disagree with their plain versions: " + "; ".join(_FAILED))
     return stats
+
+
+# K5 at the 7B path's shapes: (what, M, K, N, bias, f32 out). Text decode
+# (M=1) and chunk prefill (M=640, the 640-token bucket), the vision tower
+# at 2 frames of 476x840 (M=2040 patches) and its merger (M=510 tokens)
+K5_SERVING = (
+    ("decode q_proj", 1, 3584, 3584, True, False),
+    ("decode k/v_proj", 1, 3584, 512, True, False),
+    ("decode o_proj", 1, 3584, 3584, False, False),
+    ("decode gate/up_proj", 1, 3584, 18944, False, False),
+    ("decode down_proj", 1, 18944, 3584, False, False),
+    ("lm_head", 1, 3584, 152064, False, True),
+    ("prefill q_proj", 640, 3584, 3584, True, False),
+    ("prefill k/v_proj", 640, 3584, 512, True, False),
+    ("prefill o_proj", 640, 3584, 3584, False, False),
+    ("prefill gate/up_proj", 640, 3584, 18944, False, False),
+    ("prefill down_proj", 640, 18944, 3584, False, False),
+    ("vision qkv", 2040, 1280, 3840, True, False),
+    ("vision proj", 2040, 1280, 1280, True, False),
+    ("vision gate/up_proj", 2040, 1280, 3420, True, False),
+    ("vision down_proj", 2040, 3420, 1280, True, False),
+    ("merger fc1", 510, 5120, 5120, True, False),
+    ("merger fc2", 510, 5120, 3584, True, False),
+)
+# the int32 form: the TPU probe's shape, then the ragged edges
+K5_INT32 = ((4096, 4096, 4096), (2040, 3420, 1280), (2040, 1280, 3420), (1, 3584, 152064),
+            (1, 3420, 1280), (3, 3584, 512))
+K5_TIMED = ("decode gate/up_proj", "lm_head", "prefill gate/up_proj")
+
+
+def _phase_k5(g) -> dict:
+    """K5 against its plain version, bitwise: the int32 form (K5_INT32) and
+    the serving form (K5_SERVING, with an all-zero and an outlier row where
+    M > 2). Times at K5_TIMED and the probe, beside the bound (bytes at the
+    HBM rate or operations at the int8 peak) and torch._int_mm (cuBLASLt
+    int8, timed only) where it takes the shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from streaming_vlm_tpu_torch.ops import quant as Q
+
+    dev = "cuda"
+
+    def rint8(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+
+    err = 0.0
+    for M, K, N in K5_INT32:
+        xq, wq = rint8(M, K), rint8(N, K)
+        err = max(err, _check_equal("K5", Q.int8_gemm(xq, wq), Q.int8_gemm_plain(xq, wq),
+                                    dict(form="int32", M=M, K=K, N=N)))
+    inputs = {}
+    for what, M, K, N, bias, f32 in K5_SERVING:
+        x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+        if M > 2:
+            x[0] = 0
+            x[1, 11] = 300.0
+        q = rint8(N, K)
+        s = torch.rand(N, generator=g, device=dev) * 1e-3 + 1e-5
+        b = torch.randn(N, generator=g, device=dev).to(torch.bfloat16) if bias else None
+        od = torch.float32 if f32 else torch.bfloat16
+        args = (x, q, s, b, od)
+        err = max(err, _check_equal("K5", Q.qdot(*args), Q.qdot_plain(*args), dict(
+            form="f32 out" if f32 else "bf16 out", what=what, M=M, K=K, N=N, bias=bias)))
+        if what in K5_TIMED:
+            inputs[what] = args
+        del x, q, s, b
+    torch.cuda.synchronize()
+
+    by_shape = {}
+    for what, (x, q, s, b, od) in inputs.items():
+        (M, K), N = x.shape, q.shape[0]
+        r = dict(M=M, K=K, N=N, ms=_median_ms(lambda: Q.qdot(x, q, s, b, od)),
+                 device_ms=_device_ms(lambda: Q.qdot(x, q, s, b, od)),
+                 plain_ms=_median_ms(lambda: Q.qdot_plain(x, q, s, b, od)))
+        out_bytes = M * N * (4 if od == torch.float32 else 2)
+        r["bound_ms"], r["bound_by"] = _bound(_nbytes(x, q, s, b) + out_bytes, 2 * M * N * K,
+                                              INT8_OPS)
+        if M > 16:
+            xq, _ = Q.quantize_rows(x)
+            wt = q.t()
+            r["library_ms"] = _median_ms(lambda: torch._int_mm(xq, wt))
+            r["library"] = "torch._int_mm (cuBLASLt, int8 -> int32: the product alone)"
+        else:
+            wb = q.to(torch.bfloat16)
+            r["library_ms"] = None
+            r["library"] = f"torch._int_mm refuses M={M} (it takes M > 16)"
+            r["bf16_linear_ms"] = _median_ms(lambda: F.linear(x, wb))  # another function
+            del wb
+        by_shape[what] = r
+        print(f"  K5 {what} M={M} K={K} N={N}: kernel {r['ms']:.4f} ms (device "
+              f"{r['device_ms']:.4f} ms), plain "
+              f"{r['plain_ms']:.4f} ms, library "
+              + (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None else
+                 f"none ({r['library']}; bf16 F.linear, another function, "
+                 f"{r['bf16_linear_ms']:.4f} ms)")
+              + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    inputs.clear()
+
+    n = 4096
+    xq, wq = rint8(n, n), rint8(n, n)
+    wt = wq.t()
+    probe = dict(M=n, K=n, N=n, ms=_median_ms(lambda: Q.int8_gemm(xq, wq)),
+                 device_ms=_device_ms(lambda: Q.int8_gemm(xq, wq)),
+                 library_ms=_median_ms(lambda: torch._int_mm(xq, wt)))
+    probe["tops"] = 2 * n**3 / (probe["ms"] * 1e-3) / 1e12
+    probe["library_tops"] = 2 * n**3 / (probe["library_ms"] * 1e-3) / 1e12
+    print(f"  K5 probe int32 form {n}^3: kernel {probe['ms']:.4f} ms = {probe['tops']:.1f} TOP/s "
+          f"of {INT8_OPS / 1e12:.0f}; torch._int_mm {probe['library_ms']:.4f} ms = "
+          f"{probe['library_tops']:.1f} TOP/s")
+    main = by_shape["decode gate/up_proj"]
+    return dict(max_abs_err=err, shape="decode gate/up_proj (M=1, K=3584, N=18944)",
+                **{k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms", "library", "bf16_linear_ms")},
+                by_shape=by_shape, probe=probe)
+
+
+@contextlib.contextmanager
+def _plain_k5():
+    """Bind K5's plain version where QLinear calls it (phase 4's noise
+    floor; the serving path has no such route)."""
+    from streaming_vlm_tpu_torch.ops import quant as Q
+
+    kernel = Q.qdot
+    Q.qdot = Q.qdot_plain
+    try:
+        yield
+    finally:
+        Q.qdot = kernel
 
 
 @contextlib.contextmanager
@@ -360,7 +548,11 @@ def phase_reference(cfg):
     (K1 prefill, one K2 decode step; noise floor: the plain oracle in
     bf16), (b) over the int8 raw arena (K1 raw-mode prefill, the block
     quantized into the arena, one K3 decode step; noise floor: the same
-    decode step with K3's plain version over the same quantized arena)."""
+    decode step with K3's plain version over the same quantized arena), (c)
+    with the weights quantized to W8A8, over the int8 arena with its
+    pre-rotated K copy (K5 for every product, K1, K2), against the oracle
+    on the dequantized weights (noise floor: the same forward with K5's
+    plain version)."""
     import copy
 
     import numpy as np
@@ -368,7 +560,13 @@ def phase_reference(cfg):
 
     from streaming_vlm_tpu_torch.models.qwen25_vl import language as lang
     from streaming_vlm_tpu_torch.models.qwen25_vl.model import init_params
-    from streaming_vlm_tpu_torch.ops.quant import QuantKV, quantize_kv
+    from streaming_vlm_tpu_torch.ops.quant import (
+        LAYER_LINEARS,
+        QuantKV,
+        quantize_kv,
+        quantize_language,
+        write_slots,
+    )
 
     tcfg = dataclasses.replace(cfg.text, num_hidden_layers=REF_LAYERS)
     rcfg = dataclasses.replace(cfg, text=tcfg)
@@ -421,6 +619,40 @@ def phase_reference(cfg):
         h_plain, _ = lang.language_forward_streaming(tcfg, lm, emb[T:], pos[:, T:], **raw)
     errs["int8 raw (K1 raw, K3)"] = (rel(lang.lm_logits(tcfg, lm, h_k3)[0]),
                                     rel(lang.lm_logits(tcfg, lm, h_plain)[0]))
+
+    # (c) W8A8 weights over the int8 arena, pre-rotated (K5, K1, K2), against
+    # the f32 oracle on the dequantized weights (q * s); noise floor: the
+    # same forward with K5's plain version
+    lmq = quantize_language(copy.deepcopy(lm))
+    deq = lm32
+    for layer, qlayer in zip(deq.layers, lmq.layers):
+        for name in LAYER_LINEARS:
+            ql = getattr(qlayer, name)
+            getattr(layer, name).weight.copy_(ql.q.float() * ql.s[:, None])
+    deq.lm_head.weight.copy_(lmq.lm_head.q.float() * lmq.lm_head.s[:, None])
+    oracle_q = lang.lm_logits(tcfg, deq, lang.language_forward(tcfg, deq, emb.float(), pos))[-1]
+
+    def w8a8_logits():
+        kr = torch.zeros(L, C, Hkv, hd, dtype=torch.bfloat16, device=dev)  # rotated K copy
+        _, vq8 = lang.init_kv_arena(tcfg, C, torch.bfloat16, dev, quant="int8")
+        _, (_, kbr, vb) = lang.language_forward_streaming(
+            tcfg, lmq, emb[:T], pos[:, :T], arena=(kr, vq8), arena_rotated=True, visible_len=0
+        )
+        kr[:, :T] = kbr
+        write_slots(vq8, vb, 0)
+        h, _ = lang.language_forward_streaming(
+            tcfg, lmq, emb[T:], pos[:, T:], arena=(kr, vq8), arena_rotated=True, visible_len=T,
+            **delta,
+        )
+        return lang.lm_logits(tcfg, lmq, h)[0]
+
+    def rel_q(x):
+        return float((x - oracle_q).abs().max() / oracle_q.abs().max())
+
+    got = w8a8_logits()
+    with _plain_k5():
+        floor = w8a8_logits()
+    errs["W8A8, int8 pre-rotated (K5, K1, K2)"] = (rel_q(got), rel_q(floor))
     torch.cuda.synchronize()
     for name, (err, floor) in errs.items():
         ok = math.isfinite(err) and err <= REF_NOISE_FACTOR * floor
@@ -429,7 +661,7 @@ def phase_reference(cfg):
               f"{floor:.3e} (bound {REF_NOISE_FACTOR} x plain) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"streaming forward ({name}) disagrees with the plain oracle")
-    del lm, lm32
+    del lm, lm32, lmq, deq
     torch.cuda.empty_cache()
     return errs
 
@@ -462,12 +694,13 @@ def _report_profile(prof, wall: float, out: Path) -> None:
 
 def phase_slice(cfg, model, n_chunks: int, stream, expect: dict, profile: Path | None = None):
     """Serve n_chunks through streaming_inference_frames with `stream`.
-    `expect` maps each kernel to its launch count per (layer, chunk): 1 for
-    the prefill kernel, max_new for the decode kernel, 0 for the others."""
+    `expect` maps each kernel to its launch count per chunk (0 for the
+    kernels it leaves out)."""
     import numpy as np
     import torch
 
     from streaming_vlm_tpu_torch.ops import attention as A
+    from streaming_vlm_tpu_torch.ops import quant as Q
     from streaming_vlm_tpu_torch.serve import streaming_inference_frames
     from streaming_vlm_tpu_torch.streaming.protocol import FakeTokenizer
 
@@ -477,6 +710,7 @@ def phase_slice(cfg, model, n_chunks: int, stream, expect: dict, profile: Path |
     prof = _profiler() if profile else contextlib.nullcontext()
     torch.cuda.synchronize()
     A.reset_launch_counts()
+    Q.reset_launch_counts()
     t0 = time.perf_counter()
     with prof:
         responses, times = streaming_inference_frames(
@@ -485,7 +719,7 @@ def phase_slice(cfg, model, n_chunks: int, stream, expect: dict, profile: Path |
         )
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(A.launch_counts)
+    launches = {**A.launch_counts, **Q.launch_counts}
     if profile:
         _report_profile(prof, wall, profile)
     for i, t in enumerate(times):
@@ -497,7 +731,6 @@ def phase_slice(cfg, model, n_chunks: int, stream, expect: dict, profile: Path |
     print(f"  chunk latency p50 {statistics.median(lat):.2f} ms, max {lat[-1]:.2f} ms; "
           f"ingest {n_frames / wall:.3f} frames/s")
 
-    L = cfg.text.num_hidden_layers
     assert len(times) == n_chunks, (len(times), n_chunks)
     assert all(0 < t["decoded_tokens"] <= stream.max_tokens_per_chunk + 1 for t in times)
     assert max(max(t["kv"], t["kv_pre_evict"]) for t in times) <= stream.kv_capacity
@@ -505,7 +738,7 @@ def phase_slice(cfg, model, n_chunks: int, stream, expect: dict, profile: Path |
         assert any(
             t["kv_post_evict"] < t["kv_pre_evict"] for t in times[stream.visual_round:]
         ), "no eviction happened"
-    want = {k: L * n_chunks * expect.get(k, 0) for k in launches}
+    want = {k: n_chunks * expect.get(k, 0) for k in launches}
     assert launches == want, (launches, want)
     assert all(isinstance(r["response"], str) for r in responses)
     return launches
@@ -514,15 +747,18 @@ def phase_slice(cfg, model, n_chunks: int, stream, expect: dict, profile: Path |
 def phase_mutants() -> dict:
     """For each fault in MUTANTS: copy the port and this script into
     build/mutants/<i>/ (git-ignored), apply the fault there, and run phase 3
-    in that copy in a subprocess. Each must fail, on K3 checks only.
-    Returns {fault: {"failed": checks failed, "of": K3 checks, "max_err_over_limit": r}}."""
+    in that copy in a subprocess. Each must fail, on the named kernel's
+    checks only (and, where MUTANTS gives a text, only on checks that
+    contain it). Returns {fault: {"kernel", "failed": checks failed, "of":
+    the kernel's checks, "failed_checks", "max_err_over_limit" (tolerance
+    checks) or None (bitwise checks)}}."""
     import re
     import shutil
 
     root = REPO / "build" / "mutants"
     shutil.rmtree(root, ignore_errors=True)
     found = {}
-    for i, (name, (src, text, repl)) in enumerate(MUTANTS.items()):
+    for i, (name, (kernel, src, text, repl, where)) in enumerate(MUTANTS.items()):
         d = root / str(i)
         shutil.copytree(REPO / "streaming_vlm_tpu_torch", d / "streaming_vlm_tpu_torch",
                         ignore=shutil.ignore_patterns("__pycache__"))
@@ -541,12 +777,17 @@ def phase_mutants() -> dict:
         print(f"  mutant {name!r}: exit {r.returncode}, {len(failed)} checks failed")
         for line in failed:
             print("    " + line)
-        if r.returncode == 0 or not failed or any(not x.startswith("K3 ") for x in failed):
+        ok = r.returncode != 0 and failed and all(
+            x.startswith(kernel + " ") and (where is None or where in x) for x in failed)
+        if not ok:
             print(r.stdout[-4000:] + r.stderr[-4000:])
-            raise AssertionError(f"mutant {name!r} was not rejected by K3's checks alone")
+            raise AssertionError(f"mutant {name!r} was not rejected by {kernel}'s checks alone"
+                                 + (f" at {where}" if where else ""))
         ratios = [float(m.group(1)) for x in failed if (m := re.search(r"err/limit=([0-9.]+)", x))]
-        found[name] = {"failed": len(failed), "of": sum(x.startswith("  K3 {") for x in lines),
-                       "max_err_over_limit": max(ratios)}
+        found[name] = {"kernel": kernel, "failed": len(failed),
+                       "of": sum(x.startswith(f"  {kernel} {{") for x in lines),
+                       "failed_checks": [x[: x.index("}") + 1] for x in failed],
+                       "max_err_over_limit": max(ratios) if ratios else None}
     shutil.rmtree(root, ignore_errors=True)
     return found
 
@@ -555,7 +796,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=Path, metavar="DIR",
                     help="trace the slices with torch.profiler; kernel tables -> "
-                         "DIR/profile_slice_{a,b}.txt")
+                         "DIR/profile_slice_{a,b,c}.txt")
     args = ap.parse_args()
     if not (REPO / "streaming_vlm_tpu_torch").is_dir():
         raise SystemExit("chip_smoke.py must run from a checkout of the repository")
@@ -584,11 +825,14 @@ def main() -> int:
 
     print("[3/5] kernels vs plain versions")
     kstats = phase_kernels()
-    print("  phase 3 against copies of the port with K3 broken on purpose")
+    print("  phase 3 against copies of the port with K3 or K5 broken on purpose")
     print("  " + json.dumps({"mutants": phase_mutants()}))
 
     from streaming_vlm_tpu_torch.config import StreamConfig, qwen25_vl_7b
-    from streaming_vlm_tpu_torch.models.qwen25_vl.model import init_params
+    from streaming_vlm_tpu_torch.models.qwen25_vl.model import (
+        init_params,
+        random_quantized_model,
+    )
 
     cfg = qwen25_vl_7b()
     print("[4/5] reference: streaming forward vs plain oracle at 7B width")
@@ -601,16 +845,32 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"  {cfg.name}: {cfg.text.num_hidden_layers} layers, random bf16 weights "
           f"in {time.perf_counter() - t0:.2f} s")
-    max_new = StreamConfig().max_tokens_per_chunk
-    slices = {
-        "A": (StreamConfig(), {"streaming_prefill_attention": 1,
-                               "streaming_decode_attention_full": max_new}),
-        "B": (StreamConfig(kv_quant="int8", prerotate_arena=False),
-              {"streaming_prefill_attention": 1, "streaming_decode_attention_int8": max_new}),
+    L, max_new = cfg.text.num_hidden_layers, StreamConfig().max_tokens_per_chunk
+    k1, k2 = "streaming_prefill_attention", "streaming_decode_attention_full"
+    slices = {  # name -> (weights, StreamConfig, launches per chunk)
+        "A": ("bf16", StreamConfig(), {k1: L, k2: L * max_new}),
+        "B": ("bf16", StreamConfig(kv_quant="int8", prerotate_arena=False),
+              {k1: L, "streaming_decode_attention_int8": L * max_new}),
+        # K5: the 7 projections of every layer in the prefill and in each
+        # decode step, the lm_head after each, and 5 products per vision
+        # block plus the merger's 2 (one vision encode per chunk)
+        "C": ("W8A8", StreamConfig(kv_quant="int8"), {
+            k1: L, k2: L * max_new,
+            "int8_gemm": 7 * L * (1 + max_new) + (1 + max_new) + 5 * cfg.vision.depth + 2}),
     }
-    by_slice = {}
-    for name, (stream, expect) in slices.items():
-        print(f"  slice {name}: kv_quant={stream.kv_quant} prerotate={stream.effective_prerotate}")
+    by_slice, loaded = {}, "bf16"
+    for name, (weights, stream, expect) in slices.items():
+        if weights != loaded:  # W8A8: free the bf16 model first
+            del model
+            torch.cuda.empty_cache()
+            loaded = weights
+            t0 = time.perf_counter()
+            model = random_quantized_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                           device="cuda")
+            torch.cuda.synchronize()
+            print(f"  {cfg.name}: random W8A8 weights in {time.perf_counter() - t0:.2f} s")
+        print(f"  slice {name}: {weights} weights, kv_quant={stream.kv_quant} "
+              f"prerotate={stream.effective_prerotate}")
         prof = args.profile / f"profile_slice_{name.lower()}.txt" if args.profile else None
         by_slice[name] = phase_slice(cfg, model, N_CHUNKS, stream, expect, prof)
 

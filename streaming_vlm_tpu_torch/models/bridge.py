@@ -5,7 +5,9 @@ vision.py `init_*_params`): decoder and vision-block weights are stacked
 along a leading [L, ...] axis and matrices are stored [in, out]. Here the
 layer axis is unstacked and matrices are transposed into nn.Linear's
 [out, in]. Input leaves are numpy arrays (np.asarray of the JAX arrays), so
-this module never imports jax.
+this module never imports jax. W8A8 trees (the JAX package's
+`quantize_model_params`) hold {"q" int8 [L, in, out], "s" f32 [L, 1, out]}
+leaves; they become `ops.quant.QLinear` modules with q [out, in], s [out].
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
+from ..ops.quant import QLinear, is_qtensor
 from .qwen25_vl.model import Qwen25VL
 
 _TEXT_LAYER = {  # port submodule attr -> (JAX weight key, JAX bias key or None)
@@ -44,47 +47,81 @@ def _set(p: torch.Tensor, arr: np.ndarray) -> None:
     p.copy_(torch.from_numpy(np.array(a, dtype=np.float32)))
 
 
-def _linear(lin: nn.Linear, w: np.ndarray, b=None) -> None:
-    _set(lin.weight, np.asarray(w).T)
+def _linear(lin: nn.Module, w, b=None) -> None:
+    """A JAX [in, out] weight (or its {"q" [in, out], "s" [1, out]} int8
+    form, for a QLinear: q -> [out, in], s -> [out]) and bias."""
+    if isinstance(lin, QLinear):
+        lin.q.copy_(torch.from_numpy(np.ascontiguousarray(np.asarray(w["q"]).T)))
+        _set(lin.s, np.asarray(w["s"]).reshape(-1))
+    else:
+        _set(lin.weight, np.asarray(w).T)
     if b is not None:
         _set(lin.bias, b)
+
+
+def _layer(leaf, i: int):
+    """Layer i of a stacked [L, ...] leaf, or of each array of a {"q", "s"}
+    leaf."""
+    if is_qtensor(leaf):
+        return {k: np.asarray(v)[i] for k, v in leaf.items()}
+    return np.asarray(leaf)[i]
+
+
+def _like(leaf, lin: nn.Linear) -> nn.Module:
+    """An empty QLinear in lin's place where the JAX leaf is quantized."""
+    if not is_qtensor(leaf):
+        return lin
+    if "q4" in leaf:
+        raise NotImplementedError("int4 weights (W4A8) are not ported")
+    return QLinear(lin.in_features, lin.out_features, lin.bias is not None,
+                   dtype=lin.weight.dtype)
 
 
 @torch.no_grad()
 def from_jax_params(
     cfg: ModelConfig, params: Dict[str, Any], *, device="cuda", dtype=torch.float32
 ) -> Qwen25VL:
-    """Build the port's model from a JAX `model.init_params` pytree (leaves
-    as numpy arrays or anything np.asarray accepts), on the card unless the
-    caller passes device="cpu"."""
+    """Build the port's model from a JAX `model.init_params` pytree, or the
+    W8A8 tree `quantize_model_params` makes of one (leaves as numpy arrays
+    or anything np.asarray accepts), on the card unless the caller passes
+    device="cpu". A {"q", "s"} leaf becomes a QLinear, bit for bit; a tied
+    model's "lm_head_q" becomes its lm_head."""
+    t, v = params["text"], params["vision"]
+    tl, vb = t["layers"], v["blocks"]
     with torch.device("meta"):
         m = Qwen25VL(cfg, dtype=dtype)
+        lm, tower = m.text, m.vision
+        for layer in lm.layers:
+            for attr, (wk, _) in _TEXT_LAYER.items():
+                setattr(layer, attr, _like(tl[wk], getattr(layer, attr)))
+        head = t.get("lm_head_q", t.get("lm_head"))
+        if head is not None and is_qtensor(head):
+            lm.lm_head = QLinear(cfg.text.hidden_size, cfg.text.vocab_size, bias=False,
+                                 dtype=dtype)
+        for blk in tower.blocks:
+            for attr, (wk, _) in _VISION_BLOCK.items():
+                setattr(blk, attr, _like(vb[wk], getattr(blk, attr)))
+        for attr, wk in (("merger_fc1", "fc1_w"), ("merger_fc2", "fc2_w")):
+            setattr(tower, attr, _like(v["merger"][wk], getattr(tower, attr)))
     m.to_empty(device=device)
 
-    t, lm = params["text"], m.text
     _set(lm.embed.weight, t["embed"])
     _set(lm.final_ln.weight, t["final_ln"])
     if lm.lm_head is not None:
-        _linear(lm.lm_head, t["lm_head"])
-    tl = t["layers"]
+        _linear(lm.lm_head, head)
     for i, layer in enumerate(lm.layers):
         _set(layer.input_ln.weight, np.asarray(tl["input_ln"])[i])
         _set(layer.post_ln.weight, np.asarray(tl["post_ln"])[i])
         for attr, (wk, bk) in _TEXT_LAYER.items():
-            _linear(
-                getattr(layer, attr),
-                np.asarray(tl[wk])[i],
-                None if bk is None else np.asarray(tl[bk])[i],
-            )
+            _linear(getattr(layer, attr), _layer(tl[wk], i),
+                    None if bk is None else np.asarray(tl[bk])[i])
 
-    v, tower = params["vision"], m.vision
     _linear(tower.patch_embed, v["patch_embed"])
-    vb = v["blocks"]
     for i, blk in enumerate(tower.blocks):
         _set(blk.norm1.weight, np.asarray(vb["norm1"])[i])
         _set(blk.norm2.weight, np.asarray(vb["norm2"])[i])
         for attr, (wk, bk) in _VISION_BLOCK.items():
-            _linear(getattr(blk, attr), np.asarray(vb[wk])[i], np.asarray(vb[bk])[i])
+            _linear(getattr(blk, attr), _layer(vb[wk], i), np.asarray(vb[bk])[i])
     mp = v["merger"]
     _set(tower.ln_q.weight, mp["ln_q"])
     _linear(tower.merger_fc1, mp["fc1_w"], mp["fc1_b"])

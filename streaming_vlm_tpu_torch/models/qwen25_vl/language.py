@@ -3,7 +3,9 @@
 Port of streaming_vlm_tpu/models/qwen25_vl/language.py. Layers are an
 `nn.ModuleList` walked by a Python loop (the JAX package scans stacked
 weights). Weights are stored as `nn.Linear` ([out, in]); the bridge in
-models/bridge.py transposes the JAX [in, out] layout.
+models/bridge.py transposes the JAX [in, out] layout. With W8A8 weights
+(`ops.quant.quantize_model`) the seven projections of each layer and the
+lm_head are `ops.quant.QLinear` (kernel K5), called the same way.
 
 The KV arena is a pair of [L, C, Hkv, hd] tensors holding UN-rotated K, or,
 with `kv_quant="int8"`, a pair of `ops.quant.QuantKV` (int8 [L, C, Hkv, hd]
@@ -38,7 +40,7 @@ from ...ops.attention import (
     streaming_decode_attention_int8,
     streaming_prefill_attention,
 )
-from ...ops.quant import Arena, QuantKV, as_float, layer_slice, quantize_kv, storage
+from ...ops.quant import Arena, QLinear, QuantKV, as_float, layer_slice, quantize_kv, storage
 from .rope import apply_rope, make_inv_freq, mrope_cos_sin
 
 
@@ -60,7 +62,7 @@ class RMSNorm(nn.Module):
         return rms_norm(x, self.weight, self.eps)
 
 
-def swiglu(x: torch.Tensor, gate: nn.Linear, up: nn.Linear, down: nn.Linear) -> torch.Tensor:
+def swiglu(x: torch.Tensor, gate: nn.Module, up: nn.Module, down: nn.Module) -> torch.Tensor:
     return down(F.silu(gate(x)) * up(x))
 
 
@@ -258,11 +260,16 @@ def embed_tokens(cfg: TextConfig, lm: LanguageModel, input_ids: torch.Tensor) ->
 
 
 def lm_logits(cfg: TextConfig, lm: LanguageModel, hidden: torch.Tensor) -> torch.Tensor:
-    """[T, D] -> [T, V] float32 logits. The product runs in the weights'
-    dtype (bf16 on the card, so the logits carry bf16 rounding; the JAX
-    package accumulates to f32 output)."""
+    """[T, D] -> [T, V] float32 logits: the f32 product of the (bf16)
+    operands with no bf16 round, as the JAX package's
+    preferred_element_type=float32. A W8A8 lm_head (tied embeddings: the
+    quantized copy of embed) runs K5 with an f32 output."""
+    if isinstance(lm.lm_head, QLinear):
+        return lm.lm_head(hidden, out_dtype=torch.float32)
     w = lm.embed.weight if cfg.tie_word_embeddings else lm.lm_head.weight
-    return F.linear(hidden, w).float()
+    if hidden.device.type == "cpu" or w.dtype == torch.float32:
+        return F.linear(hidden.float(), w.float())
+    return torch.mm(hidden, w.t(), out_dtype=torch.float32)
 
 
 def init_kv_arena(

@@ -1,6 +1,7 @@
 """Full Qwen2.5-VL model: vision tower + multimodal merge + language model.
 
-Port of streaming_vlm_tpu/models/qwen25_vl/model.py.
+Port of streaming_vlm_tpu/models/qwen25_vl/model.py, with the random W8A8
+model of the JAX package's ops/quant.py (`random_quantized_model`).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import torch
 from torch import nn
 
 from ...config import ModelConfig
+from ...ops import quant
 from . import language, vision
 from .rope import mrope_positions_from_ids
 
@@ -22,6 +24,19 @@ class Qwen25VL(nn.Module):
         self.cfg = cfg
         self.vision = vision.VisionTower(cfg.vision, **factory)
         self.text = language.LanguageModel(cfg.text, **factory)
+
+
+def _init_float(module: nn.Module, generator: torch.Generator, device) -> None:
+    """The JAX package's random scheme for float modules: matrices and
+    embeddings ~ N(0, 1) * 0.02 drawn in f32 then cast, norms 1, biases 0."""
+    for mod in module.modules():
+        if isinstance(mod, language.RMSNorm):
+            mod.weight.fill_(1.0)
+        elif isinstance(mod, (nn.Linear, nn.Embedding)):
+            w = torch.randn(mod.weight.shape, generator=generator, device=device)
+            mod.weight.copy_(w.mul_(0.02))
+            if getattr(mod, "bias", None) is not None:
+                mod.bias.zero_()
 
 
 @torch.no_grad()
@@ -41,14 +56,44 @@ def init_params(
     with torch.device("meta"):
         m = Qwen25VL(cfg, dtype=dtype)
     m.to_empty(device=device)
-    for mod in m.modules():
-        if isinstance(mod, language.RMSNorm):
-            mod.weight.fill_(1.0)
-        elif isinstance(mod, (nn.Linear, nn.Embedding)):
-            w = torch.randn(mod.weight.shape, generator=generator, device=device)
-            mod.weight.copy_(w.mul_(0.02))
-            if getattr(mod, "bias", None) is not None:
+    _init_float(m, generator, device)
+    return m.eval().requires_grad_(False)
+
+
+@torch.no_grad()
+def random_quantized_model(
+    cfg: ModelConfig,
+    generator: torch.Generator,
+    *,
+    device="cuda",
+    dtype=torch.bfloat16,
+) -> Qwen25VL:
+    """Random W8A8 model built directly in the quantized layout (the same
+    modules as quantize_model(init_params(...))), the port of the JAX
+    package's random_quantized_model_params: decoder projections and the
+    lm_head are uniform int8 in [-127, 127] with s = 0.02 / 127; embed ~
+    N(0, 1) * 0.02, norms 1, biases 0, in `dtype`; the vision tower is
+    random float, then quantized. The float decoder never exists: the 7B
+    model takes ~8.8 GB, never ~16.6 GB of bf16 weights plus their copy."""
+    tcfg = cfg.text
+    with torch.device("meta"):
+        m = Qwen25VL(cfg, dtype=dtype)
+        for layer in m.text.layers:
+            for name in quant.LAYER_LINEARS:
+                lin = getattr(layer, name)
+                setattr(layer, name, quant.QLinear(
+                    lin.in_features, lin.out_features, lin.bias is not None, dtype=dtype))
+        m.text.lm_head = quant.QLinear(tcfg.hidden_size, tcfg.vocab_size, bias=False, dtype=dtype)
+    m.to_empty(device=device)
+    _init_float(m, generator, device)
+    for mod in m.text.modules():
+        if isinstance(mod, quant.QLinear):
+            mod.q.copy_(torch.randint(-127, 128, mod.q.shape, generator=generator,
+                                      device=device, dtype=torch.int8))
+            mod.s.fill_(0.02 / 127.0)
+            if mod.bias is not None:
                 mod.bias.zero_()
+    quant.quantize_vision(m.vision)
     return m.eval().requires_grad_(False)
 
 

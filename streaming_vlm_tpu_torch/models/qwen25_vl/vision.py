@@ -8,7 +8,9 @@ computed once per grid and uploaded once per device. The JAX tower has no
 Pallas kernel, so attention here is plain matmul + softmax, as the jnp code
 does it: dense segment-masked attention for full blocks, batched
 block-diagonal attention for uniform windows, and a padded [n_win, w_pad]
-batch for ragged windows.
+batch for ragged windows. With W8A8 weights (`ops.quant.quantize_vision`)
+the block and merger projections are `ops.quant.QLinear` (kernel K5); the
+patch embedding stays float.
 """
 
 from __future__ import annotations

@@ -20,8 +20,12 @@ import time
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("prefill_attention.cu", "decode_attention.cu", "decode_attention_raw.cu")
+SOURCES = (
+    "prefill_attention.cu", "decode_attention.cu", "decode_attention_raw.cu", "int8_gemm.cu",
+)
 HEADERS = ("decode_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -86,6 +90,27 @@ def build() -> Path:
     return out
 
 
+def check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous, 16-byte aligned CUDA
+    tensor (what the kernels take)."""
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: all tensors must be on one CUDA device, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be 16-byte aligned")
+
+
+def ptr(t: Optional[torch.Tensor]):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def stream():
+    """PyTorch's current CUDA stream, as the kernels' launch argument."""
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     global _lib
@@ -104,8 +129,15 @@ def lib() -> ctypes.CDLL:
         so.svt_decode_split_size.restype = I
         so.svt_decode_max_small_rows.argtypes = []
         so.svt_decode_max_small_rows.restype = I
+        so.svt_int8_gemm.argtypes = [P] * 3 + [I] * 3 + [P]
+        so.svt_int8_gemm.restype = I
+        so.svt_qdot.argtypes = [P, I, P, P, P, P, I, P, P, I, I, I, P]
+        so.svt_qdot.restype = I
+        so.svt_int8_small_m.argtypes = []
+        so.svt_int8_small_m.restype = I
         # compile-time constants of the decode kernels, read once
         so.decode_split_size = so.svt_decode_split_size()
         so.decode_max_small_rows = so.svt_decode_max_small_rows()
+        so.int8_small_m = so.svt_int8_small_m()
         _lib = so
     return _lib

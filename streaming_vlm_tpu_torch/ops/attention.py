@@ -24,7 +24,6 @@ tensor it runs the plain version. There is no other fallback.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 from typing import Optional, Sequence, Tuple
@@ -33,6 +32,7 @@ import numpy as np
 import torch
 
 from ..models.qwen25_vl.rope import apply_rope, make_inv_freq, mrope_cos_sin, rotate_half
+from ._kernels import check_cuda, ptr, stream
 from .quant import QuantKV, dequantize_kv
 
 NEG_INF = -1e30
@@ -120,24 +120,6 @@ def prefill_attention_plain(
     return gqa_attention_multi(q_rot, parts).reshape(T, H, hd)
 
 
-def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    for t in tensors:
-        if t.device.type != "cuda":
-            raise ValueError(f"{name}: all tensors must be on one CUDA device, got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: tensors must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: tensors must be 16-byte aligned")
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else ctypes.c_void_p(t.data_ptr())
-
-
-def _stream():
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-
 def streaming_prefill_attention(
     q_rot: torch.Tensor,  # [T, H, hd] rotated queries (unscaled)
     k_arena: torch.Tensor,  # [C, Hkv, hd] raw, or pre-rotated if acos2 is None
@@ -157,7 +139,7 @@ def streaming_prefill_attention(
     T, H, hd = q_rot.shape
     C, Hkv, _ = k_arena.shape
     tensors = [q_rot, k_arena, v_arena, k_self_rot, v_self]
-    _check_cuda(name, *tensors)
+    check_cuda(name, *tensors)
     if any(t.dtype != torch.bfloat16 for t in tensors):
         raise ValueError(f"{name}: the CUDA kernel takes bf16 q/k/v")
     if hd != 128 or H % Hkv or v_arena.shape != k_arena.shape:
@@ -169,16 +151,16 @@ def streaming_prefill_attention(
     if (acos2 is None) != (asin2 is None):
         raise ValueError(f"{name}: pass both acos2 and asin2, or neither")
     if acos2 is not None:
-        _check_cuda(name, acos2, asin2)
+        check_cuda(name, acos2, asin2)
         if acos2.dtype != torch.float32 or acos2.shape != (C, hd) or asin2.shape != (C, hd):
             raise ValueError(f"{name}: acos2/asin2 must be f32 [C, hd]")
     from ._kernels import lib
 
     out = torch.empty_like(q_rot)
     err = lib().svt_prefill_attention(
-        _ptr(q_rot), _ptr(k_arena), _ptr(v_arena), _ptr(acos2), _ptr(asin2),
-        _ptr(k_self_rot), _ptr(v_self), _ptr(out), T, H, Hkv, hd, int(visible_len),
-        _stream(),
+        ptr(q_rot), ptr(k_arena), ptr(v_arena), ptr(acos2), ptr(asin2),
+        ptr(k_self_rot), ptr(v_self), ptr(out), T, H, Hkv, hd, int(visible_len),
+        stream(),
     )
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
@@ -250,7 +232,7 @@ def streaming_decode_attention_full(
     H, hd = q_rot.shape
     C, Hkv, _ = k_arena.shape
     tensors = [q_rot, k_arena, v_arena, k_small, v_small]
-    _check_cuda(name, *tensors)
+    check_cuda(name, *tensors)
     if any(t.dtype != torch.bfloat16 for t in tensors):
         raise ValueError(f"{name}: the CUDA kernel takes bf16 q/k/v")
     from ._kernels import lib
@@ -265,9 +247,9 @@ def streaming_decode_attention_full(
     part_m, part_l, part_acc = _split_scratch(so, Hkv, H // Hkv, hd, visible_len, q_rot.device)
     out = torch.empty(H, hd, dtype=v_small.dtype, device=q_rot.device)
     err = so.svt_decode_attention(
-        _ptr(q_rot), _ptr(k_arena), _ptr(v_arena), _ptr(k_small), _ptr(v_small),
-        _ptr(part_m), _ptr(part_l), _ptr(part_acc), _ptr(out), H, Hkv, hd, E1,
-        int(e_delta), int(visible_len), int(extra_visible), _stream(),
+        ptr(q_rot), ptr(k_arena), ptr(v_arena), ptr(k_small), ptr(v_small),
+        ptr(part_m), ptr(part_l), ptr(part_acc), ptr(out), H, Hkv, hd, E1,
+        int(e_delta), int(visible_len), int(extra_visible), stream(),
     )
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
@@ -356,7 +338,7 @@ def streaming_decode_attention_int8(
     quantized = k_s is not None
     store = torch.int8 if quantized else torch.bfloat16
     tensors = [q_rot, k_q, v_q, pos_t, k_small, v_small]
-    _check_cuda(name, *tensors)
+    check_cuda(name, *tensors)
     if (q_rot.dtype, k_small.dtype, v_small.dtype) != (torch.bfloat16,) * 3:
         raise ValueError(f"{name}: the CUDA kernel takes bf16 q and k_small/v_small")
     if k_q.dtype != store or v_q.dtype != store or v_q.shape != k_q.shape:
@@ -364,7 +346,7 @@ def streaming_decode_attention_int8(
     if pos_t.dtype != torch.float32 or pos_t.shape != (C, 3):
         raise ValueError(f"{name}: pos_t must be f32 [C, 3]")
     if quantized:
-        _check_cuda(name, k_s, v_s)
+        check_cuda(name, k_s, v_s)
         if k_s.dtype != torch.float32 or k_s.shape != (C, Hkv) or v_s.shape != (C, Hkv):
             raise ValueError(f"{name}: scales must be f32 [C, Hkv]")
     from ._kernels import lib
@@ -380,10 +362,10 @@ def streaming_decode_attention_int8(
     part_m, part_l, part_acc = _split_scratch(so, Hkv, H // Hkv, hd, visible_len, q_rot.device)
     out = torch.empty(H, hd, dtype=v_small.dtype, device=q_rot.device)
     err = so.svt_decode_attention_raw(
-        _ptr(q_rot), _ptr(k_q), _ptr(k_s), _ptr(v_q), _ptr(v_s), _ptr(pos_t), _ptr(freqs),
-        _ptr(k_small), _ptr(v_small), _ptr(part_m), _ptr(part_l), _ptr(part_acc), _ptr(out),
+        ptr(q_rot), ptr(k_q), ptr(k_s), ptr(v_q), ptr(v_s), ptr(pos_t), ptr(freqs),
+        ptr(k_small), ptr(v_small), ptr(part_m), ptr(part_l), ptr(part_acc), ptr(out),
         H, Hkv, hd, E1, int(e_delta), int(visible_len), int(extra_visible), int(quantized),
-        _stream(),
+        stream(),
     )
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
@@ -427,7 +409,7 @@ def streaming_decode_attention(
     name = "streaming_decode_attention"
     H, hd = q_rot.shape
     C, Hkv, _ = k_arena.shape
-    _check_cuda(name, q_rot, k_arena, v_arena)
+    check_cuda(name, q_rot, k_arena, v_arena)
     if any(t.dtype != torch.bfloat16 for t in (q_rot, k_arena, v_arena)):
         raise ValueError(f"{name}: the CUDA kernel takes bf16 q/k/v")
     if hd != 128 or H % Hkv or H // Hkv > 8 or v_arena.shape != k_arena.shape:
@@ -442,8 +424,8 @@ def streaming_decode_attention(
     l = torch.empty_like(m)
     acc = torch.empty(H, hd, dtype=torch.float32, device=q_rot.device)
     err = so.svt_decode_partials(
-        _ptr(q_rot), _ptr(k_arena), _ptr(v_arena), _ptr(part_m), _ptr(part_l), _ptr(part_acc),
-        _ptr(m), _ptr(l), _ptr(acc), H, Hkv, hd, int(visible_len), _stream(),
+        ptr(q_rot), ptr(k_arena), ptr(v_arena), ptr(part_m), ptr(part_l), ptr(part_acc),
+        ptr(m), ptr(l), ptr(acc), H, Hkv, hd, int(visible_len), stream(),
     )
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")

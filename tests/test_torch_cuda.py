@@ -1,4 +1,4 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
+"""The port's CUDA kernels (K1-K5) against their plain PyTorch versions, on the
 card. Skips without one. Imports no jax, so that it runs on the card's
 machine, which has none:
 
@@ -8,7 +8,12 @@ machine, which has none:
 import pytest
 import torch
 
+import torch.nn.functional as F
+
+from streaming_vlm_tpu_torch.config import qwen25_vl_tiny
+from streaming_vlm_tpu_torch.models.qwen25_vl import language as lang
 from streaming_vlm_tpu_torch.ops import attention as A
+from streaming_vlm_tpu_torch.ops import quant as Q
 from streaming_vlm_tpu_torch.ops.quant import quantize_kv
 
 
@@ -109,3 +114,67 @@ def test_partials_kernel_and_merge_match_on_card(cuda):
         merged = A.decode_attention_merge(q[None], parts, ka, va, vis)
         k2 = A.streaming_decode_attention_full(q, ka, va, ksm, vsm, vis, E, e_delta=E)
         _assert_decode_close(merged.reshape(H, hd), k2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [
+    (1, 3584, 512), (3, 1280, 520), (1, 3420, 1280), (5, 64, 33), (130, 3420, 1280),
+    (640, 3584, 520), (200, 1280, 3420),
+])
+def test_int8_gemm_matches_plain_on_card(cuda, M, K, N):
+    """K5's int32 form is bitwise equal to its plain version, on both paths
+    (M <= 4: decode; else row tiles), with K % 16 != 0 (3420) and N, M off
+    the tile."""
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    xq = torch.randint(-127, 128, (M, K), generator=g, device=cuda, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (N, K), generator=g, device=cuda, dtype=torch.int8)
+    n = Q.launch_counts["int8_gemm"]
+    got = Q.int8_gemm(xq, wq)
+    assert Q.launch_counts["int8_gemm"] == n + 1
+    assert torch.equal(got, Q.int8_gemm_plain(xq, wq))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 4, 5, 300])
+@pytest.mark.parametrize("K", [1280, 3420])
+@pytest.mark.parametrize("x_dtype,out_dtype,bias", [
+    (torch.bfloat16, torch.bfloat16, True), (torch.bfloat16, torch.float32, False),
+    (torch.float32, torch.float32, True), (torch.float32, torch.bfloat16, False),
+])
+def test_qdot_matches_plain_on_card(cuda, M, K, x_dtype, out_dtype, bias):
+    """K5's serving form (row quantization, int8 product, rescale, cast,
+    + bias) is bitwise equal to qdot_plain, with an all-zero row and an
+    outlier row."""
+    g = torch.Generator(device=cuda).manual_seed(M * K)
+    N = 520
+    x = torch.randn(M, K, generator=g, device=cuda).to(x_dtype)
+    if M > 2:
+        x[1] = 0
+        x[2, 7] = 500.0
+    q = torch.randint(-127, 128, (N, K), generator=g, device=cuda, dtype=torch.int8)
+    s = torch.rand(N, generator=g, device=cuda) * 1e-3 + 1e-5
+    b = torch.randn(N, generator=g, device=cuda).to(out_dtype) if bias else None
+    got = Q.qdot(x, q, s, b, out_dtype)
+    assert got.dtype == out_dtype
+    assert torch.equal(got, Q.qdot_plain(x, q, s, b, out_dtype))
+
+
+@pytest.mark.gpu
+def test_lm_logits_are_f32_on_card(cuda):
+    """bf16 hidden and weights: lm_logits is the f32 product (cuBLAS with an
+    f32 output), within 1e-4 of max|logit| of the f32 product of the same
+    bf16 operands; the W8A8 lm_head (K5, f32 out) equals its plain
+    version."""
+    cfg = qwen25_vl_tiny().text
+    g = torch.Generator(device=cuda).manual_seed(3)
+    lm = lang.LanguageModel(cfg, device=cuda, dtype=torch.bfloat16).requires_grad_(False)
+    lm.lm_head.weight.copy_(torch.randn(lm.lm_head.weight.shape, generator=g, device=cuda))
+    h = torch.randn(5, cfg.hidden_size, generator=g, device=cuda).to(torch.bfloat16)
+    got = lang.lm_logits(cfg, lm, h)
+    want = F.linear(h.float(), lm.lm_head.weight.float())
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=1e-4 * float(want.abs().max()), rtol=0)
+    lm.lm_head = Q.QLinear.from_linear(lm.lm_head)
+    got = lang.lm_logits(cfg, lm, h)
+    want = Q.qdot_plain(h, lm.lm_head.q, lm.lm_head.s, out_dtype=torch.float32)
+    assert got.dtype == torch.float32 and torch.equal(got, want)

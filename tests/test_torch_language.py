@@ -1,6 +1,8 @@
 """The port's decoder math against the JAX package on qwen25_vl_tiny, both
 built from one set of weights through the weight bridge (f32, CPU)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -82,6 +84,34 @@ def test_language_forward_and_logits(both):
         jl.embed_tokens(TCFG, params["text"], jnp.asarray(ids)),
         atol=0, rtol=0,
     )
+
+
+@pytest.mark.parametrize("tied", [False, True], ids=["lm_head", "tied"])
+def test_lm_logits_bf16_is_the_unrounded_f32_product(tied):
+    """bf16 weights and hidden states: the port's lm_logits returns the f32
+    product of the bf16 operands, as the JAX package's
+    preferred_element_type=float32 does, within 1e-4 of max|logit|: far
+    below one bf16 ulp (2^-8 relative, which a bf16-rounded product would
+    show) and far above f32 summation-order noise."""
+    cfg = dataclasses.replace(TCFG, tie_word_embeddings=tied)
+    D, V = cfg.hidden_size, cfg.vocab_size
+    rng = np.random.default_rng(9)
+
+    def bf16(*shape):
+        t = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(torch.bfloat16)
+        return t, jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+    (embed, jembed), (head, jhead), (hidden, jhidden) = bf16(V, D), bf16(D, V), bf16(5, D)
+    lm = tl.LanguageModel(cfg, dtype=torch.bfloat16).requires_grad_(False)
+    lm.embed.weight.copy_(embed)
+    jparams = {"embed": jembed}
+    if not tied:
+        lm.lm_head.weight.copy_(head.T)
+        jparams["lm_head"] = jhead
+    ref = np.asarray(jl.lm_logits(cfg, jparams, jhidden))
+    got = tl.lm_logits(cfg, lm, hidden)
+    assert got.dtype == torch.float32 and ref.dtype == np.float32
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4 * np.abs(ref).max(), rtol=0)
 
 
 def _arena(rng, C):
