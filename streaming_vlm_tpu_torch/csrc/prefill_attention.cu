@@ -1,325 +1,497 @@
 // Chunk-prefill attention over the streaming KV arena plus the chunk's own
-// block (kernel K1 of the port).
+// block (kernel K1 of the port), written for the H100.
 //
 // Replaces the TPU kernel streaming_vlm_tpu/ops/attention.py
-// `streaming_prefill_attention` / `_flash_kernel`: GQA flash attention of a
-// T-token chunk over two KV sources under ONE online softmax in log2/exp2
-// form. Arena slots < visible_len are visible with no causal mask; the
-// chunk's own block is causal. The arena K is either pre-rotated (the
-// engine's mode) or raw and rotated here from per-slot duplicated-half
-// cos/sin (ROTATE=true).
+// `streaming_prefill_attention` / `_flash_kernel` (its pallas_call at :854):
+// GQA flash attention of a T-token chunk over two KV sources under ONE
+// online softmax in log2/exp2 form. Arena slots < visible_len are visible
+// with no causal mask; the chunk's own block is causal. The arena K is
+// either pre-rotated (the engine's mode) or raw, with per-slot
+// duplicated-half cos/sin (raw mode).
 //
-// What bounds it on an H100: at the slice's T=640 (bucket) and an arena of
-// ~9k visible slots, each CTA re-reads the visible arena once per 64 query
-// rows, so the work is ~2*T*G*Hkv*(visible+T)*hd*2 flops (~37 GFLOP per
-// layer at 7B) against ~10 MB of arena bytes per layer: compute-bound.
-// This first version keeps the design simple and correct:
-//   * one CTA per (kv head, tile of BM=64 query rows); the G query heads of
-//     that kv head are packed as rows (row r -> token r / G, head r % G), so
-//     a group size that is not a power of two (G=7 at 7B) is only a
-//     different row count, with the ragged last tile masked;
-//   * arena tiles are visited only up to ceil(visible_len / BN) and self
-//     tiles only up to the CTA's causal limit: invisible tiles are never
-//     loaded;
-//   * both products use bf16 WMMA (16x16x16, f32 accumulate) from shared
-//     memory; the running (m, l) and the f32 output accumulator live in
-//     shared memory. wgmma/TMA pipelining is later work.
+// What bounds it on an H100: at the 7B path's T=640 (G=7, Hkv=4, hd=128)
+// and 9600 visible slots it does 4 * T * H * hd * (visible + (T+1)/2) =
+// 91.0 GFLOP on ~20 MB of inputs: 0.0920 ms at the bf16 tensor-core peak
+// against 0.006 ms of bytes, so it is bound by operations. What the design
+// does about it:
+//   * both products are wgmma (m64n128k16, bf16 in, f32 accumulate). Each
+//     of two consumer warpgroups owns 64 packed query rows; S = Q K^T reads
+//     Q and K from shared memory (both hd-contiguous: K-major); the f32 S
+//     fragment is rescaled, exponentiated and packed to bf16 in registers,
+//     where it is exactly the A fragment of O += P V, whose V is read from
+//     shared memory MN-major (the descriptor's transpose bit). S, P, the
+//     running (m, l) and O never leave registers inside the key loop;
+//   * K/V tiles of BN = 128 keys arrive by TMA into a ring of STAGES
+//     stages (the 128-byte swizzle the wgmma descriptors read), issued by
+//     one producer thread ahead of the consumers and tracked by mbarriers
+//     (full: bytes landed; empty: both warpgroups are done with a stage).
+//     TMA rather than cp.async: the producer spends no registers or
+//     instructions on addresses, the consumers none on copies, and keys at
+//     or past the limit (visible_len for the arena, T for the self block)
+//     lie outside the tensor map and arrive as zeros, so P . V never meets
+//     a stale or non-finite arena row. The maps are encoded per call on the
+//     host (the arena pointer changes with every layer);
+//   * masks only where needed: interior arena tiles and self tiles wholly
+//     below the warpgroup's first token are unmasked; only the tile that
+//     holds visible_len and the self tiles on the causal diagonal are;
+//   * packed GQA rows: row r of a kv head is (token r / G, head r % G), so
+//     G = 7 is only a row count; the ragged last tile computes zero rows
+//     that are never stored;
+//   * a grid sized to the card: the work of a call is the list of (kv
+//     head, 128-row tile, key tile) units, in that order, cut into one
+//     contiguous, equal share for each of n_ctas <= #SMs persistent CTAs
+//     (one per SM: 160 KB of shared memory, 384 threads). A share that
+//     covers a row tile's keys only in part stores its unnormalised
+//     log2-space partials (m, l, O) and a second small pass merges them.
+//     So T = 640 (4 x 35 row tiles x ~77 key tiles) and T = 64 (16 row
+//     tiles) both fill all 132 SMs in one wave. The plan (which CTA runs
+//     which units) is made on the host: ops/attention.py `prefill_plan`;
+//   * raw mode rotates each visible arena key once per call (a pass into
+//     a bf16 scratch, f32 arithmetic with no contraction, then rounded, as
+//     the plain version does), not once per row tile; the attention then
+//     reads the scratch as a pre-rotated arena.
 //
 // Built by nvcc for sm_90a into a plain-C shared library (see
-// streaming_vlm_tpu_torch/ops/_kernels.py); the launch returns
-// cudaGetLastError() so the Python wrapper can raise on a refused launch.
+// streaming_vlm_tpu_torch/ops/_kernels.py); the entry point returns
+// cudaGetLastError() so the Python wrapper raises on a refused launch.
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
 
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int HD = 128;           // head dim (the wrapper rejects others)
-constexpr int BM = 64;            // query rows per CTA
-constexpr int BN = 64;            // keys per tile
-constexpr int WARPS = 4;          // each warp owns 16 query rows
-constexpr int THREADS = WARPS * 32;
-constexpr int LDB = HD + 8;       // bf16 row stride of the Q/K/V tiles
-constexpr int LDP = BN + 8;       // bf16 row stride of P
-constexpr int LDS = BN + 4;       // f32 row stride of S
-constexpr int LDO = HD + 4;       // f32 row stride of O
+using bf16 = __nv_bfloat16;
+using namespace hopper;
 
+constexpr int HD = 128;        // head dim (the wrapper rejects others)
+constexpr int BM = 128;        // packed query rows per work tile
+constexpr int BN = 128;        // keys per K/V tile
+constexpr int CONSUMERS = 2;   // warpgroups of 64 rows each
+constexpr int STAGES = 2;      // K/V ring depth
+constexpr int THREADS = (CONSUMERS + 1) * 128;  // + one producer warpgroup
+constexpr int WG_ROWS = BM / CONSUMERS;
+constexpr int Q_BYTES = WG_ROWS * HD * 2;   // one warpgroup's Q tile: 16 KB
+constexpr int KV_BYTES = BN * HD * 2;       // one K or V tile: 32 KB
+constexpr int BOX_BYTES = KV_BYTES / 2;     // one TMA box: 64 of the 128 columns
+constexpr int SEG_INTS = 5;                 // kv head, row tile, unit begin, unit end, partial
+constexpr int MERGE_INTS = 4;               // kv head, row tile, first partial, count
+constexpr int MERGE_ROWS = 16;              // rows per CTA of the merge pass
 constexpr size_t SMEM_BYTES =
-    sizeof(bf16) * (BM * LDB + 2 * BN * LDB + BM * LDP) +
-    sizeof(float) * (BM * LDS + BM * LDO + 2 * BM);
+    1024 + CONSUMERS * Q_BYTES + 2 * STAGES * KV_BYTES + 3 * STAGES * sizeof(uint64_t);
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+static_assert(HD == 128 && BN == 128 && WG_ROWS == 64, "wgmma shapes below assume these");
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+// the self block's causal limit: key j is visible to token t
+__device__ __forceinline__ bool causal_ok(int key, int t) { return key <= t; }
 
-__device__ __forceinline__ void unpack8(const uint4& u, float* f) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 x = __bfloat1622float2(h[i]);
-    f[2 * i] = x.x;
-    f[2 * i + 1] = x.y;
-  }
-}
+__global__ void __launch_bounds__(THREADS, 1) prefill_attention_kernel(
+    const __grid_constant__ CUtensorMap ka_map,  // arena K (pre-rotated): rows [0, visible_len)
+    const __grid_constant__ CUtensorMap va_map,
+    const __grid_constant__ CUtensorMap ks_map,  // self block: rows [0, T)
+    const __grid_constant__ CUtensorMap vs_map,
+    const bf16* __restrict__ q,    // [T, H, HD]
+    bf16* __restrict__ out,        // [T, H, HD]
+    float* __restrict__ part_o,    // [n_partials, BM, HD]
+    float* __restrict__ part_ml,   // [n_partials, 2, BM]
+    const int* __restrict__ segs,  // [n_segs, SEG_INTS]
+    const int* __restrict__ cta_segs,  // [n_ctas + 1]
+    int T, int H, int G, int visible_len, float qscale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* sQ = smem;
+  unsigned char* sK = smem + CONSUMERS * Q_BYTES;
+  unsigned char* sV = sK + STAGES * KV_BYTES;
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(sV + STAGES * KV_BYTES);
+  uint64_t* vfull = kfull + STAGES;
+  uint64_t* empty = vfull + STAGES;
 
-__device__ __forceinline__ uint4 pack8(const float* f) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  return u;
-}
+  const int wg = threadIdx.x / 128;
+  const int seg_begin = cta_segs[blockIdx.x];
+  const int seg_end = cta_segs[blockIdx.x + 1];
+  const int n_arena = (visible_len + BN - 1) / BN;
 
-// Load one BN-key tile of K and V (rows [j0, j0 + BN) of a [n, Hkv, HD]
-// source) into shared memory; keys >= n_keys are zero-filled so that masked
-// columns can never carry NaN/Inf garbage into P @ V. With ROTATE the K rows
-// are rotated in f32 from per-slot cos/sin [n, HD] and rounded to bf16.
-template <bool ROTATE>
-__device__ __forceinline__ void load_kv_tile(
-    bf16* sK, bf16* sV, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const float* __restrict__ cos2, const float* __restrict__ sin2,
-    int j0, int n_keys, int Hkv, int kvh, int tid) {
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int i = tid; i < BN * (HD / 8); i += THREADS) {
-    const int r = i / (HD / 8);
-    const int c8 = (i % (HD / 8)) * 8;
-    const int key = j0 + r;
-    uint4 vv = zero;
-    if (key < n_keys) {
-      vv = *reinterpret_cast<const uint4*>(v + ((size_t)key * Hkv + kvh) * HD + c8);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&vfull[s], 1);
+      mbar_init(&empty[s], CONSUMERS * 4);  // lane 0 of every consumer warp
     }
-    *reinterpret_cast<uint4*>(sV + r * LDB + c8) = vv;
-    if (!ROTATE) {
-      uint4 kk = zero;
-      if (key < n_keys) {
-        kk = *reinterpret_cast<const uint4*>(k + ((size_t)key * Hkv + kvh) * HD + c8);
-      }
-      *reinterpret_cast<uint4*>(sK + r * LDB + c8) = kk;
-    }
-  }
-  if (ROTATE) {
-    constexpr int H2 = HD / 2;
-    for (int i = tid; i < BN * (H2 / 8); i += THREADS) {
-      const int r = i / (H2 / 8);
-      const int c8 = (i % (H2 / 8)) * 8;
-      const int key = j0 + r;
-      uint4 lo = zero, hi = zero;
-      if (key < n_keys) {
-        const bf16* row = k + ((size_t)key * Hkv + kvh) * HD;
-        const float* cr = cos2 + (size_t)key * HD;
-        const float* sr = sin2 + (size_t)key * HD;
-        float a[8], b[8], o1[8], o2[8];
-        unpack8(*reinterpret_cast<const uint4*>(row + c8), a);
-        unpack8(*reinterpret_cast<const uint4*>(row + H2 + c8), b);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          // duplicated-half convention: rot = cat(-k2, k1)
-          o1[e] = a[e] * cr[c8 + e] - b[e] * sr[c8 + e];
-          o2[e] = b[e] * cr[H2 + c8 + e] + a[e] * sr[H2 + c8 + e];
-        }
-        lo = pack8(o1);
-        hi = pack8(o2);
-      }
-      *reinterpret_cast<uint4*>(sK + r * LDB + c8) = lo;
-      *reinterpret_cast<uint4*>(sK + r * LDB + H2 + c8) = hi;
-    }
-  }
-}
-
-template <bool ROTATE>
-__global__ void __launch_bounds__(THREADS) prefill_attention_kernel(
-    const bf16* __restrict__ q,       // [T, H, HD]
-    const bf16* __restrict__ ka,      // [C, Hkv, HD]
-    const bf16* __restrict__ va,      // [C, Hkv, HD]
-    const float* __restrict__ acos2,  // [C, HD] (ROTATE only)
-    const float* __restrict__ asin2,
-    const bf16* __restrict__ ks,      // [T, Hkv, HD] rotated self block
-    const bf16* __restrict__ vs,
-    bf16* __restrict__ out,           // [T, H, HD]
-    int T, int H, int Hkv, int G, int visible_len, float qscale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + BM * LDB;
-  bf16* sV = sK + BN * LDB;
-  bf16* sP = sV + BN * LDB;
-  float* sS = reinterpret_cast<float*>(sP + BM * LDP);
-  float* sO = sS + BM * LDS;
-  float* sM = sO + BM * LDO;
-  float* sL = sM + BM;
-
-  const int kvh = blockIdx.x;
-  const int r0 = blockIdx.y * BM;
-  const int R = T * G;  // packed (token, group-head) rows
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-
-  // Q tile: scaled by softmax-scale * log2(e) in f32, then rounded to bf16
-  // for the tensor cores (the TPU kernel folds the same factor into q).
-  for (int i = tid; i < BM * (HD / 8); i += THREADS) {
-    const int r = i / (HD / 8);
-    const int c8 = (i % (HD / 8)) * 8;
-    const int gr = r0 + r;
-    float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (gr < R) {
-      const int t = gr / G;
-      const int g = gr - t * G;
-      unpack8(*reinterpret_cast<const uint4*>(q + ((size_t)t * H + kvh * G + g) * HD + c8), f);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) f[e] *= qscale;
-    }
-    *reinterpret_cast<uint4*>(sQ + r * LDB + c8) = pack8(f);
-  }
-  for (int i = tid; i < BM * HD; i += THREADS) sO[(i / HD) * LDO + (i % HD)] = 0.f;
-  for (int i = tid; i < BM; i += THREADS) {
-    sM[i] = -INFINITY;
-    sL[i] = 0.f;
-  }
-
-  const int n_arena_tiles = (visible_len + BN - 1) / BN;
-  const int t_last = (min(r0 + BM, R) - 1) / G;  // highest query token here
-  const int n_self_tiles = t_last / BN + 1;
-
-  for (int it = 0; it < n_arena_tiles + n_self_tiles; ++it) {
-    const bool arena = it < n_arena_tiles;
-    const int j0 = (arena ? it : it - n_arena_tiles) * BN;
-    __syncthreads();  // previous tile's K/V/P reads are done
-    if (arena) {
-      load_kv_tile<ROTATE>(sK, sV, ka, va, acos2, asin2, j0, visible_len, Hkv, kvh, tid);
-    } else {
-      load_kv_tile<false>(sK, sV, ks, vs, nullptr, nullptr, j0, T, Hkv, kvh, tid);
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x BN keys (log2-space logits)
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BN / 16];
-#pragma unroll
-      for (int n = 0; n < BN / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-#pragma unroll
-      for (int kk = 0; kk < HD; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, sQ + warp * 16 * LDB + kk, LDB);
-#pragma unroll
-        for (int n = 0; n < BN / 16; ++n) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-          wmma::load_matrix_sync(b, sK + n * 16 * LDB + kk, LDB);
-          wmma::mma_sync(acc[n], a, b, acc[n]);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < BN / 16; ++n) {
-        wmma::store_matrix_sync(sS + warp * 16 * LDS + n * 16, acc[n], LDS, wmma::mem_row_major);
-      }
-    }
-    __syncwarp();
-
-    // online softmax over this warp's rows; lane owns columns lane, lane+32
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = warp * 16 + rr;
-      const int gr = r0 + r;
-      const int t = gr / G;
-      const int c0 = j0 + lane;
-      const int c1 = c0 + 32;
-      bool v0, v1;
-      if (arena) {
-        v0 = c0 < visible_len;
-        v1 = c1 < visible_len;
-      } else {
-        v0 = c0 <= t && c0 < T;
-        v1 = c1 <= t && c1 < T;
-      }
-      v0 = v0 && gr < R;
-      v1 = v1 && gr < R;
-      const float s0 = v0 ? sS[r * LDS + lane] : -INFINITY;
-      const float s1 = v1 ? sS[r * LDS + lane + 32] : -INFINITY;
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float p0 = v0 ? exp2f(s0 - m_new) : 0.f;
-      const float p1 = v1 ? exp2f(s1 - m_new) : 0.f;
-      const float psum = warp_sum(p0 + p1);
-      const float alpha = (m_old == -INFINITY) ? 0.f : exp2f(m_old - m_new);
-      sP[r * LDP + lane] = __float2bfloat16(p0);
-      sP[r * LDP + lane + 32] = __float2bfloat16(p1);
-#pragma unroll
-      for (int d = lane; d < HD; d += 32) sO[r * LDO + d] *= alpha;
-      __syncwarp();  // every lane has read sM[r] / sL[r]
-      if (lane == 0) {
-        sM[r] = m_new;
-        sL[r] = sL[r] * alpha + psum;
-      }
-      __syncwarp();
-    }
-
-    // O += P V for this warp's rows
-#pragma unroll
-    for (int n = 0; n < HD / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-      wmma::load_matrix_sync(o, sO + warp * 16 * LDO + n * 16, LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BN; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, sP + warp * 16 * LDP + kk, LDP);
-        wmma::load_matrix_sync(b, sV + kk * LDB + n * 16, LDB);
-        wmma::mma_sync(o, a, b, o);
-      }
-      wmma::store_matrix_sync(sO + warp * 16 * LDO + n * 16, o, LDO, wmma::mem_row_major);
-    }
+    mbar_fence_init();
   }
   __syncthreads();
 
-  for (int i = tid; i < BM * HD; i += THREADS) {
-    const int r = i / HD;
-    const int d = i % HD;
-    const int gr = r0 + r;
-    if (gr < R) {
-      const int t = gr / G;
-      const int g = gr - t * G;
-      const float o = sO[r * LDO + d] / fmaxf(sL[r], 1e-20f);
-      out[((size_t)t * H + kvh * G + g) * HD + d] = __float2bfloat16(o);
+  if (wg == CONSUMERS) {
+    // ---- producer: one thread keeps the K/V ring full
+    regs_dealloc<40>();
+    if (threadIdx.x % 128 == 0) {
+      tma_prefetch_map(&ka_map);
+      tma_prefetch_map(&va_map);
+      tma_prefetch_map(&ks_map);
+      tma_prefetch_map(&vs_map);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int si = seg_begin; si < seg_end; ++si) {
+        const int* sg = segs + si * SEG_INTS;
+        const int kvh = sg[0];
+        for (int u = sg[2]; u < sg[3]; ++u) {
+          const bool arena = u < n_arena;
+          const CUtensorMap* km = arena ? &ka_map : &ks_map;
+          const CUtensorMap* vm = arena ? &va_map : &vs_map;
+          const int key0 = (arena ? u : u - n_arena) * BN;
+          mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* k_dst = sK + stage * KV_BYTES;
+          unsigned char* v_dst = sV + stage * KV_BYTES;
+          mbar_arrive_expect_tx(&kfull[stage], KV_BYTES);
+          tma_load_3d(k_dst, km, &kfull[stage], 0, kvh, key0);
+          tma_load_3d(k_dst + BOX_BYTES, km, &kfull[stage], 64, kvh, key0);
+          mbar_arrive_expect_tx(&vfull[stage], KV_BYTES);
+          tma_load_3d(v_dst, vm, &vfull[stage], 0, kvh, key0);
+          tma_load_3d(v_dst + BOX_BYTES, vm, &vfull[stage], 64, kvh, key0);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+      // stay until the consumers have released every stage in flight
+      for (int s = 0; s < STAGES; ++s) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns rows [wg * 64, wg * 64 + 64) of a tile
+    regs_alloc<232>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int R = T * G;
+    unsigned char* q_tile = sQ + wg * Q_BYTES;
+    int stage = 0;
+    uint32_t phase = 0;
+
+    for (int si = seg_begin; si < seg_end; ++si) {
+      const int* sg = segs + si * SEG_INTS;
+      const int kvh = sg[0], rt = sg[1], u_begin = sg[2], u_end = sg[3], part = sg[4];
+      const int r0 = rt * BM + wg * WG_ROWS;  // this warpgroup's first packed row
+
+      // Q: scaled by softmax-scale * log2(e) in f32, rounded to bf16, stored
+      // in the 128-byte swizzle (two 64-column halves of 8 KB)
+      named_barrier_sync(1 + wg, 128);  // the last segment's reads of q_tile are done
+      for (int i = tid; i < WG_ROWS * (HD / 8); i += 128) {
+        const int row = i / (HD / 8);
+        const int c16 = i % (HD / 8);  // 16-byte chunk of the row
+        const int gr = r0 + row;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (gr < R) {
+          const int t = gr / G;
+          const int g = gr - t * G;
+          const uint4 x = *reinterpret_cast<const uint4*>(
+              q + ((size_t)t * H + kvh * G + g) * HD + c16 * 8);
+          const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+          uint32_t* w = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 f = __bfloat1622float2(h[e]);
+            w[e] = pack_bf16(f.x * qscale, f.y * qscale);
+          }
+        }
+        const int half = c16 / 8;
+        const int chunk = (c16 % 8) ^ (row % 8);
+        *reinterpret_cast<uint4*>(q_tile + half * (Q_BYTES / 2) + row * 128 + chunk * 16) = v;
+      }
+      fence_proxy_async();
+      named_barrier_sync(1 + wg, 128);
+
+      // rows of this thread in the accumulator layout, and their tokens
+      const int ra = r0 + warp * 16 + lane / 4;
+      const int rb = ra + 8;
+      const int ta = ra / G, tb = rb / G;
+      const int t_first = r0 / G;  // the warpgroup's first token
+      float o[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) o[i] = 0.f;
+      float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+
+      for (int u = u_begin; u < u_end; ++u) {
+        const bool arena = u < n_arena;
+        const int key0 = (arena ? u : u - n_arena) * BN;
+        const unsigned char* k_tile = sK + stage * KV_BYTES;
+        const unsigned char* v_tile = sV + stage * KV_BYTES;
+
+        // S = Q K^T (log2-space logits)
+        float s[64];
+        mbar_wait(&kfull[stage], phase);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < HD / 16; ++k) {
+          const int half = k / 4, kk = k % 4;
+          const uint64_t da = smem_desc_sw128(q_tile + half * (Q_BYTES / 2) + kk * 32, 16, 1024);
+          const uint64_t db = smem_desc_sw128(k_tile + half * BOX_BYTES + kk * 32, 16, 1024);
+          wgmma_m64n128k16_ss(s, da, db, k > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+
+        // mask the tile that holds visible_len and the self tiles on the
+        // diagonal; every other tile is wholly visible
+        const bool masked = arena ? key0 + BN > visible_len : key0 + BN - 1 > t_first;
+        if (masked) {
+#pragma unroll
+          for (int i = 0; i < 64; ++i) {
+            const int key = key0 + 8 * (i / 4) + 2 * (lane % 4) + (i & 1);
+            const int t = (i & 2) ? tb : ta;
+            const bool ok = arena ? key < visible_len : causal_ok(key, t);
+            s[i] = ok ? s[i] : -INFINITY;
+          }
+        }
+
+        // online softmax in log2 space; rows a (i & 2 == 0) and b
+        float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+        for (int i = 0; i < 64; i += 4) {
+          mx_a = fmaxf(mx_a, fmaxf(s[i], s[i + 1]));
+          mx_b = fmaxf(mx_b, fmaxf(s[i + 2], s[i + 3]));
+        }
+#pragma unroll
+        for (int off = 1; off <= 2; off <<= 1) {
+          mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+          mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+        }
+        const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+        // a row with no visible key so far keeps m = -inf: subtract 0
+        const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
+        const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
+        const float alpha_a = exp2f(m_a - base_a), alpha_b = exp2f(m_b - base_b);
+        m_a = mn_a;
+        m_b = mn_b;
+        float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+        for (int i = 0; i < 64; i += 4) {
+          s[i] = exp2f(s[i] - base_a);
+          s[i + 1] = exp2f(s[i + 1] - base_a);
+          s[i + 2] = exp2f(s[i + 2] - base_b);
+          s[i + 3] = exp2f(s[i + 3] - base_b);
+          sum_a += s[i] + s[i + 1];
+          sum_b += s[i + 2] + s[i + 3];
+        }
+        l_a = l_a * alpha_a + sum_a;
+        l_b = l_b * alpha_b + sum_b;
+#pragma unroll
+        for (int i = 0; i < 64; i += 4) {
+          o[i] *= alpha_a;
+          o[i + 1] *= alpha_a;
+          o[i + 2] *= alpha_b;
+          o[i + 3] *= alpha_b;
+        }
+        // P in bf16: the S fragment of keys [16k, 16k + 16) is the A
+        // fragment of the k-th step of P . V
+        uint32_t p[BN / 16][4];
+#pragma unroll
+        for (int k = 0; k < BN / 16; ++k) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p[k][e] = pack_bf16(s[8 * k + 2 * e], s[8 * k + 2 * e + 1]);
+        }
+
+        // O += P V
+        mbar_wait(&vfull[stage], phase);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < BN / 16; ++k) {
+          const uint64_t db = smem_desc_sw128(v_tile + k * 16 * 128, BOX_BYTES, 1024);
+          wgmma_m64n128k16_rs_tb(o, p[k], db, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+#pragma unroll
+        for (int k = 0; k < BN / 16; ++k) fence_regs(p[k]);  // read by the wgmma until here
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[stage]);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+        l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+      }
+      const int col0 = 2 * (lane % 4);
+      if (part < 0) {  // this segment covers the row tile's keys: the output
+        const float inv_a = 1.f / fmaxf(l_a, 1e-20f), inv_b = 1.f / fmaxf(l_b, 1e-20f);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = half ? rb : ra;
+          if (r >= R) continue;
+          const int t = r / G;
+          const int g = r - t * G;
+          bf16* orow = out + ((size_t)t * H + kvh * G + g) * HD;
+          const float inv = half ? inv_b : inv_a;
+#pragma unroll
+          for (int j = 0; j < HD / 8; ++j) {
+            *reinterpret_cast<uint32_t*>(orow + 8 * j + col0) =
+                pack_bf16(o[4 * j + 2 * half] * inv, o[4 * j + 2 * half + 1] * inv);
+          }
+        }
+      } else {  // a share of the keys: unnormalised partials for the merge
+        const int la = wg * WG_ROWS + warp * 16 + lane / 4;  // row within the tile
+        float* po = part_o + (size_t)part * BM * HD;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float* prow = po + (size_t)(la + 8 * half) * HD;
+#pragma unroll
+          for (int j = 0; j < HD / 8; ++j) {
+            *reinterpret_cast<float2*>(prow + 8 * j + col0) =
+                make_float2(o[4 * j + 2 * half], o[4 * j + 2 * half + 1]);
+          }
+        }
+        if (lane % 4 == 0) {
+          float* pml = part_ml + (size_t)part * 2 * BM;
+          pml[la] = m_a;
+          pml[la + 8] = m_b;
+          pml[BM + la] = l_a;
+          pml[BM + la + 8] = l_b;
+        }
+      }
     }
   }
+}
+
+// Merge of the partials of the row tiles that were split across CTAs: one
+// log2-space softmax over the shares (m, l, O), then O / l in bf16.
+__global__ void __launch_bounds__(HD) prefill_merge_kernel(
+    const float* __restrict__ part_o, const float* __restrict__ part_ml,
+    const int* __restrict__ merges, bf16* __restrict__ out, int T, int H, int G) {
+  const int* mg = merges + blockIdx.x * MERGE_INTS;
+  const int kvh = mg[0], rt = mg[1], p0 = mg[2], n = mg[3];
+  const int R = T * G;
+  const int d = threadIdx.x;
+  for (int rr = 0; rr < MERGE_ROWS; ++rr) {
+    const int row = blockIdx.y * MERGE_ROWS + rr;
+    const int gr = rt * BM + row;
+    if (gr >= R) break;
+    float m = -INFINITY;
+    for (int i = 0; i < n; ++i) m = fmaxf(m, part_ml[(size_t)(p0 + i) * 2 * BM + row]);
+    float num = 0.f, den = 0.f;
+    for (int i = 0; i < n; ++i) {
+      const float* pml = part_ml + (size_t)(p0 + i) * 2 * BM;
+      const float w = exp2f(pml[row] - m);
+      den += w * pml[BM + row];
+      num += w * part_o[((size_t)(p0 + i) * BM + row) * HD + d];
+    }
+    const int t = gr / G;
+    const int g = gr - t * G;
+    out[((size_t)t * H + kvh * G + g) * HD + d] = __float2bfloat16(num / fmaxf(den, 1e-20f));
+  }
+}
+
+// Raw mode: the visible arena K [n_slots, Hkv, HD] rotated from per-slot
+// duplicated-half cos/sin [n_slots, HD] in f32, as the plain version:
+// cat(k1 * c1 - k2 * s1, k2 * c2 + k1 * s2), each product and sum one IEEE
+// op (no contraction into an FMA), then rounded to bf16. One thread per 8
+// column pairs.
+__global__ void prefill_rotate_kernel(const bf16* __restrict__ k, const float* __restrict__ cos2,
+                                      const float* __restrict__ sin2, bf16* __restrict__ k_rot,
+                                      int n_rows, int Hkv) {
+  constexpr int H2 = HD / 2;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int row = i / (H2 / 8);
+  if (row >= n_rows) return;
+  const int c8 = (i % (H2 / 8)) * 8;
+  const size_t slot = row / Hkv;
+  const bf16* kr = k + (size_t)row * HD;
+  const uint4 ua = *reinterpret_cast<const uint4*>(kr + c8);
+  const uint4 ub = *reinterpret_cast<const uint4*>(kr + H2 + c8);
+  const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&ua);
+  const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&ub);
+  const float* c = cos2 + slot * HD;
+  const float* s = sin2 + slot * HD;
+  float o1[8], o2[8];
+#pragma unroll
+  for (int e2 = 0; e2 < 4; ++e2) {
+    const float2 fa = __bfloat1622float2(a2[e2]);
+    const float2 fb = __bfloat1622float2(b2[e2]);
+    const float a[2] = {fa.x, fa.y}, b[2] = {fb.x, fb.y};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int e = 2 * e2 + h;
+      o1[e] = __fsub_rn(__fmul_rn(a[h], c[c8 + e]), __fmul_rn(b[h], s[c8 + e]));
+      o2[e] = __fadd_rn(__fmul_rn(b[h], c[H2 + c8 + e]), __fmul_rn(a[h], s[H2 + c8 + e]));
+    }
+  }
+  uint4 lo, hi;
+  uint32_t* wl = reinterpret_cast<uint32_t*>(&lo);
+  uint32_t* wh = reinterpret_cast<uint32_t*>(&hi);
+#pragma unroll
+  for (int e2 = 0; e2 < 4; ++e2) {
+    wl[e2] = pack_bf16(o1[2 * e2], o1[2 * e2 + 1]);
+    wh[e2] = pack_bf16(o2[2 * e2], o2[2 * e2 + 1]);
+  }
+  bf16* dst = k_rot + (size_t)row * HD;
+  *reinterpret_cast<uint4*>(dst + c8) = lo;
+  *reinterpret_cast<uint4*>(dst + H2 + c8) = hi;
 }
 
 }  // namespace
 
+extern "C" int svt_prefill_block_rows() { return BM; }
+extern "C" int svt_prefill_block_keys() { return BN; }
+
+// plan: int32 on the device, [n_segs * 5 segments][n_ctas + 1 CTA offsets]
+// [n_merges * 4 merges] (ops/attention.py prefill_plan). Raw mode (acos2 !=
+// null) rotates ka's visible rows into k_rot first and attends over k_rot.
 extern "C" int svt_prefill_attention(
-    const void* q, const void* ka, const void* va, const void* acos2,
-    const void* asin2, const void* ks, const void* vs, void* out, int T, int H,
-    int Hkv, int hd, int visible_len, void* stream) {
-  if (hd != HD || H % Hkv != 0 || T <= 0) return (int)cudaErrorInvalidValue;
+    const void* q, const void* ka, const void* va, const void* acos2, const void* asin2,
+    void* k_rot, const void* ks, const void* vs, void* out, void* part_o, void* part_ml,
+    const void* plan, int n_ctas, int n_segs, int n_merges, int T, int H, int Hkv, int hd,
+    int visible_len, void* stream) {
+  if (hd != HD || Hkv <= 0 || H % Hkv != 0 || T <= 0 || n_ctas <= 0 || visible_len < 0)
+    return (int)cudaErrorInvalidValue;
   const int G = H / Hkv;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const uint64_t slot_stride = (uint64_t)Hkv * HD * sizeof(bf16);
+  if (acos2 != nullptr && visible_len > 0) {
+    if (k_rot == nullptr) return (int)cudaErrorInvalidValue;
+    const int n_rows = visible_len * Hkv;
+    const int threads = 256;
+    const int blocks = (n_rows * (HD / 16) + threads - 1) / threads;
+    prefill_rotate_kernel<<<blocks, threads, 0, st>>>(
+        (const bf16*)ka, (const float*)acos2, (const float*)asin2, (bf16*)k_rot, n_rows, Hkv);
+    ka = k_rot;
+  }
+  CUtensorMap ka_map, va_map, ks_map, vs_map;
+  const int arena_rows = visible_len > 0 ? visible_len : 1;  // unused when 0
+  if (!svt_tensor_map_rows(&ka_map, ka, arena_rows, Hkv, HD * sizeof(bf16), slot_stride, BN) ||
+      !svt_tensor_map_rows(&va_map, va, arena_rows, Hkv, HD * sizeof(bf16), slot_stride, BN) ||
+      !svt_tensor_map_rows(&ks_map, ks, T, Hkv, HD * sizeof(bf16), slot_stride, BN) ||
+      !svt_tensor_map_rows(&vs_map, vs, T, Hkv, HD * sizeof(bf16), slot_stride, BN))
+    return (int)cudaErrorInvalidValue;
+  const int* segs = reinterpret_cast<const int*>(plan);
+  const int* cta_segs = segs + n_segs * SEG_INTS;
+  const int* merges = cta_segs + n_ctas + 1;
   const float qscale = 1.4426950408889634f / sqrtf((float)hd);
-  const dim3 grid(Hkv, (T * G + BM - 1) / BM);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (acos2 != nullptr) {
-    cudaFuncSetAttribute(prefill_attention_kernel<true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
-    prefill_attention_kernel<true><<<grid, THREADS, SMEM_BYTES, s>>>(
-        (const bf16*)q, (const bf16*)ka, (const bf16*)va, (const float*)acos2,
-        (const float*)asin2, (const bf16*)ks, (const bf16*)vs, (bf16*)out, T, H,
-        Hkv, G, visible_len, qscale);
-  } else {
-    cudaFuncSetAttribute(prefill_attention_kernel<false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
-    prefill_attention_kernel<false><<<grid, THREADS, SMEM_BYTES, s>>>(
-        (const bf16*)q, (const bf16*)ka, (const bf16*)va, nullptr, nullptr,
-        (const bf16*)ks, (const bf16*)vs, (bf16*)out, T, H, Hkv, G, visible_len,
-        qscale);
+  cudaFuncSetAttribute(prefill_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)SMEM_BYTES);
+  prefill_attention_kernel<<<n_ctas, THREADS, SMEM_BYTES, st>>>(
+      ka_map, va_map, ks_map, vs_map, (const bf16*)q, (bf16*)out, (float*)part_o,
+      (float*)part_ml, segs, cta_segs, T, H, G, visible_len, qscale);
+  if (n_merges > 0) {
+    prefill_merge_kernel<<<dim3(n_merges, BM / MERGE_ROWS), HD, 0, st>>>(
+        (const float*)part_o, (const float*)part_ml, merges, (bf16*)out, T, H, G);
   }
   return (int)cudaGetLastError();
 }

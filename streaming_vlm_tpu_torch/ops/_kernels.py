@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (
     "prefill_attention.cu", "decode_attention.cu", "decode_attention_raw.cu", "int8_gemm.cu",
 )
-HEADERS = ("decode_common.cuh",)
+HEADERS = ("decode_common.cuh", "hopper.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -117,8 +117,12 @@ def lib() -> ctypes.CDLL:
     if _lib is None:
         so = ctypes.CDLL(str(build()))
         P, I = ctypes.c_void_p, ctypes.c_int
-        so.svt_prefill_attention.argtypes = [P] * 8 + [I] * 5 + [P]
+        so.svt_prefill_attention.argtypes = [P] * 12 + [I] * 8 + [P]
         so.svt_prefill_attention.restype = I
+        so.svt_prefill_block_rows.argtypes = []
+        so.svt_prefill_block_rows.restype = I
+        so.svt_prefill_block_keys.argtypes = []
+        so.svt_prefill_block_keys.restype = I
         so.svt_decode_attention.argtypes = [P] * 9 + [I] * 7 + [P]
         so.svt_decode_attention.restype = I
         so.svt_decode_attention_raw.argtypes = [P] * 13 + [I] * 8 + [P]
@@ -139,5 +143,6 @@ def lib() -> ctypes.CDLL:
         so.decode_split_size = so.svt_decode_split_size()
         so.decode_max_small_rows = so.svt_decode_max_small_rows()
         so.int8_small_m = so.svt_int8_small_m()
+        so.prefill_block = (so.svt_prefill_block_rows(), so.svt_prefill_block_keys())
         _lib = so
     return _lib

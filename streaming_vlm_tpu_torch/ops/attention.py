@@ -4,7 +4,8 @@ against. Each replaces the function of the same name in the JAX package's
 streaming_vlm_tpu/ops/attention.py:
 
 * `streaming_prefill_attention` (K1, csrc/prefill_attention.cu): chunk
-  prefill over the arena (pre-rotated, or raw and rotated in the kernel).
+  prefill over the arena (pre-rotated, or raw and rotated once per call by
+  the kernel's rotate pass), run by persistent CTAs over `prefill_plan`.
 * `streaming_decode_attention_full` (K2, csrc/decode_attention.cu): one
   token over the pre-rotated arena + decode delta + self.
 * `streaming_decode_attention_int8` (K3, csrc/decode_attention_raw.cu): one
@@ -26,7 +27,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -120,6 +121,155 @@ def prefill_attention_plain(
     return gqa_attention_multi(q_rot, parts).reshape(T, H, hd)
 
 
+# K1's work tile: packed (token, group-head) rows per row tile and keys per
+# K/V tile (csrc/prefill_attention.cu BM and BN; the wrapper checks that the
+# library agrees)
+PREFILL_BLOCK_ROWS = 128
+PREFILL_BLOCK_KEYS = 128
+
+
+class PrefillPlan(NamedTuple):
+    """Which CTA of K1 runs which work. A unit is one key tile of one row
+    tile of one kv head; a row tile's units are its arena tiles, then its
+    self tiles. The units, in (kv head, row tile, key tile) order, are cut
+    into one contiguous, equal (to one unit) share per CTA; a share's run
+    within one row tile is a segment."""
+
+    segs: np.ndarray  # int32 [n_segs, 5]: kv head, row tile, first unit, end unit, partial slot
+    # (-1: the segment covers all of the row tile's units and writes the output)
+    cta_segs: np.ndarray  # int32 [n_ctas + 1]: CTA c runs segs[cta_segs[c] : cta_segs[c + 1]]
+    merges: np.ndarray  # int32 [n_merges, 4]: kv head, row tile, first partial slot, count
+    n_partials: int
+
+    @property
+    def n_ctas(self) -> int:
+        return len(self.cta_segs) - 1
+
+
+def prefill_units(T: int, G: int, visible_len: int) -> Tuple[int, np.ndarray]:
+    """(arena units, self units of each row tile): ceil(visible_len / BN)
+    arena tiles, and the self tiles up to each row tile's last token."""
+    R = T * G
+    rt = np.arange(-(-R // PREFILL_BLOCK_ROWS))
+    t_last = (np.minimum((rt + 1) * PREFILL_BLOCK_ROWS, R) - 1) // G
+    return -(-int(visible_len) // PREFILL_BLOCK_KEYS), t_last // PREFILL_BLOCK_KEYS + 1
+
+
+def prefill_plan(T: int, G: int, Hkv: int, visible_len: int, n_sms: int) -> PrefillPlan:
+    """K1's schedule over min(n_sms, units) CTAs (one per SM). A row tile
+    whose units two or more CTAs share gets a partial slot per segment and
+    one merge."""
+    n_arena, n_self = prefill_units(T, G, visible_len)
+    n_rt = len(n_self)
+    units = np.tile(n_arena + n_self, Hkv)  # item i: kv head i // n_rt, row tile i % n_rt
+    starts = np.concatenate([[0], np.cumsum(units)])
+    n_ctas = min(int(n_sms), int(starts[-1]))
+    bounds = np.arange(n_ctas + 1) * int(starts[-1]) // n_ctas
+    segs, cta_segs = [], [0]
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        i = int(np.searchsorted(starts, lo, side="right")) - 1
+        while i < len(units) and starts[i] < hi:
+            ub, ue = max(lo, starts[i]) - starts[i], min(hi, starts[i + 1]) - starts[i]
+            whole = ub == 0 and ue == units[i]
+            segs.append([i // n_rt, i % n_rt, ub, ue, -1 if whole else 0])
+            i += 1
+        cta_segs.append(len(segs))
+    segs = np.array(segs, np.int32).reshape(-1, 5)
+    split = segs[:, 4] == 0
+    segs[split, 4] = np.arange(int(split.sum()))
+    merges = []  # the segments of one row tile are consecutive, so are its slots
+    for kvh, rt, _, _, slot in segs[split]:
+        if merges and merges[-1][:2] == [kvh, rt]:
+            merges[-1][3] += 1
+        else:
+            merges.append([kvh, rt, slot, 1])
+    plan = PrefillPlan(segs, np.array(cta_segs, np.int32),
+                       np.array(merges, np.int32).reshape(-1, 4), int(split.sum()))
+    for a in plan[:3]:
+        a.setflags(write=False)
+    return plan
+
+
+@functools.lru_cache(maxsize=32)
+def _prefill_plan_on(device: torch.device, T: int, G: int, Hkv: int, visible_len: int,
+                     n_sms: int) -> Tuple[PrefillPlan, torch.Tensor]:
+    """The plan and its int32 copy on the device, laid out as the kernel
+    reads it: segments, CTA offsets, merges. Cached: the 28 layers of a
+    chunk share one plan. The copy is staged in pinned memory and queued on
+    the current stream, so the host does not wait for the device work
+    already queued (PyTorch's pinned allocator keeps the staging buffer
+    until the copy has run)."""
+    plan = prefill_plan(T, G, Hkv, visible_len, n_sms)
+    flat = np.concatenate([plan.segs.ravel(), plan.cta_segs, plan.merges.ravel()])
+    staged = torch.from_numpy(flat.astype(np.int32)).pin_memory()
+    return plan, staged.to(device, non_blocking=True)
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def prefill_attention_by_plan(
+    q_rot, k_arena, v_arena, acos2, asin2, k_self_rot, v_self, visible_len: int, n_sms: int,
+) -> torch.Tensor:
+    """K1's schedule in plain PyTorch, f32 math: the raw arena rotated once
+    (and rounded to v's dtype), the scaled q rounded to q's dtype, then for
+    each segment of `prefill_plan` the log2-space online softmax over its
+    units with the kernel's masks, the output of whole segments normalised
+    and the partials of split row tiles merged in log2 space. Returns [T,
+    H, hd] in v's dtype; equal to `prefill_attention_plain` up to f32
+    summation order."""
+    T, H, hd = q_rot.shape
+    Hkv = k_arena.shape[1]
+    G, R, vis = H // Hkv, T * H // Hkv, int(visible_len)
+    bm, bn = PREFILL_BLOCK_ROWS, PREFILL_BLOCK_KEYS
+    plan = prefill_plan(T, G, Hkv, vis, n_sms)
+    ka = k_arena[:vis]
+    if acos2 is not None:
+        ka = _rotate_dup_half(ka, acos2[:vis], asin2[:vis]).to(v_arena.dtype)
+    qs = (q_rot.float() * (LOG2E / math.sqrt(hd))).to(q_rot.dtype).float()
+    qp = qs.reshape(T, Hkv, G, hd).transpose(0, 1).reshape(Hkv, R, hd)  # packed rows
+    n_arena = -(-vis // bn)
+    out = torch.empty(Hkv, R, hd, dtype=torch.float32, device=q_rot.device)
+    partials = {}
+    for kvh, rt, ub, ue, slot in plan.segs.tolist():
+        rows = torch.arange(rt * bm, min((rt + 1) * bm, R), device=q_rot.device)
+        t = rows // G
+        m = torch.full((len(rows),), -math.inf, device=q_rot.device)
+        l = torch.zeros(len(rows), device=q_rot.device)
+        acc = torch.zeros(len(rows), hd, device=q_rot.device)
+        for u in range(ub, ue):
+            if u < n_arena:
+                keys = torch.arange(u * bn, min((u + 1) * bn, vis), device=q_rot.device)
+                k, v, ok = ka[keys, kvh], v_arena[keys, kvh], None
+            else:
+                keys = torch.arange((u - n_arena) * bn, min((u - n_arena + 1) * bn, T),
+                                    device=q_rot.device)
+                k, v = k_self_rot[keys, kvh], v_self[keys, kvh]
+                ok = keys[None, :] <= t[:, None]
+            s = qp[kvh, rows] @ k.float().T
+            if ok is not None:
+                s = s.masked_fill(~ok, -math.inf)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            base = torch.where(m_new == -math.inf, 0.0, m_new)
+            p = torch.exp2(s - base[:, None])
+            alpha = torch.exp2(m - base)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[:, None] + p @ v.float()
+            m = m_new
+        if slot < 0:
+            out[kvh, rows] = acc / l.clamp_min(1e-20)[:, None]
+        else:
+            partials[slot] = (rows, m, l, acc)
+    for kvh, _, p0, n in plan.merges.tolist():
+        rows = partials[p0][0]
+        ms, ls, accs = (torch.stack([partials[p0 + i][j] for i in range(n)]) for j in (1, 2, 3))
+        w = torch.exp2(ms - ms.amax(dim=0))
+        out[kvh, rows] = (w[..., None] * accs).sum(0) / (w * ls).sum(0).clamp_min(1e-20)[:, None]
+    return out.reshape(Hkv, T, G, hd).transpose(0, 1).reshape(T, H, hd).to(v_arena.dtype)
+
+
 def streaming_prefill_attention(
     q_rot: torch.Tensor,  # [T, H, hd] rotated queries (unscaled)
     k_arena: torch.Tensor,  # [C, Hkv, hd] raw, or pre-rotated if acos2 is None
@@ -130,7 +280,10 @@ def streaming_prefill_attention(
     v_self: torch.Tensor,  # [T, Hkv, hd]
     visible_len: int,
 ) -> torch.Tensor:
-    """K1. Returns attention output [T, H, hd] in v's dtype."""
+    """K1. Returns attention output [T, H, hd] in v's dtype. On the card:
+    raw mode's rotate pass (into a [visible_len, Hkv, hd] bf16 scratch),
+    the attention over `prefill_plan`'s CTAs, and the merge of split row
+    tiles, one counted launch."""
     if q_rot.device.type == "cpu":
         return prefill_attention_plain(
             q_rot, k_arena, v_arena, acos2, asin2, k_self_rot, v_self, visible_len
@@ -146,7 +299,8 @@ def streaming_prefill_attention(
         raise ValueError(f"{name}: unsupported shapes q={tuple(q_rot.shape)} arena={tuple(k_arena.shape)}")
     if k_self_rot.shape != (T, Hkv, hd) or v_self.shape != (T, Hkv, hd):
         raise ValueError(f"{name}: self block must be [T, Hkv, hd]")
-    if not 0 <= int(visible_len) <= C:
+    vis = int(visible_len)
+    if not 0 <= vis <= C:
         raise ValueError(f"{name}: visible_len {visible_len} outside [0, {C}]")
     if (acos2 is None) != (asin2 is None):
         raise ValueError(f"{name}: pass both acos2 and asin2, or neither")
@@ -156,11 +310,20 @@ def streaming_prefill_attention(
             raise ValueError(f"{name}: acos2/asin2 must be f32 [C, hd]")
     from ._kernels import lib
 
+    so = lib()
+    if so.prefill_block != (PREFILL_BLOCK_ROWS, PREFILL_BLOCK_KEYS):
+        raise RuntimeError(f"{name}: the library's tile {so.prefill_block} is not the plan's")
+    dev = q_rot.device
+    plan, plan_dev = _prefill_plan_on(dev, T, H // Hkv, Hkv, vis, _sm_count(dev))
     out = torch.empty_like(q_rot)
-    err = lib().svt_prefill_attention(
-        ptr(q_rot), ptr(k_arena), ptr(v_arena), ptr(acos2), ptr(asin2),
-        ptr(k_self_rot), ptr(v_self), ptr(out), T, H, Hkv, hd, int(visible_len),
-        stream(),
+    part_o = torch.empty(plan.n_partials, PREFILL_BLOCK_ROWS, hd, dtype=torch.float32, device=dev)
+    part_ml = torch.empty(plan.n_partials, 2, PREFILL_BLOCK_ROWS, dtype=torch.float32, device=dev)
+    k_rot = (torch.empty(vis, Hkv, hd, dtype=torch.bfloat16, device=dev)
+             if acos2 is not None and vis else None)
+    err = so.svt_prefill_attention(
+        ptr(q_rot), ptr(k_arena), ptr(v_arena), ptr(acos2), ptr(asin2), ptr(k_rot),
+        ptr(k_self_rot), ptr(v_self), ptr(out), ptr(part_o), ptr(part_ml), ptr(plan_dev),
+        plan.n_ctas, len(plan.segs), len(plan.merges), T, H, Hkv, hd, vis, stream(),
     )
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")

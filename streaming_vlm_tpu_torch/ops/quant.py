@@ -2,9 +2,11 @@
 weights (kernel K5).
 
 Port of streaming_vlm_tpu/ops/quant.py. The arithmetic is the JAX
-package's, op for op, so that both give the same bits: s = max|x| / 127
-clamped at 1e-12, q = clip(round(x / s), -127, 127) with round half to even
-(torch.round and jnp.round agree) and a true division x / s.
+package's, op for op, so that both give the same bits as its jitted
+functions: s = max|x| * f32(1/127) clamped at 1e-12 (XLA's form of
+max|x| / 127 under jit; see INV127), q = clip(round(x / s), -127, 127) with
+round half to even (torch.round and jnp.round agree) and a true division
+x / s.
 
 KV arena: each [..., hd] row is stored as int8 with one f32 symmetric
 absmax scale over head_dim; K is quantized un-rotated. An arena is either a
@@ -32,6 +34,19 @@ from torch import nn
 from ._kernels import check_cuda, lib, ptr, stream
 
 
+# 1/127 in f32. The JAX package's W8A8 code runs under jit (quantize_weight
+# is jitted; qdot runs inside the jitted model), where XLA folds a division
+# by the constant 127 into a product with this reciprocal: the scales are
+# max|x| * INV127, not max|x| / 127 (they differ in the last bit for ~4% of
+# rows). K5 does the same.
+INV127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def _absmax_scale(xf: torch.Tensor) -> torch.Tensor:
+    """max|x| * INV127 over the last axis (kept), clamped at 1e-12, f32."""
+    return (xf.abs().amax(dim=-1, keepdim=True) * INV127).clamp_min(1e-12)
+
+
 class QuantKV(NamedTuple):
     """An int8 arena (or slice of one): q int8 [..., hd], s f32 [...]."""
 
@@ -43,11 +58,16 @@ Arena = Union[torch.Tensor, QuantKV]
 
 
 def quantize_kv(x: torch.Tensor) -> QuantKV:
-    """[..., hd] float -> QuantKV with per-leading-index absmax scales."""
+    """[..., hd] float -> QuantKV with per-leading-index absmax scales.
+
+    The JAX engine quantizes KV only under jit (the chunk step's arena merge,
+    the jitted arena init), where XLA folds its `/ 127.0` into a product
+    with f32(1/127): the scale is max|x| * INV127, as qdot's row scale, not
+    a true division (the two differ in the last bit for ~4% of rows)."""
     xf = x.float()
-    s = (xf.abs().amax(dim=-1) / 127.0).clamp_min(1e-12)
-    q = torch.round(xf / s[..., None]).clamp(-127, 127).to(torch.int8)
-    return QuantKV(q, s)
+    s = _absmax_scale(xf)
+    q = torch.round(xf / s).clamp(-127, 127).to(torch.int8)
+    return QuantKV(q, s[..., 0])
 
 
 def dequantize_kv(t: QuantKV, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
@@ -120,19 +140,6 @@ launch_counts = {"int8_gemm": 0}
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
-
-
-# 1/127 in f32. The JAX package's W8A8 code runs under jit (quantize_weight
-# is jitted; qdot runs inside the jitted model), where XLA folds a division
-# by the constant 127 into a product with this reciprocal: the scales are
-# max|x| * INV127, not max|x| / 127 (they differ in the last bit for ~4% of
-# rows). K5 does the same.
-INV127 = float(np.float32(1.0) / np.float32(127.0))
-
-
-def _absmax_scale(xf: torch.Tensor) -> torch.Tensor:
-    """max|x| * INV127 over the last axis (kept), clamped at 1e-12, f32."""
-    return (xf.abs().amax(dim=-1, keepdim=True) * INV127).clamp_min(1e-12)
 
 
 def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

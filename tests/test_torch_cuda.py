@@ -26,6 +26,14 @@ def _assert_decode_close(out, ref):
     torch.testing.assert_close(out, ref, atol=2.0**-12 * float(ref.abs().max()), rtol=2.0**-7)
 
 
+def _assert_prefill_close(out, ref):
+    """K1's bf16 output vs its plain version: K1 also rounds the scaled q
+    and P to bf16 for the tensor cores, so one bf16 ulp of each value plus
+    one bf16 ulp of the largest |ref|, as chip_smoke.py holds it."""
+    out, ref = out.float(), ref.float()
+    torch.testing.assert_close(out, ref, atol=2.0**-7 * float(ref.abs().max()), rtol=2.0**-7)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -36,8 +44,7 @@ def cuda():
 @pytest.mark.gpu
 def test_kernels_match_plain_on_card(cuda):
     """bf16 kernels vs their plain versions on unit-normal inputs at G=7
-    (K1: atol = rtol = 2e-2, both round the output to bf16 and K1 also
-    rounds the scaled q and P; K2: one bf16 ulp, _assert_decode_close)."""
+    (K1: _assert_prefill_close; K2: one bf16 ulp, _assert_decode_close)."""
     g = torch.Generator(device=cuda).manual_seed(0)
     H, Hkv, hd, Cc, T = 28, 4, 128, 1024, 128
 
@@ -52,7 +59,7 @@ def test_kernels_match_plain_on_card(cuda):
         for cs in ((None, None), (c2, s2)):
             out = A.streaming_prefill_attention(q, ka, va, *cs, ks, vs, vis)
             ref = A.prefill_attention_plain(q, ka, va, *cs, ks, vs, vis)
-            torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+            _assert_prefill_close(out, ref)
     ksm, vsm = rn(21, Hkv, hd), rn(21, Hkv, hd)
     for vis in (0, 300, Cc):
         for evis in (0, 7, 20):
@@ -60,6 +67,39 @@ def test_kernels_match_plain_on_card(cuda):
             out = A.streaming_decode_attention_full(*args, e_delta=20)
             ref = A.decode_attention_plain(*args, e_delta=20)
             _assert_decode_close(out, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [64, 200, 640])
+def test_prefill_kernel_edges_on_card(cuda, T):
+    """K1 vs its plain version (_assert_prefill_close) where its tiles have
+    edges: T * G off the 128-row tile (T = 200), visible lengths off the
+    128-key tile (401) and the whole arena, both arena modes; one counted
+    launch per call (raw mode's rotate pass and the merge pass included).
+    A new plan reaches the card without a host sync."""
+    g = torch.Generator(device=cuda).manual_seed(T)
+    H, Hkv, hd, Cc = 28, 4, 128, 1024
+
+    def rn(*s):
+        return torch.randn(*s, generator=g, device=cuda).to(torch.bfloat16)
+
+    q, ka, va, ks, vs = rn(T, H, hd), rn(Cc, Hkv, hd), rn(Cc, Hkv, hd), rn(T, Hkv, hd), rn(T, Hkv, hd)
+    ang = torch.randn(Cc, hd // 2, generator=g, device=cuda)
+    c2 = torch.cat([ang.cos()] * 2, -1).contiguous()
+    s2 = torch.cat([ang.sin()] * 2, -1).contiguous()
+    for vis in (0, 401, Cc):
+        for cs in ((None, None), (c2, s2)):
+            n = A.launch_counts["streaming_prefill_attention"]
+            out = A.streaming_prefill_attention(q, ka, va, *cs, ks, vs, vis)
+            assert A.launch_counts["streaming_prefill_attention"] == n + 1
+            ref = A.prefill_attention_plain(q, ka, va, *cs, ks, vs, vis)
+            _assert_prefill_close(out, ref)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        A.streaming_prefill_attention(q, ka, va, None, None, ks, vs, 777)  # a new plan
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 @pytest.mark.gpu

@@ -1,8 +1,10 @@
 """The port's int8 KV quantization (ops/quant.py) against the JAX package's
-quantize_kv / dequantize_kv: bitwise on q and s, and on the dequantized
-values, including all-zero rows and values whose x / s is exactly half way
-between two integers (both frameworks round half to even)."""
+quantize_kv / dequantize_kv as the JAX engine runs them, under jit: bitwise
+on q and s, and on the dequantized values, including all-zero rows and
+values whose x / s is exactly half way between two integers (both
+frameworks round half to even)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +27,9 @@ from streaming_vlm_tpu_torch.ops.quant import (
 )
 
 HD = 16
+# the JAX engine calls quantize_kv only under jit (the chunk step's arena
+# merge, the jitted arena init), where XLA turns / 127 into * f32(1/127)
+jit_quantize_kv = jax.jit(jax_quantize_kv)
 
 
 def _rows():
@@ -46,7 +51,7 @@ def test_quantize_dequantize_bitwise(dtype):
         jx = jnp.asarray(tx.float().numpy()).astype(jnp.bfloat16)
     else:
         tx, jx = torch.from_numpy(x), jnp.asarray(x)
-    ref = jax_quantize_kv(jx)
+    ref = jit_quantize_kv(jx)
     got = quantize_kv(tx)
     np.testing.assert_array_equal(got.q.numpy(), np.asarray(ref["q"]))
     np.testing.assert_array_equal(got.s.numpy(), np.asarray(ref["s"]))
@@ -60,6 +65,21 @@ def test_quantize_dequantize_bitwise(dtype):
     deq16 = dequantize_kv(got, torch.bfloat16).float().numpy()
     jdeq16 = np.asarray(jax_dequantize_kv(ref, jnp.bfloat16).astype(jnp.float32))
     np.testing.assert_array_equal(deq16, jdeq16)
+
+
+def test_quantize_kv_has_the_jitted_scales():
+    """On 4096 seeded bf16 rows of [4, 128] the eager JAX function (a true
+    division by 127) and the jitted one (a product with f32(1/127)) give
+    different scales on some rows; the port gives the jitted bits, on q
+    and s."""
+    rng = np.random.default_rng(11)
+    tx = torch.from_numpy(rng.normal(size=(4096, 4, 128)).astype(np.float32)).to(torch.bfloat16)
+    jx = jnp.asarray(tx.float().numpy()).astype(jnp.bfloat16)
+    eager, jitted = jax_quantize_kv(jx), jit_quantize_kv(jx)
+    assert (np.asarray(eager["s"]) != np.asarray(jitted["s"])).any()
+    got = quantize_kv(tx)
+    np.testing.assert_array_equal(got.s.numpy(), np.asarray(jitted["s"]))
+    np.testing.assert_array_equal(got.q.numpy(), np.asarray(jitted["q"]))
 
 
 def test_is_kv_quantized():
