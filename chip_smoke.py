@@ -7,25 +7,28 @@ Phases; any failure exits non-zero:
 
 1. device: requires CUDA; prints `nvidia-smi` name and power limit.
 2. build: compiles the port's kernels (streaming_vlm_tpu_torch/csrc, nvcc,
-   sm_90a, one nvcc per source in parallel) into build/torch_kernels/.
+   sm_90a, one nvcc per source in parallel) into build/torch_kernels/, and
+   prints -Xptxas -v registers and spills of K1, K2, K4 and K5's kernels.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes (Qwen2.5-VL-7B attention geometry: H=28, Hkv=4,
    hd=128, arena C=10240): K1 prefill (both arena modes; T in {640, 200,
-   64}, visible lengths on and off its 128-key tile; its -Xptxas -v
-   registers and spills printed once), K2 decode over
-   the pre-rotated arena, K3 decode over the raw arena (int8 and bf16
-   storage, shrink- and append-range positions), K4 decode partials (and
-   their merge with the small block against K2), K5 W8A8 products (the
-   int32 form at the TPU probe's 4096^3 and at ragged shapes; the serving
-   form at every (M, K, N) of the 7B path, bf16 and f32 out). K1 and the
-   decode kernels are held to one bf16 ulp of each output value (plus one
-   ulp of the largest for K1, a small fraction of it for the others), K5 to
-   bitwise equality, and phase 3 is run again on copies of the port with
-   K1 (kernel or plan), K3 or K5 broken on purpose (MUTANTS): each copy
-   must fail, on the broken kernel's checks only. K1's plan must reach the
-   card without a host sync. Times from CUDA events, beside each kernel's
-   bound and, where one PyTorch call computes the same function, that
-   call's time.
+   64}, visible lengths on and off its 128-key tile), K2 decode over the
+   pre-rotated arena (visible 0 to C, on and off the host's split, a small
+   block longer than the kernel's tile), K3 decode over the raw arena (int8
+   and bf16 storage, shrink- and append-range positions), K4 decode
+   partials (and their merge with the small block against K2), K5 W8A8
+   products (the int32 form at the TPU probe's 4096^3 and at ragged shapes;
+   the serving form at every (M, K, N) of the 7B path, bf16 and f32 out,
+   weights in QLinear's padded rows). K1 and the decode kernels are held to
+   one bf16 ulp of each output value (plus one ulp of the largest for K1, a
+   small fraction of it for the others), K5 to bitwise equality, and phase
+   3 is run again on copies of the port with K1 (kernel or plan), K2, K3 or
+   K5 (kernel or plan) broken on purpose (MUTANTS): each copy must fail, on
+   the broken kernel's checks only. K1's plan must reach the card without a
+   host sync. Times from CUDA events and profiler device time, beside each
+   kernel's bound and, where one PyTorch call computes the same function,
+   that call's time (K5's int32 form at every tiled shape beside
+   torch._int_mm; K2's device time at visible 640, 4500 and 9000).
 4. reference: at 7B width (decoder cut to 4 layers), the streaming forward
    through the kernels (chunk prefill, then one decode token) in bf16
    against the plain full-attention oracle `language_forward` in f32 on the
@@ -42,7 +45,7 @@ Phases; any failure exits non-zero:
    arena, pre-rotated: K5 + K1 + K2). Each asserts an eviction, kv <=
    kv_capacity, and from launch counts reset just before it that every
    kernel call of its run went through the kernels, as many times as the
-   path makes them.
+   path makes them (K5's by path: decode GEMV and tiled).
 
 The second-to-last line is a JSON object with each kernel's numbers; the
 last line is {"ok": true, "device": {...}}.
@@ -89,13 +92,16 @@ PART_TOL = 1e-3
 REF_LAYERS = 4
 N_CHUNKS = 20  # slice length: past visual_round=16, so eviction runs
 REF_NOISE_FACTOR = 2.0
+MUTANT_BUILDS = 4  # mutant copies whose kernels build at once (4 nvcc each)
 # the H100 SXM's published peaks (dense bf16 and int8, HBM3)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
-# deliberate faults that phase 3 must reject: name -> (the kernel whose
-# checks alone must fail, file under streaming_vlm_tpu_torch/, text,
-# replacement, a text every failed check must contain or None)
+# deliberate faults that phase 3 must reject: name -> (the kernel, or
+# kernels, whose checks alone must fail, file under streaming_vlm_tpu_torch/,
+# text, replacement, a text every failed check must contain or None). A
+# check belongs to the kernels its label names before the first space
+# ("K2+K4 merged": K4's partials merged with the small block against K2).
 MUTANTS = {
     "fast-math sin/cos": (
         "K3", "csrc/decode_attention_raw.cu",
@@ -113,9 +119,9 @@ MUTANTS = {
         "const float kscale = QUANT ? round_bf16(ks[ri]) : 1.f;", None,
     ),
     "K tail dropped": (
-        "K5", "csrc/int8_gemm.cu",
-        "const int KT = (K + BK - 1) / BK;",
-        "const int KT = K / BK;", "'K': 3420",
+        "K5", "ops/quant.py",
+        "mt, nt, kb = -(-M // GEMM_BM), -(-N // bn), -(-K // GEMM_BK)",
+        "mt, nt, kb = -(-M // GEMM_BM), -(-N // bn), K // GEMM_BK", "'K': 3420",
     ),
     "activations truncated, not rounded half to even": (
         "K5", "csrc/int8_gemm.cu",
@@ -142,8 +148,19 @@ MUTANTS = {
         "min(hi, starts[i + 1]) - starts[i]",
         "min(hi + 1, starts[i + 1]) - starts[i]", None,
     ),
+    "delta-row mask off by one": (
+        "K2", "csrc/decode_attention.cu",
+        "jj < extra_visible",
+        "jj <= extra_visible", None,
+    ),
+    "a split drops its last slot": (
+        ("K2", "K4"), "csrc/decode_attention.cu",
+        "min(split_rows, visible_len - row0);",
+        "min(split_rows, visible_len - row0) - 1;", None,
+    ),
 }
 _FAILED = []  # the checks of phase 3 that failed
+_TIMED = True  # False: phase 3's checks without its timings (the mutant copies)
 
 SRC = {  # kernel -> (source, the TPU kernel's pallas_call it replaces)
     "streaming_prefill_attention": (
@@ -174,6 +191,8 @@ def _median_ms(fn, reps: int = 10, batch: int = 10) -> float:
     from CUDA events (warmed up first)."""
     import torch
 
+    if not _TIMED:
+        return math.nan
     for _ in range(3):
         fn()
     times = []
@@ -196,6 +215,8 @@ def _device_ms(fn, n: int = 20) -> float:
     card runs)."""
     import torch
 
+    if not _TIMED:
+        return math.nan
     fn()
     torch.cuda.synchronize()
     with _profiler() as prof:
@@ -356,18 +377,34 @@ def phase_kernels():
     k2_err = 0.0
     qd = rn(H, hd)
     ksm, vsm = rn(e_delta + 1, Hkv, hd), rn(e_delta + 1, Hkv, hd)
-    for vis in (0, 9000):
+    # visible 0 (chunk 0: the small block alone), one slot, lengths off the
+    # host's split (641, 4501), the main path's 9000 and the whole arena
+    for vis in (0, 1, 641, 4501, 9000, C):
         for evis in (0, 7, 20):
             args = (qd, ka, va, ksm, vsm, vis, evis)
             out = A.streaming_decode_attention_full(*args, e_delta=e_delta)
             ref = A.decode_attention_plain(*args, e_delta=e_delta)
             k2_err = max(k2_err, _check_decode("K2", out, ref, dict(visible_len=vis, extra_visible=evis)))
+    # a small block longer than the kernel's 160-row tile
+    kbig, vbig = rn(200, Hkv, hd), rn(200, Hkv, hd)
+    args = (qd, ka, va, kbig, vbig, 500, 60)
+    k2_err = max(k2_err, _check_decode(
+        "K2", A.streaming_decode_attention_full(*args, e_delta=199),
+        A.decode_attention_plain(*args, e_delta=199), dict(visible_len=500, e1=200, extra_visible=60)))
     vis, evis = 9000, 7
     args = (qd, ka, va, ksm, vsm, vis, evis)
     k2 = dict(
         ms=_median_ms(lambda: A.streaming_decode_attention_full(*args, e_delta=e_delta)),
+        device_ms=_device_ms(lambda: A.streaming_decode_attention_full(*args, e_delta=e_delta)),
         plain_ms=_median_ms(lambda: A.decode_attention_plain(*args, e_delta=e_delta)),
     )
+    # the split pass and its combine are one launch: device time by visible length
+    k2["device_ms_by_visible"] = {
+        v: _device_ms(lambda: A.streaming_decode_attention_full(qd, ka, va, ksm, vsm, v, evis,
+                                                                e_delta=e_delta))
+        for v in (640, 4500, 9000)}
+    k2["split_by_visible"] = {v: A.decode_split_size(v, Hkv, A.sm_count(torch.device(dev)))
+                              for v in (640, 4500, 9000)}
     col = torch.arange(e_delta + 1, device=dev)
     small_mask = (col < evis) | (col >= e_delta)
     mask = torch.cat([torch.ones(vis, dtype=torch.bool, device=dev), small_mask])[None]
@@ -375,9 +412,10 @@ def phase_kernels():
     k2["bound_ms"], k2["bound_by"] = _bound(
         _nbytes(qd, ka[:vis], va[:vis], ksm, vsm, qd), 4 * H * hd * (vis + e_delta + 1))
     stats["streaming_decode_attention_full"] = dict(max_abs_err=k2_err, **k2)
-    print(f"  K2 visible_len={vis} extra_visible={evis}: kernel {k2['ms']:.4f} ms, plain "
-          f"{k2['plain_ms']:.4f} ms, sdpa {k2['library_ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms "
-          f"({k2['bound_by']})")
+    print(f"  K2 visible_len={vis} extra_visible={evis}: kernel {k2['ms']:.4f} ms (device "
+          f"{k2['device_ms']:.4f} ms), plain {k2['plain_ms']:.4f} ms, sdpa {k2['library_ms']:.4f} ms, "
+          f"bound {k2['bound_ms']:.4f} ms ({k2['bound_by']}); device ms by visible length "
+          f"{k2['device_ms_by_visible']} (split {k2['split_by_visible']}; one launch each)")
 
     # ---- K3: decode over the raw arena in storage form (int8 + scales, or bf16)
     kw = dict(e_delta=e_delta, mrope_section=(16, 24, 24), rope_theta=1e6)
@@ -411,19 +449,21 @@ def phase_kernels():
         ms_by_form[form] = _median_ms(lambda: A.streaming_decode_attention_int8(*a3, **kw))
     a3 = (qd, *forms["int8"], pos_t, ksm, vsm, vis, evis)
     k3 = dict(ms=ms_by_form["int8"], ms_by_form=ms_by_form,
+              device_ms=_device_ms(lambda: A.streaming_decode_attention_int8(*a3, **kw)),
               plain_ms=_median_ms(lambda: A.decode_attention_int8_plain(*a3, **kw)),
               library_ms=None)
     k3["bound_ms"], k3["bound_by"] = _bound(
         _nbytes(qd, kq[:vis], kscale[:vis], vq[:vis], vscale[:vis], pos_t[:vis], ksm, vsm, qd),
         4 * H * hd * (vis + e_delta + 1))
     stats["streaming_decode_attention_int8"] = dict(max_abs_err=k3_err, **k3)
-    print(f"  K3 visible_len={vis} extra_visible={evis}: kernel int8 {ms_by_form['int8']:.4f} ms, "
+    print(f"  K3 visible_len={vis} extra_visible={evis}: kernel int8 {ms_by_form['int8']:.4f} ms "
+          f"(device {k3['device_ms']:.4f} ms), "
           f"bf16 {ms_by_form['bf16']:.4f} ms, plain (int8) {k3['plain_ms']:.4f} ms, no single "
           f"PyTorch call, bound {k3['bound_ms']:.4f} ms ({k3['bound_by']})")
 
     # ---- K4: the arena's partials; merged with the small block == K2
     k4_err = 0.0
-    for vis in (0, 9000):
+    for vis in (0, 4501, 9000):
         got = A.streaming_decode_attention(qd, ka, va, vis)
         want = A.decode_attention_partials_plain(qd, ka, va, vis)
         for part, a, b in zip("mla", got, want):
@@ -436,16 +476,18 @@ def phase_kernels():
             merged = A.decode_attention_merge(qd[None], small, ka, va, vis).reshape(H, hd)
             k2_out = A.streaming_decode_attention_full(qd, ka, va, ksm, vsm, vis, evis,
                                                        e_delta=e_delta)
-            _check_decode("K4 merged vs K2", merged, k2_out,
+            _check_decode("K2+K4 merged", merged, k2_out,
                           dict(visible_len=vis, extra_visible=evis))
     vis = 9000
     k4 = dict(ms=_median_ms(lambda: A.streaming_decode_attention(qd, ka, va, vis)),
+              device_ms=_device_ms(lambda: A.streaming_decode_attention(qd, ka, va, vis)),
               plain_ms=_median_ms(lambda: A.decode_attention_partials_plain(qd, ka, va, vis)),
               library_ms=None)
     k4["bound_ms"], k4["bound_by"] = _bound(
         _nbytes(qd, ka[:vis], va[:vis]) + 4 * H * (hd + 2), 4 * H * hd * vis)
     stats["streaming_decode_attention"] = dict(max_abs_err=k4_err, **k4)
-    print(f"  K4 visible_len={vis}: kernel {k4['ms']:.4f} ms, plain {k4['plain_ms']:.4f} ms, "
+    print(f"  K4 visible_len={vis}: kernel {k4['ms']:.4f} ms (device {k4['device_ms']:.4f} ms), "
+          f"plain {k4['plain_ms']:.4f} ms, "
           f"no single PyTorch call, bound {k4['bound_ms']:.4f} ms ({k4['bound_by']})")
     stats["int8_gemm"] = _phase_k5(g)
     if _FAILED:
@@ -508,7 +550,7 @@ def _phase_k5(g) -> dict:
         if M > 2:
             x[0] = 0
             x[1, 11] = 300.0
-        q = rint8(N, K)
+        q = Q.pad_rows(rint8(N, K))  # as QLinear holds it: rows padded to 16 bytes
         s = torch.rand(N, generator=g, device=dev) * 1e-3 + 1e-5
         b = torch.randn(N, generator=g, device=dev).to(torch.bfloat16) if bias else None
         od = torch.float32 if f32 else torch.bfloat16
@@ -550,22 +592,59 @@ def _phase_k5(g) -> dict:
               + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     inputs.clear()
 
+    # the int32 form (the product alone, no row quantization or epilogue)
+    # at every tiled shape of the path, beside torch._int_mm where it takes
+    # the shape (K and N multiples of 8), operands laid out as served (rows
+    # padded to 16 bytes)
+    int32 = {}
+    for what, M, K, N, _, _ in K5_SERVING:
+        if M <= 4 or (M, K, N) in {(r["M"], r["K"], r["N"]) for r in int32.values()}:
+            continue
+        xq, wq = Q.pad_rows(rint8(M, K)), Q.pad_rows(rint8(N, K))
+        plan = Q.gemm_plan(M, N, K, torch.cuda.get_device_properties(0).multi_processor_count)
+        r = dict(M=M, K=K, N=N, tile_n=plan.bn, ctas=plan.n_ctas, split_tiles=len(plan.fixups),
+                 device_ms=_device_ms(lambda: Q.int8_gemm(xq, wq)))
+        r["bound_ms"], r["bound_by"] = _bound(M * K + N * K + 4 * M * N, 2 * M * N * K, INT8_OPS)
+        if K % 8 == 0 and N % 8 == 0:
+            wt = wq.t()
+            r["library_ms"] = _median_ms(lambda: torch._int_mm(xq, wt))
+            r["library_device_ms"] = _device_ms(lambda: torch._int_mm(xq, wt))
+        else:
+            r["library_ms"] = r["library_device_ms"] = None
+        int32[what] = r
+        print(f"  K5 int32 form {what} M={M} K={K} N={N}: kernel device {r['device_ms']:.4f} ms "
+              f"(tile 128x{plan.bn}, {plan.n_ctas} CTAs, {len(plan.fixups)} split tiles), "
+              + (f"torch._int_mm {r['library_ms']:.4f} ms (device {r['library_device_ms']:.4f})"
+                 if r["library_ms"] is not None else "torch._int_mm refuses K or N % 8 != 0")
+              + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        del xq, wq
+
     n = 4096
     xq, wq = rint8(n, n), rint8(n, n)
     wt = wq.t()
     probe = dict(M=n, K=n, N=n, ms=_median_ms(lambda: Q.int8_gemm(xq, wq)),
                  device_ms=_device_ms(lambda: Q.int8_gemm(xq, wq)),
-                 library_ms=_median_ms(lambda: torch._int_mm(xq, wt)))
-    probe["tops"] = 2 * n**3 / (probe["ms"] * 1e-3) / 1e12
-    probe["library_tops"] = 2 * n**3 / (probe["library_ms"] * 1e-3) / 1e12
-    print(f"  K5 probe int32 form {n}^3: kernel {probe['ms']:.4f} ms = {probe['tops']:.1f} TOP/s "
-          f"of {INT8_OPS / 1e12:.0f}; torch._int_mm {probe['library_ms']:.4f} ms = "
-          f"{probe['library_tops']:.1f} TOP/s")
-    main = by_shape["decode gate/up_proj"]
-    return dict(max_abs_err=err, shape="decode gate/up_proj (M=1, K=3584, N=18944)",
-                **{k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                                        "library_ms", "library", "bf16_linear_ms")},
-                by_shape=by_shape, probe=probe)
+                 library_ms=_median_ms(lambda: torch._int_mm(xq, wt)),
+                 library_device_ms=_device_ms(lambda: torch._int_mm(xq, wt)))
+    # device time on the card (CUDA-event time where the trace has none)
+    probe["tops"] = 2 * n**3 / ((probe["device_ms"] or probe["ms"]) * 1e-3) / 1e12
+    probe["library_tops"] = 2 * n**3 / (
+        (probe["library_device_ms"] or probe["library_ms"]) * 1e-3) / 1e12
+    print(f"  K5 probe int32 form {n}^3: kernel {probe['ms']:.4f} ms (device {probe['device_ms']:.4f} "
+          f"ms = {probe['tops']:.1f} TOP/s of {INT8_OPS / 1e12:.0f}); torch._int_mm "
+          f"{probe['library_ms']:.4f} ms (device {probe['library_device_ms']:.4f} ms = "
+          f"{probe['library_tops']:.1f} TOP/s)")
+    keys = ("M", "K", "N", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library")
+    gemv, tiled = by_shape["decode gate/up_proj"], by_shape["prefill gate/up_proj"]
+    return {
+        "gemv": dict(max_abs_err=err, shape="decode gate/up_proj (M=1, K=3584, N=18944)",
+                     bf16_linear_ms=gemv["bf16_linear_ms"], **{k: gemv[k] for k in keys},
+                     lm_head=by_shape["lm_head"]),
+        "tiled": dict(max_abs_err=err, shape="prefill gate/up_proj (M=640, K=3584, N=18944), "
+                      "serving form (row quantization + product + epilogue)",
+                      **{k: tiled[k] for k in keys}, int32_form=int32, probe=probe),
+    }
 
 
 @contextlib.contextmanager
@@ -732,12 +811,18 @@ def _ptxas_verbose(kernels, source: str) -> subprocess.Popen:
          str(kernels.CSRC / source)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def _ptxas_lines(proc: subprocess.Popen, kernel: str) -> str:
-    """ptxas's registers, shared memory and spill lines for one kernel."""
+def _ptxas_text(proc: subprocess.Popen) -> str:
+    """The output of a _ptxas_verbose run (its object removed)."""
     text = proc.communicate()[0]
     Path(proc.args[proc.args.index("-o") + 1]).unlink(missing_ok=True)
     if proc.returncode:
         raise RuntimeError("nvcc -Xptxas -v failed:\n" + text)
+    return text
+
+
+def _ptxas_lines(text: str, kernel: str) -> str:
+    """ptxas's registers, shared memory and spill lines for the kernels whose
+    (mangled) name contains `kernel`."""
     lines, mine = [], False
     for line in text.splitlines():
         if "Compiling entry function" in line:
@@ -800,7 +885,8 @@ def phase_slice(cfg, model, n_chunks: int, stream, expect: dict, profile: Path |
         )
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {**A.launch_counts, **Q.launch_counts}
+    launches = {**A.launch_counts, **Q.launch_counts,
+                **{f"int8_gemm/{k}": v for k, v in Q.path_counts.items()}}
     if profile:
         _report_profile(prof, wall, profile)
     for i, t in enumerate(times):
@@ -827,18 +913,19 @@ def phase_slice(cfg, model, n_chunks: int, stream, expect: dict, profile: Path |
 
 def phase_mutants() -> dict:
     """For each fault in MUTANTS: copy the port and this script into
-    build/mutants/<i>/ (git-ignored), apply the fault there, and run phase 3
-    in that copy in a subprocess. Each must fail, on the named kernel's
-    checks only (and, where MUTANTS gives a text, only on checks that
-    contain it). Returns {fault: {"kernel", "failed": checks failed, "of":
-    the kernel's checks, "failed_checks", "max_err_over_limit" (tolerance
-    checks) or None (bitwise checks)}}."""
+    build/mutants/<i>/ (git-ignored), apply the fault there, build the
+    copies' kernels (MUTANT_BUILDS at a time), then run phase 3's checks
+    (not its timings) in each copy in a subprocess. Each must fail, on the
+    named kernels' checks only (and, where MUTANTS gives a text, only on
+    checks that contain it). Returns {fault: {"kernel", "failed": checks
+    failed, "of": the kernel's checks, "failed_checks",
+    "max_err_over_limit" (tolerance checks) or None (bitwise checks)}}."""
     import re
     import shutil
 
     root = REPO / "build" / "mutants"
     shutil.rmtree(root, ignore_errors=True)
-    found = {}
+    dirs = []
     for i, (name, (kernel, src, text, repl, where)) in enumerate(MUTANTS.items()):
         d = root / str(i)
         shutil.copytree(REPO / "streaming_vlm_tpu_torch", d / "streaming_vlm_tpu_torch",
@@ -849,24 +936,40 @@ def phase_mutants() -> dict:
         if code.count(text) != 1:
             raise AssertionError(f"mutant {name!r}: {text!r} is not once in {src}")
         f.write_text(code.replace(text, repl))
+        dirs.append(d)
+    build = [sys.executable, "-c", "from streaming_vlm_tpu_torch.ops import _kernels; _kernels.build()"]
+    running = []
+    for d in dirs:
+        if len(running) == MUTANT_BUILDS:
+            running.pop(0).wait()
+        running.append(subprocess.Popen(build, cwd=d, stdout=subprocess.DEVNULL,
+                                        stderr=subprocess.DEVNULL))
+    for p in running:
+        p.wait()
+    found = {}
+    for d, (name, (kernel, src, text, repl, where)) in zip(dirs, MUTANTS.items()):
         r = subprocess.run(
-            [sys.executable, "-c", "import chip_smoke; chip_smoke.phase_kernels()"],
+            [sys.executable, "-c",
+             "import chip_smoke; chip_smoke._TIMED = False; chip_smoke.phase_kernels()"],
             cwd=d, capture_output=True, text=True, timeout=600,
         )
+        kernels = {kernel} if isinstance(kernel, str) else set(kernel)
         lines = r.stdout.splitlines()
-        failed = [line.strip() for line in lines if line.endswith("FAIL")]
+        checks = [x.strip() for x in lines if re.match(r"  K\d(\+K\d)*( merged)? \{", x)]
+        mine = [x for x in checks if set(x.split(" ", 1)[0].split("+")) & kernels]
+        failed = [x for x in checks if x.endswith("FAIL")]
         print(f"  mutant {name!r}: exit {r.returncode}, {len(failed)} checks failed")
         for line in failed:
             print("    " + line)
         ok = r.returncode != 0 and failed and all(
-            x.startswith(kernel + " ") and (where is None or where in x) for x in failed)
+            x in mine and (where is None or where in x) for x in failed)
         if not ok:
             print(r.stdout[-4000:] + r.stderr[-4000:])
-            raise AssertionError(f"mutant {name!r} was not rejected by {kernel}'s checks alone"
-                                 + (f" at {where}" if where else ""))
+            raise AssertionError(f"mutant {name!r} was not rejected by {'/'.join(sorted(kernels))}'s"
+                                 " checks alone" + (f" at {where}" if where else ""))
         ratios = [float(m.group(1)) for x in failed if (m := re.search(r"err/limit=([0-9.]+)", x))]
-        found[name] = {"kernel": kernel, "failed": len(failed),
-                       "of": sum(x.startswith(f"  {kernel} {{") for x in lines),
+        found[name] = {"kernel": "/".join(sorted(kernels)), "failed": len(failed),
+                       "of": len(mine),
                        "failed_checks": [x[: x.index("}") + 1] for x in failed],
                        "max_err_over_limit": max(ratios) if ratios else None}
     shutil.rmtree(root, ignore_errors=True)
@@ -900,15 +1003,24 @@ def main() -> int:
     from streaming_vlm_tpu_torch.ops import _kernels
 
     t0 = time.perf_counter()
-    ptxas = _ptxas_verbose(_kernels, "prefill_attention.cu")
+    ptxas = {src: _ptxas_verbose(_kernels, src)
+             for src in ("prefill_attention.cu", "decode_attention.cu", "int8_gemm.cu")}
     so = _kernels.build()
     _kernels.lib()
     print(f"  {so.name}: {time.perf_counter() - t0:.2f} s (nvcc {_kernels.build_seconds} s)")
-    print("  K1 " + _ptxas_lines(ptxas, "prefill_attention_kernel"))
+    text = {src: _ptxas_text(p) for src, p in ptxas.items()}
+    for what, src, kernel in (
+            ("K1", "prefill_attention.cu", "prefill_attention_kernel"),
+            ("K2 (bf16 out, small block)", "decode_attention.cu", "decode_split_kernelILb1E"),
+            ("K4", "decode_attention.cu", "decode_split_kernelILb0E"),
+            ("K5 tiled, tile 128x256, bf16 out", "int8_gemm.cu", "gemm_tiled_kernelILi256E13__nv_bfloat16"),
+            ("K5 tiled, tile 128x128, bf16 out", "int8_gemm.cu", "gemm_tiled_kernelILi128E13__nv_bfloat16"),
+            ("K5 decode GEMV, bf16 in and out", "int8_gemm.cu", "gemv_kernelI13__nv_bfloat16S")):
+        print(f"  {what} " + _ptxas_lines(text[src], kernel))
 
     print("[3/5] kernels vs plain versions")
     kstats = phase_kernels()
-    print("  phase 3 against copies of the port with K1, K3 or K5 broken on purpose")
+    print("  phase 3 against copies of the port with K1, K2, K3 or K5 broken on purpose")
     print("  " + json.dumps({"mutants": phase_mutants()}))
 
     from streaming_vlm_tpu_torch.config import StreamConfig, qwen25_vl_7b
@@ -936,10 +1048,14 @@ def main() -> int:
               {k1: L, "streaming_decode_attention_int8": L * max_new}),
         # K5: the 7 projections of every layer in the prefill and in each
         # decode step, the lm_head after each, and 5 products per vision
-        # block plus the merger's 2 (one vision encode per chunk)
+        # block plus the merger's 2 (one vision encode per chunk); the tiled
+        # path runs the prefill's and the vision tower's, the GEMV the
+        # decode steps' and every lm_head (one row each)
         "C": ("W8A8", StreamConfig(kv_quant="int8"), {
             k1: L, k2: L * max_new,
-            "int8_gemm": 7 * L * (1 + max_new) + (1 + max_new) + 5 * cfg.vision.depth + 2}),
+            "int8_gemm": 7 * L * (1 + max_new) + (1 + max_new) + 5 * cfg.vision.depth + 2,
+            "int8_gemm/tiled": 7 * L + 5 * cfg.vision.depth + 2,
+            "int8_gemm/gemv": 7 * L * max_new + 1 + max_new}),
     }
     by_slice, loaded = {}, "bf16"
     for name, (weights, stream, expect) in slices.items():
@@ -962,8 +1078,15 @@ def main() -> int:
          "launches": sum(c[n] for c in by_slice.values()),
          "launches_by_slice": {s: c[n] for s, c in by_slice.items()},
          **kstats[n]}
-        for n in SRC
+        for n in SRC if n != "int8_gemm"
     ]
+    for path in ("gemv", "tiled"):  # K5's two paths, each with its own launches
+        key = f"int8_gemm/{path}"
+        kernels.append({"name": key, "route": "cuda", "source": SRC["int8_gemm"][0],
+                        "replaces": SRC["int8_gemm"][1],
+                        "launches": sum(c[key] for c in by_slice.values()),
+                        "launches_by_slice": {s: c[key] for s, c in by_slice.items()},
+                        **kstats["int8_gemm"][path]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

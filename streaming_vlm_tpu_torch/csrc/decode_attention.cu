@@ -15,165 +15,365 @@
 // m = -1e30, l = 0, acc = 0, as the TPU kernel does.
 //
 // What bounds them on an H100: bytes. One token reads every visible arena
-// slot's K and V once: 28 layers x 10240 slots x 4 kv heads x 128 x 2 B x 2
-// ~ 587 MB per decode token at 7B, against ~0.3 GFLOP of math. The design
-// spreads that read over the whole card (split-K flash decoding):
-//   * split pass, grid (kv head, arena splits / 4): each warp owns one split
-//     of SPLIT=64 consecutive visible slots, one slot per lane for Q.K (the
-//     lane reads its key's 256-byte row; the G queries of the kv head sit
-//     in shared memory as f32 and are read by broadcast), then one head-dim
-//     slice per lane for P.V (coalesced row reads). It writes the split's
-//     partial (m, l, acc) in log2 space to scratch the wrapper allocates.
-//     Splits end at visible_len: slots past it are never read;
-//   * K2's combine (decode_common.cuh), one CTA per query head, folds the
-//     splits and the small delta + self rows into the final softmax and
-//     writes its [HD] row; K4's folds the splits alone into partials.
-// q stays in f32 (scaled by softmax-scale * log2(e)); sums are f32.
+// slot's K and V once (at visible 9000: 18.4 MB, 5.5 us at 3.35 TB/s),
+// against ~0.13 GFLOP of f32 math. The design keeps those bytes in flight
+// and the chains short (split-K flash decoding in one launch):
+//   * grid (parts, kv heads): a part is one split of `split` consecutive
+//     visible slots (the host picks `split` from visible_len so that the
+//     grid fills the card: ops/attention.py `decode_split_size`), or, for
+//     K2, the small block of delta + self rows, which runs beside the
+//     arena splits as one more partial;
+//   * a CTA stages its rows' K and V (256 bytes each) into shared memory
+//     with one cp.async.bulk per row, all started at once by one warp and
+//     counted on four mbarriers, one per quarter of the rows, so that Q.K
+//     starts on the first rows while the rest are in flight: up to 2 x 80 KB
+//     in flight per SM;
+//   * Q.K from shared memory: a warp takes 4 rows at a time; lane l owns
+//     head dims [4l, 4l + 4) of each (conflict-free 8-byte reads) and of
+//     the G = H / Hkv queries, held in registers, and one transposing
+//     butterfly (31 shuffles) finishes all 32 (row, query head) sums of the
+//     4 rows at once; the softmax of each query head is one warp's; P.V:
+//     thread t owns head dims 2 (t % 64) + {0, 1} of every 4th group of 4
+//     rows (t / 64 picks which), and the four quarters meet in shared
+//     memory;
+//   * the combine is fused: each CTA writes its partial (m, l, acc) and
+//     counts itself in on its kv head's counter; the last to arrive reads
+//     every part's (m, l) into shared memory in one coalesced pass, folds
+//     the partial rows in parallel (each quarter of the threads a strided
+//     subset of the parts, four parts' loads in flight) and writes the
+//     output (K2: divided; K4: the merged partials), then resets the
+//     counter for the next call.
+// q is scaled in f32 (softmax-scale * log2(e)); every sum is f32.
 
 #include "decode_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(THREADS) decode_split_kernel(
-    const bf16* __restrict__ q,    // [H, HD]
-    const bf16* __restrict__ ka,   // [C, Hkv, HD] pre-rotated
-    const bf16* __restrict__ va,   // [C, Hkv, HD]
-    float* __restrict__ part_m,    // [Hkv, n_splits, G]
-    float* __restrict__ part_l,    // [Hkv, n_splits, G]
-    float* __restrict__ part_acc,  // [Hkv, n_splits, G, HD]
-    int Hkv, int G, int visible_len, int n_splits, float qscale) {
-  __shared__ __align__(16) float sq[GMAX * HD];
-  const int kvh = blockIdx.x;
-  for (int i = threadIdx.x; i < G * HD; i += blockDim.x) {
-    sq[i] = __bfloat162float(q[(size_t)kvh * G * HD + i]) * qscale;
+using namespace hopper;
+
+constexpr int K2_THREADS = 256;               // 8 warps
+constexpr int K2_WARPS = K2_THREADS / 32;
+constexpr int TILE = 160;                     // rows staged at once: the largest split
+constexpr int ROW_BYTES = HD * 2;             // one bf16 K or V row of one kv head
+constexpr int QUARTERS = K2_THREADS / (HD / 2);
+constexpr int CHUNKS = 4;                     // a tile arrives in chunks of TILE / CHUNKS rows,
+constexpr int CHUNK = TILE / CHUNKS;          // one mbarrier each
+constexpr size_t K2_SMEM = 2 * (size_t)TILE * ROW_BYTES           // K, V tiles
+                           + sizeof(float) * GMAX * HD              // scaled q
+                           + sizeof(float) * GMAX * TILE            // logits, then weights
+                           + sizeof(float) * 4 * GMAX               // m, l, alpha, den
+                           + sizeof(uint64_t) * CHUNKS;             // mbarriers
+// the fused combine keeps one weight per (query head, part) in the K tile
+constexpr int MAX_PARTS = TILE * ROW_BYTES / (GMAX * (int)sizeof(float));
+
+static_assert(QUARTERS == 4 && GMAX <= K2_WARPS && CHUNK % 4 == 0, "the layouts below assume these");
+// a part is at most two tiles (the small block's EMAX rows), so each chunk's
+// barrier completes once per tile it is waited on in
+static_assert(EMAX <= 2 * TILE, "the small block must fit in two tiles");
+static_assert(QUARTERS * GMAX * HD * sizeof(float) <= TILE * ROW_BYTES, "reduction fits in a tile");
+
+// One step of a transposing warp reduction: lanes that differ in bit OFF
+// swap halves of their first 2 OFF values and add, so that after the steps
+// 16, 8, 4, 2, 1 lane l holds the warp's sum of value l.
+template <int OFF>
+__device__ __forceinline__ void butterfly(float (&v)[32], int lane) {
+  const bool upper = lane & OFF;
+#pragma unroll
+  for (int i = 0; i < OFF; ++i) {
+    const float send = upper ? v[i] : v[i + OFF];
+    const float keep = upper ? v[i + OFF] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+  }
+}
+
+// One split (or K2's small block) of one kv head -> its partial (m, l, acc)
+// in part_* [Hkv, n_parts, G(, HD)]; the last CTA of the kv head to finish
+// folds the n_parts partials into the output (FULL: K2's normalised bf16
+// row per query head; else K4's merged partials).
+template <bool FULL>
+__global__ void __launch_bounds__(K2_THREADS, 2) decode_split_kernel(
+    const bf16* __restrict__ q,      // [H, HD]
+    const bf16* __restrict__ ka,     // [C, Hkv, HD] pre-rotated
+    const bf16* __restrict__ va,     // [C, Hkv, HD]
+    const bf16* __restrict__ ksm,    // [E1, Hkv, HD] rotated delta ++ self rows (FULL)
+    const bf16* __restrict__ vsm,    // [E1, Hkv, HD]
+    float* __restrict__ part_m,      // [Hkv, n_parts, G]
+    float* __restrict__ part_l,      // [Hkv, n_parts, G]
+    float* __restrict__ part_acc,    // [Hkv, n_parts, G, HD]
+    int* __restrict__ counters,      // [Hkv], zero between calls
+    bf16* __restrict__ out,          // [H, HD] (FULL)
+    float* __restrict__ m_out,       // [H] (K4)
+    float* __restrict__ l_out,       // [H] (K4)
+    float* __restrict__ acc_out,     // [H, HD] (K4)
+    int Hkv, int G, int visible_len, int split_rows, int n_splits, int e1, int e_delta,
+    int extra_visible, float qscale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* sk = smem;                                      // [TILE][HD] bf16
+  unsigned char* sv = sk + TILE * ROW_BYTES;                     // [TILE][HD] bf16
+  float* sq = reinterpret_cast<float*>(sv + TILE * ROW_BYTES);  // [GMAX][HD]
+  float* sp = sq + GMAX * HD;                                    // [GMAX][TILE]
+  float* s_m = sp + GMAX * TILE;                                 // running max per query head
+  float* s_l = s_m + GMAX;
+  float* s_alpha = s_l + GMAX;
+  float* s_den = s_alpha + GMAX;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(s_den + GMAX);
+  __shared__ int s_last;
+
+  const int part = blockIdx.x, kvh = blockIdx.y;
+  const int n_parts = gridDim.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const bool small = part == n_splits;  // K2's delta + self rows
+
+  // the rows of this part: arena slots [row0, row0 + rows), or k_small [0, e1)
+  const bf16* kbase = small ? ksm : ka;
+  const bf16* vbase = small ? vsm : va;
+  const int row0 = small ? 0 : part * split_rows;
+  const int rows = small ? e1 : min(split_rows, visible_len - row0);
+
+  // stage the first tile's K and V rows (256 bytes each) with bulk copies,
+  // then the queries while they fly
+  auto stage_tile = [&](int t0, int n) {
+    if (warp == 0) {
+      if (lane < CHUNKS && lane * CHUNK < n) {
+        mbar_arrive_expect_tx(&bar[lane], 2u * min(CHUNK, n - lane * CHUNK) * ROW_BYTES);
+      }
+      __syncwarp();
+      for (int j = lane; j < n; j += 32) {
+        const size_t src = ((size_t)(row0 + t0 + j) * Hkv + kvh) * HD;
+        bulk_load(sk + j * ROW_BYTES, kbase + src, ROW_BYTES, &bar[j / CHUNK]);
+        bulk_load(sv + j * ROW_BYTES, vbase + src, ROW_BYTES, &bar[j / CHUNK]);
+      }
+    }
+  };
+  if (warp == 0) {
+    if (lane < CHUNKS) {
+      mbar_init(&bar[lane], 1);
+      mbar_fence_init();
+    }
+    __syncwarp();
+    if (rows > 0) stage_tile(0, min(TILE, rows));
+  }
+  for (int i = tid; i < GMAX * HD; i += K2_THREADS) {
+    sq[i] = i < G * HD ? __bfloat162float(q[(size_t)kvh * G * HD + i]) * qscale : 0.f;
+  }
+  if (tid < GMAX) {
+    s_m[tid] = -INFINITY;
+    s_l[tid] = 0.f;
   }
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int split = blockIdx.y * NWARPS + warp;
-  if (split >= n_splits) return;
-  const int c_lo = split * SPLIT;
-  const int c_hi = min(c_lo + SPLIT, visible_len);
-
-  float m[GMAX], l[GMAX], acc[GMAX][4];
+  float qr[GMAX][4];  // this lane's head dims [4 lane, 4 lane + 4) of every query head
 #pragma unroll
   for (int g = 0; g < GMAX; ++g) {
-    m[g] = -INFINITY;
-    l[g] = 0.f;
-    acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.f;
+    const float4 v = *reinterpret_cast<const float4*>(sq + g * HD + 4 * lane);
+    qr[g][0] = v.x;
+    qr[g][1] = v.y;
+    qr[g][2] = v.z;
+    qr[g][3] = v.w;
   }
+  float acc[GMAX][2];
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g) acc[g][0] = acc[g][1] = 0.f;
+  const int dp = tid % (HD / 2), quarter = tid / (HD / 2);
 
-  for (int c0 = c_lo; c0 < c_hi; c0 += 32) {
-    // logits: lane = key
-    const int c = c0 + lane;
-    const bool valid = c < c_hi;
-    float s[GMAX];
+  uint32_t parity = 0;
+  for (int t0 = 0; t0 < rows; t0 += TILE) {
+    const int n = min(TILE, rows - t0);
+    const int n4 = (n + 3) / 4 * 4;
+    if (t0 > 0) stage_tile(t0, n);
+
+    // logits: warp w takes the groups of 4 rows starting at 4 (w + 8 i). A
+    // lane sums its 4 head dims for the 32 (row, query head) pairs of the
+    // group, and a transposing butterfly (31 shuffles) leaves the whole
+    // sum of pair `lane` (row lane / 8, query head lane % 8) in lane `lane`
+    for (int j0 = 4 * warp; j0 < n; j0 += 4 * K2_WARPS) {
+      // the warp's first rows in a chunk (a new chunk starts within its stride)
+      if (j0 % CHUNK < 4 * K2_WARPS) mbar_wait(&bar[j0 / CHUNK], parity);
+      float v[32];
 #pragma unroll
-    for (int g = 0; g < GMAX; ++g) s[g] = 0.f;
-    if (valid) {
-      const uint4* row = reinterpret_cast<const uint4*>(ka + ((size_t)c * Hkv + kvh) * HD);
-#pragma unroll 4
-      for (int j = 0; j < HD / 8; ++j) {
-        const uint4 u = row[j];
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-        float kf[8];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 x = __bfloat1622float2(h[e]);
-          kf[2 * e] = x.x;
-          kf[2 * e + 1] = x.y;
-        }
+      for (int r = 0; r < 4; ++r) {
+        const uint2 u = *reinterpret_cast<const uint2*>(sk + (j0 + r) * ROW_BYTES + 8 * lane);
+        const float2 k01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+        const float2 k23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
 #pragma unroll
         for (int g = 0; g < GMAX; ++g) {
-          if (g < G) {
-            const float4 qa = *reinterpret_cast<const float4*>(sq + g * HD + j * 8);
-            const float4 qb = *reinterpret_cast<const float4*>(sq + g * HD + j * 8 + 4);
-            s[g] += qa.x * kf[0] + qa.y * kf[1] + qa.z * kf[2] + qa.w * kf[3] +
-                    qb.x * kf[4] + qb.y * kf[5] + qb.z * kf[6] + qb.w * kf[7];
-          }
+          v[r * GMAX + g] =
+              qr[g][0] * k01.x + qr[g][1] * k01.y + qr[g][2] * k23.x + qr[g][3] * k23.y;
         }
       }
+      butterfly<16>(v, lane);
+      butterfly<8>(v, lane);
+      butterfly<4>(v, lane);
+      butterfly<2>(v, lane);
+      butterfly<1>(v, lane);
+      const int g = lane % GMAX, j = j0 + lane / GMAX;
+      const int jj = t0 + j;  // row within the part
+      const bool vis = j < n && (!small || jj < extra_visible || jj >= e_delta);
+      if (g < G) sp[g * TILE + j] = vis ? v[0] : -INFINITY;
     }
-    float p[GMAX];
-    online_softmax_step(s, valid, G, m, l, acc, p);
-    // P.V: lane owns head-dim slice [4*lane, 4*lane + 4); unrolled so that
-    // several V rows are in flight
-    const int n = min(32, c_hi - c0);
-#pragma unroll 8
-    for (int j = 0; j < n; ++j) {
-      const uint2 u = *reinterpret_cast<const uint2*>(
-          va + ((size_t)(c0 + j) * Hkv + kvh) * HD + 4 * lane);
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-      const float2 v01 = __bfloat1622float2(h[0]);
-      const float2 v23 = __bfloat1622float2(h[1]);
+    // every chunk has landed (a warp with no rows in one has not waited on it)
+    for (int c = 0; c * CHUNK < n; ++c) mbar_wait(&bar[c], parity);
+    parity ^= 1;
+    __syncthreads();
+
+    // softmax of query head g over the tile, online across tiles: warp g
+    if (warp < G) {
+      const int g = warp;
+      float mx = -INFINITY;
+      for (int j = lane; j < n4; j += 32) mx = fmaxf(mx, sp[g * TILE + j]);
+      mx = warp_max(mx);
+      const float m_old = s_m[g];
+      const float m_new = fmaxf(m_old, mx);
+      const float base = m_new == -INFINITY ? 0.f : m_new;  // no visible row yet: subtract 0
+      float sum = 0.f;
+      for (int j = lane; j < n4; j += 32) {
+        const float p = exp2f(sp[g * TILE + j] - base);
+        sp[g * TILE + j] = p;
+        sum += p;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float alpha = m_old == -INFINITY ? 0.f : exp2f(m_old - base);
+        s_alpha[g] = alpha;
+        s_l[g] = s_l[g] * alpha + sum;
+        s_m[g] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // P.V: head dims 2 dp + {0, 1} of the groups of 4 rows starting at
+    // 4 (quarter + 4 i)
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g) {
+      const float a = g < G ? s_alpha[g] : 0.f;
+      acc[g][0] *= a;
+      acc[g][1] *= a;
+    }
+    for (int j0 = 4 * quarter; j0 < n; j0 += 4 * QUARTERS) {
+      float2 v[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        v[r] = j0 + r < n ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                                sv + (j0 + r) * ROW_BYTES + 4 * dp))
+                          : make_float2(0.f, 0.f);
+      }
 #pragma unroll
       for (int g = 0; g < GMAX; ++g) {
         if (g < G) {
-          const float pj = __shfl_sync(0xffffffffu, p[g], j);
-          acc[g][0] += pj * v01.x;
-          acc[g][1] += pj * v01.y;
-          acc[g][2] += pj * v23.x;
-          acc[g][3] += pj * v23.y;
+          const float4 p = *reinterpret_cast<const float4*>(sp + g * TILE + j0);
+          acc[g][0] += p.x * v[0].x + p.y * v[1].x + p.z * v[2].x + p.w * v[3].x;
+          acc[g][1] += p.x * v[0].y + p.y * v[1].y + p.z * v[2].y + p.w * v[3].y;
         }
       }
     }
+    __syncthreads();  // the tile's buffers are free for the next one
   }
 
-  store_partials(part_m, part_l, part_acc, ((size_t)kvh * n_splits + split) * G, G, m, l,
-                 acc, lane);
-}
-
-// K4's combine: one CTA per (kv head, query head of its group), thread d
-// owns head-dim d; folds the splits into merged partials without dividing.
-__global__ void __launch_bounds__(THREADS) decode_partials_combine_kernel(
-    const float* __restrict__ part_m,    // [Hkv, n_splits, G]
-    const float* __restrict__ part_l,
-    const float* __restrict__ part_acc,  // [Hkv, n_splits, G, HD]
-    float* __restrict__ m_out,           // [H]
-    float* __restrict__ l_out,           // [H]
-    float* __restrict__ acc_out,         // [H, HD]
-    int G, int n_splits) {
-  __shared__ float s_mx;
-  __shared__ float s_l;
-  extern __shared__ float s_w[];  // [n_splits] split maxima, then weights
-  const int kvh = blockIdx.x;
-  const int g = blockIdx.y;
-  const int h = kvh * G + g;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int s = threadIdx.x; s < n_splits; s += THREADS) {
-    s_w[s] = part_m[((size_t)kvh * n_splits + s) * G + g];
+  // the quarters meet in shared memory (the K tile); one partial per query head
+  float* red = reinterpret_cast<float*>(sk);  // [QUARTERS][GMAX][HD]
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g) {
+    if (g < G) {
+      *reinterpret_cast<float2*>(red + (quarter * GMAX + g) * HD + 2 * dp) =
+          make_float2(acc[g][0], acc[g][1]);
+    }
   }
   __syncthreads();
-  if (warp == 0) {
+  const size_t base = ((size_t)kvh * n_parts + part) * G;
+  for (int i = tid; i < G * HD; i += K2_THREADS) {
+    const int g = i / HD, d = i % HD;
+    float a = 0.f;
+#pragma unroll
+    for (int k = 0; k < QUARTERS; ++k) a += red[(k * GMAX + g) * HD + d];
+    part_acc[base * HD + i] = a;
+  }
+  if (tid < G) {
+    part_m[base + tid] = s_m[tid];
+    part_l[base + tid] = s_l[tid];
+  }
+
+  // count in; the last CTA of this kv head folds its parts
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(&counters[kvh], 1) == n_parts - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+
+  // one coalesced pass brings every part's (m, l) into shared memory; then
+  // query head g's weights and denominator are warp g's
+  float* w = reinterpret_cast<float*>(sk);    // [n_parts][G] maxima, then weights
+  float* pl = reinterpret_cast<float*>(sv);   // [n_parts][G]
+  for (int i = tid; i < n_parts * G; i += K2_THREADS) {
+    w[i] = __ldcg(part_m + (size_t)kvh * n_parts * G + i);
+    pl[i] = __ldcg(part_l + (size_t)kvh * n_parts * G + i);
+  }
+  __syncthreads();
+  if (warp < G) {
+    const int g = warp;
     float mx = -INFINITY;
-    for (int s = lane; s < n_splits; s += 32) mx = fmaxf(mx, s_w[s]);
+    for (int p = lane; p < n_parts; p += 32) mx = fmaxf(mx, w[p * G + g]);
     mx = warp_max(mx);
-    float l = 0.f;
-    for (int s = lane; s < n_splits; s += 32) {
-      const float w = exp2f(s_w[s] - mx);
-      s_w[s] = w;
-      l += w * part_l[((size_t)kvh * n_splits + s) * G + g];
+    float den = 0.f;
+    for (int p = lane; p < n_parts; p += 32) {
+      const float m = w[p * G + g];
+      const float wt = m == -INFINITY ? 0.f : exp2f(m - mx);
+      w[p * G + g] = wt;
+      den += wt * pl[p * G + g];
     }
-    l = warp_sum(l);
+    den = warp_sum(den);
     if (lane == 0) {
-      s_mx = mx;
-      s_l = l;
+      s_m[g] = mx;
+      s_den[g] = den;
     }
   }
   __syncthreads();
-  const int d = threadIdx.x;  // THREADS == HD
-  float a = 0.f;
+  float a[GMAX][2];
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g) a[g][0] = a[g][1] = 0.f;
 #pragma unroll 4
-  for (int s = 0; s < n_splits; ++s) {
-    a += s_w[s] * part_acc[(((size_t)kvh * n_splits + s) * G + g) * HD + d];
+  for (int p = quarter; p < n_parts; p += QUARTERS) {
+    const float* pa = part_acc + ((size_t)kvh * n_parts + p) * G * HD + 2 * dp;
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g) {
+      if (g < G) {
+        const float2 x = __ldcg(reinterpret_cast<const float2*>(pa + g * HD));
+        const float wt = w[p * G + g];
+        a[g][0] += wt * x.x;
+        a[g][1] += wt * x.y;
+      }
+    }
   }
-  acc_out[(size_t)h * HD + d] = a;
-  if (d == 0) {
-    m_out[h] = s_mx;
-    l_out[h] = s_l;
+  __syncthreads();  // the denominators' inputs in sv are read
+  float* red2 = reinterpret_cast<float*>(sv);  // [QUARTERS][GMAX][HD]
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g) {
+    if (g < G) {
+      *reinterpret_cast<float2*>(red2 + (quarter * GMAX + g) * HD + 2 * dp) =
+          make_float2(a[g][0], a[g][1]);
+    }
   }
+  __syncthreads();
+  for (int i = tid; i < G * HD; i += K2_THREADS) {
+    const int g = i / HD, d = i % HD;
+    float x = 0.f;
+#pragma unroll
+    for (int k = 0; k < QUARTERS; ++k) x += red2[(k * GMAX + g) * HD + d];
+    const size_t o = ((size_t)kvh * G + g) * HD + d;
+    if constexpr (FULL) {
+      out[o] = __float2bfloat16(x / fmaxf(s_den[g], 1e-20f));
+    } else {
+      acc_out[o] = x;
+    }
+  }
+  if constexpr (!FULL) {
+    if (tid < G) {
+      m_out[kvh * G + tid] = s_m[tid];
+      l_out[kvh * G + tid] = s_den[tid];
+    }
+  }
+  if (tid == 0) counters[kvh] = 0;  // ready for the next call
 }
 
 __global__ void decode_partials_empty_kernel(float* m_out, float* l_out, float* acc_out,
@@ -188,69 +388,82 @@ __global__ void decode_partials_empty_kernel(float* m_out, float* l_out, float* 
   }
 }
 
-void launch_split(const void* q, const void* ka, const void* va, void* part_m,
-                  void* part_l, void* part_acc, int Hkv, int G, int visible_len,
-                  int n_splits, float qscale, cudaStream_t s) {
-  const dim3 grid(Hkv, (n_splits + NWARPS - 1) / NWARPS);
-  decode_split_kernel<<<grid, THREADS, 0, s>>>(
-      (const bf16*)q, (const bf16*)ka, (const bf16*)va, (float*)part_m, (float*)part_l,
-      (float*)part_acc, Hkv, G, visible_len, n_splits, qscale);
+template <bool FULL>
+cudaError_t launch_split(const void* q, const void* ka, const void* va, const void* ksm,
+                         const void* vsm, void* part_m, void* part_l, void* part_acc,
+                         void* counters, void* out, void* m_out, void* l_out, void* acc_out,
+                         int Hkv, int G, int visible_len, int split_rows, int n_splits, int e1,
+                         int e_delta, int extra_visible, cudaStream_t s) {
+  static bool opted = false;
+  if (!opted) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        decode_split_kernel<FULL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K2_SMEM);
+    if (e != cudaSuccess) return e;
+    opted = true;
+  }
+  const float qscale = LOG2E / sqrtf((float)HD);
+  const dim3 grid(n_splits + (FULL ? 1 : 0), Hkv);
+  decode_split_kernel<FULL><<<grid, K2_THREADS, K2_SMEM, s>>>(
+      (const bf16*)q, (const bf16*)ka, (const bf16*)va, (const bf16*)ksm, (const bf16*)vsm,
+      (float*)part_m, (float*)part_l, (float*)part_acc, (int*)counters, (bf16*)out,
+      (float*)m_out, (float*)l_out, (float*)acc_out, Hkv, G, visible_len, split_rows, n_splits,
+      e1, e_delta, extra_visible, qscale);
+  return cudaSuccess;
+}
+
+bool bad_split(int visible_len, int split_rows, int n_parts) {
+  return split_rows < 1 || split_rows > TILE || n_parts > MAX_PARTS || visible_len < 0;
 }
 
 }  // namespace
 
-// Scratch part_m / part_l / part_acc hold n_splits = ceil(visible_len /
-// SPLIT) splits; the wrapper allocates them (svt_decode_split_size gives
-// SPLIT) and may pass null pointers when visible_len == 0.
-extern "C" int svt_decode_split_size() { return SPLIT; }
+// the largest split (rows staged at once) and the most parts (splits + the
+// small block) a call of K2 or K4 may have
+extern "C" int svt_decode_max_split() { return TILE; }
+extern "C" int svt_decode_max_parts() { return MAX_PARTS; }
 
 extern "C" int svt_decode_max_small_rows() { return EMAX; }
 
+// K2. Scratch: part_m / part_l [Hkv, n_parts, G], part_acc [Hkv, n_parts,
+// G, HD] f32 and counters [Hkv] int32 (zero between calls), n_parts =
+// ceil(visible_len / split_rows) + 1.
 extern "C" int svt_decode_attention(
-    const void* q, const void* ka, const void* va, const void* ksm,
-    const void* vsm, void* part_m, void* part_l, void* part_acc, void* out,
-    int H, int Hkv, int hd, int e1, int e_delta, int visible_len,
-    int extra_visible, void* stream) {
+    const void* q, const void* ka, const void* va, const void* ksm, const void* vsm,
+    void* part_m, void* part_l, void* part_acc, void* counters, void* out, int H, int Hkv,
+    int hd, int e1, int e_delta, int visible_len, int extra_visible, int split_rows,
+    void* stream) {
   if (hd != HD || H % Hkv != 0 || H / Hkv > GMAX || e1 > EMAX || e1 <= e_delta) {
     return (int)cudaErrorInvalidValue;
   }
-  const int G = H / Hkv;
-  const float qscale = LOG2E / sqrtf((float)hd);
-  const int n_splits = (visible_len + SPLIT - 1) / SPLIT;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (n_splits > 0) {
-    launch_split(q, ka, va, part_m, part_l, part_acc, Hkv, G, visible_len, n_splits, qscale,
-                 s);
-  }
-  launch_decode_combine((const bf16*)q, (const bf16*)ksm, (const bf16*)vsm,
-                        (const float*)part_m, (const float*)part_l, (const float*)part_acc,
-                        (bf16*)out, Hkv, G, n_splits, e1, e_delta, extra_visible, qscale, s);
+  const int n_splits = split_rows > 0 ? (visible_len + split_rows - 1) / split_rows : 0;
+  if (bad_split(visible_len, split_rows, n_splits + 1)) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = launch_split<true>(
+      q, ka, va, ksm, vsm, part_m, part_l, part_acc, counters, out, nullptr, nullptr, nullptr,
+      Hkv, H / Hkv, visible_len, split_rows, n_splits, e1, e_delta, extra_visible,
+      reinterpret_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// K4: merged log2-space partials of one token over arena slots < visible_len.
+// K4: merged log2-space partials of one token over arena slots <
+// visible_len. Scratch as K2's, with n_parts = ceil(visible_len /
+// split_rows) (no small block).
 extern "C" int svt_decode_partials(
-    const void* q, const void* ka, const void* va, void* part_m, void* part_l,
-    void* part_acc, void* m_out, void* l_out, void* acc_out, int H, int Hkv, int hd,
-    int visible_len, void* stream) {
+    const void* q, const void* ka, const void* va, void* part_m, void* part_l, void* part_acc,
+    void* counters, void* m_out, void* l_out, void* acc_out, int H, int Hkv, int hd,
+    int visible_len, int split_rows, void* stream) {
   if (hd != HD || H % Hkv != 0 || H / Hkv > GMAX) return (int)cudaErrorInvalidValue;
-  const int G = H / Hkv;
-  const float qscale = LOG2E / sqrtf((float)hd);
-  const int n_splits = (visible_len + SPLIT - 1) / SPLIT;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int n_splits = split_rows > 0 ? (visible_len + split_rows - 1) / split_rows : 0;
+  if (bad_split(visible_len, split_rows, n_splits)) return (int)cudaErrorInvalidValue;
   if (n_splits == 0) {
-    decode_partials_empty_kernel<<<(H * HD + THREADS - 1) / THREADS, THREADS, 0, s>>>(
+    decode_partials_empty_kernel<<<(H * HD + 127) / 128, 128, 0, s>>>(
         (float*)m_out, (float*)l_out, (float*)acc_out, H);
     return (int)cudaGetLastError();
   }
-  launch_split(q, ka, va, part_m, part_l, part_acc, Hkv, G, visible_len, n_splits, qscale, s);
-  const size_t dyn = sizeof(float) * (size_t)n_splits;
-  if (dyn > 40 * 1024) {
-    cudaFuncSetAttribute(decode_partials_combine_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
-  }
-  decode_partials_combine_kernel<<<dim3(Hkv, G), THREADS, dyn, s>>>(
-      (const float*)part_m, (const float*)part_l, (const float*)part_acc, (float*)m_out,
-      (float*)l_out, (float*)acc_out, G, n_splits);
+  const cudaError_t e = launch_split<false>(
+      q, ka, va, nullptr, nullptr, part_m, part_l, part_acc, counters, nullptr, m_out, l_out,
+      acc_out, Hkv, H / Hkv, visible_len, split_rows, n_splits, 0, 0, 0, s);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

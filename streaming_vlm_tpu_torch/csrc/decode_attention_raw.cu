@@ -23,19 +23,164 @@
 // What bounds it on an H100: bytes. At visible_len = 9000 an int8 arena
 // layer is 9000 x 4 x 128 x 2 B of K+V plus 288 KB of scales and 108 KB of
 // positions, ~9.6 MB, against ~0.3 GFLOP and 9000 x 64 sin/cos. Design: the
-// split pass of K2 with one CTA per split of SPLIT=64 slots covering ALL kv
+// split-K scheme with one CTA per split of SPLIT=64 slots covering ALL kv
 // heads, so each slot's 64 sin/cos pairs are computed once per call (not
 // once per kv head) into shared memory, laid out [channel][slot] so that
 // the 32 lanes of a warp (one slot each) read them without bank conflicts.
 // Warp w then takes kv heads w, w+4, ...: lane = slot for Q.K (the lane
 // holds both halves of every channel pair of its key, so the rotation needs
 // no shuffles; 16-byte loads of 16 int8 or 8 bf16 channels), lane = head-dim
-// slice for P.V. The partials have K2's layout and K2's combine pass
-// (decode_common.cuh) folds them with the small delta + self block.
+// slice for P.V. The partials have the layout of decode_common.cuh; a
+// second launch (decode_combine_kernel) folds them with the small delta +
+// self block.
 
 #include "decode_common.cuh"
 
 namespace {
+
+constexpr int HALF = HD / 2;
+constexpr int SPLIT = 64;      // arena slots per split: split s covers [s * SPLIT, (s + 1) * SPLIT)
+constexpr int THREADS = 128;   // 4 warps; the combine maps one thread per head-dim lane
+constexpr int NWARPS = THREADS / 32;
+
+// One online-softmax step of a warp over 32 keys (lane = key): fold the
+// logits s[g] (invalid lanes masked) into the running (m, l, acc) and return
+// the weights p[g] that P.V multiplies (0 for invalid lanes).
+__device__ __forceinline__ void online_softmax_step(const float* s, bool valid, int G,
+                                                    float* m, float* l, float (*acc)[4],
+                                                    float* p) {
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g) {
+    if (g < G) {
+      const float sg = valid ? s[g] : -INFINITY;
+      const float m_new = fmaxf(m[g], warp_max(sg));
+      p[g] = valid ? exp2f(sg - m_new) : 0.f;
+      const float alpha = (m[g] == -INFINITY) ? 0.f : exp2f(m[g] - m_new);
+      l[g] = l[g] * alpha + warp_sum(p[g]);
+      acc[g][0] *= alpha;
+      acc[g][1] *= alpha;
+      acc[g][2] *= alpha;
+      acc[g][3] *= alpha;
+      m[g] = m_new;
+    } else {
+      p[g] = 0.f;
+    }
+  }
+}
+
+// Write one warp's split partials (lane owns head-dim slice [4*lane, 4*lane+4)).
+__device__ __forceinline__ void store_partials(float* __restrict__ part_m,
+                                               float* __restrict__ part_l,
+                                               float* __restrict__ part_acc, size_t base,
+                                               int G, const float* m, const float* l,
+                                               float (*acc)[4], int lane) {
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g) {
+    if (g < G) {
+      if (lane == 0) {
+        part_m[base + g] = m[g];
+        part_l[base + g] = l[g];
+      }
+      *reinterpret_cast<float4*>(part_acc + (base + g) * HD + 4 * lane) =
+          make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS) decode_combine_kernel(
+    const bf16* __restrict__ q,         // [H, HD]
+    const bf16* __restrict__ ksm,       // [E1, Hkv, HD] rotated delta ++ self rows
+    const bf16* __restrict__ vsm,       // [E1, Hkv, HD]
+    const float* __restrict__ part_m,   // [Hkv, n_splits, G]
+    const float* __restrict__ part_l,
+    const float* __restrict__ part_acc, // [Hkv, n_splits, G, HD]
+    bf16* __restrict__ out,             // [H, HD]
+    int Hkv, int G, int n_splits, int e1, int e_delta, int extra_visible,
+    float qscale) {
+  // one CTA per (kv head, query head of its group); thread d owns head-dim d
+  __shared__ __align__(16) float sq[HD];
+  __shared__ float s_small[EMAX];  // small-part logits, then softmax weights
+  __shared__ float s_den;
+  extern __shared__ float s_w[];   // [n_splits] split maxima, then weights
+  const int kvh = blockIdx.x;
+  const int g = blockIdx.y;
+  const int h = kvh * G + g;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int d = threadIdx.x; d < HD; d += THREADS) {
+    sq[d] = __bfloat162float(q[(size_t)h * HD + d]) * qscale;
+  }
+  for (int s = threadIdx.x; s < n_splits; s += THREADS) {
+    s_w[s] = part_m[((size_t)kvh * n_splits + s) * G + g];
+  }
+  __syncthreads();
+
+  // small-part logits: one row per warp iteration
+  for (int j = warp; j < e1; j += NWARPS) {
+    const bf16* row = ksm + ((size_t)j * Hkv + kvh) * HD;
+    float part = 0.f;
+#pragma unroll
+    for (int d = lane; d < HD; d += 32) part += sq[d] * __bfloat162float(row[d]);
+    part = warp_sum(part);
+    if (lane == 0) {
+      const bool vis = j < extra_visible || j >= e_delta;
+      s_small[j] = vis ? part : -INFINITY;
+    }
+  }
+  __syncthreads();
+
+  // joint max, weights and denominator (warp 0; each lane owns its indices)
+  if (warp == 0) {
+    float mx = -INFINITY;
+    for (int s = lane; s < n_splits; s += 32) mx = fmaxf(mx, s_w[s]);
+    for (int j = lane; j < e1; j += 32) mx = fmaxf(mx, s_small[j]);
+    mx = warp_max(mx);
+    float den = 0.f;
+    for (int s = lane; s < n_splits; s += 32) {
+      const float m = s_w[s];
+      const float w = (m == -INFINITY) ? 0.f : exp2f(m - mx);
+      s_w[s] = w;
+      den += w * part_l[((size_t)kvh * n_splits + s) * G + g];
+    }
+    for (int j = lane; j < e1; j += 32) {
+      const float sj = s_small[j];
+      const float w = (sj == -INFINITY) ? 0.f : exp2f(sj - mx);
+      s_small[j] = w;
+      den += w;
+    }
+    den = warp_sum(den);
+    if (lane == 0) s_den = fmaxf(den, 1e-20f);
+  }
+  __syncthreads();
+
+  const int d = threadIdx.x;  // THREADS == HD
+  float a = 0.f;
+#pragma unroll 4
+  for (int s = 0; s < n_splits; ++s) {
+    a += s_w[s] * part_acc[(((size_t)kvh * n_splits + s) * G + g) * HD + d];
+  }
+  for (int j = 0; j < e1; ++j) {
+    a += s_small[j] * __bfloat162float(vsm[((size_t)j * Hkv + kvh) * HD + d]);
+  }
+  out[(size_t)h * HD + d] = __float2bfloat16(a / s_den);
+}
+
+// Launch the combine pass on `stream` (dynamic shared memory holds one float
+// per split).
+inline void launch_decode_combine(const bf16* q, const bf16* ksm, const bf16* vsm,
+                                  const float* part_m, const float* part_l,
+                                  const float* part_acc, bf16* out, int Hkv, int G,
+                                  int n_splits, int e1, int e_delta, int extra_visible,
+                                  float qscale, cudaStream_t s) {
+  const size_t dyn = sizeof(float) * (size_t)n_splits;
+  if (dyn > 40 * 1024) {  // static shared memory takes ~1.5 KB of the default 48
+    cudaFuncSetAttribute(decode_combine_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+  }
+  decode_combine_kernel<<<dim3(Hkv, G), THREADS, dyn, s>>>(
+      q, ksm, vsm, part_m, part_l, part_acc, out, Hkv, G, n_splits, e1, e_delta,
+      extra_visible, qscale);
+}
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
@@ -225,9 +370,14 @@ cudaError_t launch_raw_split(const void* q, const void* kq, const void* ks, cons
 
 }  // namespace
 
+// K3's split: SPLIT arena slots per CTA (K2 picks its own per call). Its
+// scratch part_m / part_l / part_acc holds ceil(visible_len / SPLIT)
+// splits; the wrapper allocates it and may pass null pointers when
+// visible_len == 0.
+extern "C" int svt_decode_split_size() { return SPLIT; }
+
 // K3. quantized != 0: kq/vq are int8 with f32 scales ks/vs [C, Hkv];
-// quantized == 0: kq/vq are bf16 and ks/vs are ignored. Scratch as K2's
-// (svt_decode_split_size slots per split).
+// quantized == 0: kq/vq are bf16 and ks/vs are ignored.
 extern "C" int svt_decode_attention_raw(
     const void* q, const void* kq, const void* ks, const void* vq, const void* vs,
     const void* pos, const void* freqs, const void* ksm, const void* vsm, void* part_m,

@@ -12,6 +12,7 @@ more nvcc call links the objects.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -102,6 +103,25 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensors must be 16-byte aligned")
 
 
+def check_rows(name: str, t: torch.Tensor, K: int) -> None:
+    """Raise unless t is a 2-d CUDA tensor of K int8 columns whose rows are
+    dense, 16-byte aligned at the base and a multiple of 4 bytes apart (a
+    [N, K] view of a [N, Kp] buffer qualifies: what K5 takes for a weight)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: all tensors must be on one CUDA device, got {t.device}")
+    if t.dim() != 2 or t.shape[1] != K or t.stride(1) != 1 or t.stride(0) < K or t.stride(0) % 4:
+        raise ValueError(f"{name}: a [rows, {K}] operand needs dense rows a multiple of 4 "
+                         f"bytes apart, got shape {tuple(t.shape)} strides {t.stride()}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: tensors must be 16-byte aligned")
+
+
+@functools.lru_cache(maxsize=8)
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors (the persistent kernels' grid)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def ptr(t: Optional[torch.Tensor]):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
@@ -123,26 +143,33 @@ def lib() -> ctypes.CDLL:
         so.svt_prefill_block_rows.restype = I
         so.svt_prefill_block_keys.argtypes = []
         so.svt_prefill_block_keys.restype = I
-        so.svt_decode_attention.argtypes = [P] * 9 + [I] * 7 + [P]
+        so.svt_decode_attention.argtypes = [P] * 10 + [I] * 8 + [P]
         so.svt_decode_attention.restype = I
         so.svt_decode_attention_raw.argtypes = [P] * 13 + [I] * 8 + [P]
         so.svt_decode_attention_raw.restype = I
-        so.svt_decode_partials.argtypes = [P] * 9 + [I] * 4 + [P]
+        so.svt_decode_partials.argtypes = [P] * 10 + [I] * 5 + [P]
         so.svt_decode_partials.restype = I
         so.svt_decode_split_size.argtypes = []
         so.svt_decode_split_size.restype = I
-        so.svt_decode_max_small_rows.argtypes = []
-        so.svt_decode_max_small_rows.restype = I
-        so.svt_int8_gemm.argtypes = [P] * 3 + [I] * 3 + [P]
+        for fn in ("svt_decode_max_small_rows", "svt_decode_max_split", "svt_decode_max_parts"):
+            getattr(so, fn).argtypes = []
+            getattr(so, fn).restype = I
+        so.svt_int8_gemm.argtypes = [P, I, P, I, P, I, I, I, P, I, I, I, P, P, P]
         so.svt_int8_gemm.restype = I
-        so.svt_qdot.argtypes = [P, I, P, P, P, P, I, P, P, I, I, I, P]
+        so.svt_qdot.argtypes = [P, I, P, I, P, P, P, I, P, I, P, I, I, I, P, I, I, I, P, P, P]
         so.svt_qdot.restype = I
-        so.svt_int8_small_m.argtypes = []
-        so.svt_int8_small_m.restype = I
+        for fn in ("svt_int8_small_m", "svt_int8_block_m", "svt_int8_block_k"):
+            getattr(so, fn).argtypes = []
+            getattr(so, fn).restype = I
+        so.svt_int8_maps_encoded.argtypes = []
+        so.svt_int8_maps_encoded.restype = ctypes.c_longlong
         # compile-time constants of the decode kernels, read once
-        so.decode_split_size = so.svt_decode_split_size()
+        so.raw_decode_split = so.svt_decode_split_size()
         so.decode_max_small_rows = so.svt_decode_max_small_rows()
+        so.decode_max_split = so.svt_decode_max_split()
+        so.decode_max_parts = so.svt_decode_max_parts()
         so.int8_small_m = so.svt_int8_small_m()
+        so.int8_block = (so.svt_int8_block_m(), so.svt_int8_block_k())
         so.prefill_block = (so.svt_prefill_block_rows(), so.svt_prefill_block_keys())
         _lib = so
     return _lib

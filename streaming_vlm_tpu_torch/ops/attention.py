@@ -7,7 +7,10 @@ streaming_vlm_tpu/ops/attention.py:
   prefill over the arena (pre-rotated, or raw and rotated once per call by
   the kernel's rotate pass), run by persistent CTAs over `prefill_plan`.
 * `streaming_decode_attention_full` (K2, csrc/decode_attention.cu): one
-  token over the pre-rotated arena + decode delta + self.
+  token over the pre-rotated arena + decode delta + self, split by the
+  host (`decode_split_size`) into parts that fill the card, the small
+  block one more part, folded in the same launch
+  (`decode_attention_by_splits` is its plain schedule).
 * `streaming_decode_attention_int8` (K3, csrc/decode_attention_raw.cu): one
   token over the RAW arena in its storage form (int8 + scales, or bf16),
   dequantized and mRoPE-rotated in the kernel, + decode delta + self.
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from ..models.qwen25_vl.rope import apply_rope, make_inv_freq, mrope_cos_sin, rotate_half
-from ._kernels import check_cuda, ptr, stream
+from ._kernels import check_cuda, ptr, sm_count, stream
 from .quant import QuantKV, dequantize_kv
 
 NEG_INF = -1e30
@@ -205,11 +208,6 @@ def _prefill_plan_on(device: torch.device, T: int, G: int, Hkv: int, visible_len
     return plan, staged.to(device, non_blocking=True)
 
 
-@functools.lru_cache(maxsize=8)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def prefill_attention_by_plan(
     q_rot, k_arena, v_arena, acos2, asin2, k_self_rot, v_self, visible_len: int, n_sms: int,
 ) -> torch.Tensor:
@@ -314,7 +312,7 @@ def streaming_prefill_attention(
     if so.prefill_block != (PREFILL_BLOCK_ROWS, PREFILL_BLOCK_KEYS):
         raise RuntimeError(f"{name}: the library's tile {so.prefill_block} is not the plan's")
     dev = q_rot.device
-    plan, plan_dev = _prefill_plan_on(dev, T, H // Hkv, Hkv, vis, _sm_count(dev))
+    plan, plan_dev = _prefill_plan_on(dev, T, H // Hkv, Hkv, vis, sm_count(dev))
     out = torch.empty_like(q_rot)
     part_o = torch.empty(plan.n_partials, PREFILL_BLOCK_ROWS, hd, dtype=torch.float32, device=dev)
     part_ml = torch.empty(plan.n_partials, 2, PREFILL_BLOCK_ROWS, dtype=torch.float32, device=dev)
@@ -358,13 +356,101 @@ def decode_attention_plain(
     return gqa_attention_multi(q_rot[None], parts).reshape(H, hd).to(v_small.dtype)
 
 
-def _split_scratch(so, Hkv: int, G: int, hd: int, visible_len: int, device):
-    """The split passes' partials (m, l, acc), one split per
-    so.decode_split_size visible slots."""
-    n_splits = -(-int(visible_len) // so.decode_split_size)
-    part_m = torch.empty(Hkv, n_splits, G, dtype=torch.float32, device=device)
-    part_acc = torch.empty(Hkv, n_splits, G, hd, dtype=torch.float32, device=device)
-    return part_m, torch.empty_like(part_m), part_acc
+# K2's (and K4's) split: the host picks how many visible slots one CTA
+# stages, so that every visible length gives a grid that fills the card
+DECODE_SPLIT_ALIGN = 8  # split sizes are multiples of this
+DECODE_CTAS_PER_SM = 2  # CTAs of the split pass resident on one SM (shared memory)
+
+
+def decode_split_size(visible_len: int, Hkv: int, n_sms: int, max_split: int = 160) -> int:
+    """Slots per split of K2's and K4's split pass: as few as give the kv
+    heads' splits plus K2's small-block CTAs (one per kv head) one wave of
+    DECODE_CTAS_PER_SM CTAs per SM, in multiples of DECODE_SPLIT_ALIGN, at
+    most max_split (the kernel's tile: csrc/decode_attention.cu TILE)."""
+    per_head = max((DECODE_CTAS_PER_SM * int(n_sms) - Hkv) // Hkv, 1)
+    split = -(-int(visible_len) // per_head)
+    split = -(-split // DECODE_SPLIT_ALIGN) * DECODE_SPLIT_ALIGN
+    return int(min(max(split, DECODE_SPLIT_ALIGN), max_split))
+
+
+def decode_splits(visible_len: int, split: int) -> list:
+    """The arena slot ranges [lo, hi) of the splits of visible_len slots."""
+    return [(lo, min(lo + split, int(visible_len))) for lo in range(0, int(visible_len), split)]
+
+
+def _log2_partial(qs, k, v, mask):
+    """One part's log2-space softmax partial over its rows, f32: qs [Hkv,
+    G, hd] scaled queries, k / v [S, Hkv, hd], mask [S] bool (or None).
+    Returns (m [Hkv, G], l [Hkv, G], acc [Hkv, G, hd]); a part with no
+    visible row gives m = -inf, l = 0, acc = 0."""
+    s = torch.einsum("kgd,skd->kgs", qs, k.float())
+    if mask is not None:
+        s = s.masked_fill(~mask[None, None, :], -math.inf)
+    m = s.amax(dim=-1) if s.shape[-1] else torch.full(s.shape[:2], -math.inf, device=s.device)
+    p = torch.exp2(s - torch.where(m == -math.inf, 0.0, m)[..., None])
+    return m, p.sum(dim=-1), torch.einsum("kgs,skd->kgd", p, v.float())
+
+
+def _merge_partials(parts):
+    """Fold log2-space partials (m, l, acc) into (m, l, acc) merged, f32."""
+    ms = torch.stack([m for m, _, _ in parts])
+    mx = ms.amax(dim=0)
+    w = torch.where(ms == -math.inf, 0.0, torch.exp2(ms - mx))
+    l = (w * torch.stack([l for _, l, _ in parts])).sum(0)
+    acc = (w[..., None] * torch.stack([a for _, _, a in parts])).sum(0)
+    return mx, l, acc
+
+
+def decode_attention_by_splits(
+    q_rot, k_arena, v_arena, k_small, v_small, visible_len: int, extra_visible: int, *,
+    e_delta: int, split: int,
+) -> torch.Tensor:
+    """K2's schedule in plain PyTorch, f32 math: the scaled q, one
+    log2-space partial per split of `decode_splits(visible_len, split)` and
+    one for the small block (delta rows below extra_visible, self rows),
+    merged with one softmax. Returns [H, hd] in v_small's dtype; equal to
+    `decode_attention_plain` up to f32 summation order."""
+    H, hd = q_rot.shape
+    Hkv = k_arena.shape[1]
+    qs = q_rot.float().reshape(Hkv, H // Hkv, hd) * (LOG2E / math.sqrt(hd))
+    parts = [_log2_partial(qs, k_arena[lo:hi], v_arena[lo:hi], None)
+             for lo, hi in decode_splits(visible_len, split)]
+    col = torch.arange(k_small.shape[0], device=q_rot.device)
+    parts.append(_log2_partial(qs, k_small, v_small, (col < int(extra_visible)) | (col >= e_delta)))
+    _, l, acc = _merge_partials(parts)
+    return (acc / l.clamp_min(1e-20)[..., None]).reshape(H, hd).to(v_small.dtype)
+
+
+_decode_scratch_cache = {}  # device -> (f32 partials, int32 counters kept zero by the kernels)
+
+
+def _decode_scratch(device, Hkv: int, n_parts: int, G: int, hd: int):
+    """The decode split passes' partials (m, l [Hkv, n_parts, G], acc [Hkv,
+    n_parts, G, hd]) and K2's / K4's per-kv-head counters, as views of a
+    per-device cache that grows to the largest call seen. Calls on one
+    stream run in order, so they share it."""
+    n_ml = -(-Hkv * n_parts * G // 4) * 4  # keeps acc 16-byte aligned
+    need = 2 * n_ml + Hkv * n_parts * G * hd
+    have = _decode_scratch_cache.get(device)
+    if have is None or have[0].numel() < need or have[1].numel() < Hkv:
+        old = (0, 0) if have is None else (have[0].numel(), have[1].numel())
+        have = (torch.empty(max(need, old[0]), dtype=torch.float32, device=device),
+                torch.zeros(max(Hkv, old[1]), dtype=torch.int32, device=device))
+        _decode_scratch_cache[device] = have
+    buf, counters = have
+    shape = (Hkv, n_parts, G)
+    return (buf[: Hkv * n_parts * G].view(shape), buf[n_ml : n_ml + Hkv * n_parts * G].view(shape),
+            buf[2 * n_ml : need].view(*shape, hd), counters)
+
+
+def _decode_parts(name: str, so, visible_len: int, Hkv: int, device) -> Tuple[int, int]:
+    """(split, arena splits) of a K2 or K4 call on `device`."""
+    split = decode_split_size(visible_len, Hkv, sm_count(device), so.decode_max_split)
+    n = -(-visible_len // split)
+    if n + 1 > so.decode_max_parts:
+        raise ValueError(f"{name}: visible_len {visible_len} needs {n} splits of {split}, more "
+                         f"than the kernel's {so.decode_max_parts - 1}")
+    return split, n
 
 
 def streaming_decode_attention_full(
@@ -407,12 +493,14 @@ def streaming_decode_attention_full(
         raise ValueError(f"{name}: k_small must be [<= {so.decode_max_small_rows}, Hkv, hd]")
     if not 0 <= int(visible_len) <= C or not 0 <= int(extra_visible) <= e_delta:
         raise ValueError(f"{name}: visible_len {visible_len} / extra_visible {extra_visible} out of range")
-    part_m, part_l, part_acc = _split_scratch(so, Hkv, H // Hkv, hd, visible_len, q_rot.device)
+    split, n_parts = _decode_parts(name, so, int(visible_len), Hkv, q_rot.device)
+    part_m, part_l, part_acc, counters = _decode_scratch(q_rot.device, Hkv, n_parts + 1,
+                                                         H // Hkv, hd)
     out = torch.empty(H, hd, dtype=v_small.dtype, device=q_rot.device)
     err = so.svt_decode_attention(
         ptr(q_rot), ptr(k_arena), ptr(v_arena), ptr(k_small), ptr(v_small),
-        ptr(part_m), ptr(part_l), ptr(part_acc), ptr(out), H, Hkv, hd, E1,
-        int(e_delta), int(visible_len), int(extra_visible), stream(),
+        ptr(part_m), ptr(part_l), ptr(part_acc), ptr(counters), ptr(out), H, Hkv, hd, E1,
+        int(e_delta), int(visible_len), int(extra_visible), split, stream(),
     )
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
@@ -522,7 +610,8 @@ def streaming_decode_attention_int8(
     if not 0 <= int(visible_len) <= C or not 0 <= int(extra_visible) <= e_delta:
         raise ValueError(f"{name}: visible_len {visible_len} / extra_visible {extra_visible} out of range")
     freqs = _mrope_freq_table(hd, tuple(mrope_section), float(rope_theta), q_rot.device)
-    part_m, part_l, part_acc = _split_scratch(so, Hkv, H // Hkv, hd, visible_len, q_rot.device)
+    n_splits = -(-int(visible_len) // so.raw_decode_split)
+    part_m, part_l, part_acc, _ = _decode_scratch(q_rot.device, Hkv, n_splits, H // Hkv, hd)
     out = torch.empty(H, hd, dtype=v_small.dtype, device=q_rot.device)
     err = so.svt_decode_attention_raw(
         ptr(q_rot), ptr(k_q), ptr(k_s), ptr(v_q), ptr(v_s), ptr(pos_t), ptr(freqs),
@@ -582,13 +671,14 @@ def streaming_decode_attention(
     from ._kernels import lib
 
     so = lib()
-    part_m, part_l, part_acc = _split_scratch(so, Hkv, H // Hkv, hd, visible_len, q_rot.device)
+    split, n_parts = _decode_parts(name, so, int(visible_len), Hkv, q_rot.device)
+    part_m, part_l, part_acc, counters = _decode_scratch(q_rot.device, Hkv, n_parts, H // Hkv, hd)
     m = torch.empty(H, dtype=torch.float32, device=q_rot.device)
     l = torch.empty_like(m)
     acc = torch.empty(H, hd, dtype=torch.float32, device=q_rot.device)
     err = so.svt_decode_partials(
         ptr(q_rot), ptr(k_arena), ptr(v_arena), ptr(part_m), ptr(part_l), ptr(part_acc),
-        ptr(m), ptr(l), ptr(acc), H, Hkv, hd, int(visible_len), stream(),
+        ptr(counters), ptr(m), ptr(l), ptr(acc), H, Hkv, hd, int(visible_len), split, stream(),
     )
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")

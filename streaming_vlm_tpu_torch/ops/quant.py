@@ -25,13 +25,14 @@ stays float for gathers and tied embeddings get a quantized lm_head copy.
 
 from __future__ import annotations
 
+import functools
 from typing import Mapping, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-from ._kernels import check_cuda, lib, ptr, stream
+from ._kernels import check_cuda, check_rows, lib, ptr, sm_count, stream
 
 
 # 1/127 in f32. The JAX package's W8A8 code runs under jit (quantize_weight
@@ -133,13 +134,16 @@ def compute_dtype(arena: Arena, default: torch.dtype) -> torch.dtype:
 
 # one count per wrapper call (int8_gemm or qdot) that launched kernel K5 (a
 # qdot over more than the decode path's rows launches a row-quantize pass
-# and the tiled product; it counts once)
+# and the tiled product; it counts once), and the same calls by path: the
+# decode GEMV (M <= the library's int8_small_m) or the tiled product
 launch_counts = {"int8_gemm": 0}
+path_counts = {"gemv": 0, "tiled": 0}
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, path_counts):
+        for k in counts:
+            counts[k] = 0
 
 
 def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -159,24 +163,217 @@ def int8_gemm_plain(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return (xq.double() @ wq.double().T).to(torch.int32)
 
 
+# ---- K5's tiled path: tile shape and schedule (made on the host) ----------
+
+GEMM_BM = 128  # rows of an output tile (csrc/int8_gemm.cu BM)
+GEMM_BK = 128  # bytes of K per K block (BK)
+GEMM_BNS = (256, 128)  # the tile widths the kernel is built for, preferred first
+ROW_ALIGN = 16  # TMA's row-stride rule: K5's tiled operands have rows 16-byte multiples apart
+
+
+def padded_k(K: int) -> int:
+    """K rounded up to a multiple of ROW_ALIGN: the row length, in bytes, of
+    an int8 operand that the tiled path reads through a tensor map."""
+    return -(-int(K) // ROW_ALIGN) * ROW_ALIGN
+
+
+class GemmPlan(NamedTuple):
+    """Which CTA of K5's tiled path runs which work. A unit is one K block of
+    one output tile; tiles are numbered m-fastest (tile t is m tile t % mt,
+    n tile t // mt, so CTAs that run at once share weight tiles). Whole tiles
+    are dealt round-robin in full waves; the rest of the units, in (tile, K
+    block) order, are cut into one contiguous, equal (to one unit) share per
+    CTA. A share's run within one tile is a segment. `gemm_plan` picks the
+    tile width and how far a tile's K loop may be split."""
+
+    bn: int  # tile width
+    segs: np.ndarray  # int32 [n_segs, 6]: m tile, n tile, first K block, end K block,
+    # partial slot, fixup (-1, -1: the segment covers the tile's whole K loop)
+    cta_segs: np.ndarray  # int32 [n_ctas + 1]: CTA c runs segs[cta_segs[c] : cta_segs[c + 1]]
+    fixups: np.ndarray  # int32 [n_fixups, 2]: first partial slot, count (one per split tile)
+    n_slots: int
+
+    @property
+    def n_ctas(self) -> int:
+        return len(self.cta_segs) - 1
+
+
+def stream_k_plan(M: int, N: int, K: int, n_sms: int, bn: int, max_split: int) -> GemmPlan:
+    """K5's tiled schedule for tile width bn over min(n_sms, tiles *
+    max_split, units) persistent CTAs. Full waves of whole tiles first, as
+    long as at least one full wave of tiles is left over; those leftover
+    tiles are split into equal shares of K blocks (stream-K), so that no CTA
+    idles in a partial last wave. A tile whose K blocks two or more CTAs
+    share gets a partial slot per segment and one fixup; the int32 partials
+    add up exactly. max_split = 0: whole tiles only, dealt round-robin over
+    min(n_sms, tiles) CTAs (the last wave may be partial)."""
+    mt, nt, kb = -(-M // GEMM_BM), -(-N // bn), -(-K // GEMM_BK)
+    tiles = mt * nt
+    n_ctas = min(int(n_sms), tiles * max(max_split, 1), tiles * kb)
+    waves = -(-tiles // n_ctas) if max_split == 0 else max(tiles // n_ctas - 1, 0)
+    n_dp = min(waves * n_ctas, tiles)
+    units = (tiles - n_dp) * kb
+    bounds = np.arange(n_ctas + 1) * units // n_ctas
+    segs, cta_segs = [], [0]
+    for c in range(n_ctas):
+        for t in range(c, min(waves * n_ctas, tiles), n_ctas):
+            segs.append([t % mt, t // mt, 0, kb, -1, -1])
+        u, hi = int(bounds[c]), int(bounds[c + 1])
+        while u < hi:
+            t, k0 = n_dp + u // kb, u % kb
+            k1 = min(kb, k0 + hi - u)
+            split = k0 > 0 or k1 < kb
+            segs.append([t % mt, t // mt, k0, k1, 0 if split else -1, -1])
+            u += k1 - k0
+        cta_segs.append(len(segs))
+    segs = np.array(segs, np.int32).reshape(-1, 6)
+    split = np.flatnonzero(segs[:, 4] == 0)
+    segs[split, 4] = np.arange(len(split))
+    fixups = []  # a split tile's segments are consecutive in CTA order, so are its slots
+    for j, i in enumerate(split):
+        if j and (segs[split[j - 1], :2] == segs[i, :2]).all():
+            fixups[-1][1] += 1
+        else:
+            fixups.append([int(segs[i, 4]), 1])
+        segs[i, 5] = len(fixups) - 1
+    plan = GemmPlan(bn, segs, np.array(cta_segs, np.int32),
+                    np.array(fixups, np.int32).reshape(-1, 2), len(split))
+    for a in plan[1:4]:
+        a.setflags(write=False)
+    return plan
+
+
+# The cost model that picks a plan, fitted to device times of the int32
+# form on an H100 (chip_smoke.py phase 3; PERF.md): a tile costs a fixed
+# TILE_S (ring fill and epilogue) plus UNIT_S per K block, by tile width;
+# a partial tile is written, and a fixup's partials read back, at
+# SM_L2_BYTES_PER_S for one SM. Splitting a tile's K loop (stream-K) is
+# considered only while the weight fits in half of the 50 MB L2: CTAs at
+# different K offsets of one weight tile do not share its reads, and a
+# larger weight then streams from memory once per m tile (measured: 1.6x
+# slower than whole tiles at 640 x 18944 x 3584).
+TILE_S = 2e-6
+UNIT_S = {256: 0.6e-6, 128: 0.33e-6}
+SM_L2_BYTES_PER_S = 4.5e10
+STREAM_K_MAX_WEIGHT_BYTES = 25 * 2**20
+MAX_SPLITS = (1, 2, 4, 8, 16)
+
+
+def plan_cost(plan: GemmPlan) -> float:
+    """Estimated seconds of the busiest CTA: TILE_S per segment and UNIT_S
+    per K block, plus its partial tiles written and, where it may be the
+    last to arrive, the largest fixup's partials read back."""
+    tile_bytes = 4 * GEMM_BM * plan.bn
+    longest_fix = int(plan.fixups[:, 1].max()) if len(plan.fixups) else 0
+    worst = 0.0
+    for a, b in zip(plan.cta_segs[:-1], plan.cta_segs[1:]):
+        seg = plan.segs[a:b]
+        n_part = int((seg[:, 4] >= 0).sum())
+        t = len(seg) * TILE_S + int((seg[:, 3] - seg[:, 2]).sum()) * UNIT_S[plan.bn]
+        t += (n_part + (longest_fix if n_part else 0)) * tile_bytes / SM_L2_BYTES_PER_S
+        worst = max(worst, t)
+    return worst
+
+
+def gemm_plan(M: int, N: int, K: int, n_sms: int) -> GemmPlan:
+    """K5's tiled schedule for an [M, K] x [N, K] product: of whole-tile
+    plans at each tile width (GEMM_BNS) and, for a weight of at most
+    STREAM_K_MAX_WEIGHT_BYTES, stream-K plans with each cap on how many
+    CTAs share a tile (MAX_SPLITS), the one with the least `plan_cost`; the
+    first on a tie (wider tiles, whole tiles)."""
+    splits = (0,) + (MAX_SPLITS if N * K <= STREAM_K_MAX_WEIGHT_BYTES else ())
+    plans = [stream_k_plan(M, N, K, n_sms, bn, s) for bn in GEMM_BNS for s in splits]
+    return min(plans, key=plan_cost)
+
+
+@functools.lru_cache(maxsize=64)
+def _gemm_plan_on(device: torch.device, M: int, N: int, K: int,
+                  n_sms: int) -> Tuple[GemmPlan, torch.Tensor]:
+    """The plan and its int32 copy on the device (segments, CTA offsets,
+    fixups), cached: the layers of a chunk share a handful of shapes. The
+    copy is staged in pinned memory and queued without a host sync."""
+    plan = gemm_plan(M, N, K, n_sms)
+    flat = np.concatenate([plan.segs.ravel(), plan.cta_segs, plan.fixups.ravel()])
+    staged = torch.from_numpy(flat.astype(np.int32)).pin_memory()
+    return plan, staged.to(device, non_blocking=True)
+
+
+_gemm_scratch = {}  # device -> (int32 partials, int32 counters kept zero by the kernel)
+
+
+def _gemm_workspace(device: torch.device, plan: GemmPlan):
+    """The tiled path's partial tiles and fixup counters for `plan`, from a
+    per-device cache that grows to the largest plan seen. The counters are
+    zeroed once; the kernel's last arrival at each fixup resets its own.
+    Calls on one stream run in order, so they share the cache."""
+    parts = plan.n_slots * GEMM_BM * plan.bn
+    counters = 2 * len(plan.fixups)
+    have = _gemm_scratch.get(device)
+    if have is None or have[0].numel() < parts or have[1].numel() < counters:
+        old = (0, 0) if have is None else (have[0].numel(), have[1].numel())
+        have = (torch.empty(max(parts, old[0], 1), dtype=torch.int32, device=device),
+                torch.zeros(max(counters, old[1], 1), dtype=torch.int32, device=device))
+        _gemm_scratch[device] = have
+    return have
+
+
+def _tiled_args(so, device, M: int, N: int, K: int):
+    """(plan on the device, n_ctas, n_segs, bn, partials, counters): the
+    tiled path's launch arguments, or Nones for the decode path."""
+    if M <= so.int8_small_m:
+        return None, 0, 0, 0, None, None
+    if so.int8_block != (GEMM_BM, GEMM_BK):
+        raise RuntimeError(f"int8_gemm: the library's tile {so.int8_block} is not the plan's")
+    plan, plan_dev = _gemm_plan_on(device, M, N, K, sm_count(device))
+    part, counters = _gemm_workspace(device, plan)
+    return plan_dev, plan.n_ctas, len(plan.segs), plan.bn, part, counters
+
+
+def pad_rows(t: torch.Tensor) -> torch.Tensor:
+    """A [rows, K] int8 matrix as a [rows, K] view of a [rows, padded_k(K)]
+    buffer with zero padding: t itself when its rows are already a multiple
+    of ROW_ALIGN bytes apart, else a copy."""
+    K = t.shape[1]
+    if t.stride(1) == 1 and t.stride(0) % ROW_ALIGN == 0 and t.data_ptr() % ROW_ALIGN == 0:
+        return t
+    buf = torch.zeros(t.shape[0], padded_k(K), dtype=t.dtype, device=t.device)
+    buf[:, :K] = t
+    return buf[:, :K]
+
+
+def _count(path: str) -> None:
+    launch_counts["int8_gemm"] += 1
+    path_counts[path] += 1
+
+
 def int8_gemm(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     """K5: int32 [M, N] = int8 [M, K] . int8 [N, K]^T (the function of the
-    TPU kernel `mm_kernel`; the weight in the [out, in] layout)."""
+    TPU kernel `mm_kernel`; the weight in the [out, in] layout). Either
+    operand may be a [rows, K] view of padded rows. On the tiled path an
+    operand whose rows are not 16-byte multiples apart is first copied into
+    padded rows (`pad_rows`)."""
     if xq.device.type == "cpu":
         return int8_gemm_plain(xq, wq)
     name = "int8_gemm"
-    check_cuda(name, xq, wq)
     if xq.dtype != torch.int8 or wq.dtype != torch.int8 or xq.dim() != 2 or wq.dim() != 2:
         raise ValueError(f"{name}: takes int8 [M, K] and int8 [N, K]")
     (M, K), N = xq.shape, wq.shape[0]
     if wq.shape[1] != K or K % 4:
         raise ValueError(f"{name}: K must match and be a multiple of 4, got {tuple(xq.shape)} "
                          f"and {tuple(wq.shape)}")
+    check_rows(name, xq, K)
+    check_rows(name, wq, K)
+    so = lib()
+    tiled = M > so.int8_small_m
+    if tiled:
+        xq, wq = pad_rows(xq), pad_rows(wq)
+    plan, n_ctas, n_segs, bn, part, counters = _tiled_args(so, xq.device, M, N, K)
     out = torch.empty(M, N, dtype=torch.int32, device=xq.device)
-    err = lib().svt_int8_gemm(ptr(xq), ptr(wq), ptr(out), M, N, K, stream())
+    err = so.svt_int8_gemm(ptr(xq), xq.stride(0), ptr(wq), wq.stride(0), ptr(out), M, N, K,
+                           ptr(plan), n_ctas, n_segs, bn, ptr(part), ptr(counters), stream())
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
-    launch_counts[name] += 1
+    _count("tiled" if tiled else "gemv")
     return out
 
 
@@ -202,7 +399,9 @@ def qdot_plain(x, q, s, bias=None, out_dtype=None) -> torch.Tensor:
 def qdot(x, q, s, bias=None, out_dtype=None) -> torch.Tensor:
     """Dynamic-activation W8A8 product through K5: the rows of x are
     quantized (per row), multiplied by the int8 weight in int32 and
-    rescaled; + bias. On a CPU tensor, `qdot_plain`."""
+    rescaled; + bias. q may be a [N, K] view of padded rows (QLinear's);
+    on the tiled path a q whose rows are not 16-byte multiples apart is
+    copied into padded rows first. On a CPU tensor, `qdot_plain`."""
     if x.device.type == "cpu":
         return qdot_plain(x, q, s, bias, out_dtype)
     name = "int8_gemm"
@@ -210,49 +409,82 @@ def qdot(x, q, s, bias=None, out_dtype=None) -> torch.Tensor:
     lead, K = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, K).contiguous()
     M, N = x2.shape[0], q.shape[0]
-    tensors = [x2, q, s] + ([] if bias is None else [bias])
+    tensors = [x2, s] + ([] if bias is None else [bias])
     check_cuda(name, *tensors)
     floats = (torch.bfloat16, torch.float32)
     if x2.dtype not in floats or out_dtype not in floats:
         raise ValueError(f"{name}: x and the output must be bf16 or f32")
     if q.dtype != torch.int8 or q.shape != (N, K) or s.dtype != torch.float32 or s.shape != (N,):
         raise ValueError(f"{name}: the weight must be int8 [N, {K}] with f32 scales [N]")
+    check_rows(name, q, K)
     if K % 4 or M == 0:
         raise ValueError(f"{name}: K must be a multiple of 4 and M >= 1, got {tuple(x.shape)}")
     if bias is not None and (bias.dtype != out_dtype or bias.shape != (N,)):
         raise ValueError(f"{name}: the bias must be [N] in the output dtype")
     so = lib()
-    out = torch.empty(M, N, dtype=out_dtype, device=x.device)
+    tiled = M > so.int8_small_m
     xq = sx = None
-    if M > so.int8_small_m:  # scratch of the row-quantize pass
-        xq = torch.empty(M, K, dtype=torch.int8, device=x.device)
+    if tiled:  # scratch of the row-quantize pass, rows padded for the tensor map
+        q = pad_rows(q)
+        xq = torch.empty(M, padded_k(K), dtype=torch.int8, device=x.device)
         sx = torch.empty(M, dtype=torch.float32, device=x.device)
+    plan, n_ctas, n_segs, bn, part, counters = _tiled_args(so, x.device, M, N, K)
+    out = torch.empty(M, N, dtype=out_dtype, device=x.device)
     err = so.svt_qdot(
-        ptr(x2), int(x2.dtype == torch.bfloat16), ptr(q), ptr(s), ptr(bias), ptr(out),
-        int(out_dtype == torch.bfloat16), ptr(xq), ptr(sx), M, N, K, stream(),
+        ptr(x2), int(x2.dtype == torch.bfloat16), ptr(q), q.stride(0), ptr(s), ptr(bias),
+        ptr(out), int(out_dtype == torch.bfloat16), ptr(xq), padded_k(K), ptr(sx), M, N, K,
+        ptr(plan), n_ctas, n_segs, bn, ptr(part), ptr(counters), stream(),
     )
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
-    launch_counts[name] += 1
+    _count("tiled" if tiled else "gemv")
     return out.reshape(*lead, N)
 
 
 class QLinear(nn.Module):
-    """nn.Linear's W8A8 counterpart: int8 q [out, in] (contiguous: the
-    layout both paths of K5 read), f32 per-output-channel scales s [out],
-    and the bias in the model's dtype. forward(x, out_dtype) is `qdot`;
-    the bias is added after the cast to the output dtype, as the JAX
-    package's `mm(x, w) + b`."""
+    """nn.Linear's W8A8 counterpart: int8 q [out, in], f32 per-output-channel
+    scales s [out], and the bias in the model's dtype. forward(x, out_dtype)
+    is `qdot`; the bias is added after the cast to the output dtype, as the
+    JAX package's `mm(x, w) + b`.
+
+    The int8 weight lives in the buffer `q_rows` [out, padded_k(in)], rows
+    zero-padded to a multiple of 16 bytes (what K5's tiled path reads
+    through a tensor map; vision down_proj has in = 3420); `q` is its [out,
+    in] view, so reading, copying into and assigning `q` work as on a
+    plain [out, in] tensor."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True, *,
                  device=None, dtype=torch.float32):
         super().__init__()
         self.in_features, self.out_features = in_features, out_features
-        self.register_buffer("q", torch.empty(out_features, in_features, dtype=torch.int8,
-                                              device=device))
+        self.register_buffer("q_rows", torch.zeros(out_features, padded_k(in_features),
+                                                   dtype=torch.int8, device=device))
         self.register_buffer("s", torch.empty(out_features, dtype=torch.float32, device=device))
         self.bias = (nn.Parameter(torch.empty(out_features, dtype=dtype, device=device),
                                   requires_grad=False) if bias else None)
+
+    @property
+    def q(self) -> torch.Tensor:
+        return self.q_rows[:, : self.in_features]
+
+    @q.setter
+    def q(self, value: torch.Tensor) -> None:
+        if tuple(value.shape) != (self.out_features, self.in_features):
+            raise ValueError(f"QLinear.q must be [{self.out_features}, {self.in_features}], "
+                             f"got {tuple(value.shape)}")
+        rows = torch.zeros(self.out_features, padded_k(self.in_features), dtype=torch.int8,
+                           device=value.device)
+        rows[:, : self.in_features] = value
+        self.q_rows = rows
+
+    def _apply(self, fn, recurse=True):
+        # to_empty / .to(...) make fresh buffers (to_empty leaves them
+        # uninitialised): keep the padding columns zero
+        out = super()._apply(fn, recurse)
+        if self.q_rows.shape[1] > self.in_features and self.q_rows.device.type != "meta":
+            with torch.no_grad():
+                self.q_rows[:, self.in_features:] = 0
+        return out
 
     @classmethod
     @torch.no_grad()

@@ -218,3 +218,69 @@ def test_lm_logits_are_f32_on_card(cuda):
     got = lang.lm_logits(cfg, lm, h)
     want = Q.qdot_plain(h, lm.lm_head.q, lm.lm_head.s, out_dtype=torch.float32)
     assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(300, 1280, 520), (130, 3420, 1280), (640, 3584, 512)])
+@pytest.mark.parametrize("bn", [256, 128])
+@pytest.mark.parametrize("max_split", [0, 1, 4])
+def test_int8_gemm_every_plan_on_card(cuda, monkeypatch, M, K, N, bn, max_split):
+    """K5's tiled path is bitwise equal to its plain version under every plan
+    gemm_plan weighs (both tile widths, whole tiles and stream-K shares with
+    int32 fixups), not only the one it picks; twice in a row, so that the
+    fixup counters are back at zero after a call."""
+    monkeypatch.setattr(Q, "gemm_plan", lambda M_, N_, K_, n: Q.stream_k_plan(M_, N_, K_, n, bn, max_split))
+    Q._gemm_plan_on.cache_clear()
+    try:
+        g = torch.Generator(device=cuda).manual_seed(M + N + bn + max_split)
+        xq = torch.randint(-127, 128, (M, K), generator=g, device=cuda, dtype=torch.int8)
+        wq = torch.randint(-127, 128, (N, K), generator=g, device=cuda, dtype=torch.int8)
+        want = Q.int8_gemm_plain(xq, wq)
+        for _ in range(2):
+            assert torch.equal(Q.int8_gemm(xq, wq), want)
+    finally:
+        Q._gemm_plan_on.cache_clear()
+
+
+@pytest.mark.gpu
+def test_padded_qlinear_on_card(cuda):
+    """A QLinear with K = 3420 (vision down_proj) keeps rows padded to 3424
+    bytes and runs the tiled path on them without a copy, bitwise equal to
+    qdot_plain; its weight's tensor map is encoded once, not per call."""
+    from streaming_vlm_tpu_torch.ops._kernels import lib
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    ql = Q.QLinear(3420, 1280, True, device=cuda, dtype=torch.bfloat16)
+    ql.q.copy_(torch.randint(-127, 128, (1280, 3420), generator=g, device=cuda, dtype=torch.int8))
+    ql.s.copy_(torch.rand(1280, generator=g, device=cuda) * 1e-3 + 1e-5)
+    ql.bias.copy_(torch.randn(1280, generator=g, device=cuda))
+    assert ql.q.stride(0) == 3424
+    x = torch.randn(2040, 3420, generator=g, device=cuda).to(torch.bfloat16)
+    want = Q.qdot_plain(x, ql.q, ql.s, ql.bias, torch.bfloat16)
+    assert torch.equal(ql(x), want)
+    n = lib().svt_int8_maps_encoded()
+    assert torch.equal(ql(x), want)
+    assert lib().svt_int8_maps_encoded() - n <= 1  # at most the activation's scratch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vis,e1,evis", [(641, 21, 7), (4501, 21, 0), (500, 200, 60), (1, 21, 20)])
+def test_decode_kernel_splits_on_card(cuda, vis, e1, evis):
+    """K2 (one launch: split pass, small block, fused combine) at visible
+    lengths off the host's split and with a small block longer than the
+    kernel's 160-row tile, to one bf16 ulp; K4 over the same splits."""
+    g = torch.Generator(device=cuda).manual_seed(vis + e1)
+    H, Hkv, hd, Cc = 28, 4, 128, 8192
+
+    def rn(*s):
+        return torch.randn(*s, generator=g, device=cuda).to(torch.bfloat16)
+
+    q, ka, va, ksm, vsm = rn(H, hd), rn(Cc, Hkv, hd), rn(Cc, Hkv, hd), rn(e1, Hkv, hd), rn(e1, Hkv, hd)
+    args = (q, ka, va, ksm, vsm, vis, evis)
+    for _ in range(2):  # the per-kv-head counters are back at zero after a call
+        _assert_decode_close(A.streaming_decode_attention_full(*args, e_delta=e1 - 1),
+                             A.decode_attention_plain(*args, e_delta=e1 - 1))
+    got = A.streaming_decode_attention(q, ka, va, vis)
+    want = A.decode_attention_partials_plain(q, ka, va, vis)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
