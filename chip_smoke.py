@@ -8,14 +8,16 @@ Phases; any failure exits non-zero:
 1. device: requires CUDA; prints `nvidia-smi` name and power limit.
 2. build: compiles the port's kernels (streaming_vlm_tpu_torch/csrc, nvcc,
    sm_90a, one nvcc per source in parallel) into build/torch_kernels/, and
-   prints -Xptxas -v registers and spills of K1, K2, K4 and K5's kernels.
+   prints -Xptxas -v registers and spills of K1-K5's kernels.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes (Qwen2.5-VL-7B attention geometry: H=28, Hkv=4,
    hd=128, arena C=10240): K1 prefill (both arena modes; T in {640, 200,
    64}, visible lengths on and off its 128-key tile), K2 decode over the
    pre-rotated arena (visible 0 to C, on and off the host's split, a small
    block longer than the kernel's tile), K3 decode over the raw arena (int8
-   and bf16 storage, shrink- and append-range positions), K4 decode
+   and bf16 storage, shrink- and append-range positions, visible 0 to C on
+   and off the host's split, a small block longer than the kernel's tile;
+   one kernel a call), K4 decode
    partials (and their merge with the small block against K2), K5 W8A8
    products (the int32 form at the TPU probe's 4096^3 and at ragged shapes;
    the serving form at every (M, K, N) of the 7B path, bf16 and f32 out,
@@ -28,7 +30,9 @@ Phases; any failure exits non-zero:
    host sync. Times from CUDA events and profiler device time, beside each
    kernel's bound and, where one PyTorch call computes the same function,
    that call's time (K5's int32 form at every tiled shape beside
-   torch._int_mm; K2's device time at visible 640, 4500 and 9000).
+   torch._int_mm; K2's and K3's device time at visible 640, 4500 and
+   9000). K3's bound counts the f32 work that its dtype chain keeps off the
+   tensor cores at the f32 rate beside its bytes.
 4. reference: at 7B width (decoder cut to 4 layers), the streaming forward
    through the kernels (chunk prefill, then one decode token) in bf16
    against the plain full-attention oracle `language_forward` in f32 on the
@@ -93,10 +97,19 @@ REF_LAYERS = 4
 N_CHUNKS = 20  # slice length: past visual_round=16, so eviction runs
 REF_NOISE_FACTOR = 2.0
 MUTANT_BUILDS = 4  # mutant copies whose kernels build at once (4 nvcc each)
-# the H100 SXM's published peaks (dense bf16 and int8, HBM3)
+# the H100 SXM's published peaks (dense bf16 and int8, f32 outside the
+# tensor cores, HBM3)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
+FP32_FLOPS = 67e12
+# f32 operations K3's dtype chain keeps off the tensor cores, per (visible
+# slot, kv head): the angles (3 products, 2 sums per channel pair) and a
+# sincosf per pair (counted as 24: a 3-FMA range reduction, two degree-4
+# polynomials and the quadrant fix; append-range angles past 105615 take
+# a longer path), K dequantized (128 products) and rotated (4 products and
+# 2 sums per pair), V dequantized (128 products); P.V is 2 G HD more
+K3_F32_OPS_PER_ROW = 64 * (5 + 24) + 128 + 64 * 6 + 128
 # deliberate faults that phase 3 must reject: name -> (the kernel, or
 # kernels, whose checks alone must fail, file under streaming_vlm_tpu_torch/,
 # text, replacement, a text every failed check must contain or None). A
@@ -105,18 +118,23 @@ INT8_OPS = 1979e12
 MUTANTS = {
     "fast-math sin/cos": (
         "K3", "csrc/decode_attention_raw.cu",
-        "sincosf(a, ssin + i, scos + i);",
-        "__sincosf(a, ssin + i, scos + i);", None,
+        "sincosf(ang, &sn, &cs);",
+        "__sincosf(ang, &sn, &cs);", None,
     ),
     "dequantized K not rounded to bf16": (
         "K3", "csrc/decode_attention_raw.cu",
-        "out[e] = round_bf16(__fmul_rn(s8(w[e >> 2], e & 3), scale));",
-        "out[e] = __fmul_rn(s8(w[e >> 2], e & 3), scale);", None,
+        "k[e] = round_bf16(__fmul_rn(s8(w, e), scale));",
+        "k[e] = __fmul_rn(s8(w, e), scale);", None,
     ),
     "K scales rounded to bf16": (
         "K3", "csrc/decode_attention_raw.cu",
-        "const float kscale = QUANT ? ks[ri] : 1.f;",
-        "const float kscale = QUANT ? round_bf16(ks[ri]) : 1.f;", None,
+        "kscale = QUANT ? s_ks[j * Hkv + kvh] : 1.f;",
+        "kscale = QUANT ? round_bf16(s_ks[j * Hkv + kvh]) : 1.f;", None,
+    ),
+    "a raw-arena split drops its last slot": (
+        "K3", "csrc/decode_attention_raw.cu",
+        "min(split_rows, visible_len - row0);",
+        "min(split_rows, visible_len - row0) - 1;", None,
     ),
     "K tail dropped": (
         "K5", "ops/quant.py",
@@ -228,6 +246,25 @@ def _device_ms(fn, n: int = 20) -> float:
     return total / 1e3 / n
 
 
+def _kernels_per_call(fn, n: int = 10) -> float:
+    """CUDA kernels launched per call of fn, from a torch.profiler trace of
+    n calls (warmed up first); nan when untimed."""
+    import torch
+
+    if not _TIMED:
+        return math.nan
+    fn()
+    torch.cuda.synchronize()
+    with _profiler() as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.events()
+                  if str(e.device_type).endswith("CUDA") and "memcpy" not in e.name.lower()
+                  and "memset" not in e.name.lower())
+    return kernels / n
+
+
 def _check(name, got, want, cases, atol, rtol):
     """|got - want| <= atol + rtol |want| elementwise; prints the largest
     error and its largest ratio to the limit. A failure is recorded in
@@ -279,11 +316,12 @@ def _check_equal(name, got, want, cases):
     return e
 
 
-def _bound(nbytes: float, ops: float, peak: float = BF16_FLOPS):
+def _bound(nbytes: float, ops: float, peak: float = BF16_FLOPS, f32_ops: float = 0.0):
     """The least time the card could take: the larger of the bytes over the
     memory rate and the operations over the peak rate of their type (bf16
-    unless given). Returns (ms, by)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    unless given; f32_ops more at the f32 rate outside the tensor cores).
+    Returns (ms, by)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak + f32_ops / FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -385,7 +423,7 @@ def phase_kernels():
             out = A.streaming_decode_attention_full(*args, e_delta=e_delta)
             ref = A.decode_attention_plain(*args, e_delta=e_delta)
             k2_err = max(k2_err, _check_decode("K2", out, ref, dict(visible_len=vis, extra_visible=evis)))
-    # a small block longer than the kernel's 160-row tile
+    # a small block longer than the kernel's 160-row tile (K2's and K3's)
     kbig, vbig = rn(200, Hkv, hd), rn(200, Hkv, hd)
     args = (qd, ka, va, kbig, vbig, 500, 60)
     k2_err = max(k2_err, _check_decode(
@@ -434,32 +472,62 @@ def phase_kernels():
     k3_err = 0.0
     for form, arena in forms.items():
         for rng_name, pos_t in pos_ranges.items():
-            for vis in (0, 100, 9000):  # none, two splits (ragged), the main path's
+            # visible 0 (the small block alone), one slot, lengths off the
+            # host's split (100, 641, 4501), the main path's 9000 and the
+            # whole arena
+            for vis in (0, 1, 100, 641, 4501, 9000, C):
                 for evis in (0, 7, 20):
                     a3 = (qd, *arena, pos_t, ksm, vsm, vis, evis)
                     out = A.streaming_decode_attention_int8(*a3, **kw)
                     ref = A.decode_attention_int8_plain(*a3, **kw)
                     k3_err = max(k3_err, _check_decode("K3", out, ref, dict(
                         form=form, positions=rng_name, visible_len=vis, extra_visible=evis)))
+            # a small block longer than the kernel's 160-row tile
+            a3 = (qd, *arena, pos_t, kbig, vbig, 500, 60)
+            kwb = dict(kw, e_delta=199)
+            k3_err = max(k3_err, _check_decode(
+                "K3", A.streaming_decode_attention_int8(*a3, **kwb),
+                A.decode_attention_int8_plain(*a3, **kwb),
+                dict(form=form, positions=rng_name, visible_len=500, e1=200, extra_visible=60)))
     vis, evis = 9000, 7
     pos_t = pos_ranges["shrink"]
-    ms_by_form = {}
+    ms_by_form, device_ms_by_form = {}, {}
     for form, arena in forms.items():
         a3 = (qd, *arena, pos_t, ksm, vsm, vis, evis)
         ms_by_form[form] = _median_ms(lambda: A.streaming_decode_attention_int8(*a3, **kw))
+        device_ms_by_form[form] = _device_ms(lambda: A.streaming_decode_attention_int8(*a3, **kw))
     a3 = (qd, *forms["int8"], pos_t, ksm, vsm, vis, evis)
-    k3 = dict(ms=ms_by_form["int8"], ms_by_form=ms_by_form,
-              device_ms=_device_ms(lambda: A.streaming_decode_attention_int8(*a3, **kw)),
+    k3 = dict(ms=ms_by_form["int8"], ms_by_form=ms_by_form, device_ms=device_ms_by_form["int8"],
+              device_ms_by_form=device_ms_by_form,
               plain_ms=_median_ms(lambda: A.decode_attention_int8_plain(*a3, **kw)),
-              library_ms=None)
-    k3["bound_ms"], k3["bound_by"] = _bound(
-        _nbytes(qd, kq[:vis], kscale[:vis], vq[:vis], vscale[:vis], pos_t[:vis], ksm, vsm, qd),
-        4 * H * hd * (vis + e_delta + 1))
+              library_ms=None,
+              kernels_per_call=_kernels_per_call(
+                  lambda: A.streaming_decode_attention_int8(*a3, **kw)))
+    # split pass, small block and combine are one launch: device time by
+    # visible length (int8), with the host's split at each
+    k3["device_ms_by_visible"] = {
+        v: _device_ms(lambda: A.streaming_decode_attention_int8(
+            qd, *forms["int8"], pos_t, ksm, vsm, v, evis, **kw))
+        for v in (640, 4500, 9000)}
+    k3["split_by_visible"] = {v: A.decode_split_size(v, Hkv, A.sm_count(torch.device(dev)))
+                              for v in (640, 4500, 9000)}
+    k3_bytes = _nbytes(qd, kq[:vis], kscale[:vis], vq[:vis], vscale[:vis], pos_t[:vis], ksm,
+                       vsm, qd)
+    k3_f32 = Hkv * vis * (K3_F32_OPS_PER_ROW + 2 * (H // Hkv) * hd)  # + P.V
+    k3_qk = 2 * H * hd * vis + 4 * H * hd * (e_delta + 1)  # arena Q.K, small block Q.K and P.V
+    k3["bound_ms"], k3["bound_by"] = _bound(k3_bytes, k3_qk, f32_ops=k3_f32)
+    k3["bytes_ms"] = _bound(k3_bytes, 0)[0]
+    k3["f32_work_ms"] = k3_f32 / FP32_FLOPS * 1e3
+    if _TIMED and k3["kernels_per_call"] != 1:
+        _FAILED.append(f"K3 launches {k3['kernels_per_call']} kernels a call, not one")
     stats["streaming_decode_attention_int8"] = dict(max_abs_err=k3_err, **k3)
     print(f"  K3 visible_len={vis} extra_visible={evis}: kernel int8 {ms_by_form['int8']:.4f} ms "
-          f"(device {k3['device_ms']:.4f} ms), "
-          f"bf16 {ms_by_form['bf16']:.4f} ms, plain (int8) {k3['plain_ms']:.4f} ms, no single "
-          f"PyTorch call, bound {k3['bound_ms']:.4f} ms ({k3['bound_by']})")
+          f"(device {device_ms_by_form['int8']:.4f} ms), bf16 {ms_by_form['bf16']:.4f} ms "
+          f"(device {device_ms_by_form['bf16']:.4f} ms), plain (int8) {k3['plain_ms']:.4f} ms, "
+          f"no single PyTorch call, bound {k3['bound_ms']:.4f} ms ({k3['bound_by']}: bytes "
+          f"{k3['bytes_ms']:.4f}, f32 work off the tensor cores {k3['f32_work_ms']:.4f}); "
+          f"{k3['kernels_per_call']} kernel(s) a call; device ms by visible length "
+          f"{k3['device_ms_by_visible']} (split {k3['split_by_visible']})")
 
     # ---- K4: the arena's partials; merged with the small block == K2
     k4_err = 0.0
@@ -1004,7 +1072,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     ptxas = {src: _ptxas_verbose(_kernels, src)
-             for src in ("prefill_attention.cu", "decode_attention.cu", "int8_gemm.cu")}
+             for src in ("prefill_attention.cu", "decode_attention.cu", "decode_attention_raw.cu",
+                         "int8_gemm.cu")}
     so = _kernels.build()
     _kernels.lib()
     print(f"  {so.name}: {time.perf_counter() - t0:.2f} s (nvcc {_kernels.build_seconds} s)")
@@ -1013,6 +1082,8 @@ def main() -> int:
             ("K1", "prefill_attention.cu", "prefill_attention_kernel"),
             ("K2 (bf16 out, small block)", "decode_attention.cu", "decode_split_kernelILb1E"),
             ("K4", "decode_attention.cu", "decode_split_kernelILb0E"),
+            ("K3 int8 arena", "decode_attention_raw.cu", "decode_raw_kernelILb1E"),
+            ("K3 bf16 arena", "decode_attention_raw.cu", "decode_raw_kernelILb0E"),
             ("K5 tiled, tile 128x256, bf16 out", "int8_gemm.cu", "gemm_tiled_kernelILi256E13__nv_bfloat16"),
             ("K5 tiled, tile 128x128, bf16 out", "int8_gemm.cu", "gemm_tiled_kernelILi128E13__nv_bfloat16"),
             ("K5 decode GEMV, bf16 in and out", "int8_gemm.cu", "gemv_kernelI13__nv_bfloat16S")):

@@ -52,11 +52,8 @@ namespace {
 
 using namespace hopper;
 
-constexpr int K2_THREADS = 256;               // 8 warps
-constexpr int K2_WARPS = K2_THREADS / 32;
 constexpr int TILE = 160;                     // rows staged at once: the largest split
 constexpr int ROW_BYTES = HD * 2;             // one bf16 K or V row of one kv head
-constexpr int QUARTERS = K2_THREADS / (HD / 2);
 constexpr int CHUNKS = 4;                     // a tile arrives in chunks of TILE / CHUNKS rows,
 constexpr int CHUNK = TILE / CHUNKS;          // one mbarrier each
 constexpr size_t K2_SMEM = 2 * (size_t)TILE * ROW_BYTES           // K, V tiles
@@ -67,7 +64,7 @@ constexpr size_t K2_SMEM = 2 * (size_t)TILE * ROW_BYTES           // K, V tiles
 // the fused combine keeps one weight per (query head, part) in the K tile
 constexpr int MAX_PARTS = TILE * ROW_BYTES / (GMAX * (int)sizeof(float));
 
-static_assert(QUARTERS == 4 && GMAX <= K2_WARPS && CHUNK % 4 == 0, "the layouts below assume these");
+static_assert(CHUNK % 4 == 0, "a warp's group of 4 rows lies in one chunk");
 // a part is at most two tiles (the small block's EMAX rows), so each chunk's
 // barrier completes once per tile it is waited on in
 static_assert(EMAX <= 2 * TILE, "the small block must fit in two tiles");
@@ -92,7 +89,7 @@ __device__ __forceinline__ void butterfly(float (&v)[32], int lane) {
 // folds the n_parts partials into the output (FULL: K2's normalised bf16
 // row per query head; else K4's merged partials).
 template <bool FULL>
-__global__ void __launch_bounds__(K2_THREADS, 2) decode_split_kernel(
+__global__ void __launch_bounds__(DEC_THREADS, 2) decode_split_kernel(
     const bf16* __restrict__ q,      // [H, HD]
     const bf16* __restrict__ ka,     // [C, Hkv, HD] pre-rotated
     const bf16* __restrict__ va,     // [C, Hkv, HD]
@@ -154,7 +151,7 @@ __global__ void __launch_bounds__(K2_THREADS, 2) decode_split_kernel(
     __syncwarp();
     if (rows > 0) stage_tile(0, min(TILE, rows));
   }
-  for (int i = tid; i < GMAX * HD; i += K2_THREADS) {
+  for (int i = tid; i < GMAX * HD; i += DEC_THREADS) {
     sq[i] = i < G * HD ? __bfloat162float(q[(size_t)kvh * G * HD + i]) * qscale : 0.f;
   }
   if (tid < GMAX) {
@@ -187,9 +184,9 @@ __global__ void __launch_bounds__(K2_THREADS, 2) decode_split_kernel(
     // lane sums its 4 head dims for the 32 (row, query head) pairs of the
     // group, and a transposing butterfly (31 shuffles) leaves the whole
     // sum of pair `lane` (row lane / 8, query head lane % 8) in lane `lane`
-    for (int j0 = 4 * warp; j0 < n; j0 += 4 * K2_WARPS) {
+    for (int j0 = 4 * warp; j0 < n; j0 += 4 * DEC_WARPS) {
       // the warp's first rows in a chunk (a new chunk starts within its stride)
-      if (j0 % CHUNK < 4 * K2_WARPS) mbar_wait(&bar[j0 / CHUNK], parity);
+      if (j0 % CHUNK < 4 * DEC_WARPS) mbar_wait(&bar[j0 / CHUNK], parity);
       float v[32];
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
@@ -270,110 +267,10 @@ __global__ void __launch_bounds__(K2_THREADS, 2) decode_split_kernel(
     __syncthreads();  // the tile's buffers are free for the next one
   }
 
-  // the quarters meet in shared memory (the K tile); one partial per query head
-  float* red = reinterpret_cast<float*>(sk);  // [QUARTERS][GMAX][HD]
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    if (g < G) {
-      *reinterpret_cast<float2*>(red + (quarter * GMAX + g) * HD + 2 * dp) =
-          make_float2(acc[g][0], acc[g][1]);
-    }
-  }
-  __syncthreads();
-  const size_t base = ((size_t)kvh * n_parts + part) * G;
-  for (int i = tid; i < G * HD; i += K2_THREADS) {
-    const int g = i / HD, d = i % HD;
-    float a = 0.f;
-#pragma unroll
-    for (int k = 0; k < QUARTERS; ++k) a += red[(k * GMAX + g) * HD + d];
-    part_acc[base * HD + i] = a;
-  }
-  if (tid < G) {
-    part_m[base + tid] = s_m[tid];
-    part_l[base + tid] = s_l[tid];
-  }
-
-  // count in; the last CTA of this kv head folds its parts
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) s_last = atomicAdd(&counters[kvh], 1) == n_parts - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-
-  // one coalesced pass brings every part's (m, l) into shared memory; then
-  // query head g's weights and denominator are warp g's
-  float* w = reinterpret_cast<float*>(sk);    // [n_parts][G] maxima, then weights
-  float* pl = reinterpret_cast<float*>(sv);   // [n_parts][G]
-  for (int i = tid; i < n_parts * G; i += K2_THREADS) {
-    w[i] = __ldcg(part_m + (size_t)kvh * n_parts * G + i);
-    pl[i] = __ldcg(part_l + (size_t)kvh * n_parts * G + i);
-  }
-  __syncthreads();
-  if (warp < G) {
-    const int g = warp;
-    float mx = -INFINITY;
-    for (int p = lane; p < n_parts; p += 32) mx = fmaxf(mx, w[p * G + g]);
-    mx = warp_max(mx);
-    float den = 0.f;
-    for (int p = lane; p < n_parts; p += 32) {
-      const float m = w[p * G + g];
-      const float wt = m == -INFINITY ? 0.f : exp2f(m - mx);
-      w[p * G + g] = wt;
-      den += wt * pl[p * G + g];
-    }
-    den = warp_sum(den);
-    if (lane == 0) {
-      s_m[g] = mx;
-      s_den[g] = den;
-    }
-  }
-  __syncthreads();
-  float a[GMAX][2];
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) a[g][0] = a[g][1] = 0.f;
-#pragma unroll 4
-  for (int p = quarter; p < n_parts; p += QUARTERS) {
-    const float* pa = part_acc + ((size_t)kvh * n_parts + p) * G * HD + 2 * dp;
-#pragma unroll
-    for (int g = 0; g < GMAX; ++g) {
-      if (g < G) {
-        const float2 x = __ldcg(reinterpret_cast<const float2*>(pa + g * HD));
-        const float wt = w[p * G + g];
-        a[g][0] += wt * x.x;
-        a[g][1] += wt * x.y;
-      }
-    }
-  }
-  __syncthreads();  // the denominators' inputs in sv are read
-  float* red2 = reinterpret_cast<float*>(sv);  // [QUARTERS][GMAX][HD]
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    if (g < G) {
-      *reinterpret_cast<float2*>(red2 + (quarter * GMAX + g) * HD + 2 * dp) =
-          make_float2(a[g][0], a[g][1]);
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < G * HD; i += K2_THREADS) {
-    const int g = i / HD, d = i % HD;
-    float x = 0.f;
-#pragma unroll
-    for (int k = 0; k < QUARTERS; ++k) x += red2[(k * GMAX + g) * HD + d];
-    const size_t o = ((size_t)kvh * G + g) * HD + d;
-    if constexpr (FULL) {
-      out[o] = __float2bfloat16(x / fmaxf(s_den[g], 1e-20f));
-    } else {
-      acc_out[o] = x;
-    }
-  }
-  if constexpr (!FULL) {
-    if (tid < G) {
-      m_out[kvh * G + tid] = s_m[tid];
-      l_out[kvh * G + tid] = s_den[tid];
-    }
-  }
-  if (tid == 0) counters[kvh] = 0;  // ready for the next call
+  // the quarters meet in the K tile; the last CTA of the kv head folds the parts
+  finish_part<FULL>(acc, reinterpret_cast<float*>(sk), reinterpret_cast<float*>(sv), s_m, s_l,
+                    s_den, &s_last, part_m, part_l, part_acc, counters, out, m_out, l_out,
+                    acc_out, kvh, part, n_parts, G);
 }
 
 __global__ void decode_partials_empty_kernel(float* m_out, float* l_out, float* acc_out,
@@ -403,7 +300,7 @@ cudaError_t launch_split(const void* q, const void* ka, const void* va, const vo
   }
   const float qscale = LOG2E / sqrtf((float)HD);
   const dim3 grid(n_splits + (FULL ? 1 : 0), Hkv);
-  decode_split_kernel<FULL><<<grid, K2_THREADS, K2_SMEM, s>>>(
+  decode_split_kernel<FULL><<<grid, DEC_THREADS, K2_SMEM, s>>>(
       (const bf16*)q, (const bf16*)ka, (const bf16*)va, (const bf16*)ksm, (const bf16*)vsm,
       (float*)part_m, (float*)part_l, (float*)part_acc, (int*)counters, (bf16*)out,
       (float*)m_out, (float*)l_out, (float*)acc_out, Hkv, G, visible_len, split_rows, n_splits,

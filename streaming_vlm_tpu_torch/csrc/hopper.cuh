@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels:
 // mbarriers, TMA tile loads and their host-side tensor maps, wgmma shared
 // memory descriptors and the bf16 and s8 wgmma shapes the kernels use,
-// warpgroup register reallocation and named barriers. Inline PTX only;
-// nothing here launches or allocates. Used by prefill_attention.cu (K1),
-// int8_gemm.cu (K5's tiled path) and decode_attention.cu (K2, K4).
+// warpgroup register reallocation, named barriers and the warp-level bf16
+// mma. Inline PTX only; nothing here launches or allocates. Used by
+// prefill_attention.cu (K1), int8_gemm.cu (K5's tiled path),
+// decode_attention.cu (K2, K4) and decode_attention_raw.cu (K3).
 #pragma once
 
 #include <cuda.h>
@@ -111,6 +112,23 @@ __device__ __forceinline__ void regs_dealloc() {
 template <int N>
 __device__ __forceinline__ void regs_alloc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ---- mma.sync ---------------------------------------------------------------
+
+// D[16 x 8] += A[16 x 16] . B[16 x 8] in f32, bf16 operands in registers,
+// one warp (m16n8k16, A row-major, B column-major). Lane l, g = l / 4,
+// t = l % 4: a[0] = A[g][2t, 2t+1], a[1] = A[g+8][2t, 2t+1], a[2] =
+// A[g][2t+8, 2t+9], a[3] = A[g+8][2t+8, 2t+9]; b[0] = B[2t, 2t+1][g],
+// b[1] = B[2t+8, 2t+9][g]; d[0..1] = D[g][2t, 2t+1], d[2..3] = D[g+8][2t,
+// 2t+1]. Each .b32 holds two bf16, the lower index in the low half.
+__device__ __forceinline__ void mma_m16n8k16_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                                  uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---- wgmma ------------------------------------------------------------------
@@ -276,21 +294,24 @@ static inline svt_encode_tiled_fn svt_encode_tiled() {
   return fn;
 }
 
-// A 3-d bf16 tensor map over rows [0, rows) of a [rows, mid, 128] tensor
-// whose rows are `row_stride` bytes apart: boxes of {64, 1, box_rows} in
-// the 128-byte swizzle. Coordinates past `rows` read as zeros. Returns
-// false if the encoder refuses it.
+// A 3-d tensor map over rows [0, rows) of a [rows, mid, 128] tensor of
+// bf16 (or, int8 true, int8) whose rows are `row_stride` bytes apart: boxes
+// of {128 bytes of a row, 1, box_rows} in the 128-byte swizzle (64 bf16 or
+// 128 int8). Coordinates past `rows` read as zeros. Returns false if the
+// encoder refuses it.
 static inline bool svt_tensor_map_rows(CUtensorMap* map, const void* base, int rows, int mid,
-                                       uint64_t mid_stride, uint64_t row_stride, int box_rows) {
+                                       uint64_t mid_stride, uint64_t row_stride, int box_rows,
+                                       bool int8 = false) {
   svt_encode_tiled_fn fn = svt_encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {128, (cuuint64_t)mid, (cuuint64_t)rows};
   const cuuint64_t strides[2] = {mid_stride, row_stride};
-  const cuuint32_t box[3] = {64, 1, (cuuint32_t)box_rows};
+  const cuuint32_t box[3] = {int8 ? 128u : 64u, 1, (cuuint32_t)box_rows};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return fn(map, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+            const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // A 2-d int8 tensor map over a [rows, cols] matrix whose rows are
@@ -309,3 +330,4 @@ static inline bool svt_tensor_map_s8(CUtensorMap* map, const void* base, int row
             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
+

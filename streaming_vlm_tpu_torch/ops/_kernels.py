@@ -145,13 +145,12 @@ def lib() -> ctypes.CDLL:
         so.svt_prefill_block_keys.restype = I
         so.svt_decode_attention.argtypes = [P] * 10 + [I] * 8 + [P]
         so.svt_decode_attention.restype = I
-        so.svt_decode_attention_raw.argtypes = [P] * 13 + [I] * 8 + [P]
+        so.svt_decode_attention_raw.argtypes = [P] * 14 + [I] * 10 + [P]
         so.svt_decode_attention_raw.restype = I
         so.svt_decode_partials.argtypes = [P] * 10 + [I] * 5 + [P]
         so.svt_decode_partials.restype = I
-        so.svt_decode_split_size.argtypes = []
-        so.svt_decode_split_size.restype = I
-        for fn in ("svt_decode_max_small_rows", "svt_decode_max_split", "svt_decode_max_parts"):
+        for fn in ("svt_decode_max_small_rows", "svt_decode_max_split", "svt_decode_max_parts",
+                   "svt_decode_raw_max_split", "svt_decode_raw_max_parts"):
             getattr(so, fn).argtypes = []
             getattr(so, fn).restype = I
         so.svt_int8_gemm.argtypes = [P, I, P, I, P, I, I, I, P, I, I, I, P, P, P]
@@ -164,10 +163,11 @@ def lib() -> ctypes.CDLL:
         so.svt_int8_maps_encoded.argtypes = []
         so.svt_int8_maps_encoded.restype = ctypes.c_longlong
         # compile-time constants of the decode kernels, read once
-        so.raw_decode_split = so.svt_decode_split_size()
         so.decode_max_small_rows = so.svt_decode_max_small_rows()
         so.decode_max_split = so.svt_decode_max_split()
         so.decode_max_parts = so.svt_decode_max_parts()
+        so.raw_decode_max_split = so.svt_decode_raw_max_split()
+        so.raw_decode_max_parts = so.svt_decode_raw_max_parts()
         so.int8_small_m = so.svt_int8_small_m()
         so.int8_block = (so.svt_int8_block_m(), so.svt_int8_block_k())
         so.prefill_block = (so.svt_prefill_block_rows(), so.svt_prefill_block_keys())

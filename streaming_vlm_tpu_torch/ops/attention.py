@@ -356,17 +356,19 @@ def decode_attention_plain(
     return gqa_attention_multi(q_rot[None], parts).reshape(H, hd).to(v_small.dtype)
 
 
-# K2's (and K4's) split: the host picks how many visible slots one CTA
-# stages, so that every visible length gives a grid that fills the card
+# The decode kernels' split (K2, K3 and K4): the host picks how many visible
+# slots one CTA stages, so that every visible length gives a grid that fills
+# the card
 DECODE_SPLIT_ALIGN = 8  # split sizes are multiples of this
 DECODE_CTAS_PER_SM = 2  # CTAs of the split pass resident on one SM (shared memory)
 
 
 def decode_split_size(visible_len: int, Hkv: int, n_sms: int, max_split: int = 160) -> int:
-    """Slots per split of K2's and K4's split pass: as few as give the kv
-    heads' splits plus K2's small-block CTAs (one per kv head) one wave of
-    DECODE_CTAS_PER_SM CTAs per SM, in multiples of DECODE_SPLIT_ALIGN, at
-    most max_split (the kernel's tile: csrc/decode_attention.cu TILE)."""
+    """Slots per split of the decode kernels' split pass (K2, K3, K4): as
+    few as give the kv heads' splits plus the small-block CTAs (K2's and
+    K3's, one per kv head) one wave of DECODE_CTAS_PER_SM CTAs per SM, in
+    multiples of DECODE_SPLIT_ALIGN, at most max_split (the kernel's tile:
+    TILE in csrc/decode_attention.cu and csrc/decode_attention_raw.cu)."""
     per_head = max((DECODE_CTAS_PER_SM * int(n_sms) - Hkv) // Hkv, 1)
     split = -(-int(visible_len) // per_head)
     split = -(-split // DECODE_SPLIT_ALIGN) * DECODE_SPLIT_ALIGN
@@ -425,10 +427,13 @@ _decode_scratch_cache = {}  # device -> (f32 partials, int32 counters kept zero 
 
 
 def _decode_scratch(device, Hkv: int, n_parts: int, G: int, hd: int):
-    """The decode split passes' partials (m, l [Hkv, n_parts, G], acc [Hkv,
-    n_parts, G, hd]) and K2's / K4's per-kv-head counters, as views of a
-    per-device cache that grows to the largest call seen. Calls on one
-    stream run in order, so they share it."""
+    """The decode kernels' partials (m, l [Hkv, n_parts, G], acc [Hkv,
+    n_parts, G, hd]) and per-kv-head counters, as views of a per-device
+    cache that grows to the largest call seen. K2, K3 and K4 share this one
+    scratch and this one set of counters: each call's last CTA per kv head
+    resets its counter to zero, and calls on one stream run in order, so
+    they may. Calls on two streams at once, or a CUDA graph captured before
+    the cache grows, may not."""
     n_ml = -(-Hkv * n_parts * G // 4) * 4  # keeps acc 16-byte aligned
     need = 2 * n_ml + Hkv * n_parts * G * hd
     have = _decode_scratch_cache.get(device)
@@ -443,13 +448,16 @@ def _decode_scratch(device, Hkv: int, n_parts: int, G: int, hd: int):
             buf[2 * n_ml : need].view(*shape, hd), counters)
 
 
-def _decode_parts(name: str, so, visible_len: int, Hkv: int, device) -> Tuple[int, int]:
-    """(split, arena splits) of a K2 or K4 call on `device`."""
-    split = decode_split_size(visible_len, Hkv, sm_count(device), so.decode_max_split)
+def _decode_parts(name: str, visible_len: int, Hkv: int, device, max_split: int,
+                  max_parts: int) -> Tuple[int, int]:
+    """(split, arena splits) of a K2, K3 or K4 call on `device`, for a
+    kernel whose tile holds max_split rows and whose combine folds at most
+    max_parts parts."""
+    split = decode_split_size(visible_len, Hkv, sm_count(device), max_split)
     n = -(-visible_len // split)
-    if n + 1 > so.decode_max_parts:
+    if n + 1 > max_parts:
         raise ValueError(f"{name}: visible_len {visible_len} needs {n} splits of {split}, more "
-                         f"than the kernel's {so.decode_max_parts - 1}")
+                         f"than the kernel's {max_parts - 1}")
     return split, n
 
 
@@ -493,7 +501,8 @@ def streaming_decode_attention_full(
         raise ValueError(f"{name}: k_small must be [<= {so.decode_max_small_rows}, Hkv, hd]")
     if not 0 <= int(visible_len) <= C or not 0 <= int(extra_visible) <= e_delta:
         raise ValueError(f"{name}: visible_len {visible_len} / extra_visible {extra_visible} out of range")
-    split, n_parts = _decode_parts(name, so, int(visible_len), Hkv, q_rot.device)
+    split, n_parts = _decode_parts(name, int(visible_len), Hkv, q_rot.device,
+                                   so.decode_max_split, so.decode_max_parts)
     part_m, part_l, part_acc, counters = _decode_scratch(q_rot.device, Hkv, n_parts + 1,
                                                          H // Hkv, hd)
     out = torch.empty(H, hd, dtype=v_small.dtype, device=q_rot.device)
@@ -529,6 +538,22 @@ def _mrope_freq_table(hd: int, mrope_section: Tuple[int, int, int], rope_theta: 
     return torch.from_numpy(f).to(device)
 
 
+def _raw_arena_rotated(k_q, k_s, v_q, v_s, pos_t, visible_len: int, cdt, *,
+                       mrope_section: Tuple[int, int, int], rope_theta: float):
+    """The visible raw arena slots as K3 reads them: dequantized to cdt,
+    K rotated in f32 from the slots' positions and cast back. Returns
+    (k_rot, v) [visible_len, Hkv, hd] in cdt."""
+    vis = int(visible_len)
+    if k_s is None:
+        kf, vf = k_q[:vis].to(cdt), v_q[:vis].to(cdt)
+    else:
+        kf = dequantize_kv(QuantKV(k_q[:vis], k_s[:vis]), cdt)
+        vf = dequantize_kv(QuantKV(v_q[:vis], v_s[:vis]), cdt)
+    inv_freq = torch.from_numpy(make_inv_freq(k_q.shape[-1], rope_theta)).to(k_q.device)
+    cos, sin = mrope_cos_sin(pos_t[:vis].T, inv_freq, mrope_section)
+    return apply_rope(kf, cos[:, None, :], sin[:, None, :]), vf
+
+
 def decode_attention_int8_plain(
     q_rot, k_q, k_s, v_q, v_s, pos_t, k_small, v_small, visible_len: int,
     extra_visible: int, *, e_delta: int, mrope_section: Tuple[int, int, int],
@@ -538,18 +563,28 @@ def decode_attention_int8_plain(
     visible arena slots to the compute dtype (v_small's), rotate K in f32
     from the slots' positions and cast back, then K2's plain joint softmax.
     Returns [H, hd] in v_small's dtype."""
-    cdt = v_small.dtype
-    vis = int(visible_len)
-    if k_s is None:
-        kf, vf = k_q[:vis].to(cdt), v_q[:vis].to(cdt)
-    else:
-        kf = dequantize_kv(QuantKV(k_q[:vis], k_s[:vis]), cdt)
-        vf = dequantize_kv(QuantKV(v_q[:vis], v_s[:vis]), cdt)
-    inv_freq = torch.from_numpy(make_inv_freq(q_rot.shape[-1], rope_theta)).to(q_rot.device)
-    cos, sin = mrope_cos_sin(pos_t[:vis].T, inv_freq, mrope_section)
-    k_rot = apply_rope(kf, cos[:, None, :], sin[:, None, :])
+    k_rot, vf = _raw_arena_rotated(k_q, k_s, v_q, v_s, pos_t, visible_len, v_small.dtype,
+                                   mrope_section=mrope_section, rope_theta=rope_theta)
     return decode_attention_plain(
-        q_rot, k_rot, vf, k_small, v_small, vis, extra_visible, e_delta=e_delta
+        q_rot, k_rot, vf, k_small, v_small, int(visible_len), extra_visible, e_delta=e_delta
+    )
+
+
+def decode_attention_int8_by_splits(
+    q_rot, k_q, k_s, v_q, v_s, pos_t, k_small, v_small, visible_len: int,
+    extra_visible: int, *, e_delta: int, mrope_section: Tuple[int, int, int],
+    rope_theta: float, split: int,
+) -> torch.Tensor:
+    """K3's schedule in plain PyTorch: each slot dequantized and rotated as
+    `decode_attention_int8_plain` does, then K2's schedule (one log2-space
+    partial per split of `decode_splits(visible_len, split)`, one for the
+    small block, one merge). Returns [H, hd] in v_small's dtype; equal to
+    the plain version up to f32 summation order."""
+    k_rot, vf = _raw_arena_rotated(k_q, k_s, v_q, v_s, pos_t, visible_len, v_small.dtype,
+                                   mrope_section=mrope_section, rope_theta=rope_theta)
+    return decode_attention_by_splits(
+        q_rot, k_rot, vf, k_small, v_small, int(visible_len), extra_visible, e_delta=e_delta,
+        split=split,
     )
 
 
@@ -570,7 +605,13 @@ def streaming_decode_attention_int8(
     rope_theta: float,
 ) -> torch.Tensor:
     """K3. Returns [H, hd] in v_small's dtype (the compute dtype the arena
-    is dequantized to). Same no-padding contract for k_small as K2."""
+    is dequantized to). Same no-padding contract for k_small as K2.
+
+    On the card, one launch (counted once): the host picks the split
+    (`decode_split_size`), the grid is (splits + the small block, kv heads),
+    and the last CTA of each kv head folds the partials (scratch and
+    counters from `_decode_scratch`, shared with K2 and K4). Its plain schedule is
+    `decode_attention_int8_by_splits`."""
     E1 = k_small.shape[0]
     if E1 <= e_delta or v_small.shape != k_small.shape:
         raise ValueError(f"no-padding contract: k_small rows {E1} must exceed e_delta {e_delta}")
@@ -603,21 +644,23 @@ def streaming_decode_attention_int8(
     from ._kernels import lib
 
     so = lib()
-    if hd != 128 or H % Hkv or H // Hkv > 8:
+    if hd != 128 or H % Hkv or H // Hkv > 8 or Hkv > 8:
         raise ValueError(f"{name}: unsupported shapes q={tuple(q_rot.shape)} arena={tuple(k_q.shape)}")
     if k_small.shape[1:] != (Hkv, hd) or E1 > so.decode_max_small_rows:
         raise ValueError(f"{name}: k_small must be [<= {so.decode_max_small_rows}, Hkv, hd]")
     if not 0 <= int(visible_len) <= C or not 0 <= int(extra_visible) <= e_delta:
         raise ValueError(f"{name}: visible_len {visible_len} / extra_visible {extra_visible} out of range")
     freqs = _mrope_freq_table(hd, tuple(mrope_section), float(rope_theta), q_rot.device)
-    n_splits = -(-int(visible_len) // so.raw_decode_split)
-    part_m, part_l, part_acc, _ = _decode_scratch(q_rot.device, Hkv, n_splits, H // Hkv, hd)
+    split, n_splits = _decode_parts(name, int(visible_len), Hkv, q_rot.device,
+                                    so.raw_decode_max_split, so.raw_decode_max_parts)
+    part_m, part_l, part_acc, counters = _decode_scratch(q_rot.device, Hkv, n_splits + 1,
+                                                         H // Hkv, hd)
     out = torch.empty(H, hd, dtype=v_small.dtype, device=q_rot.device)
     err = so.svt_decode_attention_raw(
         ptr(q_rot), ptr(k_q), ptr(k_s), ptr(v_q), ptr(v_s), ptr(pos_t), ptr(freqs),
-        ptr(k_small), ptr(v_small), ptr(part_m), ptr(part_l), ptr(part_acc), ptr(out),
-        H, Hkv, hd, E1, int(e_delta), int(visible_len), int(extra_visible), int(quantized),
-        stream(),
+        ptr(k_small), ptr(v_small), ptr(part_m), ptr(part_l), ptr(part_acc), ptr(counters),
+        ptr(out), H, Hkv, hd, C, E1, int(e_delta), int(visible_len), int(extra_visible), split,
+        int(quantized), stream(),
     )
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
@@ -671,7 +714,8 @@ def streaming_decode_attention(
     from ._kernels import lib
 
     so = lib()
-    split, n_parts = _decode_parts(name, so, int(visible_len), Hkv, q_rot.device)
+    split, n_parts = _decode_parts(name, int(visible_len), Hkv, q_rot.device,
+                                   so.decode_max_split, so.decode_max_parts)
     part_m, part_l, part_acc, counters = _decode_scratch(q_rot.device, Hkv, n_parts, H // Hkv, hd)
     m = torch.empty(H, dtype=torch.float32, device=q_rot.device)
     l = torch.empty_like(m)

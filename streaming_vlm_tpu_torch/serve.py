@@ -6,6 +6,9 @@ patchify the chunk's frames (prefetched on a thread) -> prompt assembly
 (Time=a-bs protocol) -> evict + chunk step on the card -> decode text ->
 WebVTT output, with the PKV/VIDEO/INPUT/GEN/POST section timing.
 Chunk i+1's vision encode is launched before the host blocks on chunk i.
+As in the JAX package's loop, a chunk whose read fails ends the stream
+with the responses made so far (`Error reading chunk i` on stderr), and a
+failed early encode keeps the chunk's frames for its own step to encode.
 
 Two entry points share the loop: `streaming_inference` reads a video file
 through the native FFmpeg ingest library, and `streaming_inference_frames`
@@ -16,6 +19,7 @@ machines without that library.
 from __future__ import annotations
 
 import os
+import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
@@ -125,6 +129,18 @@ class StreamingSession:
         return self._decode_text(gen), gen
 
 
+def _read_result(pending, i: int):
+    """Chunk i's read (patches, grid), None at the end of the stream, or
+    None after printing `Error reading chunk i` to stderr when the read
+    raised: the stream then ends with the responses made so far, as the
+    JAX package's loop does."""
+    try:
+        return pending.result()
+    except Exception as e:  # the reader's own failure, whatever its type
+        print(f"Error reading chunk {i}: {e}", file=sys.stderr)
+        return None
+
+
 def _serve_loop(
     session: StreamingSession,
     read_chunk: ChunkReader,
@@ -150,7 +166,7 @@ def _serve_loop(
     with ThreadPoolExecutor(max_workers=1) as pool:
         pending = pool.submit(read_chunk, 0)
         with timer.section("VIDEO"):
-            first = pending.result()
+            first = _read_result(pending, 0)
         pending = pool.submit(read_chunk, 1)
         cur = None if first is None else (*first, None)  # + its vision embeds
         i = 0
@@ -171,10 +187,14 @@ def _serve_loop(
                 vis_embeds=embeds, timer=timer,
             )
             with timer.section("VIDEO"):
-                nxt = pending.result()
+                nxt = _read_result(pending, i + 1)
             if nxt is not None:
                 pending = pool.submit(read_chunk, i + 2)
-                nxt = (*nxt, session.encode_patches(*nxt))
+                try:
+                    nxt_embeds = session.encode_patches(*nxt)
+                except Exception:  # as the JAX loop: the frames stay, and chunk i+1's
+                    nxt_embeds = None  # own step encodes them (pixel_patches)
+                nxt = (*nxt, nxt_embeds)
             response, gen = session.finish_chunk(i, handle, forced_response_ids=forced)
 
             with timer.section("POST"):

@@ -107,28 +107,47 @@ def test_prefill_kernel_edges_on_card(cuda, T):
 def test_raw_decode_kernel_matches_plain_on_card(cuda, quantized):
     """K3 (int8 or bf16 raw arena, dequant + mRoPE rotation in the kernel)
     vs its plain version at G=7, with shrink- and append-range positions,
-    to one bf16 ulp (_assert_decode_close)."""
+    at visible lengths on and off the host's split up to the whole arena and
+    with a small block longer than the kernel's 160-row tile, to one bf16
+    ulp (_assert_decode_close). Each call is one counted launch and one
+    kernel on the card (split pass, small block and combine)."""
     g = torch.Generator(device=cuda).manual_seed(1)
-    H, Hkv, hd, Cc, E = 28, 4, 128, 1024, 20
+    H, Hkv, hd, Cc, E = 28, 4, 128, 10240, 20
 
     def rn(*s):
         return torch.randn(*s, generator=g, device=cuda).to(torch.bfloat16)
 
     q, ksm, vsm = rn(H, hd), rn(E + 1, Hkv, hd), rn(E + 1, Hkv, hd)
+    kbig, vbig = rn(200, Hkv, hd), rn(200, Hkv, hd)
     ka, va = rn(Cc, Hkv, hd), rn(Cc, Hkv, hd)
     if quantized:
         (kq, ks), (vq, vs) = quantize_kv(ka), quantize_kv(va)
     else:
         kq, ks, vq, vs = ka, None, va, None
     kw = dict(e_delta=E, mrope_section=(16, 24, 24), rope_theta=1e6)
+    name = "streaming_decode_attention_int8"
     for top in (5000.0, 100_000.0):
         pos_t = torch.rand(Cc, 3, generator=g, device=cuda).mul(top).floor().contiguous()
-        for vis in (0, 300, Cc):
+        for vis in (0, 1, 100, 641, 4501, 9000, Cc):
             for evis in (0, 7, 20):
                 args = (q, kq, ks, vq, vs, pos_t, ksm, vsm, vis, evis)
+                n = A.launch_counts[name]
                 out = A.streaming_decode_attention_int8(*args, **kw)
+                assert A.launch_counts[name] == n + 1
                 ref = A.decode_attention_int8_plain(*args, **kw)
                 _assert_decode_close(out, ref)
+        args = (q, kq, ks, vq, vs, pos_t, kbig, vbig, 500, 60)
+        _assert_decode_close(A.streaming_decode_attention_int8(*args, **dict(kw, e_delta=199)),
+                             A.decode_attention_int8_plain(*args, **dict(kw, e_delta=199)))
+    args = (q, kq, ks, vq, vs, pos_t, ksm, vsm, 9000, 7)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            A.streaming_decode_attention_int8(*args, **kw)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")
+               and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+    assert len(kernels) == 3 and all("decode_raw_kernel" in k for k in kernels), kernels
 
 
 @pytest.mark.gpu
