@@ -27,7 +27,11 @@ Phases; any failure exits non-zero:
    3 is run again on copies of the port with K1 (kernel or plan), K2, K3 or
    K5 (kernel or plan) broken on purpose (MUTANTS): each copy must fail, on
    the broken kernel's checks only. K1's plan must reach the card without a
-   host sync. Times from CUDA events and profiler device time, beside each
+   host sync. The lane forms (B streams in one launch, per-lane lengths:
+   K2 and K3 at B in {1, 4, 8} with lanes shorter than one split and empty
+   ones, both storage forms of K3, K1 at 6 ragged lanes in both modes) are
+   held to the same tolerances against their plain lane versions, and
+   their own mutants must fail their lane checks alone. Times from CUDA events and profiler device time, beside each
    kernel's bound and, where one PyTorch call computes the same function,
    that call's time (K5's int32 form at every tiled shape beside
    torch._int_mm; K2's and K3's device time at visible 640, 4500 and
@@ -49,7 +53,15 @@ Phases; any failure exits non-zero:
    arena, pre-rotated: K5 + K1 + K2). Each asserts an eviction, kv <=
    kv_capacity, and from launch counts reset just before it that every
    kernel call of its run went through the kernels, as many times as the
-   path makes them (K5's by path: decode GEMV and tiled).
+   path makes them (K5's by path: decode GEMV and tiled). Then three
+   multi-stream slices, bench.py's multi-stream setup through
+   MultiStreamEngine on the W8A8 weights (warm round + reset_lane, 20
+   rounds, the last lane idle in rounds 3 and 11, each lane its own frames
+   and query): slice D, 6 lanes over the int8 pre-rotated arena (K1 and K2
+   lane forms, K5 tiled at M = 6); slice E, 8 lanes with rot_quant="int8";
+   slice F, 4 lanes over the int8 raw arena (K1 raw and K3 lane forms).
+   Each prints round wall p50 / max, aggregate ingest frames/s and the
+   lanes' occupancy after eviction, and checks its launch counts.
 
 The second-to-last line is a JSON object with each kernel's numbers; the
 last line is {"ok": true, "device": {...}}.
@@ -97,6 +109,7 @@ REF_LAYERS = 4
 N_CHUNKS = 20  # slice length: past visual_round=16, so eviction runs
 REF_NOISE_FACTOR = 2.0
 MUTANT_BUILDS = 4  # mutant copies whose kernels build at once (4 nvcc each)
+TRACE_PAD_S = 0.05  # host time between a trace's start or end and the traced calls
 # the H100 SXM's published peaks (dense bf16 and int8, f32 outside the
 # tensor cores, HBM3)
 HBM_BYTES_PER_S = 3.35e12
@@ -176,7 +189,37 @@ MUTANTS = {
         "min(split_rows, visible_len - row0);",
         "min(split_rows, visible_len - row0) - 1;", None,
     ),
+    # the lane forms: each must fail its lane checks alone
+    "K1 lanes: a lane reads lane 0's length": (
+        "K1", "csrc/prefill_attention.cu",
+        "arena ? vis[segs[si * SEG_INTS] / Hkv] : 0;",
+        "arena ? vis[0] : 0;", "'lanes'",
+    ),
+    "K2 lanes: a split past a lane's length is not skipped": (
+        "K2", "csrc/decode_attention.cu",
+        "  if (!small && (int)blockIdx.x >= n_splits) return;  // past this lane's visible slots\n",
+        "", "'lanes'",
+    ),
+    "K3 lanes: a lane reads lane 0's length": (
+        "K3", "csrc/decode_attention_raw.cu",
+        "lane_visible(vis_lanes, vis_host, b, ",
+        "lane_visible(vis_lanes, vis_host, 0, ", "'lanes'",
+    ),
+    "lane-strided counters left unreset": (
+        ("K2", "K3"), "csrc/decode_common.cuh",
+        "if (tid == 0) counters[head] = 0;",
+        "if (tid == 0) counters[kvh] = 0;", "'lanes'",
+    ),
 }
+# the lane forms' checks (phase 3): K2 and K3 at B in {1, 4, 8} lanes with
+# these per-lane visible lengths (empty lanes, lanes shorter than one split,
+# the whole arena), K1 at slice D's 6 lanes with these insert points
+LANE_VISIBLE = {1: ((9000,), (0,)), 4: ((1, 4501, 0, 100), (10240, 641, 9000, 1)),
+                8: ((0, 1, 100, 641, 4501, 9000, 10240, 9000),)}
+K1_LANE_INSERT_AT = (0, 1, 641, 4501, 9000, 9600)
+# multi-stream slices: lanes, rounds, rounds in which the last lane idles
+MS_ROUNDS = 20
+MS_IDLE_ROUNDS = (3, 11)
 _FAILED = []  # the checks of phase 3 that failed
 _TIMED = True  # False: phase 3's checks without its timings (the mutant copies)
 
@@ -237,32 +280,51 @@ def _device_ms(fn, n: int = 20) -> float:
         return math.nan
     fn()
     torch.cuda.synchronize()
-    with _profiler() as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
+    prof = _traced_calls(fn, n)
     total = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
                 for e in prof.key_averages() if str(e.device_type).endswith("CUDA"))
     return total / 1e3 / n
 
 
-def _kernels_per_call(fn, n: int = 10) -> float:
+def _traced_calls(fn, n: int):
+    """A torch.profiler trace of n calls of fn. The calls start and end
+    TRACE_PAD_S inside the trace window: the profiler keeps only device
+    records whose card timestamps fall inside the host's window, so a
+    kernel issued right at its start or end can be dropped from the trace."""
+    import torch
+
+    with _profiler() as prof:
+        time.sleep(TRACE_PAD_S)
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+    return prof
+
+
+def _kernels_per_call(fn, kernel: str, n: int = 10, tries: int = 3) -> float:
     """CUDA kernels launched per call of fn, from a torch.profiler trace of
-    n calls (warmed up first); nan when untimed."""
+    n calls (warmed up first); nan when untimed. fn launches `kernel` at
+    least once a call, so a trace holding fewer than n of its records lost
+    some: it is taken again, up to `tries` times. If every trace lost
+    records, the kernels of the last one are counted per record of `kernel`
+    (1 when `kernel` is all that ran)."""
     import torch
 
     if not _TIMED:
         return math.nan
     fn()
     torch.cuda.synchronize()
-    with _profiler() as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    kernels = sum(e.count for e in prof.events()
-                  if str(e.device_type).endswith("CUDA") and "memcpy" not in e.name.lower()
-                  and "memset" not in e.name.lower())
-    return kernels / n
+    for attempt in range(tries):
+        names = [e.name for e in _traced_calls(fn, n).events()
+                 if str(e.device_type).endswith("CUDA") and "memcpy" not in e.name.lower()
+                 and "memset" not in e.name.lower()]
+        mine = sum(kernel in name for name in names)
+        if mine >= n:
+            return len(names) / n
+        print(f"  trace {attempt + 1} of {n} calls holds {mine} {kernel} records of {n} "
+              f"({len(names)} kernel records in all): the profiler lost records")
+    return len(names) / mine if mine else 0.0
 
 
 def _check(name, got, want, cases, atol, rtol):
@@ -502,7 +564,7 @@ def phase_kernels():
               plain_ms=_median_ms(lambda: A.decode_attention_int8_plain(*a3, **kw)),
               library_ms=None,
               kernels_per_call=_kernels_per_call(
-                  lambda: A.streaming_decode_attention_int8(*a3, **kw)))
+                  lambda: A.streaming_decode_attention_int8(*a3, **kw), "decode_raw_kernel"))
     # split pass, small block and combine are one launch: device time by
     # visible length (int8), with the host's split at each
     k3["device_ms_by_visible"] = {
@@ -557,10 +619,165 @@ def phase_kernels():
     print(f"  K4 visible_len={vis}: kernel {k4['ms']:.4f} ms (device {k4['device_ms']:.4f} ms), "
           f"plain {k4['plain_ms']:.4f} ms, "
           f"no single PyTorch call, bound {k4['bound_ms']:.4f} ms ({k4['bound_by']})")
+    for name, lane_stats in _phase_lanes(g).items():
+        stats[name]["lanes"] = lane_stats
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], lane_stats["max_abs_err"])
     stats["int8_gemm"] = _phase_k5(g)
     if _FAILED:
         raise AssertionError("kernels disagree with their plain versions: " + "; ".join(_FAILED))
     return stats
+
+
+def _sdpa_lanes_ms(q, ks, vs, mask):
+    """F.scaled_dot_product_attention's time over B lanes at once: q [B, T,
+    H, hd], keys/values [B, S, Hkv, hd] (kv heads repeated per query head),
+    mask [B, T, S], laid out outside the timed call."""
+    import torch.nn.functional as F
+
+    H, Hkv = q.shape[2], ks.shape[2]
+    rep = lambda x: x.repeat_interleave(H // Hkv, dim=2).transpose(1, 2).contiguous()  # noqa: E731
+    qq, kk, vv, mm = q.transpose(1, 2).contiguous(), rep(ks), rep(vs), mask[:, None]
+    return _median_ms(lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mm))
+
+
+def _phase_lanes(g) -> dict:
+    """The lane forms of K3, K2 and K1 (one launch for B streams, lanes of a
+    [B, 2, C, Hkv, hd] arena's layer, per-lane lengths) against their plain
+    lane versions, at the tolerances of the one-lane checks: K3 (both
+    storage forms) and K2 at LANE_VISIBLE, K1 at K1_LANE_INSERT_AT in both
+    modes. K3 runs before K2 (they share the scratch's counters). Then the
+    lane forms' times at the multi-stream slices' shapes, beside their
+    bounds, plain versions and SDPA over the B lanes."""
+    import torch
+
+    from streaming_vlm_tpu_torch.ops import attention as A
+    from streaming_vlm_tpu_torch.ops.quant import quantize_kv
+
+    dev = "cuda"
+    H, Hkv, hd, C, e_delta, Bmax = 28, 4, 128, 10240, 20, 8
+    kw = dict(e_delta=e_delta, mrope_section=(16, 24, 24), rope_theta=1e6)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    ka, va = rn(Bmax, 2, C, Hkv, hd)[:, 1], rn(Bmax, 2, C, Hkv, hd)[:, 1]  # lane-strided layers
+    (kq, ksc), (vq, vsc) = quantize_kv(ka), quantize_kv(va)
+    pos = (torch.rand(Bmax, C, 3, generator=g, device=dev)
+           * torch.tensor([C, 50.0, 50.0], device=dev)).floor()
+    q, ksm, vsm = rn(Bmax, H, hd), rn(Bmax, e_delta + 1, Hkv, hd), rn(Bmax, e_delta + 1, Hkv, hd)
+    forms = {"int8": lambda B: (kq[:B], ksc[:B], vq[:B], vsc[:B]),
+             "bf16": lambda B: (ka[:B], None, va[:B], None)}
+    err = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
+    for name in ("K3", "K2"):
+        for B, sets in LANE_VISIBLE.items():
+            for lens in sets:
+                vis = torch.tensor(lens, dtype=torch.int32, device=dev)
+                for evis in (0, 7, 20):
+                    for form in (("int8", "bf16") if name == "K3" else ("bf16",)):
+                        if name == "K3":
+                            a = (q[:B], *forms[form](B), pos[:B], ksm[:B], vsm[:B])
+                            got = A.streaming_decode_attention_int8(
+                                *a, vis, evis, max_visible=max(lens), **kw)
+                            want = A.decode_attention_int8_lanes_plain(*a, lens, evis, **kw)
+                        else:
+                            a = (q[:B], ka[:B], va[:B], ksm[:B], vsm[:B])
+                            got = A.streaming_decode_attention_full(
+                                *a, vis, evis, e_delta=e_delta, max_visible=max(lens))
+                            want = A.decode_attention_lanes_plain(*a, lens, evis, e_delta=e_delta)
+                        err[name] = max(err[name], _check_decode(name, got, want, dict(
+                            lanes=B, form=form, visible_len=list(lens), extra_visible=evis)))
+    B1, T = len(K1_LANE_INSERT_AT), 640
+    q1, ks1, vs1 = rn(B1, T, H, hd), rn(B1, T, Hkv, hd), rn(B1, T, Hkv, hd)
+    ang = torch.randn(B1, C, hd // 2, generator=g, device=dev)
+    cs2 = (torch.cat([ang.cos()] * 2, -1).contiguous(), torch.cat([ang.sin()] * 2, -1).contiguous())
+    ins = list(K1_LANE_INSERT_AT)
+    for mode, cs in (("prerotated", (None, None)), ("raw", cs2)):
+        a = (q1, ka[:B1], va[:B1], *cs, ks1, vs1, ins)
+        err["K1"] = max(err["K1"], _check_k1(A.streaming_prefill_attention(*a),
+                                             A.prefill_attention_lanes_plain(*a),
+                                             dict(lanes=B1, T=T, visible_len=ins, mode=mode)))
+    out = {"streaming_prefill_attention": {"max_abs_err": err["K1"]},
+           "streaming_decode_attention_full": {"max_abs_err": err["K2"]},
+           "streaming_decode_attention_int8": {"max_abs_err": err["K3"]}}
+    if not _TIMED:
+        return out
+
+    # K1 at slice D's round: 6 lanes of 640 queries, each over 9600 visible slots
+    vis = [C - T] * B1
+    a = (q1, ka[:B1], va[:B1], None, None, ks1, vs1, vis)
+    k1 = dict(lanes=B1, T=T, visible_len=vis[0],
+              ms=_median_ms(lambda: A.streaming_prefill_attention(*a)),
+              device_ms=_device_ms(lambda: A.streaming_prefill_attention(*a)),
+              plain_ms=_median_ms(lambda: A.prefill_attention_lanes_plain(*a), reps=3, batch=2),
+              ragged_device_ms=_device_ms(lambda: A.streaming_prefill_attention(
+                  q1, ka[:B1], va[:B1], None, None, ks1, vs1, ins)))
+    mask = torch.cat([torch.ones(T, vis[0], dtype=torch.bool, device=dev),
+                      torch.ones(T, T, dtype=torch.bool, device=dev).tril()], 1)
+    k1["library_ms"] = _sdpa_lanes_ms(q1, torch.cat([ka[:B1, : vis[0]], ks1], 1),
+                                      torch.cat([va[:B1, : vis[0]], vs1], 1),
+                                      mask.expand(B1, T, -1))
+    flops = B1 * 4 * T * H * hd * (vis[0] + (T + 1) / 2)
+    k1["bound_ms"], k1["bound_by"] = _bound(
+        2 * _nbytes(q1) + B1 * _nbytes(ka[0, : vis[0]], va[0, : vis[0]]) + _nbytes(ks1, vs1), flops)
+    out["streaming_prefill_attention"].update(k1)
+    print(f"  K1 lanes={B1} T={T} visible_len={vis[0]}: kernel {k1['ms']:.4f} ms (device "
+          f"{k1['device_ms']:.4f} ms; ragged {ins}: {k1['ragged_device_ms']:.4f}), plain "
+          f"{k1['plain_ms']:.4f} ms, sdpa {k1['library_ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms "
+          f"({k1['bound_by']})")
+
+    # K2 at slices D and E (6 and 8 lanes), K3 at slice F (4 lanes, int8),
+    # every lane at visible 9000, extra_visible 7
+    v9, evis = 9000, 7
+    col = torch.arange(e_delta + 1, device=dev)
+    small_mask = (col < evis) | (col >= e_delta)
+    for name, B in (("streaming_decode_attention_full", 6), ("streaming_decode_attention_full", 8),
+                    ("streaming_decode_attention_int8", 4)):
+        vis = torch.full((B,), v9, dtype=torch.int32, device=dev)
+        if name.endswith("full"):
+            a = (q[:B], ka[:B], va[:B], ksm[:B], vsm[:B])
+            f = lambda: A.streaming_decode_attention_full(  # noqa: E731
+                *a, vis, evis, e_delta=e_delta, max_visible=v9)
+            plain = lambda: A.decode_attention_lanes_plain(*a, v9, evis, e_delta=e_delta)  # noqa: E731
+            nbytes = 2 * _nbytes(q[:B]) + B * _nbytes(ka[0, :v9], va[0, :v9]) + _nbytes(
+                ksm[:B], vsm[:B])
+            r = dict(ms=_median_ms(f), device_ms=_device_ms(f), plain_ms=_median_ms(plain))
+            mask = torch.cat([torch.ones(v9, dtype=torch.bool, device=dev), small_mask])
+            r["library_ms"] = _sdpa_lanes_ms(
+                q[:B, None], torch.cat([ka[:B, :v9], ksm[:B]], 1), torch.cat([va[:B, :v9], vsm[:B]], 1),
+                mask.expand(B, 1, -1))
+            r["bound_ms"], r["bound_by"] = _bound(nbytes, B * 4 * H * hd * (v9 + e_delta + 1))
+        else:
+            a = (q[:B], *forms["int8"](B), pos[:B], ksm[:B], vsm[:B])
+            f = lambda: A.streaming_decode_attention_int8(  # noqa: E731
+                *a, vis, evis, max_visible=v9, **kw)
+            plain = lambda: A.decode_attention_int8_lanes_plain(*a, v9, evis, **kw)  # noqa: E731
+            nbytes = 2 * _nbytes(q[:B]) + B * _nbytes(kq[0, :v9], ksc[0, :v9], vq[0, :v9],
+                                                      vsc[0, :v9], pos[0, :v9]) + _nbytes(
+                ksm[:B], vsm[:B])
+            r = dict(ms=_median_ms(f), device_ms=_device_ms(f), plain_ms=_median_ms(plain),
+                     library_ms=None)
+            r["bound_ms"], r["bound_by"] = _bound(
+                nbytes, B * (2 * H * hd * v9 + 4 * H * hd * (e_delta + 1)),
+                f32_ops=B * Hkv * v9 * (K3_F32_OPS_PER_ROW + 2 * (H // Hkv) * hd))
+        lens = LANE_VISIBLE[8][0][:B]
+        vis_r = torch.tensor(lens, dtype=torch.int32, device=dev)
+        r["ragged_visible_len"] = list(lens)
+        if name.endswith("full"):
+            r["ragged_device_ms"] = _device_ms(lambda: A.streaming_decode_attention_full(
+                q[:B], ka[:B], va[:B], ksm[:B], vsm[:B], vis_r, evis, e_delta=e_delta,
+                max_visible=max(lens)))
+        else:
+            r["ragged_device_ms"] = _device_ms(lambda: A.streaming_decode_attention_int8(
+                q[:B], *forms["int8"](B), pos[:B], ksm[:B], vsm[:B], vis_r, evis,
+                max_visible=max(lens), **kw))
+        r["split"] = A.decode_split_size(v9, Hkv, A.sm_count(torch.device(dev)), 160, B)
+        out[name][f"lanes={B}"] = dict(lanes=B, visible_len=v9, extra_visible=evis, **r)
+        lib = f"sdpa {r['library_ms']:.4f} ms" if r["library_ms"] is not None else "no library call"
+        print(f"  {'K2' if name.endswith('full') else 'K3 int8'} lanes={B} visible_len={v9}: kernel "
+              f"{r['ms']:.4f} ms (device {r['device_ms']:.4f} ms, split {r['split']}; ragged "
+              f"{list(lens)}: {r['ragged_device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, {lib}, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return out
 
 
 # K5 at the 7B path's shapes: (what, M, K, N, bias, f32 out). Text decode
@@ -584,11 +801,20 @@ K5_SERVING = (
     ("vision down_proj", 2040, 3420, 1280, True, False),
     ("merger fc1", 510, 5120, 5120, True, False),
     ("merger fc2", 510, 5120, 3584, True, False),
+    # the multi-stream slices: decode at M = B lanes (the tiled path above
+    # SMALL_M), the round's prefill at M = B * 640
+    ("decode (6 lanes) gate/up_proj", 6, 3584, 18944, False, False),
+    ("decode (8 lanes) gate/up_proj", 8, 3584, 18944, False, False),
+    ("lm_head (8 lanes)", 8, 3584, 152064, False, True),
+    ("prefill (6 lanes) gate/up_proj", 3840, 3584, 18944, False, False),
+    ("prefill (8 lanes) q_proj", 5120, 3584, 3584, True, False),
 )
 # the int32 form: the TPU probe's shape, then the ragged edges
 K5_INT32 = ((4096, 4096, 4096), (2040, 3420, 1280), (2040, 1280, 3420), (1, 3584, 152064),
             (1, 3420, 1280), (3, 3584, 512))
-K5_TIMED = ("decode gate/up_proj", "lm_head", "prefill gate/up_proj")
+K5_TIMED = ("decode gate/up_proj", "lm_head", "prefill gate/up_proj",
+            "decode (6 lanes) gate/up_proj", "decode (8 lanes) gate/up_proj",
+            "prefill (6 lanes) gate/up_proj")
 
 
 def _phase_k5(g) -> dict:
@@ -673,7 +899,7 @@ def _phase_k5(g) -> dict:
         r = dict(M=M, K=K, N=N, tile_n=plan.bn, ctas=plan.n_ctas, split_tiles=len(plan.fixups),
                  device_ms=_device_ms(lambda: Q.int8_gemm(xq, wq)))
         r["bound_ms"], r["bound_by"] = _bound(M * K + N * K + 4 * M * N, 2 * M * N * K, INT8_OPS)
-        if K % 8 == 0 and N % 8 == 0:
+        if K % 8 == 0 and N % 8 == 0 and M > 16:
             wt = wq.t()
             r["library_ms"] = _median_ms(lambda: torch._int_mm(xq, wt))
             r["library_device_ms"] = _device_ms(lambda: torch._int_mm(xq, wt))
@@ -683,7 +909,8 @@ def _phase_k5(g) -> dict:
         print(f"  K5 int32 form {what} M={M} K={K} N={N}: kernel device {r['device_ms']:.4f} ms "
               f"(tile 128x{plan.bn}, {plan.n_ctas} CTAs, {len(plan.fixups)} split tiles), "
               + (f"torch._int_mm {r['library_ms']:.4f} ms (device {r['library_device_ms']:.4f})"
-                 if r["library_ms"] is not None else "torch._int_mm refuses K or N % 8 != 0")
+                 if r["library_ms"] is not None else
+                 "torch._int_mm refuses M <= 16, or K or N % 8 != 0")
               + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
         del xq, wq
 
@@ -705,13 +932,15 @@ def _phase_k5(g) -> dict:
     keys = ("M", "K", "N", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library")
     gemv, tiled = by_shape["decode gate/up_proj"], by_shape["prefill gate/up_proj"]
+    lanes = {w: by_shape[w] for w in K5_TIMED if "lanes" in w}
     return {
         "gemv": dict(max_abs_err=err, shape="decode gate/up_proj (M=1, K=3584, N=18944)",
                      bf16_linear_ms=gemv["bf16_linear_ms"], **{k: gemv[k] for k in keys},
                      lm_head=by_shape["lm_head"]),
         "tiled": dict(max_abs_err=err, shape="prefill gate/up_proj (M=640, K=3584, N=18944), "
                       "serving form (row quantization + product + epilogue)",
-                      **{k: tiled[k] for k in keys}, int32_form=int32, probe=probe),
+                      **{k: tiled[k] for k in keys}, int32_form=int32, probe=probe,
+                      lanes=lanes),
     }
 
 
@@ -737,7 +966,7 @@ def _plain_raw_decode():
     from streaming_vlm_tpu_torch.ops import attention as A
 
     kernel = lang.streaming_decode_attention_int8
-    lang.streaming_decode_attention_int8 = A.decode_attention_int8_plain
+    lang.streaming_decode_attention_int8 = A.decode_attention_int8_lanes_plain
     try:
         yield
     finally:
@@ -979,6 +1208,112 @@ def phase_slice(cfg, model, n_chunks: int, stream, expect: dict, profile: Path |
     return launches
 
 
+def phase_multistream(cfg, model, stream, B: int, expect: dict, profile: Path | None = None):
+    """bench.py's multi-stream setup through MultiStreamEngine: B lanes,
+    each with its own query and its own synthetic 476x840 frames (2 a
+    chunk, patchified on the host before a round's clock starts); the
+    bench's warm round, then reset_lane on every lane; then MS_ROUNDS
+    rounds (eviction from round visual_round on) with the last lane idle in
+    MS_IDLE_ROUNDS. A round's wall time covers the lanes' vision encode
+    (upload + B tower calls), the batched step and its one fetch. `expect`
+    maps each kernel to its launches per round; the counts are reset
+    after the warm round."""
+    import numpy as np
+    import torch
+
+    from streaming_vlm_tpu_torch.config import SamplingConfig
+    from streaming_vlm_tpu_torch.ops import attention as A
+    from streaming_vlm_tpu_torch.ops import quant as Q
+    from streaming_vlm_tpu_torch.streaming.multistream import MultiStreamEngine
+    from streaming_vlm_tpu_torch.streaming.protocol import FakeTokenizer, PromptBuilder
+    from streaming_vlm_tpu_torch.video.ingest import patchify_frames
+
+    v = cfg.vision
+    tok = cfg.tokens
+    rng = np.random.default_rng(B)
+    ms = MultiStreamEngine(cfg, model, stream, SamplingConfig(), B)
+    queries = [f"Commentate on match feed {b}" for b in range(B)]
+
+    def patches():
+        out = [patchify_frames(rng.integers(0, 256, (2, 476, 840, 3), dtype=np.uint8),
+                               patch_size=v.patch_size, temporal_patch_size=v.temporal_patch_size,
+                               merge_size=v.spatial_merge_size) for _ in range(B)]
+        return np.stack([p for p, _ in out]), out[0][1]
+
+    def segs(builder, i, query, grid):
+        n_vid = int(np.prod(grid)) // v.spatial_merge_unit
+        out = []
+        if i == 0:
+            out.append(builder.system_segment())
+            out.extend(builder.previous_text_segments("live stream"))
+            out.extend(builder.user_turn_segments(0, 0.0, 1.0, n_vid, grid, 1.0, query=query))
+        else:
+            out.extend(builder.user_turn_segments(i, float(i), i + 1.0, n_vid, grid, 1.0))
+        return out + builder.assistant_open_segments(i)
+
+    # the warm round: round 0 on every lane, then every lane to a new client
+    pats, grid = patches()
+    warm = [PromptBuilder(tok, FakeTokenizer(tok)) for _ in range(B)]
+    ms.process_round([segs(warm[b], 0, queries[b], grid) for b in range(B)],
+                     vis_embeds=ms.encode_round(pats, grid), grid_thw=grid)
+    for b in range(B):
+        ms.reset_lane(b)
+    builders = [PromptBuilder(tok, FakeTokenizer(tok)) for _ in range(B)]
+    end_bias = builders[0].measure_biases()[1]
+    clocks = [0] * B
+    walls, frames, evictions, cached = [], 0, [], []
+    prof = _profiler() if profile else contextlib.nullcontext()
+    torch.cuda.synchronize()
+    A.reset_launch_counts()
+    Q.reset_launch_counts()
+    t_all = time.perf_counter()
+    with prof:
+        for i in range(MS_ROUNDS):
+            pats, grid = patches()
+            lanes = [None if (b == B - 1 and i in MS_IDLE_ROUNDS) else
+                     segs(builders[b], clocks[b], queries[b], grid) for b in range(B)]
+            t0 = time.perf_counter()
+            ve = ms.encode_round(pats, grid)
+            outs = ms.process_round(lanes, vis_embeds=ve, grid_thw=grid)
+            walls.append(time.perf_counter() - t0)
+            for b, o in enumerate(outs):
+                if o is None:
+                    continue
+                assert 0 < o[1] <= stream.max_tokens_per_chunk + 1, o
+                ms.engines[b].commit_assistant(o[0], end_bias, clocks[b])
+                clocks[b] += 1
+                frames += 2
+            evictions.append([e.cached_after_evict < e.cached_before_evict for e in ms.engines])
+            cached.append([e.cached_after_evict for e in ms.engines])
+            assert all(e.cached + e.uncached_tail == e.table.total_len() for e in ms.engines)
+            assert max(e.cached for e in ms.engines) <= stream.kv_capacity
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t_all
+    launches = {**A.launch_counts, **Q.launch_counts,
+                **{f"int8_gemm/{k}": c for k, c in Q.path_counts.items()}}
+    busy = None
+    if profile:
+        _report_profile(prof, wall, profile)
+        busy = float(profile.read_text().split()[2]) / (wall * 1e3)
+    for i, (w, c) in enumerate(zip(walls, cached)):
+        print(f"  round {i:2d}: {w * 1e3:9.2f} ms  cached after eviction {c}"
+              + ("  (last lane idle)" if i in MS_IDLE_ROUNDS else ""))
+    lat = sorted(x * 1e3 for x in walls)
+    agg = frames / sum(walls)
+    print(f"  {B} lanes, {MS_ROUNDS} rounds in {wall:.3f} s; round wall p50 "
+          f"{statistics.median(lat):.2f} ms, max {lat[-1]:.2f} ms; aggregate ingest {agg:.3f} "
+          f"frames/s ({frames} frames)" + (f"; device busy {busy:.1%}" if busy else "")
+          + f"; launches {launches}")
+    assert any(any(r) for r in evictions[stream.visual_round:]), "no eviction happened"
+    want = {k: MS_ROUNDS * expect.get(k, 0) for k in launches}
+    assert launches == want, (launches, want)
+    del ms
+    torch.cuda.empty_cache()
+    return launches, dict(lanes=B, rounds=MS_ROUNDS, round_p50_ms=statistics.median(lat),
+                          round_max_ms=lat[-1], aggregate_frames_per_s=agg,
+                          cached_after_eviction=cached[-1], device_busy=busy)
+
+
 def phase_mutants() -> dict:
     """For each fault in MUTANTS: copy the port and this script into
     build/mutants/<i>/ (git-ignored), apply the fault there, build the
@@ -1048,7 +1383,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=Path, metavar="DIR",
                     help="trace the slices with torch.profiler; kernel tables -> "
-                         "DIR/profile_slice_{a,b,c}.txt")
+                         "DIR/profile_slice_{a,b,c,d,e,f}.txt")
+    ap.add_argument("--slices", default="ABCDEF",
+                    help="the slices of phase 5 to run (default all: ABCDEF)")
     args = ap.parse_args()
     if not (REPO / "streaming_vlm_tpu_torch").is_dir():
         raise SystemExit("chip_smoke.py must run from a checkout of the repository")
@@ -1100,6 +1437,8 @@ def main() -> int:
         random_quantized_model,
     )
 
+    from streaming_vlm_tpu_torch.ops import quant as Q
+
     cfg = qwen25_vl_7b()
     print("[4/5] reference: streaming forward vs plain oracle at 7B width")
     phase_reference(cfg)
@@ -1129,20 +1468,57 @@ def main() -> int:
             "int8_gemm/gemv": 7 * L * max_new + 1 + max_new}),
     }
     by_slice, loaded = {}, "bf16"
+
+    def w8a8():  # the caller has dropped the bf16 model
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        m = random_quantized_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                   device="cuda")
+        torch.cuda.synchronize()
+        print(f"  {cfg.name}: random W8A8 weights in {time.perf_counter() - t0:.2f} s")
+        return m
+
     for name, (weights, stream, expect) in slices.items():
+        if name not in args.slices:
+            continue
         if weights != loaded:  # W8A8: free the bf16 model first
             del model
-            torch.cuda.empty_cache()
-            loaded = weights
-            t0 = time.perf_counter()
-            model = random_quantized_model(cfg, torch.Generator(device="cuda").manual_seed(0),
-                                           device="cuda")
-            torch.cuda.synchronize()
-            print(f"  {cfg.name}: random W8A8 weights in {time.perf_counter() - t0:.2f} s")
+            model, loaded = w8a8(), weights
         print(f"  slice {name}: {weights} weights, kv_quant={stream.kv_quant} "
               f"prerotate={stream.effective_prerotate}")
         prof = args.profile / f"profile_slice_{name.lower()}.txt" if args.profile else None
         by_slice[name] = phase_slice(cfg, model, N_CHUNKS, stream, expect, prof)
+
+    # D, E, F: B lanes in lockstep rounds through MultiStreamEngine on the W8A8
+    # weights. Per round: K1 once a layer; K2 (or K3) once a layer a decode
+    # step; K5 for the 7 projections of every layer in the prefill and in
+    # each decode step and for each lm_head (tiled above SMALL_M rows, else
+    # the GEMV), and 5 a vision block + 2 for each lane's tower call
+    ms_slices = {  # name -> (lanes, StreamConfig)
+        "D": (6, StreamConfig(kv_quant="int8")),
+        "E": (8, StreamConfig(kv_quant="int8", rot_quant="int8")),
+        "F": (4, StreamConfig(kv_quant="int8", prerotate_arena=False)),
+    }
+    ms_stats = {}
+    if set(args.slices) & set(ms_slices) and loaded != "W8A8":
+        del model
+        model, loaded = w8a8(), "W8A8"
+    for name, (B, stream) in ms_slices.items():
+        if name not in args.slices:
+            continue
+        dec = "streaming_decode_attention_full" if stream.effective_prerotate else \
+            "streaming_decode_attention_int8"
+        vision = B * (5 * cfg.vision.depth + 2)
+        decode = 7 * L * max_new + 1 + max_new
+        small = B <= Q.lib().int8_small_m
+        expect = {k1: L, dec: L * max_new, "int8_gemm": 7 * L + vision + decode,
+                  "int8_gemm/tiled": 7 * L + vision + (0 if small else decode),
+                  "int8_gemm/gemv": decode if small else 0}
+        print(f"  slice {name}: {B} lanes, W8A8 weights, kv_quant={stream.kv_quant} "
+              f"prerotate={stream.effective_prerotate} rot_quant={stream.rot_quant}")
+        prof = args.profile / f"profile_slice_{name.lower()}.txt" if args.profile else None
+        by_slice[name], ms_stats[name] = phase_multistream(cfg, model, stream, B, expect, prof)
+    print("  " + json.dumps({"multistream": ms_stats}))
 
     kernels = [
         {"name": n, "route": "cuda", "source": SRC[n][0], "replaces": SRC[n][1],

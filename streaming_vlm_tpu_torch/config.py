@@ -216,8 +216,9 @@ class StreamConfig:
     # the port's engine raises on it. The field stays so that one
     # configuration means the same in both packages.
     decode_int8_kernel: Optional[bool] = None
-    # Storage of the per-chunk rotated K copy: "none" (engine dtype). The
-    # port does not run "int8" (a requantized rotated copy) yet.
+    # Storage of the per-chunk rotated K copy: "none" (engine dtype) or
+    # "int8" (requantized per (slot, head), the raw int8 arena's bytes; what
+    # fits 8 streams of 7B at C = 10240 with the pre-rotated path).
     rot_quant: str = "none"
 
     @property

@@ -18,11 +18,15 @@
 // slot's K and V once (at visible 9000: 18.4 MB, 5.5 us at 3.35 TB/s),
 // against ~0.13 GFLOP of f32 math. The design keeps those bytes in flight
 // and the chains short (split-K flash decoding in one launch):
-//   * grid (parts, kv heads): a part is one split of `split` consecutive
-//     visible slots (the host picks `split` from visible_len so that the
-//     grid fills the card: ops/attention.py `decode_split_size`), or, for
-//     K2, the small block of delta + self rows, which runs beside the
-//     arena splits as one more partial;
+//   * grid (parts, kv heads, lanes): a part is one split of `split`
+//     consecutive visible slots (the host picks `split` from the lanes'
+//     largest visible_len so that the grid fills the card: ops/attention.py
+//     `decode_split_size`), or, for K2, the small block of delta + self
+//     rows, which runs beside the arena splits as one more partial. K2's
+//     lane form serves B streams in one launch: lane b reads its own arena
+//     (lane-strided), queries, small block and visible length (an int32
+//     device array, so the host never waits for it), and a split past its
+//     length exits before it touches memory;
 //   * a CTA stages its rows' K and V (256 bytes each) into shared memory
 //     with one cp.async.bulk per row, all started at once by one warp and
 //     counted on four mbarriers, one per quarter of the rows, so that Q.K
@@ -84,27 +88,29 @@ __device__ __forceinline__ void butterfly(float (&v)[32], int lane) {
   }
 }
 
-// One split (or K2's small block) of one kv head -> its partial (m, l, acc)
-// in part_* [Hkv, n_parts, G(, HD)]; the last CTA of the kv head to finish
-// folds the n_parts partials into the output (FULL: K2's normalised bf16
-// row per query head; else K4's merged partials).
+// One split (or K2's small block) of one kv head of one lane -> its partial
+// (m, l, acc) in part_* [B * Hkv, gridDim.x, G(, HD)]; the last CTA of the
+// (lane, kv head) to finish folds the lane's n_parts partials into the
+// output (FULL: K2's normalised bf16 row per query head; else K4's merged
+// partials, one lane).
 template <bool FULL>
 __global__ void __launch_bounds__(DEC_THREADS, 2) decode_split_kernel(
-    const bf16* __restrict__ q,      // [H, HD]
-    const bf16* __restrict__ ka,     // [C, Hkv, HD] pre-rotated
-    const bf16* __restrict__ va,     // [C, Hkv, HD]
-    const bf16* __restrict__ ksm,    // [E1, Hkv, HD] rotated delta ++ self rows (FULL)
-    const bf16* __restrict__ vsm,    // [E1, Hkv, HD]
-    float* __restrict__ part_m,      // [Hkv, n_parts, G]
-    float* __restrict__ part_l,      // [Hkv, n_parts, G]
-    float* __restrict__ part_acc,    // [Hkv, n_parts, G, HD]
-    int* __restrict__ counters,      // [Hkv], zero between calls
-    bf16* __restrict__ out,          // [H, HD] (FULL)
+    const bf16* __restrict__ q,      // [B, H, HD]
+    const bf16* __restrict__ ka,     // [B, C, Hkv, HD] pre-rotated, lanes ka_lane apart
+    const bf16* __restrict__ va,     // [B, C, Hkv, HD], lanes va_lane apart
+    const bf16* __restrict__ ksm,    // [B, E1, Hkv, HD] rotated delta ++ self rows (FULL)
+    const bf16* __restrict__ vsm,    // [B, E1, Hkv, HD]
+    float* __restrict__ part_m,      // [B * Hkv, gridDim.x, G]
+    float* __restrict__ part_l,      // [B * Hkv, gridDim.x, G]
+    float* __restrict__ part_acc,    // [B * Hkv, gridDim.x, G, HD]
+    int* __restrict__ counters,      // [B * Hkv], zero between calls
+    bf16* __restrict__ out,          // [B, H, HD] (FULL)
     float* __restrict__ m_out,       // [H] (K4)
     float* __restrict__ l_out,       // [H] (K4)
     float* __restrict__ acc_out,     // [H, HD] (K4)
-    int Hkv, int G, int visible_len, int split_rows, int n_splits, int e1, int e_delta,
-    int extra_visible, float qscale) {
+    const int* __restrict__ vis_lanes,  // [B] visible lengths, or null: vis_host for all
+    int vis_host, long long ka_lane, long long va_lane,  // arena lane strides (elements)
+    int Hkv, int G, int split_rows, int e1, int e_delta, int extra_visible, float qscale) {
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* sk = smem;                                      // [TILE][HD] bf16
   unsigned char* sv = sk + TILE * ROW_BYTES;                     // [TILE][HD] bf16
@@ -117,10 +123,30 @@ __global__ void __launch_bounds__(DEC_THREADS, 2) decode_split_kernel(
   uint64_t* bar = reinterpret_cast<uint64_t*>(s_den + GMAX);
   __shared__ int s_last;
 
-  const int part = blockIdx.x, kvh = blockIdx.y;
-  const int n_parts = gridDim.x;
+  const int kvh = blockIdx.y, b = blockIdx.z;  // kv head, lane
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const bool small = part == n_splits;  // K2's delta + self rows
+  // this lane's splits; the grid holds the lanes' largest count (+ K2's
+  // small block, its last part)
+  const int max_splits = gridDim.x - (FULL ? 1 : 0);
+  const int visible_len = lane_visible(vis_lanes, vis_host, b, max_splits * split_rows);
+  const int n_splits = (visible_len + split_rows - 1) / split_rows;
+  const bool small = FULL && blockIdx.x == gridDim.x - 1;  // K2's delta + self rows
+  if (!small && (int)blockIdx.x >= n_splits) return;  // past this lane's visible slots
+  const int part = small ? n_splits : blockIdx.x;      // the partial's slot
+  // the slot and the lane's part count wait in shared memory for finish_part
+  __shared__ int s_slot[2];
+  if (threadIdx.x == 0) {
+    s_slot[0] = part;
+    s_slot[1] = n_splits + (FULL ? 1 : 0);
+  }
+  const size_t H = (size_t)Hkv * G;
+  q += b * H * HD;
+  ka += b * ka_lane;
+  va += b * va_lane;
+  if (FULL) {
+    ksm += (size_t)b * e1 * Hkv * HD;
+    vsm += (size_t)b * e1 * Hkv * HD;
+  }
 
   // the rows of this part: arena slots [row0, row0 + rows), or k_small [0, e1)
   const bf16* kbase = small ? ksm : ka;
@@ -269,8 +295,9 @@ __global__ void __launch_bounds__(DEC_THREADS, 2) decode_split_kernel(
 
   // the quarters meet in the K tile; the last CTA of the kv head folds the parts
   finish_part<FULL>(acc, reinterpret_cast<float*>(sk), reinterpret_cast<float*>(sv), s_m, s_l,
-                    s_den, &s_last, part_m, part_l, part_acc, counters, out, m_out, l_out,
-                    acc_out, kvh, part, n_parts, G);
+                    s_den, &s_last, part_m, part_l, part_acc, counters,
+                    FULL ? out + (size_t)blockIdx.z * H * HD : out, m_out, l_out,
+                    acc_out, blockIdx.z * Hkv + kvh, kvh, s_slot[0], s_slot[1], gridDim.x, G);
 }
 
 __global__ void decode_partials_empty_kernel(float* m_out, float* l_out, float* acc_out,
@@ -289,8 +316,9 @@ template <bool FULL>
 cudaError_t launch_split(const void* q, const void* ka, const void* va, const void* ksm,
                          const void* vsm, void* part_m, void* part_l, void* part_acc,
                          void* counters, void* out, void* m_out, void* l_out, void* acc_out,
-                         int Hkv, int G, int visible_len, int split_rows, int n_splits, int e1,
-                         int e_delta, int extra_visible, cudaStream_t s) {
+                         const void* vis_lanes, int B, int Hkv, int G, int visible_len,
+                         int split_rows, int n_splits, long long ka_lane, long long va_lane,
+                         int e1, int e_delta, int extra_visible, cudaStream_t s) {
   static bool opted = false;
   if (!opted) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -299,12 +327,12 @@ cudaError_t launch_split(const void* q, const void* ka, const void* va, const vo
     opted = true;
   }
   const float qscale = LOG2E / sqrtf((float)HD);
-  const dim3 grid(n_splits + (FULL ? 1 : 0), Hkv);
+  const dim3 grid(n_splits + (FULL ? 1 : 0), Hkv, B);
   decode_split_kernel<FULL><<<grid, DEC_THREADS, K2_SMEM, s>>>(
       (const bf16*)q, (const bf16*)ka, (const bf16*)va, (const bf16*)ksm, (const bf16*)vsm,
       (float*)part_m, (float*)part_l, (float*)part_acc, (int*)counters, (bf16*)out,
-      (float*)m_out, (float*)l_out, (float*)acc_out, Hkv, G, visible_len, split_rows, n_splits,
-      e1, e_delta, extra_visible, qscale);
+      (float*)m_out, (float*)l_out, (float*)acc_out, (const int*)vis_lanes, visible_len, ka_lane,
+      va_lane, Hkv, G, split_rows, e1, e_delta, extra_visible, qscale);
   return cudaSuccess;
 }
 
@@ -321,23 +349,27 @@ extern "C" int svt_decode_max_parts() { return MAX_PARTS; }
 
 extern "C" int svt_decode_max_small_rows() { return EMAX; }
 
-// K2. Scratch: part_m / part_l [Hkv, n_parts, G], part_acc [Hkv, n_parts,
-// G, HD] f32 and counters [Hkv] int32 (zero between calls), n_parts =
-// ceil(visible_len / split_rows) + 1.
+// K2 over B lanes: q [B, H, HD], arenas [B, C, Hkv, HD] with lanes
+// ka_lane / va_lane elements apart, small blocks [B, e1, Hkv, HD], out [B,
+// H, HD]. vis_lanes: int32 [B] on the device, each <= max_visible (the
+// host's largest, from which the split was chosen), or null: every lane
+// sees max_visible. Scratch: part_m / part_l [B * Hkv, n_parts, G],
+// part_acc [B * Hkv, n_parts, G, HD] f32 and counters [B * Hkv] int32
+// (zero between calls), n_parts = ceil(max_visible / split_rows) + 1.
 extern "C" int svt_decode_attention(
     const void* q, const void* ka, const void* va, const void* ksm, const void* vsm,
-    void* part_m, void* part_l, void* part_acc, void* counters, void* out, int H, int Hkv,
-    int hd, int e1, int e_delta, int visible_len, int extra_visible, int split_rows,
-    void* stream) {
-  if (hd != HD || H % Hkv != 0 || H / Hkv > GMAX || e1 > EMAX || e1 <= e_delta) {
+    void* part_m, void* part_l, void* part_acc, void* counters, void* out,
+    const void* vis_lanes, int B, int H, int Hkv, int hd, int e1, int e_delta, int max_visible,
+    int extra_visible, int split_rows, long long ka_lane, long long va_lane, void* stream) {
+  if (hd != HD || H % Hkv != 0 || H / Hkv > GMAX || e1 > EMAX || e1 <= e_delta || B < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  const int n_splits = split_rows > 0 ? (visible_len + split_rows - 1) / split_rows : 0;
-  if (bad_split(visible_len, split_rows, n_splits + 1)) return (int)cudaErrorInvalidValue;
+  const int n_splits = split_rows > 0 ? (max_visible + split_rows - 1) / split_rows : 0;
+  if (bad_split(max_visible, split_rows, n_splits + 1)) return (int)cudaErrorInvalidValue;
   const cudaError_t e = launch_split<true>(
       q, ka, va, ksm, vsm, part_m, part_l, part_acc, counters, out, nullptr, nullptr, nullptr,
-      Hkv, H / Hkv, visible_len, split_rows, n_splits, e1, e_delta, extra_visible,
-      reinterpret_cast<cudaStream_t>(stream));
+      vis_lanes, B, Hkv, H / Hkv, max_visible, split_rows, n_splits, ka_lane, va_lane, e1,
+      e_delta, extra_visible, reinterpret_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -360,7 +392,7 @@ extern "C" int svt_decode_partials(
   }
   const cudaError_t e = launch_split<false>(
       q, ka, va, nullptr, nullptr, part_m, part_l, part_acc, counters, nullptr, m_out, l_out,
-      acc_out, Hkv, H / Hkv, visible_len, split_rows, n_splits, 0, 0, 0, s);
+      acc_out, nullptr, 1, Hkv, H / Hkv, visible_len, split_rows, n_splits, 0, 0, 0, 0, 0, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

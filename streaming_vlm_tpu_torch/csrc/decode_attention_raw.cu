@@ -33,11 +33,15 @@
 // The design keeps the bytes in flight, spreads that work over the whole
 // card and keeps it off the critical path where it can (split-K flash
 // decoding in one launch, as K2):
-//   * grid (parts, kv heads): a part is one split of `split` consecutive
-//     visible slots (the host picks `split` from visible_len so that the
-//     grid fills one wave of the card: ops/attention.py
-//     `decode_split_size`), or the small block of delta + self rows, which
-//     runs beside the arena splits as one more partial;
+//   * grid (parts, kv heads, lanes): a part is one split of `split`
+//     consecutive visible slots (the host picks `split` from the lanes'
+//     largest visible_len so that the grid fills one wave of the card:
+//     ops/attention.py `decode_split_size`), or the small block of delta +
+//     self rows, which runs beside the arena splits as one more partial.
+//     The lane form serves B streams in one launch, as K2's: lane b reads
+//     its own arena, scales, positions, queries, small block and visible
+//     length (an int32 device array), and a split past its length exits
+//     before it touches memory;
 //   * staging: thread 0 first bulk-copies the small operands (the kv
 //     head's queries, the frequency table, the split's positions and all
 //     kv heads' K/V scale rows) on their own mbarrier, then the K and V
@@ -147,21 +151,22 @@ __device__ __forceinline__ void k_values(const unsigned char* tile, int j, int d
 // partial; the last CTA of the kv head folds them into out [H, HD].
 template <bool QUANT>
 __global__ void __launch_bounds__(DEC_THREADS, 2) decode_raw_kernel(
-    const __grid_constant__ CUtensorMap k_map,    // arena K [C, Hkv, HD] in storage form
+    const __grid_constant__ CUtensorMap k_map,    // arena K [B][C, Hkv, HD] in storage form
     const __grid_constant__ CUtensorMap v_map,    // arena V
-    const __grid_constant__ CUtensorMap ksm_map,  // [E1, Hkv, HD] rotated delta ++ self rows
+    const __grid_constant__ CUtensorMap ksm_map,  // [B, E1, Hkv, HD] rotated delta ++ self rows
     const __grid_constant__ CUtensorMap vsm_map,
-    const bf16* __restrict__ q,       // [H, HD]
-    const float* __restrict__ ks,     // [C, Hkv] K scales (QUANT)
-    const float* __restrict__ vs,     // [C, Hkv] V scales (QUANT)
-    const float* __restrict__ pos,    // [C, 3] f32 per-slot mRoPE positions
+    const bf16* __restrict__ q,       // [B, H, HD]
+    const float* __restrict__ ks,     // [B][C, Hkv] K scales (QUANT), lanes s_lane apart
+    const float* __restrict__ vs,     // [B][C, Hkv] V scales (QUANT)
+    const float* __restrict__ pos,    // [B, C, 3] f32 per-slot mRoPE positions
     const float* __restrict__ freqs,  // [3, HALF] masked inverse frequencies
-    float* __restrict__ part_m,       // [Hkv, n_parts, G]
-    float* __restrict__ part_l,       // [Hkv, n_parts, G]
-    float* __restrict__ part_acc,     // [Hkv, n_parts, G, HD]
-    int* __restrict__ counters,       // [Hkv], zero between calls
-    bf16* __restrict__ out,           // [H, HD]
-    int C, int Hkv, int G, int visible_len, int split_rows, int n_splits, int e1, int e_delta,
+    float* __restrict__ part_m,       // [B * Hkv, gridDim.x, G]
+    float* __restrict__ part_l,       // [B * Hkv, gridDim.x, G]
+    float* __restrict__ part_acc,     // [B * Hkv, gridDim.x, G, HD]
+    int* __restrict__ counters,       // [B * Hkv], zero between calls
+    bf16* __restrict__ out,           // [B, H, HD]
+    const int* __restrict__ vis_lanes,  // [B] visible lengths, or null: vis_host for all
+    int vis_host, long long s_lane, int C, int Hkv, int G, int split_rows, int e1, int e_delta,
     int extra_visible, float qscale) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sk = reinterpret_cast<unsigned char*>(
@@ -181,10 +186,28 @@ __global__ void __launch_bounds__(DEC_THREADS, 2) decode_raw_kernel(
   uint64_t* bar_ops = bar + CHUNKS;
   __shared__ int s_last;
 
-  const int part = blockIdx.x, kvh = blockIdx.y;
-  const int n_parts = gridDim.x;
+  const int kvh = blockIdx.y, b = blockIdx.z;  // kv head, lane
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const bool small = part == n_splits;  // the delta + self rows: bf16, already rotated
+  // this lane's splits; the grid holds the lanes' largest count + the small block
+  const int visible_len = lane_visible(vis_lanes, vis_host, b, (gridDim.x - 1) * split_rows);
+  const int n_splits = (visible_len + split_rows - 1) / split_rows;
+  const bool small = blockIdx.x == gridDim.x - 1;  // the delta + self rows: bf16, already rotated
+  if (!small && (int)blockIdx.x >= n_splits) return;  // past this lane's visible slots
+  const int part = small ? n_splits : blockIdx.x;      // the partial's slot
+  // the slot and the lane's part count wait in shared memory for finish_part
+  // (registers live across the loops cost this kernel spills)
+  __shared__ int s_slot[2];
+  if (threadIdx.x == 0) {
+    s_slot[0] = part;
+    s_slot[1] = n_splits + 1;
+  }
+  const size_t H = (size_t)Hkv * G;
+  q += b * H * HD;
+  pos += (size_t)b * C * 3;
+  if (QUANT) {
+    ks += b * s_lane;
+    vs += b * s_lane;
+  }
   const bool quant = QUANT && !small;   // rows in int8 with scales
   const int planes = quant ? 1 : 2;     // an int8 row is one line, a bf16 row two
 
@@ -202,8 +225,8 @@ __global__ void __launch_bounds__(DEC_THREADS, 2) decode_raw_kernel(
         mbar_arrive_expect_tx(&bar[c], 2u * planes * CHUNK * LINE);
         for (int p = 0; p < planes; ++p) {
           const int off = p * PLANE + c * CHUNK * LINE;
-          tma_load_3d(sk + off, km, &bar[c], 64 * p, kvh, row0 + t0 + c * CHUNK);
-          tma_load_3d(sv + off, vm, &bar[c], 64 * p, kvh, row0 + t0 + c * CHUNK);
+          tma_load_4d(sk + off, km, &bar[c], 64 * p, kvh, row0 + t0 + c * CHUNK, b);
+          tma_load_4d(sv + off, vm, &bar[c], 64 * p, kvh, row0 + t0 + c * CHUNK, b);
         }
       }
     }
@@ -211,9 +234,10 @@ __global__ void __launch_bounds__(DEC_THREADS, 2) decode_raw_kernel(
   // the small operands go first, one bulk copy each, on their own barrier:
   // the kv head's queries, the frequencies, and an arena split's positions
   // and K/V scales (all kv heads' rows [row0, row0 + rows4), where they
-  // lie inside the arena; else plain loads below)
+  // lie inside the arena and the lane's rows are 16-byte aligned; else
+  // plain loads below)
   const int rows4 = (rows + 3) & ~3;
-  const bool bulk_rows = !small && row0 + rows4 <= C;
+  const bool bulk_rows = !small && row0 + rows4 <= C && (b == 0 || (C % 4 == 0 && s_lane % 4 == 0));
   if (tid == 0) {
     for (int c = 0; c <= CHUNKS; ++c) mbar_init(&bar[c], 1);
     mbar_fence_init();
@@ -230,7 +254,7 @@ __global__ void __launch_bounds__(DEC_THREADS, 2) decode_raw_kernel(
     }
     if (rows > 0) stage_tile(0, min(TILE, rows));
   }
-  if (!small && !bulk_rows) {  // a split at the end of an arena of C % 4 != 0 slots
+  if (!small && !bulk_rows) {  // a split at the end of an arena of C % 4 != 0 slots, or unaligned lanes
     for (int i = tid; i < 3 * rows; i += DEC_THREADS) s_pos[i] = pos[(size_t)row0 * 3 + i];
     for (int i = tid; QUANT && i < rows * Hkv; i += DEC_THREADS) {
       s_ks[i] = ks[(size_t)row0 * Hkv + i];
@@ -421,8 +445,9 @@ __global__ void __launch_bounds__(DEC_THREADS, 2) decode_raw_kernel(
 
   // the quarters meet in the K tile; the last CTA of the kv head folds the parts
   finish_part<true>(acc, reinterpret_cast<float*>(sk), reinterpret_cast<float*>(sv), s_m, s_l,
-                    s_den, &s_last, part_m, part_l, part_acc, counters, out, nullptr, nullptr,
-                    nullptr, kvh, part, n_parts, G);
+                    s_den, &s_last, part_m, part_l, part_acc, counters,
+                    out + (size_t)blockIdx.z * H * HD, nullptr, nullptr, nullptr,
+                    blockIdx.z * Hkv + kvh, kvh, s_slot[0], s_slot[1], gridDim.x, G);
 }
 
 template <bool QUANT>
@@ -430,8 +455,9 @@ cudaError_t launch_raw(const CUtensorMap& k_map, const CUtensorMap& v_map,
                        const CUtensorMap& ksm_map, const CUtensorMap& vsm_map, const void* q,
                        const void* ks, const void* vs, const void* pos, const void* freqs,
                        void* part_m, void* part_l, void* part_acc, void* counters, void* out,
-                       int C, int Hkv, int G, int visible_len, int split_rows, int n_splits,
-                       int e1, int e_delta, int extra_visible, cudaStream_t s) {
+                       const void* vis_lanes, int B, int C, int Hkv, int G, int visible_len,
+                       int split_rows, int n_splits, long long s_lane, int e1, int e_delta,
+                       int extra_visible, cudaStream_t s) {
   static bool opted = false;
   if (!opted) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -440,11 +466,11 @@ cudaError_t launch_raw(const CUtensorMap& k_map, const CUtensorMap& v_map,
     opted = true;
   }
   const float qscale = LOG2E / sqrtf((float)HD);
-  decode_raw_kernel<QUANT><<<dim3(n_splits + 1, Hkv), DEC_THREADS, K3_SMEM, s>>>(
+  decode_raw_kernel<QUANT><<<dim3(n_splits + 1, Hkv, B), DEC_THREADS, K3_SMEM, s>>>(
       k_map, v_map, ksm_map, vsm_map, (const bf16*)q, (const float*)ks, (const float*)vs,
       (const float*)pos, (const float*)freqs, (float*)part_m, (float*)part_l, (float*)part_acc,
-      (int*)counters, (bf16*)out, C, Hkv, G, visible_len, split_rows, n_splits, e1, e_delta,
-      extra_visible, qscale);
+      (int*)counters, (bf16*)out, (const int*)vis_lanes, visible_len, s_lane, C, Hkv, G,
+      split_rows, e1, e_delta, extra_visible, qscale);
   return cudaSuccess;
 }
 
@@ -455,48 +481,62 @@ cudaError_t launch_raw(const CUtensorMap& k_map, const CUtensorMap& v_map,
 extern "C" int svt_decode_raw_max_split() { return TILE; }
 extern "C" int svt_decode_raw_max_parts() { return MAX_PARTS; }
 
-// K3, one launch. quantized != 0: kq/vq [C, Hkv, HD] are int8 with f32
-// scales ks/vs [C, Hkv]; quantized == 0: kq/vq are bf16 and ks/vs are
-// ignored. Scratch as K2's: part_m / part_l [Hkv, n_parts, G], part_acc
-// [Hkv, n_parts, G, HD] f32 and counters [Hkv] int32 (zero between calls),
-// n_parts = ceil(visible_len / split_rows) + 1.
+// K3 over B lanes, one launch. quantized != 0: kq/vq [B][C, Hkv, HD] are
+// int8 with f32 scales ks/vs [B][C, Hkv]; quantized == 0: kq/vq are bf16
+// and ks/vs are ignored. Lanes kq_lane / vq_lane elements apart (the
+// scales s_lane), q [B, H, HD], pos [B, C, 3], small blocks [B, e1, Hkv,
+// HD], out [B, H, HD]. vis_lanes: int32 [B] on the device, each <=
+// max_visible (the host's largest, from which the split was chosen), or
+// null: every lane sees max_visible. Scratch as K2's: part_m / part_l [B *
+// Hkv, n_parts, G], part_acc [B * Hkv, n_parts, G, HD] f32 and counters [B
+// * Hkv] int32 (zero between calls), n_parts = ceil(max_visible /
+// split_rows) + 1.
 extern "C" int svt_decode_attention_raw(
     const void* q, const void* kq, const void* ks, const void* vq, const void* vs,
     const void* pos, const void* freqs, const void* ksm, const void* vsm, void* part_m,
-    void* part_l, void* part_acc, void* counters, void* out, int H, int Hkv, int hd, int C,
-    int e1, int e_delta, int visible_len, int extra_visible, int split_rows, int quantized,
+    void* part_l, void* part_acc, void* counters, void* out, const void* vis_lanes, int B, int H,
+    int Hkv, int hd, int C, int e1, int e_delta, int max_visible, int extra_visible,
+    int split_rows, int quantized, long long kq_lane, long long vq_lane, long long s_lane,
     void* stream) {
   if (hd != HD || H % Hkv != 0 || H / Hkv > GMAX || Hkv > GMAX || e1 > EMAX || e1 <= e_delta ||
-      C < 1) {
+      C < 1 || B < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  const int n_splits = split_rows > 0 ? (visible_len + split_rows - 1) / split_rows : 0;
-  if (split_rows < 1 || split_rows > TILE || n_splits + 1 > MAX_PARTS || visible_len < 0 ||
-      visible_len > C) {
+  const int n_splits = split_rows > 0 ? (max_visible + split_rows - 1) / split_rows : 0;
+  if (split_rows < 1 || split_rows > TILE || n_splits + 1 > MAX_PARTS || max_visible < 0 ||
+      max_visible > C) {
     return (int)cudaErrorInvalidValue;
   }
-  // row maps over [rows, Hkv, HD]: boxes of CHUNK rows of one kv head
+  // row maps over [B][rows, Hkv, HD]: boxes of CHUNK rows of one kv head of one lane
   const uint64_t bf16_row = (uint64_t)Hkv * HD * sizeof(bf16);
+  const uint64_t item = quantized ? 1 : sizeof(bf16);
   CUtensorMap k_map, v_map, ksm_map, vsm_map;
   const bool ok =
       (quantized
-           ? svt_tensor_map_rows(&k_map, kq, C, Hkv, HD, (uint64_t)Hkv * HD, CHUNK, true) &&
-                 svt_tensor_map_rows(&v_map, vq, C, Hkv, HD, (uint64_t)Hkv * HD, CHUNK, true)
-           : svt_tensor_map_rows(&k_map, kq, C, Hkv, HD * sizeof(bf16), bf16_row, CHUNK) &&
-                 svt_tensor_map_rows(&v_map, vq, C, Hkv, HD * sizeof(bf16), bf16_row, CHUNK)) &&
-      svt_tensor_map_rows(&ksm_map, ksm, e1, Hkv, HD * sizeof(bf16), bf16_row, CHUNK) &&
-      svt_tensor_map_rows(&vsm_map, vsm, e1, Hkv, HD * sizeof(bf16), bf16_row, CHUNK);
+           ? svt_tensor_map_rows(&k_map, kq, C, Hkv, HD, (uint64_t)Hkv * HD, CHUNK, true, B,
+                                 kq_lane * item) &&
+                 svt_tensor_map_rows(&v_map, vq, C, Hkv, HD, (uint64_t)Hkv * HD, CHUNK, true, B,
+                                     vq_lane * item)
+           : svt_tensor_map_rows(&k_map, kq, C, Hkv, HD * sizeof(bf16), bf16_row, CHUNK, false,
+                                 B, kq_lane * item) &&
+                 svt_tensor_map_rows(&v_map, vq, C, Hkv, HD * sizeof(bf16), bf16_row, CHUNK,
+                                     false, B, vq_lane * item)) &&
+      svt_tensor_map_rows(&ksm_map, ksm, e1, Hkv, HD * sizeof(bf16), bf16_row, CHUNK, false, B,
+                          (uint64_t)e1 * bf16_row) &&
+      svt_tensor_map_rows(&vsm_map, vsm, e1, Hkv, HD * sizeof(bf16), bf16_row, CHUNK, false, B,
+                          (uint64_t)e1 * bf16_row);
   if (!ok) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int G = H / Hkv;
   const cudaError_t e =
       quantized ? launch_raw<true>(k_map, v_map, ksm_map, vsm_map, q, ks, vs, pos, freqs, part_m,
-                                   part_l, part_acc, counters, out, C, Hkv, G, visible_len,
-                                   split_rows, n_splits, e1, e_delta, extra_visible, s)
+                                   part_l, part_acc, counters, out, vis_lanes, B, C, Hkv, G,
+                                   max_visible, split_rows, n_splits, s_lane, e1, e_delta,
+                                   extra_visible, s)
                 : launch_raw<false>(k_map, v_map, ksm_map, vsm_map, q, ks, vs, pos, freqs,
-                                    part_m, part_l, part_acc, counters, out, C, Hkv, G,
-                                    visible_len,
-                                    split_rows, n_splits, e1, e_delta, extra_visible, s);
+                                    part_m, part_l, part_acc, counters, out, vis_lanes, B, C, Hkv,
+                                    G, max_visible, split_rows, n_splits, s_lane, e1, e_delta,
+                                    extra_visible, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

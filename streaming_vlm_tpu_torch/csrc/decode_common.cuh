@@ -3,10 +3,16 @@
 // warp reductions, and the end of every part: its partial written, then
 // the fused combine by the last CTA of each kv head (`finish_part`).
 //
-// Partial layout, written by every part: part_m / part_l [Hkv, n_parts, G]
-// and part_acc [Hkv, n_parts, G, HD], all f32, log2-space (q is pre-scaled
-// by softmax-scale * log2(e)), unnormalised. counters [Hkv] int32 are zero
-// between calls: the folding CTA resets its kv head's.
+// Lanes: a call may cover B independent streams (grid axis z), each with
+// its own visible length, read from an int32 device array. A (lane, kv
+// head) pair is a `head` = lane * Hkv + kv head of the scratch.
+//
+// Partial layout, written by every part: part_m / part_l [B * Hkv, stride,
+// G] and part_acc [B * Hkv, stride, G, HD], all f32, log2-space (q is
+// pre-scaled by softmax-scale * log2(e)), unnormalised; `stride` is the
+// grid's part count, and a lane's n_parts <= stride parts fill slots [0,
+// n_parts). counters [B * Hkv] int32 are zero between calls: the folding
+// CTA resets its head's.
 
 #pragma once
 
@@ -40,16 +46,27 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The visible length of lane `lane`: from the device array when there is
+// one (the lane form), else the host's value, at most the slots the grid's
+// `max_rows` cover (a longer length is a caller's error; this keeps every
+// partial inside its head's slots).
+__device__ __forceinline__ int lane_visible(const int* __restrict__ vis_lanes, int vis_host,
+                                            int lane, int max_rows) {
+  return min(vis_lanes != nullptr ? vis_lanes[lane] : vis_host, max_rows);
+}
+
 // The end of a part, called by all DEC_THREADS threads of its CTA. acc holds
 // this thread's P.V sums (head dims 2 (tid % 64) + {0, 1} of its quarter's
 // rows); s_m / s_l the part's running max and sum per query head. The
-// quarters meet in buf_a, the part's partial goes to part_*, and the CTA
-// counts itself in on its kv head's counter. The last of the kv head's
-// n_parts CTAs to arrive reads every part's (m, l) into shared memory in
+// quarters meet in buf_a, the part's partial goes to slot `part` of its
+// head's `stride` slots, and the CTA counts itself in on its head's counter
+// (head = lane * Hkv + kvh). The last of the head's n_parts CTAs to arrive
+// reads every part's (m, l) into shared memory in
 // one coalesced pass, folds the partial rows in parallel (each quarter of
 // the threads a strided subset of the parts) and writes the output (FULL:
-// the normalised bf16 row per query head; else the merged partials m_out,
-// l_out, acc_out), then resets the counter for the next call.
+// the normalised bf16 row per query head of kv head kvh, `out` being the
+// lane's [H, HD]; else the merged partials m_out, l_out, acc_out), then
+// resets the counter for the next call.
 // buf_a and buf_b hold max(QUARTERS * GMAX * HD, n_parts * G) floats each;
 // s_m, s_l, s_den GMAX floats each; s_last one int.
 template <bool FULL>
@@ -57,8 +74,8 @@ __device__ __forceinline__ void finish_part(
     const float (&acc)[GMAX][2], float* buf_a, float* buf_b, float* s_m, const float* s_l,
     float* s_den, int* s_last, float* __restrict__ part_m, float* __restrict__ part_l,
     float* __restrict__ part_acc, int* __restrict__ counters, bf16* __restrict__ out,
-    float* __restrict__ m_out, float* __restrict__ l_out, float* __restrict__ acc_out, int kvh,
-    int part, int n_parts, int G) {
+    float* __restrict__ m_out, float* __restrict__ l_out, float* __restrict__ acc_out, int head,
+    int kvh, int part, int n_parts, int stride, int G) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int dp = tid % (HD / 2), quarter = tid / (HD / 2);
   float* red = buf_a;  // [QUARTERS][GMAX][HD]
@@ -70,7 +87,7 @@ __device__ __forceinline__ void finish_part(
     }
   }
   __syncthreads();
-  const size_t base = ((size_t)kvh * n_parts + part) * G;
+  const size_t base = ((size_t)head * stride + part) * G;
   for (int i = tid; i < G * HD; i += DEC_THREADS) {
     const int g = i / HD, d = i % HD;
     float a = 0.f;
@@ -86,7 +103,7 @@ __device__ __forceinline__ void finish_part(
   // count in; the last CTA of this kv head folds its parts
   __threadfence();
   __syncthreads();
-  if (tid == 0) *s_last = atomicAdd(&counters[kvh], 1) == n_parts - 1;
+  if (tid == 0) *s_last = atomicAdd(&counters[head], 1) == n_parts - 1;
   __syncthreads();
   if (!*s_last) return;
   __threadfence();
@@ -96,8 +113,8 @@ __device__ __forceinline__ void finish_part(
   float* w = buf_a;   // [n_parts][G] maxima, then weights
   float* pl = buf_b;  // [n_parts][G]
   for (int i = tid; i < n_parts * G; i += DEC_THREADS) {
-    w[i] = __ldcg(part_m + (size_t)kvh * n_parts * G + i);
-    pl[i] = __ldcg(part_l + (size_t)kvh * n_parts * G + i);
+    w[i] = __ldcg(part_m + (size_t)head * stride * G + i);
+    pl[i] = __ldcg(part_l + (size_t)head * stride * G + i);
   }
   __syncthreads();
   if (warp < G) {
@@ -124,7 +141,7 @@ __device__ __forceinline__ void finish_part(
   for (int g = 0; g < GMAX; ++g) a[g][0] = a[g][1] = 0.f;
 #pragma unroll 4
   for (int p = quarter; p < n_parts; p += QUARTERS) {
-    const float* pa = part_acc + ((size_t)kvh * n_parts + p) * G * HD + 2 * dp;
+    const float* pa = part_acc + ((size_t)head * stride + p) * G * HD + 2 * dp;
 #pragma unroll
     for (int g = 0; g < GMAX; ++g) {
       if (g < G) {
@@ -163,7 +180,7 @@ __device__ __forceinline__ void finish_part(
       l_out[kvh * G + tid] = s_den[tid];
     }
   }
-  if (tid == 0) counters[kvh] = 0;  // ready for the next call
+  if (tid == 0) counters[head] = 0;  // ready for the next call
 }
 
 }  // namespace

@@ -67,6 +67,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// one box of a 4-d tensor map -> shared memory, completion counted in bytes
+// on `bar`
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
 // one box of a 2-d tensor map -> shared memory, completion counted in bytes
 // on `bar`
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
@@ -294,21 +306,25 @@ static inline svt_encode_tiled_fn svt_encode_tiled() {
   return fn;
 }
 
-// A 3-d tensor map over rows [0, rows) of a [rows, mid, 128] tensor of
-// bf16 (or, int8 true, int8) whose rows are `row_stride` bytes apart: boxes
-// of {128 bytes of a row, 1, box_rows} in the 128-byte swizzle (64 bf16 or
-// 128 int8). Coordinates past `rows` read as zeros. Returns false if the
-// encoder refuses it.
+// A 4-d tensor map over rows [0, rows) of `lanes` tensors [rows, mid, 128]
+// of bf16 (or, int8 true, int8) whose rows are `row_stride` bytes apart and
+// whose lanes are `lane_stride` bytes apart: boxes of {128 bytes of a row,
+// 1, box_rows, 1} in the 128-byte swizzle (64 bf16 or 128 int8), addressed
+// (column, mid index, row, lane). Coordinates past `rows` read as zeros. At
+// lanes == 1 the lane stride only has to be a valid one. Returns false if
+// the encoder refuses it.
 static inline bool svt_tensor_map_rows(CUtensorMap* map, const void* base, int rows, int mid,
                                        uint64_t mid_stride, uint64_t row_stride, int box_rows,
-                                       bool int8 = false) {
+                                       bool int8 = false, int lanes = 1,
+                                       uint64_t lane_stride = 0) {
   svt_encode_tiled_fn fn = svt_encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {128, (cuuint64_t)mid, (cuuint64_t)rows};
-  const cuuint64_t strides[2] = {mid_stride, row_stride};
-  const cuuint32_t box[3] = {int8 ? 128u : 64u, 1, (cuuint32_t)box_rows};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  if (lanes == 1) lane_stride = (uint64_t)rows * row_stride;
+  const cuuint64_t dims[4] = {128, (cuuint64_t)mid, (cuuint64_t)rows, (cuuint64_t)lanes};
+  const cuuint64_t strides[3] = {mid_stride, row_stride, lane_stride};
+  const cuuint32_t box[4] = {int8 ? 128u : 64u, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
             const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

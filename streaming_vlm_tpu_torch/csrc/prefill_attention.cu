@@ -49,7 +49,17 @@
 //   * raw mode rotates each visible arena key once per call (a pass into
 //     a bf16 scratch, f32 arithmetic with no contraction, then rounded, as
 //     the plain version does), not once per row tile; the attention then
-//     reads the scratch as a pre-rotated arena.
+//     reads the scratch as a pre-rotated arena;
+//   * lanes: one call serves B independent streams (the multi-stream
+//     engine's round), each with its own queries, arena (lane-strided: a
+//     layer of a [B, L, C, Hkv, HD] arena), self block and visible length.
+//     The plan's units are (lane, kv head, row tile, key tile), so one
+//     grid of persistent CTAs spreads all lanes' work over the SMs; a
+//     segment's "head" is lane * Hkv + kv head, and the lanes' visible
+//     lengths travel with the plan. The tensor maps get a lane axis; the
+//     arena's row bound is the lanes' largest visible length, so a lane's
+//     tile that holds its own visible_len may read its later (finite,
+//     masked) slots.
 //
 // Built by nvcc for sm_90a into a plain-C shared library (see
 // streaming_vlm_tpu_torch/ops/_kernels.py); the entry point returns
@@ -91,17 +101,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ bool causal_ok(int key, int t) { return key <= t; }
 
 __global__ void __launch_bounds__(THREADS, 1) prefill_attention_kernel(
-    const __grid_constant__ CUtensorMap ka_map,  // arena K (pre-rotated): rows [0, visible_len)
+    const __grid_constant__ CUtensorMap ka_map,  // arena K (pre-rotated) [B][rows, Hkv, HD]
     const __grid_constant__ CUtensorMap va_map,
-    const __grid_constant__ CUtensorMap ks_map,  // self block: rows [0, T)
+    const __grid_constant__ CUtensorMap ks_map,  // self block [B][T, Hkv, HD]
     const __grid_constant__ CUtensorMap vs_map,
-    const bf16* __restrict__ q,    // [T, H, HD]
-    bf16* __restrict__ out,        // [T, H, HD]
+    const bf16* __restrict__ q,    // [B, T, H, HD]
+    bf16* __restrict__ out,        // [B, T, H, HD]
     float* __restrict__ part_o,    // [n_partials, BM, HD]
     float* __restrict__ part_ml,   // [n_partials, 2, BM]
     const int* __restrict__ segs,  // [n_segs, SEG_INTS]
     const int* __restrict__ cta_segs,  // [n_ctas + 1]
-    int T, int H, int G, int visible_len, float qscale) {
+    const int* __restrict__ vis,   // [B] each lane's visible arena slots
+    int T, int H, int Hkv, int G, float qscale) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -115,7 +126,6 @@ __global__ void __launch_bounds__(THREADS, 1) prefill_attention_kernel(
   const int wg = threadIdx.x / 128;
   const int seg_begin = cta_segs[blockIdx.x];
   const int seg_end = cta_segs[blockIdx.x + 1];
-  const int n_arena = (visible_len + BN - 1) / BN;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -139,7 +149,8 @@ __global__ void __launch_bounds__(THREADS, 1) prefill_attention_kernel(
       uint32_t phase = 0;
       for (int si = seg_begin; si < seg_end; ++si) {
         const int* sg = segs + si * SEG_INTS;
-        const int kvh = sg[0];
+        const int b = sg[0] / Hkv, kvh = sg[0] % Hkv;  // lane, kv head
+        const int n_arena = (vis[b] + BN - 1) / BN;
         for (int u = sg[2]; u < sg[3]; ++u) {
           const bool arena = u < n_arena;
           const CUtensorMap* km = arena ? &ka_map : &ks_map;
@@ -149,11 +160,11 @@ __global__ void __launch_bounds__(THREADS, 1) prefill_attention_kernel(
           unsigned char* k_dst = sK + stage * KV_BYTES;
           unsigned char* v_dst = sV + stage * KV_BYTES;
           mbar_arrive_expect_tx(&kfull[stage], KV_BYTES);
-          tma_load_3d(k_dst, km, &kfull[stage], 0, kvh, key0);
-          tma_load_3d(k_dst + BOX_BYTES, km, &kfull[stage], 64, kvh, key0);
+          tma_load_4d(k_dst, km, &kfull[stage], 0, kvh, key0, b);
+          tma_load_4d(k_dst + BOX_BYTES, km, &kfull[stage], 64, kvh, key0, b);
           mbar_arrive_expect_tx(&vfull[stage], KV_BYTES);
-          tma_load_3d(v_dst, vm, &vfull[stage], 0, kvh, key0);
-          tma_load_3d(v_dst + BOX_BYTES, vm, &vfull[stage], 64, kvh, key0);
+          tma_load_4d(v_dst, vm, &vfull[stage], 0, kvh, key0, b);
+          tma_load_4d(v_dst + BOX_BYTES, vm, &vfull[stage], 64, kvh, key0, b);
           if (++stage == STAGES) {
             stage = 0;
             phase ^= 1;
@@ -182,8 +193,11 @@ __global__ void __launch_bounds__(THREADS, 1) prefill_attention_kernel(
 
     for (int si = seg_begin; si < seg_end; ++si) {
       const int* sg = segs + si * SEG_INTS;
-      const int kvh = sg[0], rt = sg[1], u_begin = sg[2], u_end = sg[3], part = sg[4];
+      const int b = sg[0] / Hkv, kvh = sg[0] % Hkv;  // lane, kv head
+      const int rt = sg[1], u_begin = sg[2], u_end = sg[3], part = sg[4];
       const int r0 = rt * BM + wg * WG_ROWS;  // this warpgroup's first packed row
+      const int n_arena = (vis[b] + BN - 1) / BN;
+      const bf16* qb = q + (size_t)b * T * H * HD;
 
       // Q: scaled by softmax-scale * log2(e) in f32, rounded to bf16, stored
       // in the 128-byte swizzle (two 64-column halves of 8 KB)
@@ -197,7 +211,7 @@ __global__ void __launch_bounds__(THREADS, 1) prefill_attention_kernel(
           const int t = gr / G;
           const int g = gr - t * G;
           const uint4 x = *reinterpret_cast<const uint4*>(
-              q + ((size_t)t * H + kvh * G + g) * HD + c16 * 8);
+              qb + ((size_t)t * H + kvh * G + g) * HD + c16 * 8);
           const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
           uint32_t* w = reinterpret_cast<uint32_t*>(&v);
 #pragma unroll
@@ -244,10 +258,13 @@ __global__ void __launch_bounds__(THREADS, 1) prefill_attention_kernel(
         wgmma_wait<0>();
         fence_regs(s);
 
-        // mask the tile that holds visible_len and the self tiles on the
-        // diagonal; every other tile is wholly visible
-        const bool masked = arena ? key0 + BN > visible_len : key0 + BN - 1 > t_first;
+        // mask the tile that holds visible_len (the last arena tile) and the
+        // self tiles on the diagonal; every other tile is wholly visible
+        const bool masked = arena ? u + 1 == n_arena : key0 + BN - 1 > t_first;
         if (masked) {
+          // the lane's visible length, read back from the plan (kept out of
+          // the loop's registers)
+          const int visible_len = arena ? vis[segs[si * SEG_INTS] / Hkv] : 0;
 #pragma unroll
           for (int i = 0; i < 64; ++i) {
             const int key = key0 + 8 * (i / 4) + 2 * (lane % 4) + (i & 1);
@@ -339,7 +356,9 @@ __global__ void __launch_bounds__(THREADS, 1) prefill_attention_kernel(
           if (r >= R) continue;
           const int t = r / G;
           const int g = r - t * G;
-          bf16* orow = out + ((size_t)t * H + kvh * G + g) * HD;
+          // the lane, from the plan again: one register fewer in the unit loop
+          const int lane_b = segs[si * SEG_INTS] / Hkv;
+          bf16* orow = out + (((size_t)lane_b * T + t) * H + kvh * G + g) * HD;
           const float inv = half ? inv_b : inv_a;
 #pragma unroll
           for (int j = 0; j < HD / 8; ++j) {
@@ -375,9 +394,10 @@ __global__ void __launch_bounds__(THREADS, 1) prefill_attention_kernel(
 // log2-space softmax over the shares (m, l, O), then O / l in bf16.
 __global__ void __launch_bounds__(HD) prefill_merge_kernel(
     const float* __restrict__ part_o, const float* __restrict__ part_ml,
-    const int* __restrict__ merges, bf16* __restrict__ out, int T, int H, int G) {
+    const int* __restrict__ merges, bf16* __restrict__ out, int T, int H, int Hkv, int G) {
   const int* mg = merges + blockIdx.x * MERGE_INTS;
-  const int kvh = mg[0], rt = mg[1], p0 = mg[2], n = mg[3];
+  const int b = mg[0] / Hkv, kvh = mg[0] % Hkv;  // lane, kv head
+  const int rt = mg[1], p0 = mg[2], n = mg[3];
   const int R = T * G;
   const int d = threadIdx.x;
   for (int rr = 0; rr < MERGE_ROWS; ++rr) {
@@ -395,31 +415,37 @@ __global__ void __launch_bounds__(HD) prefill_merge_kernel(
     }
     const int t = gr / G;
     const int g = gr - t * G;
-    out[((size_t)t * H + kvh * G + g) * HD + d] = __float2bfloat16(num / fmaxf(den, 1e-20f));
+    out[(((size_t)b * T + t) * H + kvh * G + g) * HD + d] =
+        __float2bfloat16(num / fmaxf(den, 1e-20f));
   }
 }
 
-// Raw mode: the visible arena K [n_slots, Hkv, HD] rotated from per-slot
-// duplicated-half cos/sin [n_slots, HD] in f32, as the plain version:
+// Raw mode: each lane's visible arena K [vis[b], Hkv, HD] rotated from its
+// per-slot duplicated-half cos/sin [C, HD] in f32, as the plain version:
 // cat(k1 * c1 - k2 * s1, k2 * c2 + k1 * s2), each product and sum one IEEE
-// op (no contraction into an FMA), then rounded to bf16. One thread per 8
-// column pairs.
+// op (no contraction into an FMA), then rounded to bf16, into k_rot [B,
+// rows, Hkv, HD]. One thread per 8 column pairs of one (lane, slot, kv
+// head) row; slots past the lane's visible length are left alone.
 __global__ void prefill_rotate_kernel(const bf16* __restrict__ k, const float* __restrict__ cos2,
                                       const float* __restrict__ sin2, bf16* __restrict__ k_rot,
-                                      int n_rows, int Hkv) {
+                                      const int* __restrict__ vis, int B, int rows, int Hkv,
+                                      int C, long long k_lane) {
   constexpr int H2 = HD / 2;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = i / (H2 / 8);
-  if (row >= n_rows) return;
-  const int c8 = (i % (H2 / 8)) * 8;
-  const size_t slot = row / Hkv;
-  const bf16* kr = k + (size_t)row * HD;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long row = i / (H2 / 8);  // over [B, rows, Hkv]
+  if (row >= (long long)B * rows * Hkv) return;
+  const int b = (int)(row / ((long long)rows * Hkv));
+  const int in_lane = (int)(row % ((long long)rows * Hkv));
+  const int slot = in_lane / Hkv;
+  if (slot >= vis[b]) return;
+  const int c8 = (int)(i % (H2 / 8)) * 8;
+  const bf16* kr = k + b * k_lane + (size_t)in_lane * HD;
   const uint4 ua = *reinterpret_cast<const uint4*>(kr + c8);
   const uint4 ub = *reinterpret_cast<const uint4*>(kr + H2 + c8);
   const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&ua);
   const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&ub);
-  const float* c = cos2 + slot * HD;
-  const float* s = sin2 + slot * HD;
+  const float* c = cos2 + ((size_t)b * C + slot) * HD;
+  const float* s = sin2 + ((size_t)b * C + slot) * HD;
   float o1[8], o2[8];
 #pragma unroll
   for (int e2 = 0; e2 < 4; ++e2) {
@@ -441,7 +467,7 @@ __global__ void prefill_rotate_kernel(const bf16* __restrict__ k, const float* _
     wl[e2] = pack_bf16(o1[2 * e2], o1[2 * e2 + 1]);
     wh[e2] = pack_bf16(o2[2 * e2], o2[2 * e2 + 1]);
   }
-  bf16* dst = k_rot + (size_t)row * HD;
+  bf16* dst = k_rot + (size_t)row * HD;  // [B, rows, Hkv] row-major
   *reinterpret_cast<uint4*>(dst + c8) = lo;
   *reinterpret_cast<uint4*>(dst + H2 + c8) = hi;
 }
@@ -451,47 +477,60 @@ __global__ void prefill_rotate_kernel(const bf16* __restrict__ k, const float* _
 extern "C" int svt_prefill_block_rows() { return BM; }
 extern "C" int svt_prefill_block_keys() { return BN; }
 
-// plan: int32 on the device, [n_segs * 5 segments][n_ctas + 1 CTA offsets]
-// [n_merges * 4 merges] (ops/attention.py prefill_plan). Raw mode (acos2 !=
-// null) rotates ka's visible rows into k_rot first and attends over k_rot.
+// K1 over B lanes. q, out [B, T, H, HD]; ka/va [B][C, Hkv, HD] with lanes
+// ka_lane / va_lane elements apart; acos2/asin2 [B, C, HD] (raw mode);
+// ks/vs [B, T, Hkv, HD]. plan: int32 on the device, [n_segs * 5 segments]
+// [n_ctas + 1 CTA offsets][n_merges * 4 merges][B visible lengths]
+// (ops/attention.py prefill_plan), vis_max the largest of the lengths. Raw
+// mode (acos2 != null) rotates each lane's visible rows of ka into k_rot
+// [B, vis_max, Hkv, HD] first and attends over k_rot.
 extern "C" int svt_prefill_attention(
     const void* q, const void* ka, const void* va, const void* acos2, const void* asin2,
     void* k_rot, const void* ks, const void* vs, void* out, void* part_o, void* part_ml,
-    const void* plan, int n_ctas, int n_segs, int n_merges, int T, int H, int Hkv, int hd,
-    int visible_len, void* stream) {
-  if (hd != HD || Hkv <= 0 || H % Hkv != 0 || T <= 0 || n_ctas <= 0 || visible_len < 0)
+    const void* plan, int n_ctas, int n_segs, int n_merges, int B, int T, int H, int Hkv, int hd,
+    int C, int vis_max, long long ka_lane, long long va_lane, void* stream) {
+  if (hd != HD || Hkv <= 0 || H % Hkv != 0 || T <= 0 || n_ctas <= 0 || vis_max < 0 || B < 1 ||
+      vis_max > C)
     return (int)cudaErrorInvalidValue;
   const int G = H / Hkv;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const uint64_t slot_stride = (uint64_t)Hkv * HD * sizeof(bf16);
-  if (acos2 != nullptr && visible_len > 0) {
-    if (k_rot == nullptr) return (int)cudaErrorInvalidValue;
-    const int n_rows = visible_len * Hkv;
-    const int threads = 256;
-    const int blocks = (n_rows * (HD / 16) + threads - 1) / threads;
-    prefill_rotate_kernel<<<blocks, threads, 0, st>>>(
-        (const bf16*)ka, (const float*)acos2, (const float*)asin2, (bf16*)k_rot, n_rows, Hkv);
-    ka = k_rot;
-  }
-  CUtensorMap ka_map, va_map, ks_map, vs_map;
-  const int arena_rows = visible_len > 0 ? visible_len : 1;  // unused when 0
-  if (!svt_tensor_map_rows(&ka_map, ka, arena_rows, Hkv, HD * sizeof(bf16), slot_stride, BN) ||
-      !svt_tensor_map_rows(&va_map, va, arena_rows, Hkv, HD * sizeof(bf16), slot_stride, BN) ||
-      !svt_tensor_map_rows(&ks_map, ks, T, Hkv, HD * sizeof(bf16), slot_stride, BN) ||
-      !svt_tensor_map_rows(&vs_map, vs, T, Hkv, HD * sizeof(bf16), slot_stride, BN))
-    return (int)cudaErrorInvalidValue;
   const int* segs = reinterpret_cast<const int*>(plan);
   const int* cta_segs = segs + n_segs * SEG_INTS;
   const int* merges = cta_segs + n_ctas + 1;
+  const int* vis = merges + n_merges * MERGE_INTS;
+  const uint64_t slot_stride = (uint64_t)Hkv * HD * sizeof(bf16);
+  const int arena_rows = vis_max > 0 ? vis_max : 1;  // unused when 0
+  if (acos2 != nullptr && vis_max > 0) {
+    if (k_rot == nullptr) return (int)cudaErrorInvalidValue;
+    const long long n_threads = (long long)B * vis_max * Hkv * (HD / 16);
+    const int threads = 256;
+    const int blocks = (int)((n_threads + threads - 1) / threads);
+    prefill_rotate_kernel<<<blocks, threads, 0, st>>>(
+        (const bf16*)ka, (const float*)acos2, (const float*)asin2, (bf16*)k_rot, vis, B, vis_max,
+        Hkv, C, ka_lane);
+    ka = k_rot;
+    ka_lane = (long long)vis_max * Hkv * HD;
+  }
+  CUtensorMap ka_map, va_map, ks_map, vs_map;
+  const uint64_t e = sizeof(bf16);
+  if (!svt_tensor_map_rows(&ka_map, ka, arena_rows, Hkv, HD * e, slot_stride, BN, false, B,
+                           (uint64_t)ka_lane * e) ||
+      !svt_tensor_map_rows(&va_map, va, arena_rows, Hkv, HD * e, slot_stride, BN, false, B,
+                           (uint64_t)va_lane * e) ||
+      !svt_tensor_map_rows(&ks_map, ks, T, Hkv, HD * e, slot_stride, BN, false, B,
+                           (uint64_t)T * slot_stride) ||
+      !svt_tensor_map_rows(&vs_map, vs, T, Hkv, HD * e, slot_stride, BN, false, B,
+                           (uint64_t)T * slot_stride))
+    return (int)cudaErrorInvalidValue;
   const float qscale = 1.4426950408889634f / sqrtf((float)hd);
   cudaFuncSetAttribute(prefill_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)SMEM_BYTES);
   prefill_attention_kernel<<<n_ctas, THREADS, SMEM_BYTES, st>>>(
       ka_map, va_map, ks_map, vs_map, (const bf16*)q, (bf16*)out, (float*)part_o,
-      (float*)part_ml, segs, cta_segs, T, H, G, visible_len, qscale);
+      (float*)part_ml, segs, cta_segs, vis, T, H, Hkv, G, qscale);
   if (n_merges > 0) {
     prefill_merge_kernel<<<dim3(n_merges, BM / MERGE_ROWS), HD, 0, st>>>(
-        (const float*)part_o, (const float*)part_ml, merges, (bf16*)out, T, H, G);
+        (const float*)part_o, (const float*)part_ml, merges, (bf16*)out, T, H, Hkv, G);
   }
   return (int)cudaGetLastError();
 }

@@ -22,6 +22,11 @@ returns the block's new K/V as [L, T, Hkv, hd] for the caller to merge:
   (`streaming_decode_attention_int8`), which reads the arena in its storage
   form and dequantizes and rotates in the kernel.
 
+`language_forward_lanes` is the multi-stream form: B streams' [B, L, C,
+Hkv, hd] arenas in one pass, [B * T, D] rows through every projection (one
+weight read for all lanes) and the kernels' lane forms; the one-stream
+`language_forward_streaming` is that form at B = 1.
+
 On CPU tensors the kernels' wrappers run their plain versions.
 """
 
@@ -29,6 +34,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -40,7 +46,15 @@ from ...ops.attention import (
     streaming_decode_attention_int8,
     streaming_prefill_attention,
 )
-from ...ops.quant import Arena, QLinear, QuantKV, as_float, layer_slice, quantize_kv, storage
+from ...ops.quant import (
+    Arena,
+    QLinear,
+    QuantKV,
+    as_float,
+    lanes_layer,
+    storage,
+    with_lanes,
+)
 from .rope import apply_rope, make_inv_freq, mrope_cos_sin
 
 
@@ -130,31 +144,13 @@ def _layer_tail(layer: DecoderLayer, hidden, attn):
     return hidden + swiglu(x, layer.gate_proj, layer.up_proj, layer.down_proj)
 
 
-def _layer_body(
-    cfg: TextConfig,
-    hidden: torch.Tensor,
-    layer: DecoderLayer,
-    *,
-    q_cos,
-    q_sin,
-    self_mask=None,  # [T, T] mask over the block's own keys (plain attention)
-    decode=None,  # callable (q [H, hd], k_small, v_small) -> [H, hd]: T == 1
-    # attention over the arena, the rotated decode delta and the token itself
-    # (the token's own rotated K/V row ends k_small/v_small)
-    delta=None,  # (ek, ev): this layer's rotated decode delta
-):
-    """One decoder layer over the block's own K/V (plain attention under
-    self_mask), or, in decode mode, through `decode`. Returns (hidden,
-    k_new, k_new_rot, v_new)."""
-    H, hd = cfg.num_attention_heads, cfg.head_dim
-    q, k_new, k_new_rot, v_new = _qkv(cfg, hidden, layer, q_cos, q_sin)
-    if decode is not None:
-        ek, ev = delta
-        out = decode(q[0], torch.cat([ek, k_new_rot], dim=0), torch.cat([ev, v_new], dim=0))
-        attn = out.reshape(1, H * hd)
-    else:
-        attn = gqa_attention_multi(q, [(k_new_rot, v_new, self_mask)])
-    return _layer_tail(layer, hidden, attn), k_new, k_new_rot, v_new
+def _layer_body(cfg: TextConfig, hidden: torch.Tensor, layer: DecoderLayer, *, q_cos, q_sin,
+                self_mask):
+    """One decoder layer over the block's own K/V, plain attention under
+    self_mask [T, T] (the oracle's)."""
+    q, _, k_new_rot, v_new = _qkv(cfg, hidden, layer, q_cos, q_sin)
+    attn = gqa_attention_multi(q, [(k_new_rot, v_new, self_mask)])
+    return _layer_tail(layer, hidden, attn)
 
 
 def language_forward(
@@ -172,9 +168,7 @@ def language_forward(
         attn_mask = torch.ones(T, T, dtype=torch.bool, device=inputs_embeds.device).tril()
     hidden = inputs_embeds
     for layer in lm.layers:
-        hidden, _, _, _ = _layer_body(
-            cfg, hidden, layer, q_cos=q_cos, q_sin=q_sin, self_mask=attn_mask
-        )
+        hidden = _layer_body(cfg, hidden, layer, q_cos=q_cos, q_sin=q_sin, self_mask=attn_mask)
     return lm.final_ln(hidden)
 
 
@@ -191,68 +185,119 @@ def language_forward_streaming(
     extra: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # [L, E, Hkv, hd] x2
     extra_visible: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
-    """Streaming decoder stack over a read-only KV arena. Returns (hidden
-    [T, D] post-final-norm, (k_block, k_block_rot, v_block) each [L, T, Hkv,
+    """Streaming decoder stack over a read-only KV arena, for one stream.
+    Returns (hidden [T, D] post-final-norm, (k_block, k_block_rot, v_block)
+    each [L, T, Hkv, hd] in the compute dtype). The lane form at B = 1
+    (`language_forward_lanes`)."""
+    hidden, blocks = language_forward_lanes(
+        cfg, lm, inputs_embeds[None], q_positions[None],
+        arena=tuple(with_lanes(a) for a in arena),
+        arena_positions=None if arena_positions is None else arena_positions[None],
+        visible_len=[int(visible_len)], arena_rotated=arena_rotated,
+        extra=None if extra is None else tuple(e[None] for e in extra),
+        extra_visible=extra_visible,
+    )
+    return hidden[0], tuple(b[0] for b in blocks)
+
+
+def language_forward_lanes(
+    cfg: TextConfig,
+    lm: LanguageModel,
+    inputs_embeds: torch.Tensor,  # [B, T, D]
+    q_positions: torch.Tensor,  # [B, 3, T] float32
+    *,
+    arena: Tuple[Arena, Arena],  # READ-ONLY [B, L, C, Hkv, hd] x2, float or QuantKV
+    arena_positions: Optional[torch.Tensor] = None,  # [B, 3, C] (raw-K arena)
+    visible_len,  # B host ints, or (decode) an int32 [B] tensor on the device
+    max_visible: Optional[int] = None,  # decode with a device tensor: its largest (host)
+    arena_rotated: bool = False,
+    extra: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # [B, L, E, Hkv, hd] x2
+    extra_visible: Optional[int] = None,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """Streaming decoder stack over B independent streams' read-only KV
+    arenas, in one pass: every projection, norm and MLP runs once over the
+    [B * T, D] rows of all lanes (one read of each weight), and each layer's
+    attention is one lane-form kernel launch. Returns (hidden [B, T, D]
+    post-final-norm, (k_block, k_block_rot, v_block) each [B, L, T, Hkv,
     hd] in the compute dtype).
 
-    Prefill mode (no `extra`): K1 over the arena (pre-rotated, or raw and
-    rotated in the kernel from `arena_positions`) + the causal block.
-    Decode mode: `extra` is the ROTATED decode delta with rows <
-    `extra_visible` visible and T == 1; K2 over a pre-rotated arena, K3 over
-    a raw one. An int8 arena is dequantized per layer (K1, K2) or in the
-    kernel (K3)."""
-    T = inputs_embeds.shape[0]
-    H, hd = cfg.num_attention_heads, cfg.head_dim
+    Prefill mode (no `extra`): K1 over each lane's arena (pre-rotated, or
+    raw and rotated in the kernel from `arena_positions`) + its causal
+    block, visible_len host ints. Decode mode: `extra` is the ROTATED
+    decode delta with rows < `extra_visible` visible and T == 1; K2 over a
+    pre-rotated arena, K3 over a raw one, the lanes' lengths an int32
+    device tensor (with max_visible) or host ints. An int8 arena is
+    dequantized per layer (K1, K2) or in the kernel (K3)."""
+    B, T, D = inputs_embeds.shape
+    H, Hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     cdt = inputs_embeds.dtype  # compute dtype of dequantized arena slices
     inv_freq = lm.inv_freq(inputs_embeds.device)
-    q_cos, q_sin = mrope_cos_sin(q_positions, inv_freq, cfg.mrope_section)
+    qp = q_positions.transpose(0, 1).reshape(3, B * T)
+    q_cos, q_sin = mrope_cos_sin(qp, inv_freq, cfg.mrope_section)  # [B * T, hd / 2]
     outs: List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = []
-    hidden = inputs_embeds
+    hidden = inputs_embeds.reshape(B * T, D)
+
+    def lane_rows(x):  # [B * T, heads, hd] -> [B, T, heads, hd]
+        return x.view(B, T, *x.shape[1:])
+
     if extra is None:
         acos2 = asin2 = None
         if not arena_rotated:
-            a_cos, a_sin = mrope_cos_sin(arena_positions, inv_freq, cfg.mrope_section)
-            acos2 = torch.cat([a_cos, a_cos], dim=-1).contiguous()
-            asin2 = torch.cat([a_sin, a_sin], dim=-1).contiguous()
+            C = arena_positions.shape[-1]
+            ap = arena_positions.transpose(0, 1).reshape(3, B * C)
+            a_cos, a_sin = mrope_cos_sin(ap, inv_freq, cfg.mrope_section)
+            acos2 = torch.cat([a_cos, a_cos], dim=-1).view(B, C, hd)
+            asin2 = torch.cat([a_sin, a_sin], dim=-1).view(B, C, hd)
         for l, layer in enumerate(lm.layers):
-            ak = as_float(layer_slice(arena[0], l), cdt)
-            av = as_float(layer_slice(arena[1], l), cdt)
+            ak = as_float(lanes_layer(arena[0], l), cdt)
+            av = as_float(lanes_layer(arena[1], l), cdt)
             q, k_new, k_new_rot, v_new = _qkv(cfg, hidden, layer, q_cos, q_sin)
             attn = streaming_prefill_attention(
-                q, ak, av, acos2, asin2, k_new_rot, v_new, visible_len
-            ).reshape(T, H * hd)
+                lane_rows(q), ak, av, acos2, asin2, lane_rows(k_new_rot), lane_rows(v_new),
+                visible_len,
+            ).reshape(B * T, H * hd)
             hidden = _layer_tail(layer, hidden, attn)
             outs.append((k_new, k_new_rot, v_new))
     else:
         if T != 1:
-            raise ValueError("decode mode takes one token")
+            raise ValueError("decode mode takes one token a lane")
+        vis_kw = dict(max_visible=max_visible) if isinstance(visible_len, torch.Tensor) else {}
+        if not isinstance(visible_len, torch.Tensor) and np.ndim(visible_len):
+            visible_len = _host_lengths(visible_len, inputs_embeds.device, vis_kw)
         if not arena_rotated:
-            pos_t = arena_positions.float().T.contiguous()  # [C, 3], once per call
+            pos_t = arena_positions.float().transpose(1, 2).contiguous()  # [B, C, 3], once
         for l, layer in enumerate(lm.layers):
-            ak, av = layer_slice(arena[0], l), layer_slice(arena[1], l)
+            ak, av = lanes_layer(arena[0], l), lanes_layer(arena[1], l)
+            q, k_new, k_new_rot, v_new = _qkv(cfg, hidden, layer, q_cos, q_sin)
+            ks = torch.cat([extra[0][:, l], lane_rows(k_new_rot)], dim=1)
+            vs = torch.cat([extra[1][:, l], lane_rows(v_new)], dim=1)
+            e_delta = ks.shape[1] - 1
             if arena_rotated:
-                ak, av = as_float(ak, cdt), as_float(av, cdt)
-
-                def decode(q, ks, vs, ak=ak, av=av):
-                    return streaming_decode_attention_full(
-                        q, ak, av, ks, vs, visible_len, extra_visible, e_delta=ks.shape[0] - 1
-                    )
+                out = streaming_decode_attention_full(
+                    q, as_float(ak, cdt), as_float(av, cdt), ks, vs, visible_len, extra_visible,
+                    e_delta=e_delta, **vis_kw)
             else:
                 (kq, kscale), (vq, vscale) = storage(ak), storage(av)
-
-                def decode(q, ks, vs, kq=kq, kscale=kscale, vq=vq, vscale=vscale):
-                    return streaming_decode_attention_int8(
-                        q, kq, kscale, vq, vscale, pos_t, ks, vs, visible_len, extra_visible,
-                        e_delta=ks.shape[0] - 1, mrope_section=cfg.mrope_section,
-                        rope_theta=cfg.rope_theta,
-                    )
-            hidden, k_new, k_new_rot, v_new = _layer_body(
-                cfg, hidden, layer, q_cos=q_cos, q_sin=q_sin, decode=decode,
-                delta=(extra[0][l], extra[1][l]),
-            )
+                out = streaming_decode_attention_int8(
+                    q, kq, kscale, vq, vscale, pos_t, ks, vs, visible_len, extra_visible,
+                    e_delta=e_delta, mrope_section=cfg.mrope_section,
+                    rope_theta=cfg.rope_theta, **vis_kw)
+            hidden = _layer_tail(layer, hidden, out.reshape(B, H * hd))
             outs.append((k_new, k_new_rot, v_new))
-    k_block, k_block_rot, v_block = (torch.stack(x) for x in zip(*outs))
-    return lm.final_ln(hidden), (k_block, k_block_rot, v_block)
+    k_block, k_block_rot, v_block = (
+        torch.stack([lane_rows(x) for x in xs], dim=1) for xs in zip(*outs)
+    )
+    return lm.final_ln(hidden).view(B, T, D), (k_block, k_block_rot, v_block)
+
+
+def _host_lengths(lengths, device, vis_kw: dict):
+    """B host lengths for a decode kernel's lane form: one int when they are
+    equal, else an int32 tensor on the device (and its largest in vis_kw)."""
+    lengths = [int(v) for v in lengths]
+    if len(set(lengths)) == 1:
+        return lengths[0]
+    vis_kw["max_visible"] = max(lengths)
+    return torch.tensor(lengths, dtype=torch.int32).to(device)
 
 
 def embed_tokens(cfg: TextConfig, lm: LanguageModel, input_ids: torch.Tensor) -> torch.Tensor:
@@ -273,15 +318,21 @@ def lm_logits(cfg: TextConfig, lm: LanguageModel, hidden: torch.Tensor) -> torch
 
 
 def init_kv_arena(
-    cfg: TextConfig, capacity: int, dtype=torch.bfloat16, device=None, quant: str = "none"
+    cfg: TextConfig, capacity: int, dtype=torch.bfloat16, device=None, quant: str = "none",
+    lead_dims: Tuple[int, ...] = (),
 ) -> Tuple[Arena, Arena]:
-    """Allocate the zeroed [L, C, Hkv, hd] K/V arenas: float in `dtype`, or
+    """Allocate the zeroed [*lead_dims, L, C, Hkv, hd] K/V arenas (lead_dims
+    (B,): the multi-stream engine's stacked lanes): float in `dtype`, or
     with quant="int8" QuantKV pairs (the quantization of zeros: q = 0,
     s = 1e-12), half the bytes."""
-    shape = (cfg.num_hidden_layers, capacity, cfg.num_key_value_heads, cfg.head_dim)
-    if quant == "int8":
-        z = quantize_kv(torch.zeros(shape, dtype=dtype, device=device))
-        return z, QuantKV(z.q.clone(), z.s.clone())
+    shape = (*lead_dims, cfg.num_hidden_layers, capacity, cfg.num_key_value_heads, cfg.head_dim)
+    if quant == "int8":  # built directly: no float transient of the arena's size
+
+        def zeros():
+            return QuantKV(torch.zeros(shape, dtype=torch.int8, device=device),
+                           torch.full(shape[:-1], 1e-12, dtype=torch.float32, device=device))
+
+        return zeros(), zeros()
     if quant != "none":
         raise ValueError(f"kv_quant must be 'none' or 'int8', got {quant!r}")
     return (

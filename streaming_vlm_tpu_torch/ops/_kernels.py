@@ -136,16 +136,16 @@ def lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         so = ctypes.CDLL(str(build()))
-        P, I = ctypes.c_void_p, ctypes.c_int
-        so.svt_prefill_attention.argtypes = [P] * 12 + [I] * 8 + [P]
+        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        so.svt_prefill_attention.argtypes = [P] * 12 + [I] * 10 + [LL] * 2 + [P]
         so.svt_prefill_attention.restype = I
         so.svt_prefill_block_rows.argtypes = []
         so.svt_prefill_block_rows.restype = I
         so.svt_prefill_block_keys.argtypes = []
         so.svt_prefill_block_keys.restype = I
-        so.svt_decode_attention.argtypes = [P] * 10 + [I] * 8 + [P]
+        so.svt_decode_attention.argtypes = [P] * 11 + [I] * 9 + [LL] * 2 + [P]
         so.svt_decode_attention.restype = I
-        so.svt_decode_attention_raw.argtypes = [P] * 14 + [I] * 10 + [P]
+        so.svt_decode_attention_raw.argtypes = [P] * 15 + [I] * 11 + [LL] * 3 + [P]
         so.svt_decode_attention_raw.restype = I
         so.svt_decode_partials.argtypes = [P] * 10 + [I] * 5 + [P]
         so.svt_decode_partials.restype = I

@@ -24,6 +24,15 @@ hd] arenas). On a CUDA tensor it checks what the kernel takes (bf16,
 contiguous, head_dim 128), launches on the current stream, raises if the
 launch was refused, and counts the launch in `launch_counts`. On a CPU
 tensor it runs the plain version. There is no other fallback.
+
+K1, K2 and K3 also take a leading lane axis (the multi-stream engine's B
+streams, one launch for all): [B, T, H, hd] queries, [B, C, Hkv, hd]
+arenas whose lanes may lie any 16-byte multiple apart (a layer of a [B, L,
+C, Hkv, hd] arena), and per-lane visible lengths: host ints for K1 (its
+plan is made on the host), an int32 device tensor [B] for K2 and K3 with
+the host's largest beside it (`max_visible`, which sets the split). The
+one-stream call is the lane form at B = 1. The lane forms' plain versions
+(`*_lanes_plain`) loop over the lanes.
 """
 
 from __future__ import annotations
@@ -55,6 +64,36 @@ launch_counts = {
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+def _lead(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """t with a lane axis of one (None stays None)."""
+    return None if t is None else t[None]
+
+
+def lane_lengths(visible_len, B: int) -> list:
+    """Per-lane visible lengths as host ints: from an int (every lane), a
+    sequence, or a [B] tensor (read from the device: plain versions only)."""
+    if isinstance(visible_len, torch.Tensor):
+        return [int(v) for v in visible_len.tolist()]
+    if np.ndim(visible_len) == 0:
+        return [int(visible_len)] * B
+    return [int(v) for v in visible_len]
+
+
+def _check_lanes(name: str, t: torch.Tensor, shape) -> int:
+    """Raise unless t is a CUDA tensor of `shape` ([B, ...]) whose lanes are
+    each contiguous and 16-byte aligned and lie a 16-byte multiple apart.
+    Returns the lane stride in elements."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: all tensors must be on one CUDA device, got {t.device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t[0].is_contiguous() or (t.shape[0] > 1 and (t.stride(0) * t.element_size()) % 16):
+        raise ValueError(f"{name}: each lane must be contiguous, lanes 16 bytes apart")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: tensors must be 16-byte aligned")
+    return int(t.stride(0)) if t.shape[0] > 1 else int(t[0].numel())
 
 
 # ---------------------------------------------------------------------------
@@ -133,15 +172,16 @@ PREFILL_BLOCK_KEYS = 128
 
 class PrefillPlan(NamedTuple):
     """Which CTA of K1 runs which work. A unit is one key tile of one row
-    tile of one kv head; a row tile's units are its arena tiles, then its
-    self tiles. The units, in (kv head, row tile, key tile) order, are cut
-    into one contiguous, equal (to one unit) share per CTA; a share's run
-    within one row tile is a segment."""
+    tile of one kv head of one lane; a row tile's units are its arena
+    tiles, then its self tiles. The units, in (lane, kv head, row tile, key
+    tile) order, are cut into one contiguous, equal (to one unit) share per
+    CTA; a share's run within one row tile is a segment. A "head" is lane *
+    Hkv + kv head (the kv head itself for one stream)."""
 
-    segs: np.ndarray  # int32 [n_segs, 5]: kv head, row tile, first unit, end unit, partial slot
+    segs: np.ndarray  # int32 [n_segs, 5]: head, row tile, first unit, end unit, partial slot
     # (-1: the segment covers all of the row tile's units and writes the output)
     cta_segs: np.ndarray  # int32 [n_ctas + 1]: CTA c runs segs[cta_segs[c] : cta_segs[c + 1]]
-    merges: np.ndarray  # int32 [n_merges, 4]: kv head, row tile, first partial slot, count
+    merges: np.ndarray  # int32 [n_merges, 4]: head, row tile, first partial slot, count
     n_partials: int
 
     @property
@@ -158,13 +198,16 @@ def prefill_units(T: int, G: int, visible_len: int) -> Tuple[int, np.ndarray]:
     return -(-int(visible_len) // PREFILL_BLOCK_KEYS), t_last // PREFILL_BLOCK_KEYS + 1
 
 
-def prefill_plan(T: int, G: int, Hkv: int, visible_len: int, n_sms: int) -> PrefillPlan:
-    """K1's schedule over min(n_sms, units) CTAs (one per SM). A row tile
-    whose units two or more CTAs share gets a partial slot per segment and
-    one merge."""
-    n_arena, n_self = prefill_units(T, G, visible_len)
+def prefill_plan(T: int, G: int, Hkv: int, visible_len, n_sms: int) -> PrefillPlan:
+    """K1's schedule over min(n_sms, units) CTAs (one per SM), for one
+    stream (visible_len an int) or B lanes (a sequence of B lengths). A row
+    tile whose units two or more CTAs share gets a partial slot per segment
+    and one merge."""
+    vis = lane_lengths(visible_len, 1)
+    n_self = prefill_units(T, G, 0)[1]
     n_rt = len(n_self)
-    units = np.tile(n_arena + n_self, Hkv)  # item i: kv head i // n_rt, row tile i % n_rt
+    # item i: head i // n_rt (lane head // Hkv, kv head head % Hkv), row tile i % n_rt
+    units = np.concatenate([np.tile(prefill_units(T, G, v)[0] + n_self, Hkv) for v in vis])
     starts = np.concatenate([[0], np.cumsum(units)])
     n_ctas = min(int(n_sms), int(starts[-1]))
     bounds = np.arange(n_ctas + 1) * int(starts[-1]) // n_ctas
@@ -181,11 +224,11 @@ def prefill_plan(T: int, G: int, Hkv: int, visible_len: int, n_sms: int) -> Pref
     split = segs[:, 4] == 0
     segs[split, 4] = np.arange(int(split.sum()))
     merges = []  # the segments of one row tile are consecutive, so are its slots
-    for kvh, rt, _, _, slot in segs[split]:
-        if merges and merges[-1][:2] == [kvh, rt]:
+    for head, rt, _, _, slot in segs[split]:
+        if merges and merges[-1][:2] == [head, rt]:
             merges[-1][3] += 1
         else:
-            merges.append([kvh, rt, slot, 1])
+            merges.append([head, rt, slot, 1])
     plan = PrefillPlan(segs, np.array(cta_segs, np.int32),
                        np.array(merges, np.int32).reshape(-1, 4), int(split.sum()))
     for a in plan[:3]:
@@ -194,16 +237,18 @@ def prefill_plan(T: int, G: int, Hkv: int, visible_len: int, n_sms: int) -> Pref
 
 
 @functools.lru_cache(maxsize=32)
-def _prefill_plan_on(device: torch.device, T: int, G: int, Hkv: int, visible_len: int,
+def _prefill_plan_on(device: torch.device, T: int, G: int, Hkv: int, visible: Tuple[int, ...],
                      n_sms: int) -> Tuple[PrefillPlan, torch.Tensor]:
     """The plan and its int32 copy on the device, laid out as the kernel
-    reads it: segments, CTA offsets, merges. Cached: the 28 layers of a
-    chunk share one plan. The copy is staged in pinned memory and queued on
-    the current stream, so the host does not wait for the device work
-    already queued (PyTorch's pinned allocator keeps the staging buffer
-    until the copy has run)."""
-    plan = prefill_plan(T, G, Hkv, visible_len, n_sms)
-    flat = np.concatenate([plan.segs.ravel(), plan.cta_segs, plan.merges.ravel()])
+    reads it: segments, CTA offsets, merges, the lanes' visible lengths.
+    Cached: the 28 layers of a chunk (or a multi-stream round) share one
+    plan. The copy is staged in pinned memory and queued on the current
+    stream, so the host does not wait for the device work already queued
+    (PyTorch's pinned allocator keeps the staging buffer until the copy has
+    run)."""
+    plan = prefill_plan(T, G, Hkv, visible, n_sms)
+    flat = np.concatenate([plan.segs.ravel(), plan.cta_segs, plan.merges.ravel(),
+                           np.asarray(visible, np.int32)])
     staged = torch.from_numpy(flat.astype(np.int32)).pin_memory()
     return plan, staged.to(device, non_blocking=True)
 
@@ -268,60 +313,86 @@ def prefill_attention_by_plan(
     return out.reshape(Hkv, T, G, hd).transpose(0, 1).reshape(T, H, hd).to(v_arena.dtype)
 
 
-def streaming_prefill_attention(
-    q_rot: torch.Tensor,  # [T, H, hd] rotated queries (unscaled)
-    k_arena: torch.Tensor,  # [C, Hkv, hd] raw, or pre-rotated if acos2 is None
-    v_arena: torch.Tensor,  # [C, Hkv, hd]
-    acos2: Optional[torch.Tensor],  # [C, hd] f32 duplicated-half cos, or None
-    asin2: Optional[torch.Tensor],
-    k_self_rot: torch.Tensor,  # [T, Hkv, hd]
-    v_self: torch.Tensor,  # [T, Hkv, hd]
-    visible_len: int,
+def prefill_attention_lanes_plain(
+    q_rot, k_arena, v_arena, acos2, asin2, k_self_rot, v_self, visible_len
 ) -> torch.Tensor:
-    """K1. Returns attention output [T, H, hd] in v's dtype. On the card:
-    raw mode's rotate pass (into a [visible_len, Hkv, hd] bf16 scratch),
-    the attention over `prefill_plan`'s CTAs, and the merge of split row
-    tiles, one counted launch."""
+    """Plain version of K1's lane form: `prefill_attention_plain` for each
+    lane of [B, ...] inputs (visible_len: one length or B). Returns [B, T,
+    H, hd] in v's dtype."""
+    B = q_rot.shape[0]
+    vis = lane_lengths(visible_len, B)
+    return torch.stack([
+        prefill_attention_plain(
+            q_rot[b], k_arena[b], v_arena[b], None if acos2 is None else acos2[b],
+            None if asin2 is None else asin2[b], k_self_rot[b], v_self[b], vis[b])
+        for b in range(B)])
+
+
+def streaming_prefill_attention(
+    q_rot: torch.Tensor,  # [T, H, hd] rotated queries (unscaled), or [B, T, H, hd]
+    k_arena: torch.Tensor,  # [C, Hkv, hd] raw, or pre-rotated if acos2 is None; or [B, C, Hkv, hd]
+    v_arena: torch.Tensor,  # [C, Hkv, hd], or [B, C, Hkv, hd]
+    acos2: Optional[torch.Tensor],  # [C, hd] f32 duplicated-half cos ([B, C, hd]), or None
+    asin2: Optional[torch.Tensor],
+    k_self_rot: torch.Tensor,  # [T, Hkv, hd], or [B, T, Hkv, hd]
+    v_self: torch.Tensor,
+    visible_len,  # int, or B host ints (the lane form)
+) -> torch.Tensor:
+    """K1. Returns attention output [T, H, hd] (lane form: [B, T, H, hd]) in
+    v's dtype. On the card: raw mode's rotate pass (into a [B, max visible,
+    Hkv, hd] bf16 scratch), the attention over `prefill_plan`'s CTAs (all
+    lanes' work in one grid), and the merge of split row tiles, one counted
+    launch. The lane form's arenas may be lane-strided views."""
+    if q_rot.dim() == 3:  # one stream: the lane form at B = 1
+        return streaming_prefill_attention(
+            q_rot[None], k_arena[None], v_arena[None], _lead(acos2), _lead(asin2),
+            k_self_rot[None], v_self[None], [int(visible_len)])[0]
+    B, T, H, hd = q_rot.shape
+    vis = lane_lengths(visible_len, B)
+    if len(vis) != B:
+        raise ValueError(f"streaming_prefill_attention: {len(vis)} visible lengths for {B} lanes")
     if q_rot.device.type == "cpu":
-        return prefill_attention_plain(
-            q_rot, k_arena, v_arena, acos2, asin2, k_self_rot, v_self, visible_len
+        return prefill_attention_lanes_plain(
+            q_rot, k_arena, v_arena, acos2, asin2, k_self_rot, v_self, vis
         )
     name = "streaming_prefill_attention"
-    T, H, hd = q_rot.shape
-    C, Hkv, _ = k_arena.shape
+    C, Hkv = k_arena.shape[1], k_arena.shape[2]
+    check_cuda(name, q_rot, k_self_rot, v_self)
+    ka_lane = _check_lanes(name, k_arena, (B, C, Hkv, hd))
+    va_lane = _check_lanes(name, v_arena, (B, C, Hkv, hd))
     tensors = [q_rot, k_arena, v_arena, k_self_rot, v_self]
-    check_cuda(name, *tensors)
     if any(t.dtype != torch.bfloat16 for t in tensors):
         raise ValueError(f"{name}: the CUDA kernel takes bf16 q/k/v")
-    if hd != 128 or H % Hkv or v_arena.shape != k_arena.shape:
+    if hd != 128 or H % Hkv:
         raise ValueError(f"{name}: unsupported shapes q={tuple(q_rot.shape)} arena={tuple(k_arena.shape)}")
-    if k_self_rot.shape != (T, Hkv, hd) or v_self.shape != (T, Hkv, hd):
-        raise ValueError(f"{name}: self block must be [T, Hkv, hd]")
-    vis = int(visible_len)
-    if not 0 <= vis <= C:
-        raise ValueError(f"{name}: visible_len {visible_len} outside [0, {C}]")
+    if k_self_rot.shape != (B, T, Hkv, hd) or v_self.shape != (B, T, Hkv, hd):
+        raise ValueError(f"{name}: self block must be [B, T, Hkv, hd]")
+    if not all(0 <= v <= C for v in vis):
+        raise ValueError(f"{name}: visible lengths {vis} outside [0, {C}]")
     if (acos2 is None) != (asin2 is None):
         raise ValueError(f"{name}: pass both acos2 and asin2, or neither")
     if acos2 is not None:
         check_cuda(name, acos2, asin2)
-        if acos2.dtype != torch.float32 or acos2.shape != (C, hd) or asin2.shape != (C, hd):
-            raise ValueError(f"{name}: acos2/asin2 must be f32 [C, hd]")
+        if acos2.dtype != torch.float32 or acos2.shape != (B, C, hd) or asin2.shape != (B, C, hd):
+            raise ValueError(f"{name}: acos2/asin2 must be f32 [B, C, hd]")
     from ._kernels import lib
 
     so = lib()
     if so.prefill_block != (PREFILL_BLOCK_ROWS, PREFILL_BLOCK_KEYS):
         raise RuntimeError(f"{name}: the library's tile {so.prefill_block} is not the plan's")
     dev = q_rot.device
-    plan, plan_dev = _prefill_plan_on(dev, T, H // Hkv, Hkv, vis, sm_count(dev))
+    vis_max = max(vis)
+    plan, plan_dev = _prefill_plan_on(dev, T, H // Hkv, Hkv, tuple(vis), sm_count(dev))
     out = torch.empty_like(q_rot)
     part_o = torch.empty(plan.n_partials, PREFILL_BLOCK_ROWS, hd, dtype=torch.float32, device=dev)
     part_ml = torch.empty(plan.n_partials, 2, PREFILL_BLOCK_ROWS, dtype=torch.float32, device=dev)
-    k_rot = (torch.empty(vis, Hkv, hd, dtype=torch.bfloat16, device=dev)
-             if acos2 is not None and vis else None)
+    k_rot = (torch.empty(B, vis_max, Hkv, hd, dtype=torch.bfloat16, device=dev)
+             if acos2 is not None and vis_max else None)
     err = so.svt_prefill_attention(
         ptr(q_rot), ptr(k_arena), ptr(v_arena), ptr(acos2), ptr(asin2), ptr(k_rot),
         ptr(k_self_rot), ptr(v_self), ptr(out), ptr(part_o), ptr(part_ml), ptr(plan_dev),
-        plan.n_ctas, len(plan.segs), len(plan.merges), T, H, Hkv, hd, vis, stream(),
+        plan.n_ctas, len(plan.segs), len(plan.merges), B, T, H, Hkv, hd, C, vis_max,
+        ka_lane, va_lane, stream(),
     )
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
@@ -363,16 +434,29 @@ DECODE_SPLIT_ALIGN = 8  # split sizes are multiples of this
 DECODE_CTAS_PER_SM = 2  # CTAs of the split pass resident on one SM (shared memory)
 
 
-def decode_split_size(visible_len: int, Hkv: int, n_sms: int, max_split: int = 160) -> int:
+def decode_split_size(visible_len: int, Hkv: int, n_sms: int, max_split: int = 160,
+                      lanes: int = 1) -> int:
     """Slots per split of the decode kernels' split pass (K2, K3, K4): as
     few as give the kv heads' splits plus the small-block CTAs (K2's and
-    K3's, one per kv head) one wave of DECODE_CTAS_PER_SM CTAs per SM, in
-    multiples of DECODE_SPLIT_ALIGN, at most max_split (the kernel's tile:
-    TILE in csrc/decode_attention.cu and csrc/decode_attention_raw.cu)."""
-    per_head = max((DECODE_CTAS_PER_SM * int(n_sms) - Hkv) // Hkv, 1)
+    K3's, one per kv head) of all `lanes` one wave of DECODE_CTAS_PER_SM
+    CTAs per SM, in multiples of DECODE_SPLIT_ALIGN, at most max_split (the
+    kernel's tile: TILE in csrc/decode_attention.cu and
+    csrc/decode_attention_raw.cu). The lane form passes its largest
+    visible length."""
+    heads = int(lanes) * Hkv
+    per_head = max((DECODE_CTAS_PER_SM * int(n_sms) - heads) // heads, 1)
     split = -(-int(visible_len) // per_head)
     split = -(-split // DECODE_SPLIT_ALIGN) * DECODE_SPLIT_ALIGN
     return int(min(max(split, DECODE_SPLIT_ALIGN), max_split))
+
+
+def decode_max_parts(capacity: int, Hkv: int, n_sms: int, max_split: int = 160,
+                     lanes: int = 1) -> int:
+    """The most parts (splits + the small block) a decode call over at most
+    `capacity` visible slots can have: what one lane's scratch must hold."""
+    heads = int(lanes) * Hkv
+    per_head = max((DECODE_CTAS_PER_SM * int(n_sms) - heads) // heads, 1)
+    return max(per_head, -(-int(capacity) // max_split)) + 1
 
 
 def decode_splits(visible_len: int, split: int) -> list:
@@ -426,34 +510,52 @@ def decode_attention_by_splits(
 _decode_scratch_cache = {}  # device -> (f32 partials, int32 counters kept zero by the kernels)
 
 
-def _decode_scratch(device, Hkv: int, n_parts: int, G: int, hd: int):
-    """The decode kernels' partials (m, l [Hkv, n_parts, G], acc [Hkv,
-    n_parts, G, hd]) and per-kv-head counters, as views of a per-device
-    cache that grows to the largest call seen. K2, K3 and K4 share this one
-    scratch and this one set of counters: each call's last CTA per kv head
-    resets its counter to zero, and calls on one stream run in order, so
-    they may. Calls on two streams at once, or a CUDA graph captured before
-    the cache grows, may not."""
-    n_ml = -(-Hkv * n_parts * G // 4) * 4  # keeps acc 16-byte aligned
-    need = 2 * n_ml + Hkv * n_parts * G * hd
+def _decode_scratch(device, lanes: int, Hkv: int, n_parts: int, G: int, hd: int):
+    """The decode kernels' partials (m, l [lanes * Hkv, n_parts, G], acc
+    [lanes * Hkv, n_parts, G, hd]) and per-(lane, kv head) counters, as
+    views of a per-device cache that grows to the largest call seen (an
+    engine sizes it once, up front: `reserve_decode_scratch`). K2, K3 and
+    K4 share this one scratch and this one set of counters: each call's
+    last CTA per (lane, kv head) resets its counter to zero, and calls on
+    one stream run in order, so they may. Calls on two streams at once, or
+    a CUDA graph captured before the cache grows, may not."""
+    heads = int(lanes) * Hkv
+    n_ml = -(-heads * n_parts * G // 4) * 4  # keeps acc 16-byte aligned
+    need = 2 * n_ml + heads * n_parts * G * hd
     have = _decode_scratch_cache.get(device)
-    if have is None or have[0].numel() < need or have[1].numel() < Hkv:
+    if have is None or have[0].numel() < need or have[1].numel() < heads:
         old = (0, 0) if have is None else (have[0].numel(), have[1].numel())
         have = (torch.empty(max(need, old[0]), dtype=torch.float32, device=device),
-                torch.zeros(max(Hkv, old[1]), dtype=torch.int32, device=device))
+                torch.zeros(max(heads, old[1]), dtype=torch.int32, device=device))
         _decode_scratch_cache[device] = have
     buf, counters = have
-    shape = (Hkv, n_parts, G)
-    return (buf[: Hkv * n_parts * G].view(shape), buf[n_ml : n_ml + Hkv * n_parts * G].view(shape),
+    shape = (heads, n_parts, G)
+    n = heads * n_parts * G
+    return (buf[:n].view(shape), buf[n_ml : n_ml + n].view(shape),
             buf[2 * n_ml : need].view(*shape, hd), counters)
 
 
+def reserve_decode_scratch(device, lanes: int, Hkv: int, capacity: int, G: int, hd: int) -> None:
+    """Size the shared decode scratch for `lanes` lanes over an arena of
+    `capacity` slots (K2's and K3's largest split count), so that no call
+    of an engine's rounds grows it. A no-op off the card."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return
+    from ._kernels import lib
+
+    so = lib()
+    n = max(decode_max_parts(capacity, Hkv, sm_count(device), m, lanes)
+            for m in (so.decode_max_split, so.raw_decode_max_split))
+    _decode_scratch(device, lanes, Hkv, n, G, hd)
+
+
 def _decode_parts(name: str, visible_len: int, Hkv: int, device, max_split: int,
-                  max_parts: int) -> Tuple[int, int]:
-    """(split, arena splits) of a K2, K3 or K4 call on `device`, for a
-    kernel whose tile holds max_split rows and whose combine folds at most
-    max_parts parts."""
-    split = decode_split_size(visible_len, Hkv, sm_count(device), max_split)
+                  max_parts: int, lanes: int = 1) -> Tuple[int, int]:
+    """(split, arena splits) of a K2, K3 or K4 call on `device` over at most
+    visible_len slots a lane, for a kernel whose tile holds max_split rows
+    and whose combine folds at most max_parts parts."""
+    split = decode_split_size(visible_len, Hkv, sm_count(device), max_split, lanes)
     n = -(-visible_len // split)
     if n + 1 > max_parts:
         raise ValueError(f"{name}: visible_len {visible_len} needs {n} splits of {split}, more "
@@ -461,55 +563,93 @@ def _decode_parts(name: str, visible_len: int, Hkv: int, device, max_split: int,
     return split, n
 
 
+def decode_attention_lanes_plain(
+    q_rot, k_arena, v_arena, k_small, v_small, visible_len, extra_visible: int, *, e_delta: int,
+) -> torch.Tensor:
+    """Plain version of K2's lane form: `decode_attention_plain` for each
+    lane of [B, ...] inputs (visible_len: one length, B ints or a [B]
+    tensor). Returns [B, H, hd] in v_small's dtype."""
+    B = q_rot.shape[0]
+    vis = lane_lengths(visible_len, B)
+    return torch.stack([
+        decode_attention_plain(q_rot[b], k_arena[b], v_arena[b], k_small[b], v_small[b], vis[b],
+                               extra_visible, e_delta=e_delta)
+        for b in range(B)])
+
+
+def _decode_lengths(name: str, visible_len, max_visible, B: int, device):
+    """(device lengths or None, the host's largest) for a decode kernel's
+    lane form: an int is every lane's length (no device array); a tensor
+    must be int32 [B] on the card, beside max_visible."""
+    if not isinstance(visible_len, torch.Tensor):
+        return None, int(visible_len)
+    if max_visible is None:
+        raise ValueError(f"{name}: a device tensor of lengths needs max_visible (the largest)")
+    if visible_len.dtype != torch.int32 or visible_len.shape != (B,) or visible_len.device != device:
+        raise ValueError(f"{name}: visible_len must be int32 [{B}] on {device}")
+    return visible_len, int(max_visible)
+
+
 def streaming_decode_attention_full(
-    q_rot: torch.Tensor,  # [H, hd] rotated single-token queries (unscaled)
-    k_arena: torch.Tensor,  # [C, Hkv, hd] pre-rotated arena K
+    q_rot: torch.Tensor,  # [H, hd] rotated single-token queries (unscaled), or [B, H, hd]
+    k_arena: torch.Tensor,  # [C, Hkv, hd] pre-rotated arena K, or [B, C, Hkv, hd]
     v_arena: torch.Tensor,
-    k_small: torch.Tensor,  # [e_delta + 1, Hkv, hd] rotated delta rows ++ self row
+    k_small: torch.Tensor,  # [e_delta + 1, Hkv, hd] rotated delta rows ++ self row ([B, ...])
     v_small: torch.Tensor,
-    visible_len: int,
+    visible_len,  # int, or (lane form) an int32 [B] tensor on the card
     extra_visible: int,
     *,
     e_delta: int,
+    max_visible: Optional[int] = None,  # lane form: the largest of visible_len (host)
 ) -> torch.Tensor:
-    """K2. Returns [H, hd] in v_small's dtype.
+    """K2. Returns [H, hd] (lane form: [B, H, hd]) in v_small's dtype.
 
     No-padding contract (as the TPU kernel's): k_small holds exactly
     e_delta delta rows followed by the self row(s), every one of which is
-    visible; a padded k_small would let pad rows join the softmax."""
-    E1 = k_small.shape[0]
+    visible; a padded k_small would let pad rows join the softmax.
+
+    The lane form is one launch for B streams: grid (splits + the small
+    block, Hkv, B), the split chosen from max_visible; lane b reads its
+    length from visible_len[b] on the card (each must be <= max_visible)."""
+    if q_rot.dim() == 2:  # one stream: the lane form at B = 1
+        return streaming_decode_attention_full(
+            q_rot[None], k_arena[None], v_arena[None], k_small[None], v_small[None],
+            int(visible_len), extra_visible, e_delta=e_delta)[0]
+    B, H, hd = q_rot.shape
+    E1 = k_small.shape[1]
     if E1 <= e_delta or v_small.shape != k_small.shape:
         raise ValueError(f"no-padding contract: k_small rows {E1} must exceed e_delta {e_delta}")
     if q_rot.device.type == "cpu":
-        return decode_attention_plain(
+        return decode_attention_lanes_plain(
             q_rot, k_arena, v_arena, k_small, v_small, visible_len, extra_visible,
             e_delta=e_delta,
         )
     name = "streaming_decode_attention_full"
-    H, hd = q_rot.shape
-    C, Hkv, _ = k_arena.shape
-    tensors = [q_rot, k_arena, v_arena, k_small, v_small]
-    check_cuda(name, *tensors)
-    if any(t.dtype != torch.bfloat16 for t in tensors):
+    C, Hkv = k_arena.shape[1], k_arena.shape[2]
+    check_cuda(name, q_rot, k_small, v_small)
+    ka_lane = _check_lanes(name, k_arena, (B, C, Hkv, hd))
+    va_lane = _check_lanes(name, v_arena, (B, C, Hkv, hd))
+    if any(t.dtype != torch.bfloat16 for t in (q_rot, k_arena, v_arena, k_small, v_small)):
         raise ValueError(f"{name}: the CUDA kernel takes bf16 q/k/v")
     from ._kernels import lib
 
     so = lib()
-    if hd != 128 or H % Hkv or H // Hkv > 8 or v_arena.shape != k_arena.shape:
+    if hd != 128 or H % Hkv or H // Hkv > 8:
         raise ValueError(f"{name}: unsupported shapes q={tuple(q_rot.shape)} arena={tuple(k_arena.shape)}")
-    if k_small.shape[1:] != (Hkv, hd) or E1 > so.decode_max_small_rows:
-        raise ValueError(f"{name}: k_small must be [<= {so.decode_max_small_rows}, Hkv, hd]")
-    if not 0 <= int(visible_len) <= C or not 0 <= int(extra_visible) <= e_delta:
-        raise ValueError(f"{name}: visible_len {visible_len} / extra_visible {extra_visible} out of range")
-    split, n_parts = _decode_parts(name, int(visible_len), Hkv, q_rot.device,
-                                   so.decode_max_split, so.decode_max_parts)
-    part_m, part_l, part_acc, counters = _decode_scratch(q_rot.device, Hkv, n_parts + 1,
+    if k_small.shape[2:] != (Hkv, hd) or k_small.shape[0] != B or E1 > so.decode_max_small_rows:
+        raise ValueError(f"{name}: k_small must be [B, <= {so.decode_max_small_rows}, Hkv, hd]")
+    vis_dev, vis_max = _decode_lengths(name, visible_len, max_visible, B, q_rot.device)
+    if not 0 <= vis_max <= C or not 0 <= int(extra_visible) <= e_delta:
+        raise ValueError(f"{name}: visible_len {vis_max} / extra_visible {extra_visible} out of range")
+    split, n_splits = _decode_parts(name, vis_max, Hkv, q_rot.device, so.decode_max_split,
+                                    so.decode_max_parts, B)
+    part_m, part_l, part_acc, counters = _decode_scratch(q_rot.device, B, Hkv, n_splits + 1,
                                                          H // Hkv, hd)
-    out = torch.empty(H, hd, dtype=v_small.dtype, device=q_rot.device)
+    out = torch.empty(B, H, hd, dtype=v_small.dtype, device=q_rot.device)
     err = so.svt_decode_attention(
         ptr(q_rot), ptr(k_arena), ptr(v_arena), ptr(k_small), ptr(v_small),
-        ptr(part_m), ptr(part_l), ptr(part_acc), ptr(counters), ptr(out), H, Hkv, hd, E1,
-        int(e_delta), int(visible_len), int(extra_visible), split, stream(),
+        ptr(part_m), ptr(part_l), ptr(part_acc), ptr(counters), ptr(out), ptr(vis_dev), B, H, Hkv,
+        hd, E1, int(e_delta), vis_max, int(extra_visible), split, ka_lane, va_lane, stream(),
     )
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
@@ -588,79 +728,107 @@ def decode_attention_int8_by_splits(
     )
 
 
+def decode_attention_int8_lanes_plain(
+    q_rot, k_q, k_s, v_q, v_s, pos_t, k_small, v_small, visible_len, extra_visible: int, *,
+    e_delta: int, mrope_section: Tuple[int, int, int], rope_theta: float,
+) -> torch.Tensor:
+    """Plain version of K3's lane form: `decode_attention_int8_plain` for
+    each lane of [B, ...] inputs (visible_len: one length, B ints or a [B]
+    tensor). Returns [B, H, hd] in v_small's dtype."""
+    B = q_rot.shape[0]
+    vis = lane_lengths(visible_len, B)
+    return torch.stack([
+        decode_attention_int8_plain(
+            q_rot[b], k_q[b], None if k_s is None else k_s[b], v_q[b],
+            None if v_s is None else v_s[b], pos_t[b], k_small[b], v_small[b], vis[b],
+            extra_visible, e_delta=e_delta, mrope_section=mrope_section, rope_theta=rope_theta)
+        for b in range(B)])
+
+
 def streaming_decode_attention_int8(
-    q_rot: torch.Tensor,  # [H, hd] rotated single-token queries (unscaled)
-    k_q: torch.Tensor,  # [C, Hkv, hd] RAW (un-rotated) arena K: int8, or bf16
-    k_s: Optional[torch.Tensor],  # [C, Hkv] f32 scales, or None (unquantized)
+    q_rot: torch.Tensor,  # [H, hd] rotated single-token queries (unscaled), or [B, H, hd]
+    k_q: torch.Tensor,  # [C, Hkv, hd] RAW (un-rotated) arena K: int8, or bf16 ([B, ...])
+    k_s: Optional[torch.Tensor],  # [C, Hkv] f32 scales ([B, C, Hkv]), or None (unquantized)
     v_q: torch.Tensor,  # [C, Hkv, hd] arena V, same representation
     v_s: Optional[torch.Tensor],
-    pos_t: torch.Tensor,  # [C, 3] f32 per-slot mRoPE positions
-    k_small: torch.Tensor,  # [e_delta + 1, Hkv, hd] ROTATED delta rows ++ self row
+    pos_t: torch.Tensor,  # [C, 3] f32 per-slot mRoPE positions, or [B, C, 3]
+    k_small: torch.Tensor,  # [e_delta + 1, Hkv, hd] ROTATED delta rows ++ self row ([B, ...])
     v_small: torch.Tensor,
-    visible_len: int,
+    visible_len,  # int, or (lane form) an int32 [B] tensor on the card
     extra_visible: int,
     *,
     e_delta: int,
     mrope_section: Tuple[int, int, int],
     rope_theta: float,
+    max_visible: Optional[int] = None,  # lane form: the largest of visible_len (host)
 ) -> torch.Tensor:
-    """K3. Returns [H, hd] in v_small's dtype (the compute dtype the arena
-    is dequantized to). Same no-padding contract for k_small as K2.
+    """K3. Returns [H, hd] (lane form: [B, H, hd]) in v_small's dtype (the
+    compute dtype the arena is dequantized to). Same no-padding contract for
+    k_small as K2.
 
     On the card, one launch (counted once): the host picks the split
-    (`decode_split_size`), the grid is (splits + the small block, kv heads),
-    and the last CTA of each kv head folds the partials (scratch and
-    counters from `_decode_scratch`, shared with K2 and K4). Its plain schedule is
-    `decode_attention_int8_by_splits`."""
-    E1 = k_small.shape[0]
-    if E1 <= e_delta or v_small.shape != k_small.shape:
-        raise ValueError(f"no-padding contract: k_small rows {E1} must exceed e_delta {e_delta}")
+    (`decode_split_size`, from max_visible for the lane form), the grid is
+    (splits + the small block, kv heads, lanes), and the last CTA of each
+    (lane, kv head) folds the partials (scratch and counters from
+    `_decode_scratch`, shared with K2 and K4). Its plain schedule is
+    `decode_attention_int8_by_splits`. The arenas and scales may be
+    lane-strided views (a layer of a [B, L, C, ...] arena)."""
     if (k_s is None) != (v_s is None):
         raise ValueError("pass scales for both K and V, or for neither")
     if sum(mrope_section) != q_rot.shape[-1] // 2:
         raise ValueError(f"mrope_section {mrope_section} must sum to head_dim / 2")
+    kw = dict(e_delta=e_delta, mrope_section=mrope_section, rope_theta=rope_theta)
+    if q_rot.dim() == 2:  # one stream: the lane form at B = 1
+        return streaming_decode_attention_int8(
+            q_rot[None], k_q[None], _lead(k_s), v_q[None], _lead(v_s), pos_t[None],
+            k_small[None], v_small[None], int(visible_len), extra_visible, **kw)[0]
+    B, H, hd = q_rot.shape
+    E1 = k_small.shape[1]
+    if E1 <= e_delta or v_small.shape != k_small.shape:
+        raise ValueError(f"no-padding contract: k_small rows {E1} must exceed e_delta {e_delta}")
     if q_rot.device.type == "cpu":
-        return decode_attention_int8_plain(
-            q_rot, k_q, k_s, v_q, v_s, pos_t, k_small, v_small, visible_len, extra_visible,
-            e_delta=e_delta, mrope_section=mrope_section, rope_theta=rope_theta,
-        )
+        return decode_attention_int8_lanes_plain(
+            q_rot, k_q, k_s, v_q, v_s, pos_t, k_small, v_small, visible_len, extra_visible, **kw)
     name = "streaming_decode_attention_int8"
-    H, hd = q_rot.shape
-    C, Hkv, _ = k_q.shape
+    C, Hkv = k_q.shape[1], k_q.shape[2]
     quantized = k_s is not None
     store = torch.int8 if quantized else torch.bfloat16
-    tensors = [q_rot, k_q, v_q, pos_t, k_small, v_small]
-    check_cuda(name, *tensors)
+    check_cuda(name, q_rot, pos_t, k_small, v_small)
+    kq_lane = _check_lanes(name, k_q, (B, C, Hkv, hd))
+    vq_lane = _check_lanes(name, v_q, (B, C, Hkv, hd))
     if (q_rot.dtype, k_small.dtype, v_small.dtype) != (torch.bfloat16,) * 3:
         raise ValueError(f"{name}: the CUDA kernel takes bf16 q and k_small/v_small")
-    if k_q.dtype != store or v_q.dtype != store or v_q.shape != k_q.shape:
-        raise ValueError(f"{name}: arena K/V must both be {store} [C, Hkv, hd]")
-    if pos_t.dtype != torch.float32 or pos_t.shape != (C, 3):
-        raise ValueError(f"{name}: pos_t must be f32 [C, 3]")
+    if k_q.dtype != store or v_q.dtype != store:
+        raise ValueError(f"{name}: arena K/V must both be {store} [B, C, Hkv, hd]")
+    if pos_t.dtype != torch.float32 or pos_t.shape != (B, C, 3):
+        raise ValueError(f"{name}: pos_t must be f32 [B, C, 3]")
+    s_lane = 0
     if quantized:
-        check_cuda(name, k_s, v_s)
-        if k_s.dtype != torch.float32 or k_s.shape != (C, Hkv) or v_s.shape != (C, Hkv):
-            raise ValueError(f"{name}: scales must be f32 [C, Hkv]")
+        s_lane = _check_lanes(name, k_s, (B, C, Hkv))
+        if _check_lanes(name, v_s, (B, C, Hkv)) != s_lane or k_s.dtype != torch.float32 \
+                or v_s.dtype != torch.float32:
+            raise ValueError(f"{name}: scales must be f32 [B, C, Hkv], K's and V's lanes alike")
     from ._kernels import lib
 
     so = lib()
     if hd != 128 or H % Hkv or H // Hkv > 8 or Hkv > 8:
         raise ValueError(f"{name}: unsupported shapes q={tuple(q_rot.shape)} arena={tuple(k_q.shape)}")
-    if k_small.shape[1:] != (Hkv, hd) or E1 > so.decode_max_small_rows:
-        raise ValueError(f"{name}: k_small must be [<= {so.decode_max_small_rows}, Hkv, hd]")
-    if not 0 <= int(visible_len) <= C or not 0 <= int(extra_visible) <= e_delta:
-        raise ValueError(f"{name}: visible_len {visible_len} / extra_visible {extra_visible} out of range")
+    if k_small.shape[2:] != (Hkv, hd) or k_small.shape[0] != B or E1 > so.decode_max_small_rows:
+        raise ValueError(f"{name}: k_small must be [B, <= {so.decode_max_small_rows}, Hkv, hd]")
+    vis_dev, vis_max = _decode_lengths(name, visible_len, max_visible, B, q_rot.device)
+    if not 0 <= vis_max <= C or not 0 <= int(extra_visible) <= e_delta:
+        raise ValueError(f"{name}: visible_len {vis_max} / extra_visible {extra_visible} out of range")
     freqs = _mrope_freq_table(hd, tuple(mrope_section), float(rope_theta), q_rot.device)
-    split, n_splits = _decode_parts(name, int(visible_len), Hkv, q_rot.device,
-                                    so.raw_decode_max_split, so.raw_decode_max_parts)
-    part_m, part_l, part_acc, counters = _decode_scratch(q_rot.device, Hkv, n_splits + 1,
+    split, n_splits = _decode_parts(name, vis_max, Hkv, q_rot.device, so.raw_decode_max_split,
+                                    so.raw_decode_max_parts, B)
+    part_m, part_l, part_acc, counters = _decode_scratch(q_rot.device, B, Hkv, n_splits + 1,
                                                          H // Hkv, hd)
-    out = torch.empty(H, hd, dtype=v_small.dtype, device=q_rot.device)
+    out = torch.empty(B, H, hd, dtype=v_small.dtype, device=q_rot.device)
     err = so.svt_decode_attention_raw(
         ptr(q_rot), ptr(k_q), ptr(k_s), ptr(v_q), ptr(v_s), ptr(pos_t), ptr(freqs),
         ptr(k_small), ptr(v_small), ptr(part_m), ptr(part_l), ptr(part_acc), ptr(counters),
-        ptr(out), H, Hkv, hd, C, E1, int(e_delta), int(visible_len), int(extra_visible), split,
-        int(quantized), stream(),
+        ptr(out), ptr(vis_dev), B, H, Hkv, hd, C, E1, int(e_delta), vis_max, int(extra_visible),
+        split, int(quantized), kq_lane, vq_lane, s_lane, stream(),
     )
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
@@ -716,7 +884,8 @@ def streaming_decode_attention(
     so = lib()
     split, n_parts = _decode_parts(name, int(visible_len), Hkv, q_rot.device,
                                    so.decode_max_split, so.decode_max_parts)
-    part_m, part_l, part_acc, counters = _decode_scratch(q_rot.device, Hkv, n_parts, H // Hkv, hd)
+    part_m, part_l, part_acc, counters = _decode_scratch(q_rot.device, 1, Hkv, n_parts, H // Hkv,
+                                                         hd)
     m = torch.empty(H, dtype=torch.float32, device=q_rot.device)
     l = torch.empty_like(m)
     acc = torch.empty(H, hd, dtype=torch.float32, device=q_rot.device)

@@ -80,13 +80,27 @@ def is_kv_quantized(t) -> bool:
 
 
 def arena_capacity(arena: Arena) -> int:
-    """Slot count (axis 1 of [L, C, Hkv, hd]) in either representation."""
-    return storage(arena)[0].shape[1]
+    """Slot count (axis -3 of [L, C, Hkv, hd] or of the multi-stream [B, L,
+    C, Hkv, hd]) in either representation."""
+    return storage(arena)[0].shape[-3]
 
 
-def layer_slice(arena: Arena, l: int) -> Arena:
-    """Layer l's [C, Hkv, hd] slice, in the arena's representation."""
-    return QuantKV(arena.q[l], arena.s[l]) if is_kv_quantized(arena) else arena[l]
+def lanes_layer(arena: Arena, l: int) -> Arena:
+    """Layer l of a [B, L, C, Hkv, hd] arena: a [B, C, Hkv, hd] view whose
+    lanes lie L layers apart, in the arena's representation."""
+    if is_kv_quantized(arena):
+        return QuantKV(arena.q[:, l], arena.s[:, l])
+    return arena[:, l]
+
+
+def lane(arena: Arena, b: int) -> Arena:
+    """Lane b of a [B, ...] arena (a view), in the arena's representation."""
+    return QuantKV(arena.q[b], arena.s[b]) if is_kv_quantized(arena) else arena[b]
+
+
+def with_lanes(arena: Arena) -> Arena:
+    """A one-stream [L, C, Hkv, hd] arena as a [1, L, C, Hkv, hd] view."""
+    return QuantKV(arena.q[None], arena.s[None]) if is_kv_quantized(arena) else arena[None]
 
 
 def gather_slots(arena: Arena, src_idx: torch.Tensor) -> Arena:
@@ -96,12 +110,47 @@ def gather_slots(arena: Arena, src_idx: torch.Tensor) -> Arena:
     return arena.index_select(1, src_idx)
 
 
+def gather_slots_lanes(arena: Arena, src_idx: torch.Tensor) -> Arena:
+    """new[b, :, i] = old[b, :, src_idx[b, i]] over a [B, L, C, ...] arena
+    (either representation) and src_idx [B, C], into fresh tensors (one
+    gather per leaf)."""
+
+    def g(x):
+        B, L = x.shape[:2]
+        idx = src_idx.view(B, 1, -1, *([1] * (x.dim() - 3))).expand(B, L, -1, *x.shape[3:])
+        return torch.gather(x, 2, idx)
+
+    if is_kv_quantized(arena):
+        return QuantKV(g(arena.q), g(arena.s))
+    return g(arena)
+
+
+def write_slots_lanes(arena: Arena, block: torch.Tensor, at) -> None:
+    """Write lane b's [L, T, Hkv, hd] float block of block [B, L, T, Hkv,
+    hd] into its slots [at[b], at[b] + T) of a [B, L, C, ...] arena, in
+    place, in the arena's representation (an int8 arena's block is
+    quantized once, for all lanes)."""
+    q = quantize_kv(block) if is_kv_quantized(arena) else None
+    for b, a in enumerate(at):
+        if q is None:
+            write_slots(lane(arena, b), block[b], int(a))
+        else:
+            _check_slots(arena, block.shape[2], int(a))
+            arena.q[b, :, a : a + block.shape[2]] = q.q[b]
+            arena.s[b, :, a : a + block.shape[2]] = q.s[b]
+
+
+def _check_slots(arena: Arena, T: int, at: int) -> None:
+    C = arena_capacity(arena)
+    if not (0 <= at and at + T <= C):
+        raise ValueError(f"block [{at}, {at + T}) outside the arena's {C} slots")
+
+
 def write_slots(arena: Arena, block: torch.Tensor, at: int) -> None:
     """Write a [L, T, Hkv, hd] float block into slots [at, at + T), in place,
     in the arena's representation (quantized per slot into an int8 arena)."""
-    T, C = block.shape[1], arena_capacity(arena)
-    if not (0 <= at and at + T <= C):
-        raise ValueError(f"block [{at}, {at + T}) outside the arena's {C} slots")
+    T = block.shape[1]
+    _check_slots(arena, T, at)
     if is_kv_quantized(arena):
         qb = quantize_kv(block)
         arena.q[:, at : at + T] = qb.q

@@ -1,31 +1,39 @@
 """Streaming engine: chunk prefill + decode over the KV arena, in PyTorch.
 
-Port of streaming_vlm_tpu/streaming/engine.py for one stream. The arena is
-float (`kv_quant="none"`) or int8 with per-(slot, head) scales
+Port of streaming_vlm_tpu/streaming/engine.py. The arena is float
+(`kv_quant="none"`) or int8 with per-(slot, head) scales
 (`kv_quant="int8"`), and K is either rotated once per chunk into a copy
-(`StreamConfig.effective_prerotate`) or read raw and rotated at attention
-time. One `chunk_step` per chunk does what the JAX package's jitted step
-does, as eager launches:
+(`StreamConfig.effective_prerotate`; stored in the compute dtype, or
+requantized to int8 with `rot_quant="int8"`) or read raw and rotated at
+attention time. `chunk_step_batched` does what the JAX package's jitted
+(vmapped) step does, for B independent streams in one pass, as eager
+launches:
 
-  [pre-rotated: dequantize + rotate the arena K once for the chunk's
-  positions, layer by layer] -> embed + vision-embed scatter -> chunk prefill (kernel K1,
-  pre-rotated or raw mode) -> a `max_new`-step decode loop (kernel K2 over
-  the rotated copy, or K3 over the raw arena; repetition-penalty sampling)
-  -> merge the new K/V (quantized per slot into an int8 arena).
+  [pre-rotated: dequantize + rotate every lane's arena K once for the
+  chunk's positions, layer by layer (requantized for rot_quant="int8")] ->
+  embed + vision-embed scatter -> chunk prefill (kernel K1's lane form,
+  pre-rotated or raw mode) -> a `max_new`-step decode loop (K2's lane form
+  over the rotated copy, or K3's over the raw arena; repetition-penalty
+  sampling, each lane from its own generator) -> merge the new K/V
+  (quantized per slot into an int8 arena).
+
+Every projection runs once over all lanes' rows, so each weight is read
+once per step for the B streams. The lanes' lengths and budgets reach the
+device in one upload per step call; the decode kernels read the lengths
+there. `chunk_step` (one stream) is the same body at B = 1.
 
 The arenas are updated IN PLACE (the JAX package donates them instead);
-eviction gathers into fresh tensors with index_select, never in place. The
-decode loop always runs `max_new` steps and keeps every token on the device
-(tokens after `done` are eos, n_gen = sum(~was_done)), so a chunk needs one
-host sync, in `finish_chunk`. `rot_quant="int8"` (a requantized rotated
-copy) is not ported yet.
+eviction gathers into fresh tensors, never in place. The decode loop
+always runs `max_new` steps and keeps every token on the device (tokens
+after `done` are eos, n_gen = sum(~was_done)), so a chunk (or a round)
+needs one host sync, in `finish_chunk` (`MultiStreamEngine.finish_round`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,14 +48,18 @@ from ..models.qwen25_vl.rope import (
 )
 from ..ops.quant import (
     Arena,
-    arena_capacity,
+    QuantKV,
     as_float,
     compute_dtype,
     gather_slots,
-    layer_slice,
-    write_slots,
+    gather_slots_lanes,
+    lanes_layer,
+    quantize_kv,
+    with_lanes,
+    write_slots_lanes,
 )
-from ..ops.sampling import sample_token
+from ..ops.attention import reserve_decode_scratch
+from ..ops.sampling import sample_tokens
 from ..utils.buckets import bucket_for
 from .segments import ASST_BODY, ASST_TAIL, Seg, SegmentTable
 
@@ -58,20 +70,29 @@ from .segments import ASST_BODY, ASST_TAIL, Seg, SegmentTable
 
 def positions_from_descriptors(desc: Dict[str, torch.Tensor], capacity: int) -> torch.Tensor:
     """Rebuild the [3, C] mRoPE position tensor on the device from the
-    segment descriptor table (SegmentTable.position_descriptors). Slots
-    past the last real segment get garbage positions but are invisible."""
-    starts = desc["starts"].long()
-    slot = torch.arange(capacity, dtype=torch.long, device=starts.device)
-    sid = (torch.searchsorted(starts, slot, right=True) - 1).clamp_min(0)
-    off = slot - starts[sid]
-    gh = desc["ghs"].long()[sid]
-    gw = desc["gws"].long()[sid]
-    is_vid = desc["kinds"][sid] == 1
+    segment descriptor table (SegmentTable.position_descriptors), or [B, 3,
+    C] from B lanes' tables stacked as [B, max_segs] (unused rows padded
+    with starts 2**30). Slots past the last real segment get garbage
+    positions but are invisible."""
+    lanes = desc["starts"].dim() == 2
+    d = desc if lanes else {k: v[None] for k, v in desc.items()}
+    starts = d["starts"].long()
+    B = starts.shape[0]
+    slot = torch.arange(capacity, dtype=torch.long, device=starts.device).expand(B, capacity)
+    sid = (torch.searchsorted(starts, slot.contiguous(), right=True) - 1).clamp_min(0)
+
+    def at(k):
+        return torch.gather(d[k], 1, sid)
+
+    off = slot - torch.gather(starts, 1, sid)
+    gh, gw = at("ghs").long(), at("gws").long()
+    is_vid = at("kinds") == 1
     offf = off.float()
-    t = torch.where(is_vid, torch.div(off, gh * gw, rounding_mode="floor").float() * desc["tsteps"][sid], offf)
+    t = torch.where(is_vid, torch.div(off, gh * gw, rounding_mode="floor").float() * at("tsteps"), offf)
     h = torch.where(is_vid, (torch.div(off, gw, rounding_mode="floor") % gh).float(), offf)
     w = torch.where(is_vid, (off % gw).float(), offf)
-    return desc["bases"][sid][None, :] + torch.stack([t, h, w])
+    pos = at("bases")[:, None, :] + torch.stack([t, h, w], dim=1)
+    return pos if lanes else pos[0]
 
 
 def compact_arena(k_arena, v_arena, ids_arena, src_idx: torch.Tensor):
@@ -83,12 +104,24 @@ def compact_arena(k_arena, v_arena, ids_arena, src_idx: torch.Tensor):
     )
 
 
+def compact_arena_batched(k_arena, v_arena, ids_arena, src_idx: torch.Tensor):
+    """Per-lane gathers for the multi-stream engine: new[b, :, i] =
+    old[b, :, src_idx[b, i]] over [B, L, C, Hkv, hd] arenas (float or
+    QuantKV) and ids [B, C], src_idx [B, C] (identity rows for lanes that
+    did not evict), into fresh tensors, one gather per leaf."""
+    return (
+        gather_slots_lanes(k_arena, src_idx),
+        gather_slots_lanes(v_arena, src_idx),
+        torch.gather(ids_arena, 1, src_idx),
+    )
+
+
 @dataclasses.dataclass
 class ChunkHandle:
     """In-flight chunk: device results + the host state finish_chunk needs."""
 
-    gen: torch.Tensor  # [max_new] int64 on the device
-    n_gen: torch.Tensor  # 0-d int64 on the device
+    gen: Any  # [max_new] int64 on the device (a lane's row, filled in by finish_round)
+    n_gen: Any  # 0-d int64 on the device (or a host int)
     n_real: int
     next_p: float  # append-mode next position base
     eos: int
@@ -110,18 +143,187 @@ class ChunkStatics:
     # rotate the arena K once per chunk into a copy (K1 pre-rotated, K2) vs
     # rotate at attention time from per-slot positions (K1 raw, K3)
     prerotate: bool = True
+    # "int8": the rotated copy is requantized (StreamConfig.rot_quant)
+    rot_quant: str = "none"
+
+
+def _lane_ints(values, dev) -> Tuple[List[int], torch.Tensor]:
+    """(host ints, the same [n, B] int64 on the device in one copy)."""
+    host = [[int(x) for x in v] for v in values]
+    t = torch.tensor(host, dtype=torch.int64)
+    if dev.type == "cuda":
+        t = t.pin_memory().to(dev, non_blocking=True)
+    return host, t
+
+
+def _merge_vision_lanes(embeds: torch.Tensor, vis_embeds: torch.Tensor, vis_slots) -> None:
+    """Scatter lane b's vision rows vis_embeds[b, j] into its chunk row
+    vis_slots[b, j] of embeds [B, T, D], in place; slots >= T are dropped
+    (the JAX scatter's mode="drop": idle and text-only lanes pass T). The
+    slots are host ints, so the kept rows are chosen on the host."""
+    B, T, D = embeds.shape
+    slots = np.asarray(vis_slots).reshape(B, -1)
+    N = slots.shape[1]
+    b, j = np.nonzero(slots < T)
+    if not len(b):
+        return
+    idx = torch.from_numpy(np.stack([b * T + slots[b, j], b * N + j]).astype(np.int64))
+    idx = idx.to(embeds.device, non_blocking=True)
+    rows = vis_embeds.reshape(B * N, D).index_select(0, idx[1]).to(embeds.dtype)
+    embeds.view(B * T, D).index_copy_(0, idx[0], rows)
+
+
+def rotated_copy(tcfg, lm, k_arena: Arena, slot_positions: torch.Tensor, adt: torch.dtype,
+                 rot_quant: str = "none") -> Arena:
+    """Every lane's arena K ([B, L, C, Hkv, hd], float or QuantKV) rotated
+    once for the chunk's (fixed) positions [B, 3, C] (an int8 arena is
+    dequantized in the same pass), layer by layer so that the transients
+    are one [B, C, Hkv, hd] layer: the prefill and every decode step read
+    this copy; the raw arena is what persists across chunks. In `adt`, or
+    with rot_quant="int8" requantized per (slot, head) (the raw int8
+    arena's bytes; read through a per-layer dequant, derived fresh each
+    chunk): quantize_kv(apply_rope(dequantize_kv(k_l))), as the JAX
+    engine's rot_layer."""
+    B, L, C, Hkv, hd = k_arena.q.shape if isinstance(k_arena, QuantKV) else k_arena.shape
+    dev = slot_positions.device
+    a_cos, a_sin = mrope_cos_sin(slot_positions.transpose(0, 1).reshape(3, B * C),
+                                 lm.inv_freq(dev), tcfg.mrope_section)
+    a_cos, a_sin = a_cos.view(B, C, 1, hd // 2), a_sin.view(B, C, 1, hd // 2)
+    if rot_quant == "int8":
+        k_rot = QuantKV(torch.empty(B, L, C, Hkv, hd, dtype=torch.int8, device=dev),
+                        torch.empty(B, L, C, Hkv, dtype=torch.float32, device=dev))
+    else:
+        k_rot = torch.empty(B, L, C, Hkv, hd, dtype=adt, device=dev)
+    for l in range(L):
+        kr = apply_rope(as_float(lanes_layer(k_arena, l), adt), a_cos, a_sin)
+        if rot_quant == "int8":
+            kq = quantize_kv(kr)
+            k_rot.q[:, l], k_rot.s[:, l] = kq.q, kq.s
+        else:
+            k_rot[:, l] = kr
+    return k_rot
 
 
 @torch.no_grad()
+def chunk_step_batched(
+    statics: ChunkStatics,
+    model: vlm.Qwen25VL,
+    k_arena: Arena,  # [B, L, C, Hkv, hd] (float or QuantKV), updated in place
+    v_arena: Arena,
+    slot_positions,  # [B, 3, C] f32, or the descriptor dict of [B, max_segs] device tensors
+    tokens: torch.Tensor,  # [B, t_pad] int64 on the device (padded)
+    vis_embeds: Optional[torch.Tensor],  # [B, N_vis, D] on the device, or None
+    vis_slots,  # [B, N_vis] host ints: rows within each lane's chunk (>= t_pad: dropped)
+    ids_arena: torch.Tensor,  # [B, C] int64, updated in place
+    insert_at: Sequence[int],  # [B] host ints: first arena slot of each lane's chunk
+    n_real: Sequence[int],  # [B] real (unpadded) chunk lengths
+    eos_id: Sequence[int],  # [B]
+    n_max: Sequence[int],  # [B] decode budgets <= statics.max_new
+    generators: Sequence[Optional[torch.Generator]],  # [B]; None: the lane draws no noise
+):
+    """B streams' chunk steps in one pass over shared weights. Each lane's
+    results are those of `chunk_step` on that lane alone: per-lane
+    positions, insert points, lengths, eos and budgets (a lane stops
+    emitting at its own n_max, as at a natural eos; the loop runs
+    statics.max_new steps for all). Returns (gen [B, max_new] int64, n_gen
+    [B] int64), both on the device."""
+    cfg = statics.cfg
+    tcfg = cfg.text
+    lm = model.text
+    B, C = ids_arena.shape
+    dev = ids_arena.device
+    L, Hkv, hd = tcfg.num_hidden_layers, tcfg.num_key_value_heads, tcfg.head_dim
+    # compute dtype of the K/V blocks and the decode delta
+    adt = compute_dtype(k_arena, lm.embed.weight.dtype)
+    (insert_at, n_real, _, _), lanes = _lane_ints((insert_at, n_real, eos_id, n_max), dev)
+    ins_d, nreal_d, eos_d, nmax_d = lanes
+    decode_base = [a + n for a, n in zip(insert_at, n_real)]
+    base_d = ins_d + nreal_d
+    if statics.use_descriptors:
+        slot_positions = positions_from_descriptors(slot_positions, C)
+
+    if statics.prerotate:
+        k_rot = rotated_copy(tcfg, lm, k_arena, slot_positions, adt, statics.rot_quant)
+        arena_kw = dict(arena=(k_rot, v_arena), arena_rotated=True)
+    else:
+        # the raw arena is read in its storage form; K1 and K3 rotate it
+        arena_kw = dict(arena=(k_arena, v_arena), arena_positions=slot_positions)
+
+    # chunk token ids, then the repetition-penalty presence mask (column V
+    # takes the ids of invisible slots, dropped)
+    V = tcfg.vocab_size
+    t_pad = statics.t_pad
+    cols = ins_d[:, None] + torch.arange(t_pad, device=dev)
+    ids_arena.scatter_(1, cols, tokens)
+    valid = torch.arange(C, device=dev)[None, :] < base_d[:, None]
+    presence = torch.zeros(B, V + 1, dtype=torch.bool, device=dev)
+    presence.scatter_(1, torch.where(valid, ids_arena, V), True)
+    presence = presence[:, :V]
+
+    embeds = language.embed_tokens(tcfg, lm, tokens)
+    if vis_embeds is not None:
+        _merge_vision_lanes(embeds, vis_embeds, vis_slots)
+
+    q_pos = torch.gather(slot_positions, 2, cols[:, None, :].expand(B, 3, t_pad))
+    hidden, (k_block, k_block_rot, v_block) = language.language_forward_lanes(
+        tcfg, lm, embeds, q_pos, visible_len=insert_at, **arena_kw
+    )
+    write_slots_lanes(k_arena, k_block, insert_at)
+    if statics.prerotate:
+        write_slots_lanes(k_rot, k_block_rot, insert_at)
+    write_slots_lanes(v_arena, v_block, insert_at)
+    logits = language.lm_logits(tcfg, lm, hidden[torch.arange(B, device=dev), nreal_d - 1])
+
+    max_new = statics.max_new
+    dcols = base_d[:, None] + torch.arange(max_new, device=dev)
+    delta_pos = torch.gather(slot_positions, 2, dcols[:, None, :].expand(B, 3, max_new))
+    # the decode kernels' per-lane lengths, on the device; the largest on the host
+    vis_decode = base_d.to(torch.int32)
+    dk = torch.zeros(B, L, max_new, Hkv, hd, dtype=adt, device=dev)
+    dkr = torch.zeros_like(dk)
+    dv = torch.zeros_like(dk)
+    gen = torch.empty(B, max_new, dtype=torch.long, device=dev)
+    was_done = torch.empty(B, max_new, dtype=torch.bool, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    for step in range(max_new):
+        tok = sample_tokens(
+            generators, logits, presence,
+            temperature=statics.temperature,
+            repetition_penalty=statics.repetition_penalty,
+            do_sample=statics.do_sample,
+        )
+        tok = torch.where(done, eos_d, tok)
+        presence.scatter_(1, tok[:, None], True)
+        gen[:, step] = tok
+        was_done[:, step] = done
+        # a lane is done at its own budget exactly like a natural eos
+        done = done | (tok == eos_d) | (step + 1 >= nmax_d)
+
+        emb = language.embed_tokens(tcfg, lm, tok[:, None])
+        hidden, (k1, k1_rot, v1) = language.language_forward_lanes(
+            tcfg, lm, emb, delta_pos[:, :, step : step + 1], visible_len=vis_decode,
+            max_visible=max(decode_base), extra=(dkr, dv), extra_visible=step, **arena_kw,
+        )
+        dk[:, :, step] = k1[:, :, 0]
+        dkr[:, :, step] = k1_rot[:, :, 0]
+        dv[:, :, step] = v1[:, :, 0]
+        logits = language.lm_logits(tcfg, lm, hidden[:, 0])
+
+    write_slots_lanes(k_arena, dk, decode_base)
+    write_slots_lanes(v_arena, dv, decode_base)
+    ids_arena.scatter_(1, dcols, gen)
+    return gen, (~was_done).sum(dim=1)
+
+
 def chunk_step(
     statics: ChunkStatics,
     model: vlm.Qwen25VL,
     k_arena: Arena,  # [L, C, Hkv, hd] (float or QuantKV), updated in place
     v_arena: Arena,
     slot_positions,  # [3, C] f32, or the descriptor dict of device tensors
-    tokens: torch.Tensor,  # [t_pad] int64 (padded)
+    tokens: torch.Tensor,  # [t_pad] int64 on the device (padded)
     vis_embeds: Optional[torch.Tensor],  # [N_vis, D] or None
-    vis_slots: Optional[torch.Tensor],  # [N_vis] int64 rows within the chunk
+    vis_slots,  # [N_vis] host ints: rows within the chunk
     ids_arena: torch.Tensor,  # [C] int64, updated in place
     insert_at: int,  # first arena slot of the chunk's tokens
     n_real: int,  # real (unpadded) chunk length
@@ -129,95 +331,17 @@ def chunk_step(
     n_max: int,  # decode budget <= statics.max_new
     generator: Optional[torch.Generator],
 ):
-    """Returns (gen [max_new] int64, n_gen 0-d int64), both on the device."""
-    cfg = statics.cfg
-    tcfg = cfg.text
-    lm = model.text
-    C = arena_capacity(k_arena)
-    dev = ids_arena.device
-    L, Hkv, hd = tcfg.num_hidden_layers, tcfg.num_key_value_heads, tcfg.head_dim
-    # compute dtype of the K/V blocks and the decode delta
-    adt = compute_dtype(k_arena, lm.embed.weight.dtype)
-    if statics.use_descriptors:
-        slot_positions = positions_from_descriptors(slot_positions, C)
-
-    if statics.prerotate:
-        # rotate the whole arena K once for this chunk's (fixed) positions
-        # (an int8 arena is dequantized in the same pass), layer by layer so
-        # that the transients are one [C, Hkv, hd] layer: the prefill and
-        # every decode step read the rotated copy; the raw arena is what
-        # persists across chunks
-        a_cos, a_sin = mrope_cos_sin(slot_positions, lm.inv_freq(dev), tcfg.mrope_section)
-        a_cos, a_sin = a_cos[:, None, :], a_sin[:, None, :]
-        k_rot = torch.empty(L, C, Hkv, hd, dtype=adt, device=dev)
-        for l in range(L):
-            k_rot[l] = apply_rope(as_float(layer_slice(k_arena, l), adt), a_cos, a_sin)
-        arena_kw = dict(arena=(k_rot, v_arena), arena_rotated=True)
-    else:
-        # the raw arena is read in its storage form; K1 and K3 rotate it
-        arena_kw = dict(arena=(k_arena, v_arena), arena_positions=slot_positions)
-
-    # chunk token ids, then the repetition-penalty presence mask (slot V
-    # takes the dropped ids of invisible slots)
-    V = tcfg.vocab_size
-    ids_arena[insert_at : insert_at + statics.t_pad] = tokens
-    valid = torch.arange(C, device=dev) < insert_at + n_real
-    presence = torch.zeros(V + 1, dtype=torch.bool, device=dev)
-    presence[torch.where(valid, ids_arena, V)] = True
-    presence = presence[:V]
-
-    embeds = language.embed_tokens(tcfg, lm, tokens)
-    if vis_embeds is not None:
-        embeds = vlm.merge_vision_embeds(embeds, vis_embeds, vis_slots)
-
-    q_pos = slot_positions[:, insert_at : insert_at + statics.t_pad]
-    hidden, (k_block, k_block_rot, v_block) = language.language_forward_streaming(
-        tcfg, lm, embeds, q_pos, visible_len=insert_at, **arena_kw
+    """One stream's chunk step: `chunk_step_batched` at B = 1. Returns (gen
+    [max_new] int64, n_gen 0-d int64), both on the device."""
+    pos = ({k: v[None] for k, v in slot_positions.items()} if statics.use_descriptors
+           else slot_positions[None])
+    gen, n_gen = chunk_step_batched(
+        statics, model, with_lanes(k_arena), with_lanes(v_arena), pos, tokens[None],
+        None if vis_embeds is None else vis_embeds[None],
+        None if vis_slots is None else np.asarray(vis_slots)[None],
+        ids_arena[None], [insert_at], [n_real], [eos_id], [n_max], [generator],
     )
-    write_slots(k_arena, k_block, insert_at)
-    if statics.prerotate:
-        write_slots(k_rot, k_block_rot, insert_at)
-    write_slots(v_arena, v_block, insert_at)
-    logits = language.lm_logits(tcfg, lm, hidden[n_real - 1 : n_real])[0]
-
-    decode_base = insert_at + n_real
-    max_new = statics.max_new
-    delta_pos = slot_positions[:, decode_base : decode_base + max_new]
-    dk = torch.zeros(L, max_new, Hkv, hd, dtype=adt, device=dev)
-    dkr = torch.zeros_like(dk)
-    dv = torch.zeros_like(dk)
-    gen = torch.empty(max_new, dtype=torch.long, device=dev)
-    was_done = torch.empty(max_new, dtype=torch.bool, device=dev)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    eos = torch.full((), eos_id, dtype=torch.long, device=dev)
-    for step in range(max_new):
-        tok = sample_token(
-            generator, logits, presence,
-            temperature=statics.temperature,
-            repetition_penalty=statics.repetition_penalty,
-            do_sample=statics.do_sample,
-        )
-        tok = torch.where(done, eos, tok)
-        presence.index_fill_(0, tok.view(1), True)
-        gen[step] = tok
-        was_done[step] = done
-        # a lane is done at its own budget exactly like a natural eos
-        done = done | (tok == eos) | (step + 1 >= n_max)
-
-        emb = language.embed_tokens(tcfg, lm, tok.view(1))
-        hidden, (k1, k1_rot, v1) = language.language_forward_streaming(
-            tcfg, lm, emb, delta_pos[:, step : step + 1], visible_len=decode_base,
-            extra=(dkr, dv), extra_visible=step, **arena_kw,
-        )
-        dk[:, step] = k1[:, 0]
-        dkr[:, step] = k1_rot[:, 0]
-        dv[:, step] = v1[:, 0]
-        logits = language.lm_logits(tcfg, lm, hidden)[0]
-
-    write_slots(k_arena, dk, decode_base)
-    write_slots(v_arena, dv, decode_base)
-    ids_arena[decode_base : decode_base + max_new] = gen
-    return gen, (~was_done).sum()
+    return gen[0], n_gen[0]
 
 
 # ---------------------------------------------------------------------------
@@ -243,11 +367,12 @@ class StreamingEngine:
         stream: StreamConfig,
         sampling: SamplingConfig,
         dtype: torch.dtype = torch.bfloat16,
+        allocate_arena: bool = True,  # False: the arena is owned elsewhere (a multi-stream lane)
     ):
         if stream.kv_quant not in ("none", "int8"):
             raise ValueError(f"kv_quant must be 'none' or 'int8', got {stream.kv_quant!r}")
-        if stream.rot_quant != "none":
-            raise NotImplementedError("the port does not run rot_quant='int8' yet")
+        if stream.rot_quant not in ("none", "int8"):
+            raise ValueError(f"rot_quant must be 'none' or 'int8', got {stream.rot_quant!r}")
         if stream.decode_int8_kernel is False:
             raise ValueError(
                 "decode_int8_kernel=False (the JAX package's jnp decode route) is not "
@@ -262,11 +387,19 @@ class StreamingEngine:
         self.device = model.text.embed.weight.device
         self.table = SegmentTable(all_text=stream.all_text)
         C = stream.kv_capacity
-        self._check_memory_budget()
-        self.k_arena, self.v_arena = language.init_kv_arena(
-            cfg.text, C, dtype, self.device, quant=stream.kv_quant
-        )
-        self.ids_arena = torch.zeros(C, dtype=torch.long, device=self.device)
+        if allocate_arena:
+            self._check_memory_budget()
+            self.k_arena, self.v_arena = language.init_kv_arena(
+                cfg.text, C, dtype, self.device, quant=stream.kv_quant
+            )
+            self.ids_arena = torch.zeros(C, dtype=torch.long, device=self.device)
+            t = cfg.text
+            reserve_decode_scratch(self.device, 1, t.num_key_value_heads, C,
+                                   t.num_attention_heads // t.num_key_value_heads, t.head_dim)
+        else:
+            # MultiStreamEngine owns the stacked [B, ...] arenas; this
+            # engine keeps only host accounting (table, positions)
+            self.k_arena = self.v_arena = self.ids_arena = None
         self.cached = 0  # arena slots holding valid KV (table prefix)
         # the last eviction's effect on `cached` (observability)
         self.cached_before_evict = 0
@@ -289,8 +422,9 @@ class StreamingEngine:
         prefill/decode transients, each at most one [C, Hkv, hd] layer: the
         rotated copy is built and an int8 arena dequantized layer by layer).
         An int8 arena costs 1 + 4/hd bytes per element (data + f32
-        per-(slot, head) scales); a raw arena has no rotated copy. No check
-        on the CPU."""
+        per-(slot, head) scales), and so does a rotated copy with
+        rot_quant="int8"; a raw arena has no rotated copy. No check on the
+        CPU."""
         if self.device.type != "cuda":
             return
         t = self.cfg.text
@@ -302,7 +436,12 @@ class StreamingEngine:
             arena = 2 * int(kv_elems * (1 + 4.0 / t.head_dim))
         else:
             arena = 2 * kv_elems * item
-        rot = kv_elems * item if st.effective_prerotate else 0
+        if not st.effective_prerotate:
+            rot = 0
+        elif st.rot_quant == "int8":
+            rot = int(kv_elems * (1 + 4.0 / t.head_dim))
+        else:
+            rot = kv_elems * item
         need = int((arena + rot) * 1.1)
         free, _ = torch.cuda.mem_get_info(self.device)
         if need > free:
@@ -406,6 +545,7 @@ class StreamingEngine:
             do_sample=self.sampling.do_sample,
             use_descriptors=(st.pos_mode == "shrink"),
             prerotate=st.effective_prerotate,
+            rot_quant=st.rot_quant,
         )
         gen, n_gen = chunk_step(
             statics, self.model, self.k_arena, self.v_arena, prep["slot_pos"],
@@ -432,16 +572,21 @@ class StreamingEngine:
         max_new: Optional[int] = None,
         eos_id: Optional[int] = None,
         timer=None,
+        evict: bool = True,  # False: the caller already ran evict_plan and the gather
+        device_arrays: bool = True,  # False: tokens and positions stay host numpy (a
+        # multi-stream round stacks B preps and uploads them once)
     ) -> Dict[str, Any]:
         """Host-side chunk preparation: eviction, table append, token
         assembly, positions, vision encode, capacity guard. The 'GEN' timer
-        section is left OPEN for finish_chunk to close."""
+        section is left OPEN for finish_chunk to close. vis_slots are host
+        ints either way."""
 
         def sec(name, sync=None):
             return timer.section(name, sync=sync) if timer else contextlib.nullcontext()
 
         with sec("PKV", sync=self._sync if timer else None):
-            self.evict()
+            if evict:
+                self.evict()
         input_cm = sec("INPUT")
         input_cm.__enter__()
 
@@ -494,7 +639,8 @@ class StreamingEngine:
                 extra_text=max_new,
             )
             assert tot_full == total + max_new
-            slot_pos = {k: torch.from_numpy(v).to(dev) for k, v in desc.items()}
+            slot_pos = {k: torch.from_numpy(v).to(dev) for k, v in desc.items()} \
+                if device_arrays else desc
         else:  # append: chunk tokens extend from last_cache_position + 1
             psegs = []
             if len(tail_ids):
@@ -522,7 +668,8 @@ class StreamingEngine:
             self._pos_host[:, total : total + max_new] = np.broadcast_to(
                 np.arange(max_new, dtype=np.float32) + next_p, (3, max_new)
             )
-            slot_pos = torch.from_numpy(self._pos_host.copy()).to(dev)
+            slot_pos = (torch.from_numpy(self._pos_host.copy()).to(dev) if device_arrays
+                        else self._pos_host.copy())
 
         tokens = np.full(t_pad, tkn.pad, np.int64)
         tokens[:n_real] = chunk_ids
@@ -542,10 +689,10 @@ class StreamingEngine:
             # slots from SEGMENT provenance, not id matching: a sampled token
             # equal to video_pad in the re-prefilled tail claims no embed row
             (slots,) = np.nonzero(self.table.vision_mask()[self.cached :])
-            vis_slots = torch.from_numpy(slots.astype(np.int64)).to(dev)
+            vis_slots = slots.astype(np.int64)
 
         return {
-            "tokens": torch.from_numpy(tokens).to(dev),
+            "tokens": torch.from_numpy(tokens).to(dev) if device_arrays else tokens,
             "slot_pos": slot_pos,
             "n_real": n_real,
             "t_pad": t_pad,
@@ -582,6 +729,19 @@ class StreamingEngine:
             self.uncached_tail += 1
         self.chunk_index += 1
         return gen_real, len(gen_real)
+
+    def finish_idle(self, handle: ChunkHandle) -> None:
+        """Account an idle lane's round (multi-stream dynamic lanes): the
+        batched step still ran the lane, re-forwarding any uncached tail
+        (now cached) and free-running decode tokens whose output is
+        discarded (their KV sits past `cached`, invisible, overwritten by
+        the next real chunk). Nothing joins the table, so cached +
+        uncached_tail == table length holds; chunk_index does not advance."""
+        assert handle is self._inflight, "finish_idle out of order"
+        self._inflight = None
+        self.cached += handle.n_real
+        if self.stream.pos_mode == "append":
+            self._next_pos = handle.next_p
 
     def rollback_generation(self, n_emitted: int) -> None:
         """Drop the KV of the tokens generated this chunk (ground-truth

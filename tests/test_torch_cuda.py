@@ -5,6 +5,8 @@ machine, which has none:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import time
+
 import pytest
 import torch
 
@@ -142,9 +144,11 @@ def test_raw_decode_kernel_matches_plain_on_card(cuda, quantized):
     args = (q, kq, ks, vq, vs, pos_t, ksm, vsm, 9000, 7)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)  # device records outside the trace's host window are dropped
         for _ in range(3):
             A.streaming_decode_attention_int8(*args, **kw)
         torch.cuda.synchronize()
+        time.sleep(0.05)
     kernels = [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")
                and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
     assert len(kernels) == 3 and all("decode_raw_kernel" in k for k in kernels), kernels
@@ -303,3 +307,57 @@ def test_decode_kernel_splits_on_card(cuda, vis, e1, evis):
     want = A.decode_attention_partials_plain(q, ka, va, vis)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 4, 8])
+def test_decode_lane_forms_on_card(cuda, B):
+    """K2's and K3's lane forms (one launch for B lanes, lengths from an
+    int32 device tensor, lanes of a [B, L, C, Hkv, hd] arena) against their
+    plain lane versions, to one bf16 ulp, with lanes shorter than one split
+    and of length 0; twice, so the per-(lane, kv head) counters are shown
+    back at zero."""
+    g = torch.Generator(device=cuda).manual_seed(B)
+    H, Hkv, hd, Cc, L, e1 = 28, 4, 128, 4096, 2, 21
+
+    def rn(*s):
+        return torch.randn(*s, generator=g, device=cuda).to(torch.bfloat16)
+
+    lens = [0, 1, 100, 641, 4001, 4096, 7, 3000][:B]
+    vis = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    q, ksm, vsm = rn(B, H, hd), rn(B, e1, Hkv, hd), rn(B, e1, Hkv, hd)
+    ka, va = rn(B, L, Cc, Hkv, hd)[:, 1], rn(B, L, Cc, Hkv, hd)[:, 1]  # lane-strided layers
+    kq, vq = quantize_kv(ka), quantize_kv(va)
+    pos = (torch.rand(B, Cc, 3, generator=g, device=cuda) * 900).floor()
+    kw = dict(e_delta=e1 - 1, mrope_section=(16, 24, 24), rope_theta=1e6)
+    for _ in range(2):
+        out = A.streaming_decode_attention_full(q, ka, va, ksm, vsm, vis, 7, e_delta=e1 - 1,
+                                                max_visible=max(lens))
+        _assert_decode_close(out, A.decode_attention_lanes_plain(q, ka, va, ksm, vsm, lens, 7,
+                                                                 e_delta=e1 - 1))
+        for arena in ((kq.q, kq.s, vq.q, vq.s), (ka, None, va, None)):
+            out = A.streaming_decode_attention_int8(q, *arena, pos, ksm, vsm, vis, 7,
+                                                    max_visible=max(lens), **kw)
+            _assert_decode_close(out, A.decode_attention_int8_lanes_plain(
+                q, *arena, pos, ksm, vsm, lens, 7, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("raw", [False, True])
+def test_prefill_lane_form_on_card(cuda, raw):
+    """K1's lane form (one plan over all lanes' units, lane-strided arena
+    layers) at ragged visible lengths against its plain lane version."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    B, T, H, Hkv, hd, Cc, L = 4, 200, 28, 4, 128, 2048, 2
+
+    def rn(*s):
+        return torch.randn(*s, generator=g, device=cuda).to(torch.bfloat16)
+
+    q, ks, vs = rn(B, T, H, hd), rn(B, T, Hkv, hd), rn(B, T, Hkv, hd)
+    ka, va = rn(B, L, Cc, Hkv, hd)[:, 0], rn(B, L, Cc, Hkv, hd)[:, 0]
+    ang = torch.randn(B, Cc, hd // 2, generator=g, device=cuda)
+    cs = ((torch.cat([ang.cos()] * 2, -1).contiguous(), torch.cat([ang.sin()] * 2, -1).contiguous())
+          if raw else (None, None))
+    vis = [0, 1, 1201, 2048]
+    out = A.streaming_prefill_attention(q, ka, va, *cs, ks, vs, vis)
+    _assert_prefill_close(out, A.prefill_attention_lanes_plain(q, ka, va, *cs, ks, vs, vis))

@@ -50,9 +50,12 @@ def test_engine_int8_raw_matches_jax_decode_kernel(both):
 
 
 def test_engine_rejects_rot_quant(both):
+    """rot_quant takes "none" or "int8" (tests/test_torch_rot_quant.py runs
+    it); any other storage of the rotated copy is refused."""
     _, model = both
-    with pytest.raises(NotImplementedError, match="rot_quant"):
-        StreamingEngine(CFG, model, _parity_stream(rot_quant="int8"), GREEDY, dtype=torch.float32)
+    with pytest.raises(ValueError, match="rot_quant"):
+        StreamingEngine(CFG, model, _parity_stream(rot_quant="int4"), GREEDY, dtype=torch.float32)
+    StreamingEngine(CFG, model, _parity_stream(rot_quant="int8"), GREEDY, dtype=torch.float32)
 
 
 def test_engine_rejects_plain_decode_route(both):

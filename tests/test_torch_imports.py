@@ -43,6 +43,7 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
     assert len(mods) > 15 and {
         "streaming_vlm_tpu_torch.serve", "streaming_vlm_tpu_torch.ops.quant",
         "streaming_vlm_tpu_torch.ops._kernels", "streaming_vlm_tpu_torch.models.bridge",
+        "streaming_vlm_tpu_torch.streaming.multistream",
     } <= set(mods)
     code = (
         "import importlib, sys\n"

@@ -235,7 +235,7 @@ def test_streaming_decode_raw_arena(both, quant, use_decode_int8, monkeypatch):
     tests/test_pallas_attention.py:279."""
     params, model = both
     if use_decode_int8 is False:
-        monkeypatch.setattr(tl, "streaming_decode_attention_int8", ta.decode_attention_int8_plain)
+        monkeypatch.setattr(tl, "streaming_decode_attention_int8", ta.decode_attention_int8_lanes_plain)
     rng = np.random.default_rng(7)
     C, E, vis, e_vis = 512, 6, 300, 4  # C a multiple of the TPU kernel's tile
     emb = (rng.normal(size=(1, TCFG.hidden_size)) * 0.1).astype(np.float32)

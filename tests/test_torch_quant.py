@@ -20,9 +20,10 @@ from streaming_vlm_tpu_torch.ops.quant import (
     dequantize_kv,
     gather_slots,
     is_kv_quantized,
-    layer_slice,
+    lanes_layer,
     quantize_kv,
     storage,
+    with_lanes,
     write_slots,
 )
 
@@ -107,8 +108,9 @@ def test_arena_helpers_agree_across_representations(quant):
     torch.testing.assert_close(
         as_float(gather_slots(arena, idx), torch.float32), want.index_select(1, idx), atol=0, rtol=0
     )
-    torch.testing.assert_close(as_float(layer_slice(arena, 2), torch.float32), want[2], atol=0, rtol=0)
-    data, scales = storage(layer_slice(arena, 2))
+    layer = lanes_layer(with_lanes(arena), 2)  # layer 2 of a one-lane [1, L, C, ...] arena
+    torch.testing.assert_close(as_float(layer, torch.float32)[0], want[2], atol=0, rtol=0)
+    data, scales = storage(layer)
     assert data.dtype == (torch.int8 if quant else torch.float32)
-    assert (scales is not None) == quant and (scales is None or scales.shape == (4, 3))
+    assert (scales is not None) == quant and (scales is None or scales.shape == (1, 4, 3))
     assert compute_dtype(arena, torch.bfloat16) == (torch.bfloat16 if quant else torch.float32)

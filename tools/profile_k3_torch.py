@@ -79,7 +79,7 @@ def _timeline_copy() -> Path:
         if s.count(text) != 1:
             raise AssertionError(f"timeline: {text!r} is not once in {RAW}")
         s = s.replace(text, MARK.format(k=k) + text if before else text + MARK.format(k=k))
-    end = "nullptr, kvh, part, n_parts, G);\n"
+    end = "blockIdx.z * Hkv + kvh, kvh, s_slot[0], s_slot[1], gridDim.x, G);\n"
     if s.count(end) != 1:
         raise AssertionError(f"timeline: {end!r} is not once in {RAW}")
     s = s.replace(end, end + MARK.format(k=6))
