@@ -12,7 +12,8 @@ Phases; any failure exits non-zero:
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes (Qwen2.5-VL-7B attention geometry: H=28, Hkv=4,
    hd=128, arena C=10240): K1 prefill (both arena modes; T in {640, 200,
-   64}, visible lengths on and off its 128-key tile), K2 decode over the
+   64}, visible lengths on and off its 128-key tile; and recompute mode's
+   causal self block alone at T = 10240, visible 0), K2 decode over the
    pre-rotated arena (visible 0 to C, on and off the host's split, a small
    block longer than the kernel's tile), K3 decode over the raw arena (int8
    and bf16 storage, shrink- and append-range positions, visible 0 to C on
@@ -20,8 +21,8 @@ Phases; any failure exits non-zero:
    one kernel a call), K4 decode
    partials (and their merge with the small block against K2), K5 W8A8
    products (the int32 form at the TPU probe's 4096^3 and at ragged shapes;
-   the serving form at every (M, K, N) of the 7B path, bf16 and f32 out,
-   weights in QLinear's padded rows). K1 and the decode kernels are held to
+   the serving form at every (M, K, N) of the 7B path, Qwen2-VL's vision
+   products included, bf16 and f32 out, weights in QLinear's padded rows). K1 and the decode kernels are held to
    one bf16 ulp of each output value (plus one ulp of the largest for K1, a
    small fraction of it for the others), K5 to bitwise equality, and phase
    3 is run again on copies of the port with K1 (kernel or plan), K2, K3 or
@@ -42,7 +43,10 @@ Phases; any failure exits non-zero:
    against the plain full-attention oracle `language_forward` in f32 on the
    same random weights: over the pre-rotated bf16 arena (K1, K2), over the
    int8 raw arena (K1 raw mode, K3), and with W8A8 weights over the int8
-   pre-rotated arena (K5, K1, K2; the oracle runs the dequantized weights).
+   pre-rotated arena (K5, K1, K2; the oracle runs the dequantized weights);
+   the same at Qwen2-VL-7B's widths (bf16 and W8A8), and Qwen2-VL-7B's
+   vision tower (4 of its blocks, one chunk's frames patchified on the card)
+   in bf16 and W8A8 (K5) against its f32 oracle.
 5. slices: Qwen2.5-VL-7B served through `serve.streaming_inference_frames`,
    20 one-second chunks of 2 synthetic 476x840 frames each, three times:
    slice A with random bf16 weights and the default StreamConfig (the
@@ -61,7 +65,17 @@ Phases; any failure exits non-zero:
    lane forms, K5 tiled at M = 6); slice E, 8 lanes with rot_quant="int8";
    slice F, 4 lanes over the int8 raw arena (K1 raw and K3 lane forms).
    Each prints round wall p50 / max, aggregate ingest frames/s and the
-   lanes' occupancy after eviction, and checks its launch counts.
+   lanes' occupancy after eviction, and checks its launch counts. Slice G
+   serves Qwen2-VL-7B (random W8A8 weights, all 28 layers and 32 vision
+   blocks, kv_quant="int8") through bench.py's single-stream route:
+   `prewarm`, a throwaway warm chunk, a fresh `StreamingSession`, 20 chunks
+   whose frames are uploaded and patchified on the card, the next chunk's
+   encode launched behind each step, and bench.py's qa question at chunk
+   10 (a larger bucket); it prints p50, max and the qa chunk. Slice H
+   serves slice A's bf16 weights in recompute mode (efficiency config (c):
+   window 16, text rounds 16, no sink, kv_capacity 14848, buckets to
+   10240): every chunk re-encodes its window and re-prefills at cached 0
+   (K1 at visible 0, up to ~8.9k tokens), with the bucket of each chunk.
 
 The second-to-last line is a JSON object with each kernel's numbers; the
 last line is {"ok": true, "device": {...}}.
@@ -465,7 +479,9 @@ def phase_kernels():
     k1["plan"] = {f"T={t}": dict(zip(("ctas", "segments", "merges"), (
         p.n_ctas, len(p.segs), len(p.merges)))) for t in (640, 64)
         for p in [A.prefill_plan(t, H // Hkv, Hkv, vis, n_sms)]}
-    stats["streaming_prefill_attention"] = dict(max_abs_err=k1_err, **k1)
+    rec = _phase_k1_recompute(g)
+    k1["recompute"] = rec
+    stats["streaming_prefill_attention"] = dict(max_abs_err=max(k1_err, rec["max_abs_err"]), **k1)
     print(f"  K1 T={T} visible_len={vis}: kernel {k1['ms']:.4f} ms (device {k1['device_ms']:.4f} ms, "
           f"{k1['tflops']:.1f} TFLOP/s), raw mode {k1['ms_raw_mode']:.4f} ms (device "
           f"{k1['device_ms_raw_mode']:.4f}), plain {k1['plain_ms']:.4f} ms, sdpa "
@@ -628,6 +644,64 @@ def phase_kernels():
     return stats
 
 
+# recompute mode (efficiency config (c), slice H): the whole window re-
+# prefills at cached == 0, so K1 sees the causal self block alone at up to
+# the largest bucket slice H takes; its plain version runs in row blocks
+K1_RECOMPUTE_T = 10240
+K1_PLAIN_ROWS = 1024
+
+
+def _phase_k1_recompute(g) -> dict:
+    """K1 at visible 0 with T = K1_RECOMPUTE_T (pre-rotated mode: the arena
+    is not read) against its plain version, computed K1_PLAIN_ROWS query
+    rows at a time: rows [r0, r1) attend keys [0, r0) as a fully visible
+    "arena" and [r0, r1) causally, the same joint softmax. Times beside
+    SDPA (is_causal) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from streaming_vlm_tpu_torch.ops import attention as A
+
+    dev = "cuda"
+    H, Hkv, hd, T = 28, 4, 128, K1_RECOMPUTE_T
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    q, ks, vs = rn(T, H, hd), rn(T, Hkv, hd), rn(T, Hkv, hd)
+    ka, va = rn(64, Hkv, hd), rn(64, Hkv, hd)  # an arena that visible 0 never reads
+    out = A.streaming_prefill_attention(q, ka, va, None, None, ks, vs, 0)
+
+    def plain():
+        parts = [A.prefill_attention_plain(q[r0:r0 + K1_PLAIN_ROWS], ks, vs, None, None,
+                                           ks[r0:r0 + K1_PLAIN_ROWS], vs[r0:r0 + K1_PLAIN_ROWS], r0)
+                 for r0 in range(0, T, K1_PLAIN_ROWS)]
+        return torch.cat(parts)
+
+    err = _check_k1(out, plain(), dict(T=T, visible_len=0, mode="prerotated, recompute"))
+    torch.cuda.empty_cache()
+    f = lambda: A.streaming_prefill_attention(q, ka, va, None, None, ks, vs, 0)  # noqa: E731
+    r = dict(T=T, visible_len=0, max_abs_err=err, ms=_median_ms(f, reps=5, batch=3),
+             device_ms=_device_ms(f, n=5), plain_ms=_median_ms(plain, reps=2, batch=1))
+    rep = lambda x: x.repeat_interleave(H // Hkv, dim=1).transpose(0, 1)[None].contiguous()  # noqa: E731
+    qq, kk, vv = q.transpose(0, 1)[None].contiguous(), rep(ks), rep(vs)
+    r["library_ms"] = _median_ms(
+        lambda: F.scaled_dot_product_attention(qq, kk, vv, is_causal=True), reps=5, batch=3)
+    del qq, kk, vv
+    flops = 4 * T * H * hd * (T + 1) / 2  # QK^T and PV over the causal keys
+    r["bound_ms"], r["bound_by"] = _bound(_nbytes(q, ks, vs) + _nbytes(q), flops)
+    p = A.prefill_plan(T, H // Hkv, Hkv, 0, torch.cuda.get_device_properties(0)
+                       .multi_processor_count)
+    r["plan"] = dict(ctas=p.n_ctas, segments=len(p.segs), merges=len(p.merges))
+    print(f"  K1 T={T} visible_len=0 (recompute): kernel {r['ms']:.4f} ms (device "
+          f"{r['device_ms']:.4f} ms), plain (row blocks) {r['plain_ms']:.4f} ms, sdpa causal "
+          f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); plan "
+          f"{r['plan']}")
+    del q, ks, vs, out
+    torch.cuda.empty_cache()
+    return r
+
+
 def _sdpa_lanes_ms(q, ks, vs, mask):
     """F.scaled_dot_product_attention's time over B lanes at once: q [B, T,
     H, hd], keys/values [B, S, Hkv, hd] (kv heads repeated per query head),
@@ -782,7 +856,9 @@ def _phase_lanes(g) -> dict:
 
 # K5 at the 7B path's shapes: (what, M, K, N, bias, f32 out). Text decode
 # (M=1) and chunk prefill (M=640, the 640-token bucket), the vision tower
-# at 2 frames of 476x840 (M=2040 patches) and its merger (M=510 tokens)
+# at 2 frames of 476x840 (M=2040 patches) and its merger (M=510 tokens):
+# qkv, proj and the merger are Qwen2.5-VL's and Qwen2-VL's; gate/up/down
+# Qwen2.5-VL's SwiGLU, fc1/fc2 Qwen2-VL's MLP (slice G)
 K5_SERVING = (
     ("decode q_proj", 1, 3584, 3584, True, False),
     ("decode k/v_proj", 1, 3584, 512, True, False),
@@ -799,6 +875,8 @@ K5_SERVING = (
     ("vision proj", 2040, 1280, 1280, True, False),
     ("vision gate/up_proj", 2040, 1280, 3420, True, False),
     ("vision down_proj", 2040, 3420, 1280, True, False),
+    ("qwen2 vision fc1", 2040, 1280, 5120, True, False),
+    ("qwen2 vision fc2", 2040, 5120, 1280, True, False),
     ("merger fc1", 510, 5120, 5120, True, False),
     ("merger fc2", 510, 5120, 3584, True, False),
     # the multi-stream slices: decode at M = B lanes (the tiled path above
@@ -814,7 +892,10 @@ K5_INT32 = ((4096, 4096, 4096), (2040, 3420, 1280), (2040, 1280, 3420), (1, 3584
             (1, 3420, 1280), (3, 3584, 512))
 K5_TIMED = ("decode gate/up_proj", "lm_head", "prefill gate/up_proj",
             "decode (6 lanes) gate/up_proj", "decode (8 lanes) gate/up_proj",
-            "prefill (6 lanes) gate/up_proj")
+            "prefill (6 lanes) gate/up_proj", "vision qkv", "vision proj", "qwen2 vision fc1",
+            "qwen2 vision fc2", "merger fc1", "merger fc2")
+K5_QWEN2_VISION = ("vision qkv", "vision proj", "qwen2 vision fc1", "qwen2 vision fc2",
+                   "merger fc1", "merger fc2")
 
 
 def _phase_k5(g) -> dict:
@@ -933,6 +1014,7 @@ def _phase_k5(g) -> dict:
             "library")
     gemv, tiled = by_shape["decode gate/up_proj"], by_shape["prefill gate/up_proj"]
     lanes = {w: by_shape[w] for w in K5_TIMED if "lanes" in w}
+    qwen2_vision = {w: by_shape[w] for w in K5_QWEN2_VISION}
     return {
         "gemv": dict(max_abs_err=err, shape="decode gate/up_proj (M=1, K=3584, N=18944)",
                      bf16_linear_ms=gemv["bf16_linear_ms"], **{k: gemv[k] for k in keys},
@@ -940,7 +1022,7 @@ def _phase_k5(g) -> dict:
         "tiled": dict(max_abs_err=err, shape="prefill gate/up_proj (M=640, K=3584, N=18944), "
                       "serving form (row quantization + product + epilogue)",
                       **{k: tiled[k] for k in keys}, int32_form=int32, probe=probe,
-                      lanes=lanes),
+                      lanes=lanes, qwen2_vision=qwen2_vision),
     }
 
 
@@ -973,7 +1055,7 @@ def _plain_raw_decode():
         lang.streaming_decode_attention_int8 = kernel
 
 
-def phase_reference(cfg):
+def phase_reference(cfg, cases: str = "abc"):
     """At 7B width with the decoder cut to REF_LAYERS layers: the streaming
     forward through the kernels in bf16 against the plain full-attention
     oracle in f32 on the same weights, (a) over the pre-rotated bf16 arena
@@ -984,7 +1066,7 @@ def phase_reference(cfg):
     with the weights quantized to W8A8, over the int8 arena with its
     pre-rotated K copy (K5 for every product, K1, K2), against the oracle
     on the dequantized weights (noise floor: the same forward with K5's
-    plain version)."""
+    plain version). `cases` picks among (a), (b) and (c)."""
     import copy
 
     import numpy as np
@@ -1024,67 +1106,73 @@ def phase_reference(cfg):
     errs = {}
 
     # (a) the pre-rotated bf16 arena: K1, then K2
-    ka, va = lang.init_kv_arena(tcfg, C, torch.bfloat16, dev)
-    _, (_, kbr, vb) = lang.language_forward_streaming(
-        tcfg, lm, emb[:T], pos[:, :T], arena=(ka, va), arena_rotated=True, visible_len=0
-    )
-    ka[:, :T], va[:, :T] = kbr, vb  # the pre-rotated arena holds the prefix
-    hidden, _ = lang.language_forward_streaming(
-        tcfg, lm, emb[T:], pos[:, T:], arena=(ka, va), arena_rotated=True, visible_len=T, **delta
-    )
-    errs["bf16 pre-rotated (K1, K2)"] = (rel(lang.lm_logits(tcfg, lm, hidden)[0]), rel(oracle16))
+    if "a" in cases:
+        ka, va = lang.init_kv_arena(tcfg, C, torch.bfloat16, dev)
+        _, (_, kbr, vb) = lang.language_forward_streaming(
+            tcfg, lm, emb[:T], pos[:, :T], arena=(ka, va), arena_rotated=True, visible_len=0
+        )
+        ka[:, :T], va[:, :T] = kbr, vb  # the pre-rotated arena holds the prefix
+        hidden, _ = lang.language_forward_streaming(
+            tcfg, lm, emb[T:], pos[:, T:], arena=(ka, va), arena_rotated=True, visible_len=T,
+            **delta
+        )
+        errs["bf16 pre-rotated (K1, K2)"] = (rel(lang.lm_logits(tcfg, lm, hidden)[0]),
+                                             rel(oracle16))
 
     # (b) the int8 raw arena: K1 raw mode, quantize the block, then K3
-    apos = torch.zeros(3, C, device=dev)
-    apos[:, : T + 1] = pos
-    kq, vq = lang.init_kv_arena(tcfg, C, torch.bfloat16, dev, quant="int8")
-    _, (kb, _, vb) = lang.language_forward_streaming(
-        tcfg, lm, emb[:T], pos[:, :T], arena=(kq, vq), arena_positions=apos, visible_len=0
-    )
-    for arena, block in ((kq, kb), (vq, vb)):
-        qb = quantize_kv(block)
-        arena.q[:, :T], arena.s[:, :T] = qb.q, qb.s
-    assert isinstance(kq, QuantKV)
-    raw = dict(arena=(kq, vq), arena_positions=apos, visible_len=T, **delta)
-    h_k3, _ = lang.language_forward_streaming(tcfg, lm, emb[T:], pos[:, T:], **raw)
-    with _plain_raw_decode():
-        h_plain, _ = lang.language_forward_streaming(tcfg, lm, emb[T:], pos[:, T:], **raw)
-    errs["int8 raw (K1 raw, K3)"] = (rel(lang.lm_logits(tcfg, lm, h_k3)[0]),
-                                    rel(lang.lm_logits(tcfg, lm, h_plain)[0]))
+    if "b" in cases:
+        apos = torch.zeros(3, C, device=dev)
+        apos[:, : T + 1] = pos
+        kq, vq = lang.init_kv_arena(tcfg, C, torch.bfloat16, dev, quant="int8")
+        _, (kb, _, vb) = lang.language_forward_streaming(
+            tcfg, lm, emb[:T], pos[:, :T], arena=(kq, vq), arena_positions=apos, visible_len=0
+        )
+        for arena, block in ((kq, kb), (vq, vb)):
+            qb = quantize_kv(block)
+            arena.q[:, :T], arena.s[:, :T] = qb.q, qb.s
+        assert isinstance(kq, QuantKV)
+        raw = dict(arena=(kq, vq), arena_positions=apos, visible_len=T, **delta)
+        h_k3, _ = lang.language_forward_streaming(tcfg, lm, emb[T:], pos[:, T:], **raw)
+        with _plain_raw_decode():
+            h_plain, _ = lang.language_forward_streaming(tcfg, lm, emb[T:], pos[:, T:], **raw)
+        errs["int8 raw (K1 raw, K3)"] = (rel(lang.lm_logits(tcfg, lm, h_k3)[0]),
+                                        rel(lang.lm_logits(tcfg, lm, h_plain)[0]))
 
     # (c) W8A8 weights over the int8 arena, pre-rotated (K5, K1, K2), against
     # the f32 oracle on the dequantized weights (q * s); noise floor: the
     # same forward with K5's plain version
-    lmq = quantize_language(copy.deepcopy(lm))
-    deq = lm32
-    for layer, qlayer in zip(deq.layers, lmq.layers):
-        for name in LAYER_LINEARS:
-            ql = getattr(qlayer, name)
-            getattr(layer, name).weight.copy_(ql.q.float() * ql.s[:, None])
-    deq.lm_head.weight.copy_(lmq.lm_head.q.float() * lmq.lm_head.s[:, None])
-    oracle_q = lang.lm_logits(tcfg, deq, lang.language_forward(tcfg, deq, emb.float(), pos))[-1]
+    if "c" in cases:
+        lmq = quantize_language(copy.deepcopy(lm))
+        deq = lm32
+        for layer, qlayer in zip(deq.layers, lmq.layers):
+            for name in LAYER_LINEARS:
+                ql = getattr(qlayer, name)
+                getattr(layer, name).weight.copy_(ql.q.float() * ql.s[:, None])
+        deq.lm_head.weight.copy_(lmq.lm_head.q.float() * lmq.lm_head.s[:, None])
+        oracle_q = lang.lm_logits(tcfg, deq, lang.language_forward(tcfg, deq, emb.float(), pos))[-1]
 
-    def w8a8_logits():
-        kr = torch.zeros(L, C, Hkv, hd, dtype=torch.bfloat16, device=dev)  # rotated K copy
-        _, vq8 = lang.init_kv_arena(tcfg, C, torch.bfloat16, dev, quant="int8")
-        _, (_, kbr, vb) = lang.language_forward_streaming(
-            tcfg, lmq, emb[:T], pos[:, :T], arena=(kr, vq8), arena_rotated=True, visible_len=0
-        )
-        kr[:, :T] = kbr
-        write_slots(vq8, vb, 0)
-        h, _ = lang.language_forward_streaming(
-            tcfg, lmq, emb[T:], pos[:, T:], arena=(kr, vq8), arena_rotated=True, visible_len=T,
-            **delta,
-        )
-        return lang.lm_logits(tcfg, lmq, h)[0]
+        def w8a8_logits():
+            kr = torch.zeros(L, C, Hkv, hd, dtype=torch.bfloat16, device=dev)  # rotated K copy
+            _, vq8 = lang.init_kv_arena(tcfg, C, torch.bfloat16, dev, quant="int8")
+            _, (_, kbr, vb) = lang.language_forward_streaming(
+                tcfg, lmq, emb[:T], pos[:, :T], arena=(kr, vq8), arena_rotated=True, visible_len=0
+            )
+            kr[:, :T] = kbr
+            write_slots(vq8, vb, 0)
+            h, _ = lang.language_forward_streaming(
+                tcfg, lmq, emb[T:], pos[:, T:], arena=(kr, vq8), arena_rotated=True, visible_len=T,
+                **delta,
+            )
+            return lang.lm_logits(tcfg, lmq, h)[0]
 
-    def rel_q(x):
-        return float((x - oracle_q).abs().max() / oracle_q.abs().max())
+        def rel_q(x):
+            return float((x - oracle_q).abs().max() / oracle_q.abs().max())
 
-    got = w8a8_logits()
-    with _plain_k5():
-        floor = w8a8_logits()
-    errs["W8A8, int8 pre-rotated (K5, K1, K2)"] = (rel_q(got), rel_q(floor))
+        got = w8a8_logits()
+        with _plain_k5():
+            floor = w8a8_logits()
+        errs["W8A8, int8 pre-rotated (K5, K1, K2)"] = (rel_q(got), rel_q(floor))
+        del lmq, deq
     torch.cuda.synchronize()
     for name, (err, floor) in errs.items():
         ok = math.isfinite(err) and err <= REF_NOISE_FACTOR * floor
@@ -1093,9 +1181,69 @@ def phase_reference(cfg):
               f"{floor:.3e} (bound {REF_NOISE_FACTOR} x plain) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"streaming forward ({name}) disagrees with the plain oracle")
-    del lm, lm32, lmq, deq
+    del lm, lm32
     torch.cuda.empty_cache()
     return errs
+
+
+REF_VISION_BLOCKS = 4
+
+
+def phase_vision_reference(cfg):
+    """The vision tower at the config's widths, cut to REF_VISION_BLOCKS
+    blocks, on one chunk: 2 synthetic 476x840 uint8 frames patchified on
+    the card (grid (1, 34, 60), 2040 patches). The tower in bf16 (no
+    kernel: plain attention and cuBLAS) and with W8A8 weights (K5 for every
+    block and merger product) against the f32 tower on the same weights
+    (the dequantized q * s for W8A8), as max |diff| / max |oracle|; the
+    W8A8 tower may be at most REF_NOISE_FACTOR times as far from its oracle
+    as the same tower with K5's plain version."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from streaming_vlm_tpu_torch.models.qwen25_vl import vision as V
+    from streaming_vlm_tpu_torch.models.qwen25_vl.model import init_params
+    from streaming_vlm_tpu_torch.ops.quant import QLinear, quantize_vision
+
+    vcfg = dataclasses.replace(cfg.vision, depth=REF_VISION_BLOCKS)
+    small = dataclasses.replace(cfg, vision=vcfg,
+                                text=dataclasses.replace(cfg.text, num_hidden_layers=1))
+    tower = init_params(small, torch.Generator(device="cuda").manual_seed(2), device="cuda",
+                        dtype=torch.bfloat16).vision
+    grid = (1, 34, 60)
+    frames = torch.from_numpy(np.random.default_rng(7).integers(
+        0, 256, (2, 476, 840, 3), dtype=np.uint8)).cuda()
+    geo = tower.geometry([grid], frames.device)
+    px16 = V.patchify_on_device(vcfg, frames, torch.bfloat16)
+    px32 = V.patchify_on_device(vcfg, frames, torch.float32)
+    oracle = V.vision_forward(vcfg, copy.deepcopy(tower).float(), px32, geo)
+
+    def rel(x, ref):
+        return float((x.float() - ref).abs().max() / ref.abs().max())
+
+    err16 = rel(V.vision_forward(vcfg, tower, px16, geo), oracle)
+    towerq = quantize_vision(copy.deepcopy(tower))
+    deq = copy.deepcopy(tower).float()
+    for (name, mod), (_, qmod) in zip(deq.named_modules(), towerq.named_modules()):
+        if isinstance(qmod, QLinear):
+            mod.weight.copy_(qmod.q.float() * qmod.s[:, None])
+    oracle_q = V.vision_forward(vcfg, deq, px32, geo)
+    got = rel(V.vision_forward(vcfg, towerq, px16, geo), oracle_q)
+    with _plain_k5():
+        floor = rel(V.vision_forward(vcfg, towerq, px16, geo), oracle_q)
+    torch.cuda.synchronize()
+    ok = math.isfinite(got) and got <= REF_NOISE_FACTOR * floor
+    print(f"  {cfg.name} vision tower ({vcfg.variant}), {REF_VISION_BLOCKS} blocks, grid {grid}, "
+          f"merged out max|diff|/max|oracle| vs the f32 oracle: bf16 {err16:.3e}; W8A8 kernels "
+          f"{got:.3e}, plain K5 {floor:.3e} (bound {REF_NOISE_FACTOR} x plain) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not (ok and math.isfinite(err16)):
+        raise AssertionError(f"{cfg.name} vision tower disagrees with the f32 oracle")
+    del tower, towerq, deq
+    torch.cuda.empty_cache()
+    return {"bf16": err16, "w8a8": got, "w8a8_plain_k5": floor}
 
 
 def _ptxas_verbose(kernels, source: str) -> subprocess.Popen:
@@ -1155,10 +1303,11 @@ def _report_profile(prof, wall: float, out: Path) -> None:
         print("   " + line[:160])
 
 
-def phase_slice(cfg, model, n_chunks: int, stream, expect: dict, profile: Path | None = None):
-    """Serve n_chunks through streaming_inference_frames with `stream`.
-    `expect` maps each kernel to its launch count per chunk (0 for the
-    kernels it leaves out)."""
+def phase_slice(cfg, model, n_chunks: int, stream, expect: dict, profile: Path | None = None,
+                recompute: bool = False):
+    """Serve n_chunks through streaming_inference_frames with `stream`
+    (and `recompute`). `expect` maps each kernel to its launch count per
+    chunk (0 for the kernels it leaves out)."""
     import numpy as np
     import torch
 
@@ -1166,6 +1315,7 @@ def phase_slice(cfg, model, n_chunks: int, stream, expect: dict, profile: Path |
     from streaming_vlm_tpu_torch.ops import quant as Q
     from streaming_vlm_tpu_torch.serve import streaming_inference_frames
     from streaming_vlm_tpu_torch.streaming.protocol import FakeTokenizer
+    from streaming_vlm_tpu_torch.utils.buckets import bucket_for
 
     rng = np.random.default_rng(0)
     # 16:9 under max_pixels_for_window(16) -> grid (1, 34, 60), 510 tokens
@@ -1178,7 +1328,7 @@ def phase_slice(cfg, model, n_chunks: int, stream, expect: dict, profile: Path |
     with prof:
         responses, times = streaming_inference_frames(
             cfg=cfg, model=model, tokenizer=FakeTokenizer(cfg.tokens), frames=frames,
-            stream=stream, time_test=True, quiet=True,
+            stream=stream, time_test=True, quiet=True, recompute=recompute,
         )
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1187,8 +1337,10 @@ def phase_slice(cfg, model, n_chunks: int, stream, expect: dict, profile: Path |
     if profile:
         _report_profile(prof, wall, profile)
     for i, t in enumerate(times):
+        bucket = bucket_for(t["prefill_len"], stream.prefill_buckets)
         print(f"  chunk {i:2d}: {t['gen_time_sec'] * 1e3:9.2f} ms  tokens={t['decoded_tokens']:2d}  "
-              f"kv={t['kv']} (evict {t['kv_pre_evict']} -> {t['kv_post_evict']})")
+              f"kv={t['kv']} (evict {t['kv_pre_evict']} -> {t['kv_post_evict']})  prefill "
+              f"{t['prefill_len']} -> bucket {bucket}")
     print(f"  slice: {len(times)} chunks in {wall:.3f} s; launches {launches}")
     lat = sorted(t["gen_time_sec"] * 1e3 for t in times)
     n_frames = sum(len(f) for f in frames)
@@ -1205,7 +1357,114 @@ def phase_slice(cfg, model, n_chunks: int, stream, expect: dict, profile: Path |
     want = {k: n_chunks * expect.get(k, 0) for k in launches}
     assert launches == want, (launches, want)
     assert all(isinstance(r["response"], str) for r in responses)
-    return launches
+    return launches, dict(chunk_p50_ms=statistics.median(lat), chunk_max_ms=lat[-1],
+                          buckets=[bucket_for(t["prefill_len"], stream.prefill_buckets)
+                                   for t in times])
+
+
+# slice G: bench.py's single-stream route; its qa question (the bench's
+# QA_QUESTION) lands at chunk QA_AT and moves that chunk to a larger bucket
+QA_QUESTION = (
+    " Also, what is the current score of the match, which team has the "
+    "momentum right now, and who looks most likely to score next?"
+)
+QA_AT = 10
+
+
+def phase_bench_route(cfg, model, n_chunks: int, stream, expect: dict,
+                      profile: Path | None = None):
+    """bench.py's single-stream route through StreamingSession: prewarm
+    (every bucket's chunk step and the uint8-frames encode), one throwaway
+    warm chunk, then a fresh session on the same model and n_chunks chunks
+    of 2 synthetic 476x840 uint8 frames, each uploaded (`upload_frames`) and
+    patchified on the card; chunk 0 takes its frames into its own step
+    (frames_u8=), chunk i+1's encode is launched right after chunk i's step,
+    and QA_QUESTION is injected at chunk QA_AT. A chunk's latency runs from
+    its launch to its tokens on the host (the next chunk's upload and encode
+    launch inside it, as in bench.py). `expect` maps each kernel to its
+    launches per chunk; the counts are reset after the warm chunk."""
+    import numpy as np
+    import torch
+
+    from streaming_vlm_tpu_torch.models.qwen25_vl.model import encode_video_frames
+    from streaming_vlm_tpu_torch.ops import attention as A
+    from streaming_vlm_tpu_torch.ops import quant as Q
+    from streaming_vlm_tpu_torch.serve import StreamingSession
+    from streaming_vlm_tpu_torch.streaming.protocol import FakeTokenizer
+    from streaming_vlm_tpu_torch.utils.buckets import bucket_for
+
+    rng = np.random.default_rng(1)
+    frames = [rng.integers(0, 256, (2, 476, 840, 3), dtype=np.uint8) for _ in range(n_chunks + 1)]
+    grid = (1, 34, 60)
+    tok = FakeTokenizer(cfg.tokens)
+    session = StreamingSession(cfg, model, tok, stream=stream)
+    t0 = time.perf_counter()
+    n_variants = session.engine.prewarm(grids=(grid,), vision="frames")
+    prewarm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    session.run_chunk(0, 0.0, frames_u8=session.engine.upload_frames(frames[-1]), grid_thw=grid)
+    warm_s = time.perf_counter() - t0
+    print(f"  prewarm: {n_variants} chunk-step variants + the frames encode + the gather in "
+          f"{prewarm_s:.3f} s; warm chunk {warm_s:.3f} s")
+    del session
+    session = StreamingSession(cfg, model, tok, stream=stream)
+    eng = session.engine
+    prof = _profiler() if profile else contextlib.nullcontext()
+    lat, info, embeds = [], [], None
+    torch.cuda.synchronize()
+    A.reset_launch_counts()
+    Q.reset_launch_counts()
+    t_all = time.perf_counter()
+    with prof:
+        for i in range(n_chunks):
+            q = QA_QUESTION if i == QA_AT else ""
+            t0 = time.perf_counter()
+            if i == 0:
+                h = session.run_chunk_async(0, 0.0, frames_u8=eng.upload_frames(frames[0]),
+                                            grid_thw=grid, question=q)
+            else:
+                h = session.run_chunk_async(i, float(i), vis_embeds=embeds, grid_thw=grid,
+                                            question=q)
+            if i + 1 < n_chunks:
+                embeds = encode_video_frames(cfg, model, eng.upload_frames(frames[i + 1]), grid)
+            n_real = h.n_real
+            _, gen = session.finish_chunk(i, h)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            info.append((len(gen), eng.cached, eng.cached_before_evict, eng.cached_after_evict,
+                         bucket_for(n_real, stream.prefill_buckets)))
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t_all
+    launches = {**A.launch_counts, **Q.launch_counts,
+                **{f"int8_gemm/{k}": v for k, v in Q.path_counts.items()}}
+    if profile:
+        _report_profile(prof, wall, profile)
+    for i, (ms, (n, kv, pre, post, b)) in enumerate(zip(lat, info)):
+        print(f"  chunk {i:2d}: {ms:9.2f} ms  tokens={n:2d}  kv={kv} (evict {pre} -> {post})  "
+              f"bucket {b}" + ("  (qa question)" if i == QA_AT else ""))
+    # the tower's share: one chunk's frames encode alone, synchronised
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encode_video_frames(cfg, model, eng.upload_frames(frames[0]), grid)
+        torch.cuda.synchronize()
+        tower_ms = (time.perf_counter() - t0) * 1e3
+    s_lat = sorted(lat)
+    p50 = statistics.median(lat)
+    print(f"  slice: {n_chunks} chunks in {wall:.3f} s; chunk latency p50 {p50:.2f} ms, max "
+          f"{s_lat[-1]:.2f} ms; qa chunk {QA_AT} {lat[QA_AT]:.2f} ms ({lat[QA_AT] / p50:.3f} x "
+          f"p50, bucket {info[QA_AT][4]}); chunk 0 {lat[0]:.2f} ms ({lat[0] / p50:.3f} x p50); "
+          f"vision encode alone {tower_ms:.2f} ms ({tower_ms / p50:.1%} of p50); "
+          f"launches {launches}")
+    assert all(0 < n <= stream.max_tokens_per_chunk + 1 for n, *_ in info)
+    assert max(max(kv, pre) for _, kv, pre, _, _ in info) <= stream.kv_capacity
+    assert any(post < pre for _, _, pre, post, _ in info[stream.visual_round:]), "no eviction"
+    assert info[QA_AT][4] > info[QA_AT - 1][4], "the qa chunk kept the steady bucket"
+    want = {k: n_chunks * expect.get(k, 0) for k in launches}
+    assert launches == want, (launches, want)
+    return launches, dict(prewarm_variants=n_variants, prewarm_s=prewarm_s, warm_chunk_s=warm_s,
+                          chunk_p50_ms=p50, chunk_max_ms=s_lat[-1], qa_chunk_ms=lat[QA_AT],
+                          qa_bucket=info[QA_AT][4], steady_bucket=info[QA_AT - 1][4],
+                          chunk0_ms=lat[0], vision_encode_ms=tower_ms)
 
 
 def phase_multistream(cfg, model, stream, B: int, expect: dict, profile: Path | None = None):
@@ -1383,9 +1642,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=Path, metavar="DIR",
                     help="trace the slices with torch.profiler; kernel tables -> "
-                         "DIR/profile_slice_{a,b,c,d,e,f}.txt")
-    ap.add_argument("--slices", default="ABCDEF",
-                    help="the slices of phase 5 to run (default all: ABCDEF)")
+                         "DIR/profile_slice_{a,...,h}.txt")
+    ap.add_argument("--slices", default="ABCDEFGH",
+                    help="the slices of phase 5 to run (default all: ABCDEFGH)")
     args = ap.parse_args()
     if not (REPO / "streaming_vlm_tpu_torch").is_dir():
         raise SystemExit("chip_smoke.py must run from a checkout of the repository")
@@ -1431,7 +1690,7 @@ def main() -> int:
     print("  phase 3 against copies of the port with K1, K2, K3 or K5 broken on purpose")
     print("  " + json.dumps({"mutants": phase_mutants()}))
 
-    from streaming_vlm_tpu_torch.config import StreamConfig, qwen25_vl_7b
+    from streaming_vlm_tpu_torch.config import StreamConfig, qwen2_vl_7b, qwen25_vl_7b
     from streaming_vlm_tpu_torch.models.qwen25_vl.model import (
         init_params,
         random_quantized_model,
@@ -1439,11 +1698,14 @@ def main() -> int:
 
     from streaming_vlm_tpu_torch.ops import quant as Q
 
-    cfg = qwen25_vl_7b()
+    cfg, cfg2 = qwen25_vl_7b(), qwen2_vl_7b()
     print("[4/5] reference: streaming forward vs plain oracle at 7B width")
     phase_reference(cfg)
+    print(f"  {cfg2.name} (its decoder's widths: the bf16 and W8A8 cases)")
+    phase_reference(cfg2, cases="ac")
+    phase_vision_reference(cfg2)
 
-    print("[5/5] slices: streaming_inference_frames at 7B width")
+    print("[5/5] slices: the serving entry points at 7B width")
     t0 = time.perf_counter()
     model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                         device="cuda", dtype=torch.bfloat16)
@@ -1452,42 +1714,59 @@ def main() -> int:
           f"in {time.perf_counter() - t0:.2f} s")
     L, max_new = cfg.text.num_hidden_layers, StreamConfig().max_tokens_per_chunk
     k1, k2 = "streaming_prefill_attention", "streaming_decode_attention_full"
-    slices = {  # name -> (weights, StreamConfig, launches per chunk)
-        "A": ("bf16", StreamConfig(), {k1: L, k2: L * max_new}),
-        "B": ("bf16", StreamConfig(kv_quant="int8", prerotate_arena=False),
-              {k1: L, "streaming_decode_attention_int8": L * max_new}),
-        # K5: the 7 projections of every layer in the prefill and in each
-        # decode step, the lm_head after each, and 5 products per vision
-        # block plus the merger's 2 (one vision encode per chunk); the tiled
-        # path runs the prefill's and the vision tower's, the GEMV the
-        # decode steps' and every lm_head (one row each)
-        "C": ("W8A8", StreamConfig(kv_quant="int8"), {
-            k1: L, k2: L * max_new,
-            "int8_gemm": 7 * L * (1 + max_new) + (1 + max_new) + 5 * cfg.vision.depth + 2,
-            "int8_gemm/tiled": 7 * L + 5 * cfg.vision.depth + 2,
-            "int8_gemm/gemv": 7 * L * max_new + 1 + max_new}),
-    }
-    by_slice, loaded = {}, "bf16"
 
-    def w8a8():  # the caller has dropped the bf16 model
+    def k5(blocks: int, per_block: int) -> dict:
+        """K5's launches a chunk with W8A8 weights: the 7 projections of
+        every layer in the prefill and in each decode step, the lm_head
+        after each, and `per_block` products per vision block plus the
+        merger's 2 (one vision encode a chunk); the tiled path runs the
+        prefill's and the vision tower's, the GEMV the decode steps' and
+        every lm_head (one row each)."""
+        vision = per_block * blocks + 2
+        return {"int8_gemm": 7 * L * (1 + max_new) + (1 + max_new) + vision,
+                "int8_gemm/tiled": 7 * L + vision,
+                "int8_gemm/gemv": 7 * L * max_new + 1 + max_new}
+
+    # efficiency config (c) (eval/efficiency.py): window 16, text rounds 16,
+    # no previous-text sink or window, the cache recomputed every chunk;
+    # kv_capacity_for(16, ., 560) = 14848 slots, buckets past 4096 so that
+    # the re-prefilled window (~8.9k tokens from chunk 16 on) fits
+    recompute = StreamConfig(window_size=16, text_round=16, text_sink=None,
+                             text_sliding_window=None, kv_capacity=14848,
+                             prefill_buckets=StreamConfig().prefill_buckets + (8192, 10240))
+    slices = {  # name -> (weights, StreamConfig, launches per chunk, recompute)
+        "A": ("bf16", StreamConfig(), {k1: L, k2: L * max_new}, False),
+        "B": ("bf16", StreamConfig(kv_quant="int8", prerotate_arena=False),
+              {k1: L, "streaming_decode_attention_int8": L * max_new}, False),
+        "H": ("bf16", recompute, {k1: L, k2: L * max_new}, True),
+        # K5: 5 products a Qwen2.5-VL vision block (qkv, proj, gate, up, down)
+        "C": ("W8A8", StreamConfig(kv_quant="int8"),
+              {k1: L, k2: L * max_new, **k5(cfg.vision.depth, 5)}, False),
+    }
+    by_slice, slice_stats, loaded = {}, {}, "bf16"
+
+    def w8a8(c):  # the caller has dropped the model before
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        m = random_quantized_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+        m = random_quantized_model(c, torch.Generator(device="cuda").manual_seed(0),
                                    device="cuda")
         torch.cuda.synchronize()
-        print(f"  {cfg.name}: random W8A8 weights in {time.perf_counter() - t0:.2f} s")
+        print(f"  {c.name}: random W8A8 weights in {time.perf_counter() - t0:.2f} s")
         return m
 
-    for name, (weights, stream, expect) in slices.items():
+    for name, (weights, stream, expect, rec) in slices.items():
         if name not in args.slices:
             continue
         if weights != loaded:  # W8A8: free the bf16 model first
             del model
-            model, loaded = w8a8(), weights
+            model, loaded = w8a8(cfg), weights
         print(f"  slice {name}: {weights} weights, kv_quant={stream.kv_quant} "
-              f"prerotate={stream.effective_prerotate}")
+              f"prerotate={stream.effective_prerotate}" + (
+                  f", recompute, kv_capacity={stream.kv_capacity}, buckets "
+                  f"{stream.prefill_buckets}" if rec else ""))
         prof = args.profile / f"profile_slice_{name.lower()}.txt" if args.profile else None
-        by_slice[name] = phase_slice(cfg, model, N_CHUNKS, stream, expect, prof)
+        by_slice[name], slice_stats[name] = phase_slice(cfg, model, N_CHUNKS, stream, expect,
+                                                        prof, recompute=rec)
 
     # D, E, F: B lanes in lockstep rounds through MultiStreamEngine on the W8A8
     # weights. Per round: K1 once a layer; K2 (or K3) once a layer a decode
@@ -1502,7 +1781,7 @@ def main() -> int:
     ms_stats = {}
     if set(args.slices) & set(ms_slices) and loaded != "W8A8":
         del model
-        model, loaded = w8a8(), "W8A8"
+        model, loaded = w8a8(cfg), "W8A8"
     for name, (B, stream) in ms_slices.items():
         if name not in args.slices:
             continue
@@ -1519,6 +1798,23 @@ def main() -> int:
         prof = args.profile / f"profile_slice_{name.lower()}.txt" if args.profile else None
         by_slice[name], ms_stats[name] = phase_multistream(cfg, model, stream, B, expect, prof)
     print("  " + json.dumps({"multistream": ms_stats}))
+
+    # G: Qwen2-VL-7B (all 28 layers, 32 vision blocks), random W8A8 weights,
+    # bench.py's 7B serving defaults, through bench.py's single-stream
+    # route. K5: 4 products a Qwen2-VL vision block (qkv, proj, fc1, fc2)
+    if "G" in args.slices:
+        del model
+        model, loaded = w8a8(cfg2), "W8A8 qwen2"
+        print(f"  slice G: {cfg2.name}, W8A8 weights, kv_quant=int8, bench.py's route "
+              f"(prewarm, warm chunk, frames uploaded and patchified on the card, a qa question "
+              f"at chunk {QA_AT})")
+        prof = args.profile / "profile_slice_g.txt" if args.profile else None
+        by_slice["G"], slice_stats["G"] = phase_bench_route(
+            cfg2, model, N_CHUNKS, StreamConfig(kv_quant="int8"),
+            {k1: L, k2: L * max_new, **k5(cfg2.vision.depth, 4)}, prof)
+    del model
+    torch.cuda.empty_cache()
+    print("  " + json.dumps({"slices": slice_stats}))
 
     kernels = [
         {"name": n, "route": "cuda", "source": SRC[n][0], "replaces": SRC[n][1],

@@ -1,7 +1,7 @@
 """Model, stream, sampling and video configuration of the port.
 
 A copy of the JAX package's `streaming_vlm_tpu/config.py` (the dataclasses
-and the Qwen2.5-VL presets), with the same field names and defaults, so
+and the Qwen2.5-VL and Qwen2-VL presets), with the same field names and defaults, so
 that one configuration means the same thing on either side;
 tests/test_torch_imports.py holds the two equal field for field. The port
 reads no environment variable: every choice goes through these dataclasses.
@@ -23,8 +23,7 @@ class VisionConfig:
 
     variant='qwen2_5': RMSNorm, SwiGLU MLP, windowed attention with
     fullatt_block_indexes. variant='qwen2': LayerNorm(+bias), fc1/quick_gelu/
-    fc2 MLP, full (per-temporal-slice) attention in every block (not ported
-    yet)."""
+    fc2 MLP, full (per-temporal-slice) attention in every block."""
 
     depth: int = 32
     hidden_size: int = 1280
@@ -177,6 +176,53 @@ def qwen25_vl_tiny(vocab_size: int = 1024) -> ModelConfig:
             tie_word_embeddings=False,
         ),
     )
+
+
+def qwen2_vl_7b() -> ModelConfig:
+    """Qwen2-VL-7B-Instruct."""
+    return ModelConfig(
+        name="qwen2_vl_7b",
+        vision=VisionConfig(
+            variant="qwen2",
+            depth=32,
+            hidden_size=1280,
+            intermediate_size=5120,  # mlp_ratio 4
+            num_heads=16,
+            out_hidden_size=3584,
+            tokens_per_second=1,
+        ),
+        text=TextConfig(
+            vocab_size=152064,
+            hidden_size=3584,
+            intermediate_size=18944,
+            num_hidden_layers=28,
+            num_attention_heads=28,
+            num_key_value_heads=4,
+            head_dim=128,
+            tie_word_embeddings=False,
+        ),
+    )
+
+
+def qwen2_vl_tiny(vocab_size: int = 1024) -> ModelConfig:
+    """Tiny Qwen2-VL variant for CPU parity tests."""
+    base = qwen25_vl_tiny(vocab_size)
+    return dataclasses.replace(
+        base,
+        name="qwen2_vl_tiny",
+        vision=dataclasses.replace(
+            base.vision, variant="qwen2", intermediate_size=256, tokens_per_second=1
+        ),
+    )
+
+
+PRESETS = {
+    "tiny": qwen25_vl_tiny,
+    "3b": qwen25_vl_3b,
+    "7b": qwen25_vl_7b,
+    "qwen2_7b": qwen2_vl_7b,
+    "qwen2_tiny": qwen2_vl_tiny,
+}
 
 
 @dataclasses.dataclass(frozen=True)

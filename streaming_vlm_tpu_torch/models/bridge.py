@@ -31,13 +31,19 @@ _TEXT_LAYER = {  # port submodule attr -> (JAX weight key, JAX bias key or None)
     "up_proj": ("up_w", None),
     "down_proj": ("down_w", None),
 }
-_VISION_BLOCK = {
+_VISION_BLOCK = {  # both variants; a block holds the ones of its variant
     "qkv": ("qkv_w", "qkv_b"),
     "proj": ("proj_w", "proj_b"),
-    "gate_proj": ("gate_w", "gate_b"),
+    "gate_proj": ("gate_w", "gate_b"),  # qwen2_5
     "up_proj": ("up_w", "up_b"),
     "down_proj": ("down_w", "down_b"),
+    "fc1": ("fc1_w", "fc1_b"),  # qwen2
+    "fc2": ("fc2_w", "fc2_b"),
 }
+
+
+def _block_linears(blk: nn.Module):
+    return [(attr, keys) for attr, keys in _VISION_BLOCK.items() if hasattr(blk, attr)]
 
 
 def _set(p: torch.Tensor, arr: np.ndarray) -> None:
@@ -84,7 +90,9 @@ def from_jax_params(
     """Build the port's model from a JAX `model.init_params` pytree, or the
     W8A8 tree `quantize_model_params` makes of one (leaves as numpy arrays
     or anything np.asarray accepts), on the card unless the caller passes
-    device="cpu". A {"q", "s"} leaf becomes a QLinear, bit for bit; a tied
+    device="cpu". Either vision variant (qwen2: the LayerNorm biases
+    norm1_b, norm2_b and the merger's ln_q_b, and fc1/fc2 in place of the
+    SwiGLU). A {"q", "s"} leaf becomes a QLinear, bit for bit; a tied
     model's "lm_head_q" becomes its lm_head."""
     t, v = params["text"], params["vision"]
     tl, vb = t["layers"], v["blocks"]
@@ -99,7 +107,7 @@ def from_jax_params(
             lm.lm_head = QLinear(cfg.text.hidden_size, cfg.text.vocab_size, bias=False,
                                  dtype=dtype)
         for blk in tower.blocks:
-            for attr, (wk, _) in _VISION_BLOCK.items():
+            for attr, (wk, _) in _block_linears(blk):
                 setattr(blk, attr, _like(vb[wk], getattr(blk, attr)))
         for attr, wk in (("merger_fc1", "fc1_w"), ("merger_fc2", "fc2_w")):
             setattr(tower, attr, _like(v["merger"][wk], getattr(tower, attr)))
@@ -120,10 +128,15 @@ def from_jax_params(
     for i, blk in enumerate(tower.blocks):
         _set(blk.norm1.weight, np.asarray(vb["norm1"])[i])
         _set(blk.norm2.weight, np.asarray(vb["norm2"])[i])
-        for attr, (wk, bk) in _VISION_BLOCK.items():
+        if "norm1_b" in vb:  # qwen2's LayerNorms
+            _set(blk.norm1.bias, np.asarray(vb["norm1_b"])[i])
+            _set(blk.norm2.bias, np.asarray(vb["norm2_b"])[i])
+        for attr, (wk, bk) in _block_linears(blk):
             _linear(getattr(blk, attr), _layer(vb[wk], i), np.asarray(vb[bk])[i])
     mp = v["merger"]
     _set(tower.ln_q.weight, mp["ln_q"])
+    if "ln_q_b" in mp:
+        _set(tower.ln_q.bias, mp["ln_q_b"])
     _linear(tower.merger_fc1, mp["fc1_w"], mp["fc1_b"])
     _linear(tower.merger_fc2, mp["fc2_w"], mp["fc2_b"])
     return m.eval().requires_grad_(False)

@@ -1,7 +1,9 @@
-"""Full Qwen2.5-VL model: vision tower + multimodal merge + language model.
+"""Full Qwen2-VL / Qwen2.5-VL model: vision tower + multimodal merge +
+language model.
 
-Port of streaming_vlm_tpu/models/qwen25_vl/model.py, with the random W8A8
-model of the JAX package's ops/quant.py (`random_quantized_model`).
+Port of streaming_vlm_tpu/models/qwen25_vl/model.py (both vision variants;
+the decoders are the same), with the random W8A8 model of the JAX
+package's ops/quant.py (`random_quantized_model`).
 """
 
 from __future__ import annotations
@@ -32,6 +34,9 @@ def _init_float(module: nn.Module, generator: torch.Generator, device) -> None:
     for mod in module.modules():
         if isinstance(mod, language.RMSNorm):
             mod.weight.fill_(1.0)
+        elif isinstance(mod, vision.LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
         elif isinstance(mod, (nn.Linear, nn.Embedding)):
             w = torch.randn(mod.weight.shape, generator=generator, device=device)
             mod.weight.copy_(w.mul_(0.02))
@@ -107,6 +112,26 @@ def encode_video(
     """Run the vision tower for the given grids. Returns [S // merge_unit, D_text]."""
     geo = model.vision.geometry(grid_thw, pixel_patches.device)
     return vision.vision_forward(cfg.vision, model.vision, pixel_patches, geo)
+
+
+@torch.no_grad()
+def encode_video_frames(
+    cfg: ModelConfig,
+    model: Qwen25VL,
+    frames_u8,  # [T, H, W, 3] uint8: a tensor (on the model's device) or host numpy
+    grid_thw: Tuple[int, int, int],
+    dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """uint8 frames -> vision embeddings on the model's device: normalise and
+    patchify there (`vision.patchify_on_device`), then the tower. Host
+    frames are copied to the device first (StreamingEngine.upload_frames
+    starts that copy ahead of time). Returns [S // merge_unit, D_text]."""
+    dev = model.text.embed.weight.device
+    frames = frames_u8 if isinstance(frames_u8, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(frames_u8, np.uint8))
+    patches = vision.patchify_on_device(
+        cfg.vision, frames.to(dev), out_dtype=dtype or model.vision.patch_embed.weight.dtype)
+    return encode_video(cfg, model, patches, [tuple(int(x) for x in grid_thw)])
 
 
 def merge_vision_embeds(

@@ -552,7 +552,9 @@ class QLinear(nn.Module):
 # the port's modules that the JAX package's quantize_*_params turn into
 # {"q", "s"} leaves (its LAYER_WEIGHTS, VISION_BLOCK_WEIGHTS, ...)
 LAYER_LINEARS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
-VISION_BLOCK_LINEARS = ("qkv", "proj", "gate_proj", "up_proj", "down_proj")
+# the vision block's projections, both variants (qwen2_5: the SwiGLU three;
+# qwen2: fc1, fc2); a block holds the ones of its variant
+VISION_BLOCK_LINEARS = ("qkv", "proj", "gate_proj", "up_proj", "down_proj", "fc1", "fc2")
 VISION_MERGER_LINEARS = ("merger_fc1", "merger_fc2")
 
 
@@ -611,7 +613,8 @@ def quantize_vision(tower: nn.Module) -> nn.Module:
     float (its input is raw normalised pixels)."""
     for blk in tower.blocks:
         for name in VISION_BLOCK_LINEARS:
-            _swap(blk, name)
+            if hasattr(blk, name):
+                _swap(blk, name)
     for name in VISION_MERGER_LINEARS:
         _swap(tower, name)
     return tower

@@ -22,6 +22,13 @@ once per step for the B streams. The lanes' lengths and budgets reach the
 device in one upload per step call; the decode kernels read the lengths
 there. `chunk_step` (one stream) is the same body at B = 1.
 
+The host engine (`StreamingEngine`) also carries the JAX engine's serving
+surface: `prewarm` (every step the stream will hit, run once on dummy
+inputs before chunk 0), recompute mode (`mark_all_uncached`: the whole
+table re-prefills with the chunk), uint8 frames uploaded and patchified on
+the device (`upload_frames`, `frames_u8=`), and the eos threshold gate
+(`ChunkStatics.eos_threshold`).
+
 The arenas are updated IN PLACE (the JAX package donates them instead);
 eviction gathers into fresh tensors, never in place. The decode loop
 always runs `max_new` steps and keeps every token on the device (tokens
@@ -138,6 +145,10 @@ class ChunkStatics:
     temperature: float
     repetition_penalty: float
     do_sample: bool
+    # threshold gate on a streaming-eos token, (token_id, base, step): the
+    # token is suppressed while its softmax probability <= base + step *
+    # decode_step (LiveCC's ' ...' gate)
+    eos_threshold: Optional[Tuple[int, float, float]] = None
     # positions arrive as a descriptor table (shrink mode) instead of [3, C]
     use_descriptors: bool = False
     # rotate the arena K once per chunk into a copy (K1 pre-rotated, K2) vs
@@ -154,6 +165,19 @@ def _lane_ints(values, dev) -> Tuple[List[int], torch.Tensor]:
     if dev.type == "cuda":
         t = t.pin_memory().to(dev, non_blocking=True)
     return host, t
+
+
+def _eos_gate(logits: torch.Tensor, eos_threshold: Tuple[int, float, float], step: int):
+    """Suppress the gated token (logit -inf) in every lane where its softmax
+    probability over the f32 logits [B, V] is <= base + step * step_size.
+    The threshold is f32(step_size) * step + f32(base) rounded once, as the
+    JAX package's jitted gate computes it (one FMA on XLA's CPU backend)."""
+    tok_id, base, step_sz = eos_threshold
+    thr = float(np.float32(float(np.float32(step_sz)) * step + float(np.float32(base))))
+    prob = torch.softmax(logits, dim=-1)[:, tok_id]
+    out = logits.clone()
+    out[:, tok_id] = torch.where(prob <= thr, float("-inf"), logits[:, tok_id])
+    return out
 
 
 def _merge_vision_lanes(embeds: torch.Tensor, vis_embeds: torch.Tensor, vis_slots) -> None:
@@ -286,6 +310,8 @@ def chunk_step_batched(
     was_done = torch.empty(B, max_new, dtype=torch.bool, device=dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     for step in range(max_new):
+        if statics.eos_threshold is not None:
+            logits = _eos_gate(logits, statics.eos_threshold, step)
         tok = sample_tokens(
             generators, logits, presence,
             temperature=statics.temperature,
@@ -509,6 +535,123 @@ class StreamingEngine:
                 torch.from_numpy(src).to(self.device),
             )
 
+    def mark_all_uncached(self) -> None:
+        """Invalidate the whole cache: every table token re-prefills with the
+        next chunk (recompute mode, efficiency config (c))."""
+        self.uncached_tail = self.table.total_len()
+        self.cached = 0
+
+    def upload_frames(self, frames_u8: np.ndarray) -> torch.Tensor:
+        """Start the copy of a chunk's uint8 frames to the engine's device
+        (from a pinned host buffer, asynchronous on the card): call it for
+        chunk i+1 before chunk i's step so that the copy overlaps the work.
+        A CPU tensor only when the engine is on the CPU."""
+        t = torch.from_numpy(np.ascontiguousarray(frames_u8, np.uint8))
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def prewarm(
+        self,
+        grids: Tuple[Tuple[int, int, int], ...] = (),
+        *,
+        max_new_list: Optional[Tuple[int, ...]] = None,
+        buckets: Optional[Tuple[int, ...]] = None,
+        vision: str = "none",  # {"none", "frames", "patches", "both"}
+        include_no_vision: bool = False,
+        eos_threshold: Optional[Tuple[int, float, float]] = None,
+    ) -> int:
+        """Run, before the first chunk, every step the stream is configured
+        to hit, so that no chunk (chunk 0, a mid-stream bucket switch such
+        as a qa injection) pays a first use: the kernels' build, K1's and
+        K5's host plans and their copies to the card, the tensor-map caches,
+        the decode scratch, cuBLAS handles and the caching allocator's
+        blocks. Runs, on dummy inputs at cached == 0 (what it writes into
+        the arena is invisible and the first chunk overwrites it):
+
+          * the eviction gather (identity over the arena),
+          * per `grids` entry the vision encode: uint8 frames through
+            `upload_frames` (`vision="frames"`), host f32 patches
+            (`"patches"`), or both,
+          * one chunk step per (prefill bucket x max_new x vision variant):
+            a variant per grid's video-token count, plus a text-only one
+            when `include_no_vision` (or when no grid is given).
+
+        Buckets larger than the arena are skipped (the capacity guard
+        refuses them). Consumes no state of the engine's sampling
+        generator. Returns the number of chunk-step variants run; raises if
+        any fails. Call it before streaming starts."""
+        if vision not in ("none", "frames", "patches", "both"):
+            raise ValueError(f"vision must be none/frames/patches/both, got {vision!r}")
+        st = self.stream
+        C = st.kv_capacity
+        dev = self.device
+        self.k_arena, self.v_arena, self.ids_arena = compact_arena(
+            self.k_arena, self.v_arena, self.ids_arena, torch.arange(C, device=dev)
+        )
+        vcfg = self.cfg.vision
+        grids = tuple(tuple(int(x) for x in g) for g in grids)
+        for g in grids:
+            if vision in ("frames", "both"):
+                frames = np.zeros((g[0] * vcfg.temporal_patch_size, g[1] * vcfg.patch_size,
+                                   g[2] * vcfg.patch_size, 3), np.uint8)
+                vlm.encode_video_frames(self.cfg, self.model, self.upload_frames(frames), g,
+                                        dtype=self.dtype)
+            if vision in ("patches", "both"):
+                patch_dim = vcfg.in_channels * vcfg.temporal_patch_size * vcfg.patch_size**2
+                px = np.zeros((int(np.prod(g)), patch_dim), np.float32)  # as callers pass them
+                vlm.encode_video(self.cfg, self.model,
+                                 torch.from_numpy(px).to(dev, self.dtype), [g])
+        if st.pos_mode == "shrink":
+            desc, _, _, _ = self.table.position_descriptors(
+                spatial_merge_size=vcfg.spatial_merge_size,
+                tokens_per_second=vcfg.tokens_per_second,
+                extra_text=1,
+            )
+            slot_pos = {k: torch.from_numpy(v).to(dev) for k, v in desc.items()}
+        else:
+            slot_pos = torch.from_numpy(self._pos_host.copy()).to(dev)
+        vis_variants: List[Optional[int]] = [
+            int(np.prod(g)) // vcfg.spatial_merge_unit for g in grids]
+        if include_no_vision or not grids:
+            vis_variants.append(None)
+        D = self.cfg.text.hidden_size
+        # a generator of its own: the engine's stream draws nothing here
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        n_run = 0
+        for t_pad in buckets or st.prefill_buckets:
+            if t_pad > C:
+                continue
+            tokens = torch.from_numpy(np.full(t_pad, self.cfg.tokens.pad, np.int64)).to(dev)
+            for max_new in max_new_list or (st.max_tokens_per_chunk,):
+                statics = self._statics(t_pad, max_new, eos_threshold)
+                for n_vis in vis_variants:
+                    ve = None if n_vis is None else torch.zeros(n_vis, D, dtype=self.dtype,
+                                                                device=dev)
+                    vs = None if n_vis is None else np.arange(n_vis, dtype=np.int64)
+                    chunk_step(statics, self.model, self.k_arena, self.v_arena, slot_pos,
+                               tokens, ve, vs, self.ids_arena, 0, 0, self.cfg.tokens.im_end,
+                               max_new, gen)
+                    n_run += 1
+        self._sync()
+        return n_run
+
+    def _statics(self, t_pad: int, max_new: int, eos_threshold=None) -> ChunkStatics:
+        st = self.stream
+        return ChunkStatics(
+            cfg=self.cfg,
+            t_pad=t_pad,
+            max_new=max_new,
+            temperature=self.sampling.temperature,
+            repetition_penalty=self.sampling.repetition_penalty,
+            do_sample=self.sampling.do_sample,
+            eos_threshold=eos_threshold,
+            use_descriptors=(st.pos_mode == "shrink"),
+            prerotate=st.effective_prerotate,
+            rot_quant=st.rot_quant,
+        )
+
     # -------------------------------------------------------------- chunks
     def process_chunk(self, *args, **kwargs) -> Tuple[np.ndarray, int]:
         """Dispatch one chunk and block for its result."""
@@ -520,35 +663,30 @@ class StreamingEngine:
         pixel_patches: Optional[np.ndarray] = None,
         grid_thw: Optional[Tuple[int, int, int]] = None,
         *,
+        frames_u8=None,  # [T, H, W, 3] uint8: host numpy or an upload_frames tensor
         vis_embeds: Optional[torch.Tensor] = None,  # precomputed [N_vis, D]
         max_new: Optional[int] = None,
+        recompute: bool = False,  # drop the cache: the whole table re-prefills
         eos_id: Optional[int] = None,  # stop token (default <|im_end|>)
+        eos_threshold: Optional[Tuple[int, float, float]] = None,  # ChunkStatics
         timer=None,  # utils.profiling.SectionTimer: PKV/INPUT/GEN sections
     ) -> ChunkHandle:
         """Evict, ingest one chunk, launch generation of up to max_new
-        tokens. Returns a ChunkHandle for finish_chunk."""
+        tokens. Returns a ChunkHandle for finish_chunk. With `recompute`,
+        `vis_embeds` must hold the embeddings of every video the table
+        keeps, in table order."""
         assert self._inflight is None, (
             "previous chunk not finished: call finish_chunk(handle) before the "
             "next process_chunk_async"
         )
         prep = self._prepare_chunk(
-            chunk_segs, pixel_patches=pixel_patches, grid_thw=grid_thw,
-            vis_embeds=vis_embeds, max_new=max_new, eos_id=eos_id, timer=timer,
-        )
-        st = self.stream
-        statics = ChunkStatics(
-            cfg=self.cfg,
-            t_pad=prep["t_pad"],
-            max_new=prep["max_new"],
-            temperature=self.sampling.temperature,
-            repetition_penalty=self.sampling.repetition_penalty,
-            do_sample=self.sampling.do_sample,
-            use_descriptors=(st.pos_mode == "shrink"),
-            prerotate=st.effective_prerotate,
-            rot_quant=st.rot_quant,
+            chunk_segs, pixel_patches=pixel_patches, grid_thw=grid_thw, frames_u8=frames_u8,
+            vis_embeds=vis_embeds, max_new=max_new, recompute=recompute, eos_id=eos_id,
+            timer=timer,
         )
         gen, n_gen = chunk_step(
-            statics, self.model, self.k_arena, self.v_arena, prep["slot_pos"],
+            self._statics(prep["t_pad"], prep["max_new"], eos_threshold), self.model,
+            self.k_arena, self.v_arena, prep["slot_pos"],
             prep["tokens"], prep["vis_embeds"], prep["vis_slots"], self.ids_arena,
             self.cached, prep["n_real"], prep["eos"], prep["max_new"], self.generator,
         )
@@ -556,7 +694,7 @@ class StreamingEngine:
             gen=gen,
             n_gen=n_gen,
             n_real=prep["n_real"],
-            next_p=prep["next_p"] if st.pos_mode == "append" else 0.0,
+            next_p=prep["next_p"] if self.stream.pos_mode == "append" else 0.0,
             eos=prep["eos"],
             gen_cm=prep["gen_cm"],
         )
@@ -568,8 +706,10 @@ class StreamingEngine:
         *,
         pixel_patches=None,
         grid_thw=None,
+        frames_u8=None,
         vis_embeds=None,
         max_new: Optional[int] = None,
+        recompute: bool = False,
         eos_id: Optional[int] = None,
         timer=None,
         evict: bool = True,  # False: the caller already ran evict_plan and the gather
@@ -587,6 +727,8 @@ class StreamingEngine:
         with sec("PKV", sync=self._sync if timer else None):
             if evict:
                 self.evict()
+            if recompute:
+                self.mark_all_uncached()
         input_cm = sec("INPUT")
         input_cm.__enter__()
 
@@ -679,7 +821,10 @@ class StreamingEngine:
         gen_cm = sec("GEN")
         gen_cm.__enter__()
         vis_slots = None
-        if vis_embeds is None and pixel_patches is not None:
+        if vis_embeds is None and frames_u8 is not None:
+            vis_embeds = vlm.encode_video_frames(self.cfg, self.model, frames_u8, grid_thw,
+                                                 dtype=self.dtype)
+        elif vis_embeds is None and pixel_patches is not None:
             vis_embeds = vlm.encode_video(
                 self.cfg, self.model,
                 torch.from_numpy(np.asarray(pixel_patches)).to(dev, self.dtype),
@@ -688,6 +833,7 @@ class StreamingEngine:
         if vis_embeds is not None:
             # slots from SEGMENT provenance, not id matching: a sampled token
             # equal to video_pad in the re-prefilled tail claims no embed row
+            # (recompute mode: cached == 0, every surviving video re-embeds)
             (slots,) = np.nonzero(self.table.vision_mask()[self.cached :])
             vis_slots = slots.astype(np.int64)
 

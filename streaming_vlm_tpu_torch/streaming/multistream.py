@@ -1,7 +1,7 @@
 """Multi-stream serving: B independent live streams on one card.
 
 Port of streaming_vlm_tpu/streaming/multistream.py (without its TP/DP
-mesh, snapshots and prewarm). One stream's decode reads every weight once
+mesh and snapshots). One stream's decode reads every weight once
 per token; B streams in lockstep rounds share each of those reads:
 
   1. every lane's eviction policy runs on the host (`evict_plan`), and the
@@ -41,7 +41,6 @@ from ..models.qwen25_vl import language, model as vlm
 from ..ops.attention import reserve_decode_scratch
 from .engine import (
     ChunkHandle,
-    ChunkStatics,
     StreamingEngine,
     _bucket,
     chunk_step_batched,
@@ -139,6 +138,75 @@ class MultiStreamEngine:
                 f"prerotate_arena=False)."
             )
 
+    # ------------------------------------------------------------------ warmup
+    def prewarm(
+        self,
+        grids: Tuple[Tuple[int, int, int], ...] = (),
+        *,
+        buckets: Optional[Tuple[int, ...]] = None,
+        max_new_list: Optional[Tuple[int, ...]] = None,
+        include_no_vision: bool = False,
+        eos_threshold: Optional[Tuple[int, float, float]] = None,
+    ) -> int:
+        """`StreamingEngine.prewarm` for the batched step, before round 0:
+        the batched eviction gather, per grid the round's encode (B lanes'
+        host f32 patches, and one lane's as `encode_round_mixed` uploads
+        it), and every (bucket x max_new x vision variant) batched step on
+        dummy inputs at cached == 0 for all lanes. The lanes' generators do
+        not advance. Returns the number of step variants run."""
+        st = self.stream
+        C = st.kv_capacity
+        dev = self.device
+        self.k_arena, self.v_arena, self.ids_arena = compact_arena_batched(
+            self.k_arena, self.v_arena, self.ids_arena,
+            torch.from_numpy(np.tile(self._ident_src, (self.n, 1))).to(dev),
+        )
+        vcfg = self.cfg.vision
+        D = self.cfg.text.hidden_size
+        grids = tuple(tuple(int(x) for x in g) for g in grids)
+        patch_dim = vcfg.in_channels * vcfg.temporal_patch_size * vcfg.patch_size**2
+        vis_variants: List[Optional[int]] = []
+        for g in grids:
+            S = int(np.prod(g))
+            self.encode_round(np.zeros((self.n, S, patch_dim), np.float32), g)
+            self.encode_round_mixed([np.zeros((S, patch_dim), np.float32)] + [None] * (self.n - 1),
+                                    [g] + [None] * (self.n - 1))
+            vis_variants.append(S // vcfg.spatial_merge_unit)
+        if include_no_vision or not grids:
+            vis_variants.append(None)
+        lane = self.engines[0]
+        if st.pos_mode == "shrink":
+            desc, _, _, _ = lane.table.position_descriptors(
+                spatial_merge_size=vcfg.spatial_merge_size,
+                tokens_per_second=vcfg.tokens_per_second,
+                extra_text=1,
+            )
+            slot_pos = {k: torch.from_numpy(np.tile(v, (self.n, 1))).to(dev)
+                        for k, v in desc.items()}
+        else:
+            slot_pos = torch.zeros(self.n, 3, C, device=dev)
+        gens = [self._generator(0) for _ in range(self.n)]  # the lanes' own stay untouched
+        zeros, eos = [0] * self.n, [self.cfg.tokens.im_end] * self.n
+        n_run = 0
+        for t_pad in buckets or st.prefill_buckets:
+            if t_pad > C:
+                continue
+            tokens = torch.from_numpy(np.full((self.n, t_pad), self.cfg.tokens.pad,
+                                              np.int64)).to(dev)
+            for max_new in max_new_list or (st.max_tokens_per_chunk,):
+                statics = lane._statics(t_pad, max_new, eos_threshold)
+                for n_vis in vis_variants:
+                    ve = None if n_vis is None else torch.zeros(self.n, n_vis, D,
+                                                                dtype=self.dtype, device=dev)
+                    vs = None if n_vis is None else np.tile(np.arange(n_vis), (self.n, 1))
+                    chunk_step_batched(statics, self.model, self.k_arena, self.v_arena,
+                                       slot_pos, tokens, ve, vs, self.ids_arena, zeros, zeros,
+                                       eos, [max_new] * self.n, gens)
+                    n_run += 1
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return n_run
+
     # ------------------------------------------------------------------ vision
     def encode_round_mixed(
         self,
@@ -217,6 +285,7 @@ class MultiStreamEngine:
         grid_thw=None,  # one (t, h, w) for the round, or a per-lane list
         max_new=None,  # an int for every lane, or per-lane budgets (None: the default)
         eos_id: Optional[int] = None,
+        eos_threshold: Optional[Tuple[int, float, float]] = None,  # ChunkStatics
     ) -> List[ChunkHandle]:
         """Evict + ingest one chunk per lane, launch one batched step.
         Returns per-lane handles; call finish_round() for the results.
@@ -353,17 +422,7 @@ class MultiStreamEngine:
                     vs[b] = p["vis_slots"]
             ve = torch.as_tensor(vis_embeds, device=dev).to(self.dtype)
 
-        statics = ChunkStatics(
-            cfg=self.cfg,
-            t_pad=t_pad,
-            max_new=max_new,
-            temperature=self.sampling.temperature,
-            repetition_penalty=self.sampling.repetition_penalty,
-            do_sample=self.sampling.do_sample,
-            use_descriptors=(st.pos_mode == "shrink"),
-            prerotate=st.effective_prerotate,
-            rot_quant=st.rot_quant,
-        )
+        statics = self.engines[0]._statics(t_pad, max_new, eos_threshold)
         # an idle lane's generator does not advance (its stream resumes
         # exactly where a solo engine that skipped the round would)
         gens = [None if idle[b] else g for b, g in enumerate(self.generators)]

@@ -1,10 +1,12 @@
 """Named-section wall timing of the serve loop (PKV/CHECK/VIDEO/INPUT/GEN/
-POST). A copy of `SectionTimer` from the JAX package's
-streaming_vlm_tpu/utils/profiling.py."""
+POST) and whole-run traces. `SectionTimer` is a copy of the JAX package's
+(streaming_vlm_tpu/utils/profiling.py); `trace` is the counterpart of its
+jax.profiler trace: a torch.profiler run written as a Chrome trace."""
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import Dict
 
@@ -46,3 +48,25 @@ class SectionTimer:
         d = dict(self.acc)
         d["total"] = self.total
         return d
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """Trace the body with torch.profiler (host ops, and the card's kernels
+    when CUDA is available) and write it as a Chrome trace
+    `trace_<pid>_<ns>.json` under `logdir` (created if missing; open it in
+    chrome://tracing or Perfetto). A failure to create or write it raises.
+    Yields the profiler."""
+    import torch
+
+    os.makedirs(logdir, exist_ok=True)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

@@ -361,3 +361,49 @@ def test_prefill_lane_form_on_card(cuda, raw):
     vis = [0, 1, 1201, 2048]
     out = A.streaming_prefill_attention(q, ka, va, *cs, ks, vs, vis)
     _assert_prefill_close(out, A.prefill_attention_lanes_plain(q, ka, va, *cs, ks, vs, vis))
+
+
+@pytest.mark.gpu
+def test_prefill_recompute_shape_on_card(cuda):
+    """K1 at recompute mode's shape: visible 0, the causal self block alone,
+    T long enough for many row tiles per CTA (plain in row blocks: rows
+    [r0, r1) over keys [0, r0) as a visible arena plus their causal block)."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    T, H, Hkv, hd, rows = 3000, 28, 4, 128, 512
+
+    def rn(*s):
+        return torch.randn(*s, generator=g, device=cuda).to(torch.bfloat16)
+
+    q, ks, vs = rn(T, H, hd), rn(T, Hkv, hd), rn(T, Hkv, hd)
+    out = A.streaming_prefill_attention(q, ks[:64], vs[:64], None, None, ks, vs, 0)
+    ref = torch.cat([A.prefill_attention_plain(q[r:r + rows], ks, vs, None, None, ks[r:r + rows],
+                                               vs[r:r + rows], r) for r in range(0, T, rows)])
+    _assert_prefill_close(out, ref)
+
+
+@pytest.mark.gpu
+def test_frames_on_card(cuda):
+    """uint8 frames: `upload_frames` keeps a card engine's frames on the
+    card, `patchify_on_device` there equals the CPU's bit for bit, and the
+    qwen2 tower's frames encode on the card is close to the CPU's."""
+    import numpy as np
+
+    from streaming_vlm_tpu_torch.config import SamplingConfig, StreamConfig, qwen2_vl_tiny
+    from streaming_vlm_tpu_torch.models.qwen25_vl import model as tm
+    from streaming_vlm_tpu_torch.models.qwen25_vl import vision as tv
+    from streaming_vlm_tpu_torch.streaming.engine import StreamingEngine
+
+    cfg = qwen2_vl_tiny()
+    frames = np.random.default_rng(0).integers(0, 256, (2, 56, 84, 3), dtype=np.uint8)
+    model = tm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    eng = StreamingEngine(cfg, model, StreamConfig(kv_capacity=512, prefill_buckets=(64,)),
+                          SamplingConfig(), dtype=torch.float32)
+    up = eng.upload_frames(frames)
+    assert up.device.type == "cuda" and up.dtype == torch.uint8
+    for dt in (torch.float32, torch.bfloat16):
+        got = tv.patchify_on_device(cfg.vision, up, dt)
+        want = tv.patchify_on_device(cfg.vision, torch.from_numpy(frames), dt)
+        assert torch.equal(got.cpu(), want)
+    out = tm.encode_video_frames(cfg, model, up, (1, 4, 6), dtype=torch.float32)
+    cpu = tm.encode_video_frames(cfg, model.cpu(), frames, (1, 4, 6), dtype=torch.float32)
+    torch.testing.assert_close(out.cpu(), cpu, atol=1e-4, rtol=1e-3)

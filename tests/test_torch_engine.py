@@ -39,14 +39,14 @@ def both():
     return params, from_jax_params(CFG, jax.tree_util.tree_map(np.asarray, params), device="cpu")
 
 
-def _engine_parity(both, stream, jax_stream=None):
+def _engine_parity(both, stream, jax_stream=None, cfg=CFG):
     """7 chunks through the JAX engine and the port's with one StreamConfig
     (the JAX engine may take a variant of it): greedy tokens, surviving ids,
     cached / uncached_tail and positions must agree after every chunk.
     Returns the number of evictions."""
     params, model = both
-    jeng = JaxEngine(CFG, params, jax_stream or stream, GREEDY, dtype=jnp.float32)
-    teng = StreamingEngine(CFG, model, stream, GREEDY, dtype=torch.float32)
+    jeng = JaxEngine(cfg, params, jax_stream or stream, GREEDY, dtype=jnp.float32)
+    teng = StreamingEngine(cfg, model, stream, GREEDY, dtype=torch.float32)
     ftok = FakeTokenizer(TOK)
     jb, tb = PromptBuilder(TOK, ftok), tp.PromptBuilder(TOK, ftok)
     _, end_bias = jb.measure_biases()

@@ -1,5 +1,7 @@
 """The port stands alone: no module of streaming_vlm_tpu_torch, and nothing in
-chip_smoke.py, imports jax or the JAX package `streaming_vlm_tpu`; the
+chip_smoke.py, imports jax or the JAX package `streaming_vlm_tpu`, nor the
+checkpoint libraries that only the JAX loader leans on (safetensors,
+transformers, ml_dtypes: the port reads safetensors files itself); the
 port's copies of the JAX package's configuration and host helpers stay
 equal to the originals."""
 
@@ -33,9 +35,11 @@ def _port_modules():
     )
 
 
+FORBIDDEN = ("jax", "jaxlib", "streaming_vlm_tpu", "safetensors", "transformers", "ml_dtypes")
+
+
 def _is_forbidden(mod: str) -> bool:
-    top = mod.split(".")[0]
-    return top in ("jax", "jaxlib", "streaming_vlm_tpu")
+    return mod.split(".")[0] in FORBIDDEN
 
 
 def test_every_port_module_imports_without_jax_or_the_jax_package():
@@ -43,13 +47,12 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
     assert len(mods) > 15 and {
         "streaming_vlm_tpu_torch.serve", "streaming_vlm_tpu_torch.ops.quant",
         "streaming_vlm_tpu_torch.ops._kernels", "streaming_vlm_tpu_torch.models.bridge",
-        "streaming_vlm_tpu_torch.streaming.multistream",
+        "streaming_vlm_tpu_torch.streaming.multistream", "streaming_vlm_tpu_torch.models.convert",
     } <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'streaming_vlm_tpu'))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -84,9 +87,13 @@ def test_config_copy_equals_the_jax_package():
         jf = [(f.name, f.default) for f in dataclasses.fields(getattr(jcfg, n))]
         assert tf == jf, n
         assert dataclasses.asdict(getattr(tcfg, n)()) == dataclasses.asdict(getattr(jcfg, n)()), n
-    for preset in ("qwen25_vl_tiny", "qwen25_vl_3b", "qwen25_vl_7b"):
+    for preset in ("qwen25_vl_tiny", "qwen25_vl_3b", "qwen25_vl_7b", "qwen2_vl_7b",
+                   "qwen2_vl_tiny"):
         t, j = getattr(tcfg, preset)(), getattr(jcfg, preset)()
         assert dataclasses.asdict(t) == dataclasses.asdict(j), preset
+    assert tcfg.PRESETS.keys() == jcfg.PRESETS.keys()
+    for k in jcfg.PRESETS:
+        assert dataclasses.asdict(tcfg.PRESETS[k]()) == dataclasses.asdict(jcfg.PRESETS[k]()), k
     for kw in (dict(), dict(kv_capacity=40000), dict(prerotate_arena=False), dict(window_size=8)):
         t, j = tcfg.StreamConfig(**kw), jcfg.StreamConfig(**kw)
         assert (t.effective_prerotate, t.visual_round) == (j.effective_prerotate, j.visual_round)
