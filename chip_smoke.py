@@ -22,11 +22,15 @@ Phases; any failure exits non-zero:
    partials (and their merge with the small block against K2), K5 W8A8
    products (the int32 form at the TPU probe's 4096^3 and at ragged shapes;
    the serving form at every (M, K, N) of the 7B path, Qwen2-VL's vision
-   products included, bf16 and f32 out, weights in QLinear's padded rows). K1 and the decode kernels are held to
+   products included, bf16 and f32 out, weights in QLinear's padded rows),
+   K5-int4 W4A8 products (qdot4 below 32 rows: every decode product of the
+   7B path and the lm_head at M in {1, 4, 8, 31}, bf16 and f32 out, one
+   scale group and many). K1 and the decode kernels are held to
    one bf16 ulp of each output value (plus one ulp of the largest for K1, a
-   small fraction of it for the others), K5 to bitwise equality, and phase
-   3 is run again on copies of the port with K1 (kernel or plan), K2, K3 or
-   K5 (kernel or plan) broken on purpose (MUTANTS): each copy must fail, on
+   small fraction of it for the others), K5 and K5-int4 to bitwise
+   equality, and phase 3 is run again on copies of the port with K1
+   (kernel or plan), K2, K3, K5 (kernel or plan) or K5-int4 broken on
+   purpose (MUTANTS): each copy must fail, on
    the broken kernel's checks only. K1's plan must reach the card without a
    host sync. The lane forms (B streams in one launch, per-lane lengths:
    K2 and K3 at B in {1, 4, 8} with lanes shorter than one split and empty
@@ -44,7 +48,10 @@ Phases; any failure exits non-zero:
    same random weights: over the pre-rotated bf16 arena (K1, K2), over the
    int8 raw arena (K1 raw mode, K3), and with W8A8 weights over the int8
    pre-rotated arena (K5, K1, K2; the oracle runs the dequantized weights);
-   the same at Qwen2-VL-7B's widths (bf16 and W8A8), and Qwen2-VL-7B's
+   with W4A8 weights over the same arena (the prefill's products through
+   qdot4's bf16 product, the decode step's through K5-int4; the oracle runs
+   the dequantized int4 weights), the same at Qwen2-VL-7B's widths (bf16
+   and W8A8), and Qwen2-VL-7B's
    vision tower (4 of its blocks, one chunk's frames patchified on the card)
    in bf16 and W8A8 (K5) against its f32 oracle.
 5. slices: Qwen2.5-VL-7B served through `serve.streaming_inference_frames`,
@@ -76,6 +83,23 @@ Phases; any failure exits non-zero:
    window 16, text rounds 16, no sink, kv_capacity 14848, buckets to
    10240): every chunk re-encodes its window and re-prefills at cached 0
    (K1 at visible 0, up to ~8.9k tokens), with the bucket of each chunk.
+   Slice I quantizes A's bf16 weights to W4A8 (`quantize_model(bits=4)`:
+   int4 decoder and lm_head, int8 vision tower) and serves them as C's
+   stream: every decode product and one-row lm_head through K5-int4, none
+   through K5's GEMV; its p50 / max print beside C's. Slice J (C's weights
+   and stream, sampled): 12 chunks straight through against 6 through a
+   StreamingSession, snapshot -> save_snapshot -> load_snapshot ->
+   `resume_snapshot=` in a fresh engine -> 6 more, which must equal the
+   straight run's; again with prerotate_arena=False (K3); then a 4-lane
+   engine after 17 rounds moved lane by lane (lane 1 through a file) into a
+   fresh one, whose next round must give lane 1 the same tokens; prints the
+   snapshot's bytes and the ms of snapshot, save, load and restore. Slice
+   K: `MultiStreamServer` over 4 lanes (W8A8, int8 arena) with 8 clients
+   of 10 chunks each driven by its background thread (swaps > 0, every
+   chunk delivered in order; rounds, swaps and their ms, round wall, frames
+   /s), then again with an engine_factory and one injected device fault:
+   one recovery, no chunk lost, the tokens equal to the unfaulted run's
+   counted.
 
 The second-to-last line is a JSON object with each kernel's numbers; the
 last line is {"ok": true, "device": {...}}.
@@ -122,7 +146,8 @@ PART_TOL = 1e-3
 REF_LAYERS = 4
 N_CHUNKS = 20  # slice length: past visual_round=16, so eviction runs
 REF_NOISE_FACTOR = 2.0
-MUTANT_BUILDS = 4  # mutant copies whose kernels build at once (4 nvcc each)
+MUTANT_BUILDS = 4  # mutant copies whose kernels build at once (5 nvcc each)
+MUTANT_RUNS = 3  # mutant copies whose checks run at once on the card
 TRACE_PAD_S = 0.05  # host time between a trace's start or end and the traced calls
 # the H100 SXM's published peaks (dense bf16 and int8, f32 outside the
 # tensor cores, HBM3)
@@ -224,6 +249,12 @@ MUTANTS = {
         "if (tid == 0) counters[head] = 0;",
         "if (tid == 0) counters[kvh] = 0;", "'lanes'",
     ),
+    # K5-int4 (W4A8): negative high nibbles read as 8..15
+    "int4: high nibbles not sign-extended": (
+        "K5-int4", "csrc/int4_gemv.cu",
+        "return (int)__vsub4(((v >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);",
+        "return (int)((v >> 4) & 0x0F0F0F0Fu);", None,
+    ),
 }
 # the lane forms' checks (phase 3): K2 and K3 at B in {1, 4, 8} lanes with
 # these per-lane visible lengths (empty lanes, lanes shorter than one split,
@@ -257,6 +288,11 @@ SRC = {  # kernel -> (source, the TPU kernel's pallas_call it replaces)
     "int8_gemm": (
         "streaming_vlm_tpu_torch/csrc/int8_gemm.cu",
         "tools/profile_s8_mxu.py:78",
+    ),
+    # K5-int4: no pallas_call; the JAX package's qdot4 (XLA) below 32 rows
+    "int8_gemm/int4": (
+        "streaming_vlm_tpu_torch/csrc/int4_gemv.cu",
+        "streaming_vlm_tpu/ops/quant.py:126",
     ),
 }
 
@@ -639,6 +675,7 @@ def phase_kernels():
         stats[name]["lanes"] = lane_stats
         stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], lane_stats["max_abs_err"])
     stats["int8_gemm"] = _phase_k5(g)
+    stats["int8_gemm"]["int4"] = _phase_k5_int4(g)
     if _FAILED:
         raise AssertionError("kernels disagree with their plain versions: " + "; ".join(_FAILED))
     return stats
@@ -1026,6 +1063,93 @@ def _phase_k5(g) -> dict:
     }
 
 
+# K5-int4 (W4A8's qdot4 below 32 rows): every decode product of the 7B
+# path (what, K, N, bias), at each of K5_INT4_ROWS rows (1: one stream; 4,
+# 8: lanes; 31: qdot4's threshold), bf16 and f32 out; 3592 and 3616 are
+# K % 128 != 0 (one scale group; 3592's packed rows are not 16-byte
+# multiples). Times at M = 1 for K5_INT4_TIMED.
+K5_INT4 = (
+    ("decode q_proj", 3584, 3584, True),
+    ("decode k/v_proj", 3584, 512, True),
+    ("decode o_proj", 3584, 3584, False),
+    ("decode gate/up_proj", 3584, 18944, False),
+    ("decode down_proj", 18944, 3584, False),
+    ("one group, 4-byte rows", 3592, 3584, True),
+    ("one group, 16-byte rows", 3616, 3584, False),
+)
+K5_INT4_ROWS = (1, 4, 8, 31)
+K5_INT4_TIMED = ("decode gate/up_proj", "decode down_proj", "decode q_proj", "lm_head")
+
+
+def _phase_k5_int4(g) -> dict:
+    """K5-int4 against qdot4_plain, bitwise: K5_INT4 at K5_INT4_ROWS, bf16
+    and f32 out (bias where the product has one), all-zero and outlier rows
+    where M > 2, and the lm_head (f32 out) at the same rows. Random packed
+    weights (every nibble value) and group scales. Times at M = 1 beside
+    the bound (the packed weight, its scales, x and the output at the HBM
+    rate) and bf16 F.linear over the dequantized weight (another function:
+    no single PyTorch call computes qdot4)."""
+    import torch
+    import torch.nn.functional as F
+
+    from streaming_vlm_tpu_torch.ops import quant as Q
+
+    dev = "cuda"
+    err, timed = 0.0, {}
+    for what, K, N, bias in K5_INT4 + (("lm_head", 3584, 152064, False),):
+        q4 = torch.randint(-128, 128, (N, K // 2), generator=g, device=dev,
+                           dtype=torch.int16).to(torch.int8)
+        s = torch.rand(N, Q.int4_groups(K), generator=g, device=dev) * 1e-2 + 1e-4
+        for M in K5_INT4_ROWS:
+            x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+            if M > 2:
+                x[0] = 0
+                x[1, 11] = 300.0
+            for od in ((torch.float32,) if what == "lm_head" else
+                       (torch.bfloat16, torch.float32)):
+                b = torch.randn(N, generator=g, device=dev).to(od) if bias else None
+                args = (x, q4, s, b, od)
+                err = max(err, _check_equal("K5-int4", Q.qdot4(*args), Q.qdot4_plain(*args), dict(
+                    what=what, M=M, K=K, N=N, ng=Q.int4_groups(K), bias=bias,
+                    out="f32" if od == torch.float32 else "bf16")))
+                if M == 1 and what in K5_INT4_TIMED and what not in timed:
+                    timed[what] = args
+        del q4, s
+    torch.cuda.synchronize()
+    by_shape = {}
+    for what, (x, q4, s, b, od) in timed.items():
+        (M, K), N = x.shape, q4.shape[0]
+        f = lambda: Q.qdot4(x, q4, s, b, od)  # noqa: E731
+        r = dict(M=M, K=K, N=N, ms=_median_ms(f), device_ms=_device_ms(f),
+                 plain_ms=_median_ms(lambda: Q.qdot4_plain(x, q4, s, b, od), reps=3, batch=2))
+        r["bound_ms"], r["bound_by"] = _bound(
+            _nbytes(x, q4, s, b) + M * N * (4 if od == torch.float32 else 2), 2 * M * N * K,
+            INT8_OPS)
+        wb = Q.dequantize_int4(q4, s)
+        r["library_ms"] = None
+        r["library"] = "none: no single PyTorch call"
+        r["bf16_linear_ms"] = _median_ms(lambda: F.linear(x, wb))  # another function
+        del wb
+        if what == "decode gate/up_proj":  # the lanes' rows
+            for m in (4, 8):
+                xm = torch.randn(m, K, generator=g, device=dev).to(torch.bfloat16)
+                r[f"device_ms_M{m}"] = _device_ms(lambda: Q.qdot4(xm, q4, s, b, od))
+        by_shape[what] = r
+        print(f"  K5-int4 {what} M={M} K={K} N={N}: kernel {r['ms']:.4f} ms (device "
+              f"{r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library none (no single "
+              f"PyTorch call; bf16 F.linear over the dequantized weight, another function, "
+              f"{r['bf16_linear_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+              + (f"; device at M=4 {r['device_ms_M4']:.4f}, M=8 {r['device_ms_M8']:.4f} ms"
+                 if "device_ms_M4" in r else ""))
+    timed.clear()
+    torch.cuda.empty_cache()
+    main = by_shape.get("decode gate/up_proj", {})
+    keys = ("M", "K", "N", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library", "bf16_linear_ms")
+    return dict(max_abs_err=err, shape="decode gate/up_proj (M=1, K=3584, N=18944), bf16 out",
+                **{k: main.get(k) for k in keys}, by_shape=by_shape)
+
+
 @contextlib.contextmanager
 def _plain_k5():
     """Bind K5's plain version where QLinear calls it (phase 4's noise
@@ -1038,6 +1162,20 @@ def _plain_k5():
         yield
     finally:
         Q.qdot = kernel
+
+
+@contextlib.contextmanager
+def _plain_qdot4():
+    """Bind qdot4's plain version where QLinear4 calls it (phase 4's noise
+    floor; the serving path has no such route)."""
+    from streaming_vlm_tpu_torch.ops import quant as Q
+
+    kernel = Q.qdot4
+    Q.qdot4 = Q.qdot4_plain
+    try:
+        yield
+    finally:
+        Q.qdot4 = kernel
 
 
 @contextlib.contextmanager
@@ -1055,7 +1193,7 @@ def _plain_raw_decode():
         lang.streaming_decode_attention_int8 = kernel
 
 
-def phase_reference(cfg, cases: str = "abc"):
+def phase_reference(cfg, cases: str = "abcd"):
     """At 7B width with the decoder cut to REF_LAYERS layers: the streaming
     forward through the kernels in bf16 against the plain full-attention
     oracle in f32 on the same weights, (a) over the pre-rotated bf16 arena
@@ -1066,7 +1204,11 @@ def phase_reference(cfg, cases: str = "abc"):
     with the weights quantized to W8A8, over the int8 arena with its
     pre-rotated K copy (K5 for every product, K1, K2), against the oracle
     on the dequantized weights (noise floor: the same forward with K5's
-    plain version). `cases` picks among (a), (b) and (c)."""
+    plain version), (d) with the weights quantized to W4A8 (the int4
+    decoder, prefill through qdot4's bf16 product, the decode step through
+    K5-int4) over the same arena, against the oracle on the dequantized
+    int4 weights (noise floor: qdot4's plain version). `cases` picks among
+    (a) to (d)."""
     import copy
 
     import numpy as np
@@ -1074,9 +1216,11 @@ def phase_reference(cfg, cases: str = "abc"):
 
     from streaming_vlm_tpu_torch.models.qwen25_vl import language as lang
     from streaming_vlm_tpu_torch.models.qwen25_vl.model import init_params
+    from streaming_vlm_tpu_torch.ops import quant as Q
     from streaming_vlm_tpu_torch.ops.quant import (
         LAYER_LINEARS,
         QuantKV,
+        dequantize_int4,
         quantize_kv,
         quantize_language,
         write_slots,
@@ -1173,6 +1317,47 @@ def phase_reference(cfg, cases: str = "abc"):
             floor = w8a8_logits()
         errs["W8A8, int8 pre-rotated (K5, K1, K2)"] = (rel_q(got), rel_q(floor))
         del lmq, deq
+
+    # (d) W4A8 weights (int4 decoder products and lm_head) over the int8
+    # arena, pre-rotated: the prefill's products take qdot4's bf16 path, the
+    # decode step's K5-int4; against the f32 oracle on the dequantized int4
+    # weights (noise floor: the same forward with qdot4's plain version)
+    if "d" in cases:
+        lm4 = quantize_language(copy.deepcopy(lm), bits=4)
+        deq = copy.deepcopy(lm).float()
+        for layer, qlayer in zip(deq.layers, lm4.layers):
+            for name in LAYER_LINEARS:
+                ql = getattr(qlayer, name)
+                getattr(layer, name).weight.copy_(dequantize_int4(ql.q4, ql.s, torch.float32))
+        deq.lm_head.weight.copy_(dequantize_int4(lm4.lm_head.q4, lm4.lm_head.s, torch.float32))
+        oracle_4 = lang.lm_logits(tcfg, deq, lang.language_forward(tcfg, deq, emb.float(), pos))[-1]
+
+        def w4a8_logits():
+            kr = torch.zeros(L, C, Hkv, hd, dtype=torch.bfloat16, device=dev)
+            _, vq8 = lang.init_kv_arena(tcfg, C, torch.bfloat16, dev, quant="int8")
+            _, (_, kbr, vb) = lang.language_forward_streaming(
+                tcfg, lm4, emb[:T], pos[:, :T], arena=(kr, vq8), arena_rotated=True, visible_len=0
+            )
+            kr[:, :T] = kbr
+            write_slots(vq8, vb, 0)
+            h, _ = lang.language_forward_streaming(
+                tcfg, lm4, emb[T:], pos[:, T:], arena=(kr, vq8), arena_rotated=True,
+                visible_len=T, **delta,
+            )
+            return lang.lm_logits(tcfg, lm4, h)[0]
+
+        def rel_4(x):
+            return float((x - oracle_4).abs().max() / oracle_4.abs().max())
+
+        n4 = Q.path_counts["int4"]
+        got = w4a8_logits()
+        launched = Q.path_counts["int4"] - n4
+        with _plain_qdot4():
+            floor = w4a8_logits()
+        if launched != 7 * L + 1:
+            raise AssertionError(f"W4A8 forward: {launched} K5-int4 launches, not {7 * L + 1}")
+        errs["W4A8, int8 pre-rotated (K5-int4, K1, K2)"] = (rel_4(got), rel_4(floor))
+        del lm4, deq
     torch.cuda.synchronize()
     for name, (err, floor) in errs.items():
         ok = math.isfinite(err) and err <= REF_NOISE_FACTOR * floor
@@ -1573,6 +1758,309 @@ def phase_multistream(cfg, model, stream, B: int, expect: dict, profile: Path | 
                           cached_after_eviction=cached[-1], device_busy=busy)
 
 
+def _patches(cfg, rng, n: int = 1):
+    """n chunks of 2 synthetic 476x840 uint8 frames, patchified on the host:
+    [(patches [2040, patch_dim] f32, grid (1, 34, 60))]."""
+    import numpy as np
+
+    from streaming_vlm_tpu_torch.video.ingest import patchify_frames
+
+    v = cfg.vision
+    return [patchify_frames(rng.integers(0, 256, (2, 476, 840, 3), dtype=np.uint8),
+                            patch_size=v.patch_size, temporal_patch_size=v.temporal_patch_size,
+                            merge_size=v.spatial_merge_size) for _ in range(n)]
+
+
+def _client_segs(cfg, builder, i: int, query: str, grid):
+    """Chunk i of a stream with `query` (system prompt and previous text at
+    chunk 0), as bench.py's multi-stream clients send them."""
+    import numpy as np
+
+    n_vid = int(np.prod(grid)) // cfg.vision.spatial_merge_unit
+    out = []
+    if i == 0:
+        out.append(builder.system_segment())
+        out.extend(builder.previous_text_segments("live stream"))
+        out.extend(builder.user_turn_segments(0, 0.0, 1.0, n_vid, grid, 1.0, query=query))
+    else:
+        out.extend(builder.user_turn_segments(i, float(i), i + 1.0, n_vid, grid, 1.0))
+    return out + builder.assistant_open_segments(i)
+
+
+def _counts():
+    from streaming_vlm_tpu_torch.ops import attention as A
+    from streaming_vlm_tpu_torch.ops import quant as Q
+
+    return {**A.launch_counts, **Q.launch_counts,
+            **{f"int8_gemm/{k}": v for k, v in Q.path_counts.items()}}
+
+
+def _reset_counts():
+    from streaming_vlm_tpu_torch.ops import attention as A
+    from streaming_vlm_tpu_torch.ops import quant as Q
+
+    A.reset_launch_counts()
+    Q.reset_launch_counts()
+
+
+SNAP_CHUNKS, SNAP_CUT = 12, 6  # slice J: a stream of 12 chunks, cut after 6
+SNAP_LANES, SNAP_ROUNDS = 4, 17  # slice J's lanes: rounds past the 16-chunk window
+
+
+def phase_snapshots(cfg, model, stream, expect: tuple) -> tuple:
+    """Slice J: snapshots on W8A8 weights with `stream`, sampled (default
+    SamplingConfig). Run A serves SNAP_CHUNKS chunks straight through
+    `streaming_inference_frames`; run B serves SNAP_CUT through a
+    StreamingSession, then session.snapshot() -> save_snapshot -> a fresh
+    engine (load_snapshot -> resume_snapshot=) for the rest: chunks
+    SNAP_CUT.. of run B must equal run A's. Done over the pre-rotated
+    arena (K1, K2) and the raw one (prerotate_arena=False: K1 raw, K3).
+    Then SNAP_ROUNDS rounds of a SNAP_LANES-lane engine (the window full),
+    every lane snapshotted (lane 1 through a file) into a fresh engine: one
+    more round on both must give lane 1 the same tokens. Prints the
+    snapshot's bytes and the ms of snapshot, save, load and restore.
+    `expect`: the kernels that must have launched."""
+    import numpy as np
+    import torch
+
+    from streaming_vlm_tpu_torch.config import SamplingConfig
+    from streaming_vlm_tpu_torch.serve import StreamingSession, streaming_inference_frames
+    from streaming_vlm_tpu_torch.streaming.multistream import MultiStreamEngine
+    from streaming_vlm_tpu_torch.streaming.protocol import FakeTokenizer, PromptBuilder
+    from streaming_vlm_tpu_torch.streaming.snapshot import load_snapshot, save_snapshot
+
+    def snapshot_bytes(snap):  # the arrays' bytes (the arena prefix dominates)
+        return sum(sum(a.nbytes for a in v.values()) if isinstance(v, dict) else v.nbytes
+                   for v in (snap[k] for k in ("k", "v", "ids", "pos")))
+
+    tok = FakeTokenizer(cfg.tokens)
+    rng = np.random.default_rng(9)
+    frames = [rng.integers(0, 256, (2, 476, 840, 3), dtype=np.uint8) for _ in range(SNAP_CHUNKS)]
+    v = cfg.vision
+    path = REPO / "build" / f"snapshot_{os.getpid()}.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    out = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    for label, st in (("pre-rotated", stream),
+                      ("raw", dataclasses.replace(stream, prerotate_arena=False))):
+        kw = dict(cfg=cfg, model=model, tokenizer=tok, stream=st, quiet=True)
+        run_a = [r["response"] for r in streaming_inference_frames(frames=frames, **kw)]
+        sess = StreamingSession(cfg, model, tok, stream=st)
+        from streaming_vlm_tpu_torch.video.ingest import patchify_frames
+
+        head = []
+        for i in range(SNAP_CUT):
+            patches, grid = patchify_frames(frames[i], patch_size=v.patch_size,
+                                            temporal_patch_size=v.temporal_patch_size,
+                                            merge_size=v.spatial_merge_size)
+            head.append(sess.run_chunk(i, float(i), pixel_patches=patches, grid_thw=grid)[0])
+        snap, snap_ms = timed(sess.snapshot)
+        _, save_ms = timed(lambda: save_snapshot(snap, str(path)))
+        del sess
+        torch.cuda.empty_cache()
+        loaded, load_ms = timed(lambda: load_snapshot(str(path)))
+        run_b = [r["response"] for r in streaming_inference_frames(
+            frames=frames, resume_snapshot=loaded, **kw)]
+        same_head = sum(a == b for a, b in zip(head, run_a[:SNAP_CUT]))
+        same_tail = sum(a == b for a, b in zip(run_b, run_a[SNAP_CUT:]))
+        print(f"  J {label}: run B chunks 0-{SNAP_CUT - 1} through the session equal run A's in "
+              f"{same_head} of {SNAP_CUT}; snapshot at chunk {SNAP_CUT} ({snap['cached']} cached "
+              f"slots, {snapshot_bytes(snap) / 2**20:.1f} MiB): snapshot {snap_ms:.2f} ms, save "
+              f"{save_ms:.2f} ms, load {load_ms:.2f} ms; resumed chunks {SNAP_CUT}-"
+              f"{SNAP_CHUNKS - 1} equal run A's in {same_tail} of {SNAP_CHUNKS - SNAP_CUT}")
+        assert len(run_b) == SNAP_CHUNKS - SNAP_CUT, len(run_b)
+        assert run_b == run_a[SNAP_CUT:], "the resumed stream's tokens differ from run A's"
+        out[label] = dict(cached=int(snap["cached"]), bytes=snapshot_bytes(snap),
+                          snapshot_ms=snap_ms, save_ms=save_ms, load_ms=load_ms,
+                          head_equal=same_head, tail_equal=same_tail)
+
+    # lanes: SNAP_ROUNDS rounds fill the window, then every lane moves
+    sampling = SamplingConfig()
+    ms1 = MultiStreamEngine(cfg, model, stream, sampling, SNAP_LANES)
+    builders = [PromptBuilder(cfg.tokens, tok) for _ in range(SNAP_LANES)]
+    end_bias = builders[0].measure_biases()[1]
+    queries = [f"Commentate on match feed {b}" for b in range(SNAP_LANES)]
+
+    def round_inputs(i):
+        pats = _patches(cfg, rng, SNAP_LANES)
+        grid = pats[0][1]
+        return ([_client_segs(cfg, builders[b], i, queries[b], grid) for b in range(SNAP_LANES)],
+                np.stack([p for p, _ in pats]), grid)
+
+    for i in range(SNAP_ROUNDS):
+        segs, pats, grid = round_inputs(i)
+        outs = ms1.process_round(segs, vis_embeds=ms1.encode_round(pats, grid), grid_thw=grid)
+        ms1.commit_assistant([o[0] for o in outs], end_bias, i)
+    snaps, ms_snap = [], []
+    for b in range(SNAP_LANES):
+        sn, t = timed(lambda: ms1.snapshot_lane(b))
+        snaps.append(sn)
+        ms_snap.append(t)
+    _, save_ms = timed(lambda: save_snapshot(snaps[1], str(path)))
+    snaps[1], load_ms = timed(lambda: load_snapshot(str(path)))
+    path.unlink(missing_ok=True)
+    ms2 = MultiStreamEngine(cfg, model, stream, sampling, SNAP_LANES)
+    ms_restore = []
+    for b in range(SNAP_LANES):
+        _, t = timed(lambda: ms2.restore_lane(b, snaps[b]))
+        ms_restore.append(t)
+    segs, pats, grid = round_inputs(SNAP_ROUNDS)
+    o1 = ms1.process_round(segs, vis_embeds=ms1.encode_round(pats, grid), grid_thw=grid)
+    o2 = ms2.process_round(segs, vis_embeds=ms2.encode_round(pats, grid), grid_thw=grid)
+    equal = [np.array_equal(a[0], b[0]) for a, b in zip(o1, o2)]
+    lane = dict(lanes=SNAP_LANES, rounds=SNAP_ROUNDS, cached=int(snaps[1]["cached"]),
+                bytes=snapshot_bytes(snaps[1]), snapshot_lane_ms=ms_snap[1], save_ms=save_ms,
+                load_ms=load_ms, restore_lane_ms=ms_restore[1], lanes_equal=equal)
+    out["lanes"] = lane
+    torch.cuda.synchronize()
+    launches = _counts()
+    print(f"  J lanes: {SNAP_LANES} lanes after {SNAP_ROUNDS} rounds, lane 1 {lane['cached']} "
+          f"cached slots ({lane['bytes'] / 2**20:.1f} MiB): snapshot_lane {ms_snap[1]:.2f} ms "
+          f"(all lanes {[round(t, 2) for t in ms_snap]}), save {save_ms:.2f} ms, load "
+          f"{load_ms:.2f} ms, restore_lane {ms_restore[1]:.2f} ms (all "
+          f"{[round(t, 2) for t in ms_restore]}); the next round's tokens equal, by lane, "
+          f"{equal}; launches {launches}")
+    assert equal[1], "lane 1's continuation differs after the move"
+    missing = [k for k in expect if not launches.get(k)]
+    assert not missing, f"slice J launched no {missing}"
+    del ms1, ms2
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+SERVER_LANES, SERVER_CLIENTS, SERVER_CHUNKS = 4, 8, 10  # slice K
+
+
+def phase_server(cfg, model, stream, expect: tuple) -> tuple:
+    """Slice K: MultiStreamServer over a SERVER_LANES-lane engine (W8A8,
+    `stream`), max_clients=SERVER_CLIENTS: that many clients, each its own
+    frames, query and sampling seed, submit SERVER_CHUNKS chunks each; the
+    background thread (start / stop) drives the rounds. Every client must
+    receive chunks 0.. in order, and swaps must happen. Then the same again
+    with an engine_factory and one RuntimeError("UNAVAILABLE: ...")
+    injected into the 6th round: one recovery, no chunk lost; prints how
+    many tokens equal the unfaulted run's. `expect`: the kernels that must
+    have launched in the unfaulted run."""
+    import numpy as np
+    import torch
+
+    from streaming_vlm_tpu_torch.config import SamplingConfig
+    from streaming_vlm_tpu_torch.streaming.multiserve import MultiStreamServer
+    from streaming_vlm_tpu_torch.streaming.multistream import MultiStreamEngine
+    from streaming_vlm_tpu_torch.streaming.protocol import FakeTokenizer, PromptBuilder
+
+    tok = FakeTokenizer(cfg.tokens)
+    rng = np.random.default_rng(11)
+    chunks = [_patches(cfg, rng, SERVER_CHUNKS) for _ in range(SERVER_CLIENTS)]
+    queries = [f"Commentate on match feed {k}" for k in range(SERVER_CLIENTS)]
+    end_bias = PromptBuilder(cfg.tokens, tok).measure_biases()[1]
+
+    def run(fault_round=None):
+        swap_ms, round_s, calls = [], [], [0]
+
+        def engine():
+            ms = MultiStreamEngine(cfg, model, stream, SamplingConfig(), SERVER_LANES)
+            for name in ("snapshot_lane", "restore_lane"):
+                fn = getattr(ms, name)
+
+                def swap(*a, fn=fn):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    r = fn(*a)
+                    torch.cuda.synchronize()
+                    swap_ms.append((time.perf_counter() - t0) * 1e3)
+                    return r
+
+                setattr(ms, name, swap)
+            return ms
+
+        ms = engine()
+        if fault_round is not None:
+            step = ms.process_round
+
+            def faulty(*a, **k):
+                calls[0] += 1
+                if calls[0] == fault_round:
+                    raise RuntimeError("UNAVAILABLE: device fault injected by chip_smoke.py")
+                return step(*a, **k)
+
+            ms.process_round = faulty
+        srv = MultiStreamServer(ms, end_bias=end_bias, max_clients=SERVER_CLIENTS,
+                                engine_factory=engine if fault_round else None,
+                                snapshot_every=4)
+        rounds = srv._round_locked
+
+        def timed_round():
+            t0 = time.perf_counter()
+            n = rounds()
+            if n:
+                round_s.append(time.perf_counter() - t0)
+            return n
+
+        srv._round_locked = timed_round
+        clients = [srv.attach(seed=1000 + k) for k in range(SERVER_CLIENTS)]
+        builders = [PromptBuilder(cfg.tokens, tok) for _ in range(SERVER_CLIENTS)]
+        t0 = time.perf_counter()
+        srv.start()
+        try:
+            for i in range(SERVER_CHUNKS):
+                for k, c in enumerate(clients):
+                    patches, grid = chunks[k][i]
+                    c.submit(_client_segs(cfg, builders[k], i, queries[k], grid),
+                             pixel_patches=patches, grid_thw=grid)
+            got = [[c.get(timeout=900) for _ in range(SERVER_CHUNKS)] for c in clients]
+        finally:
+            srv.stop()
+        wall = time.perf_counter() - t0
+        assert srv.error is None, srv.error
+        for k, rows in enumerate(got):
+            assert [i for i, _ in rows] == list(range(SERVER_CHUNKS)), (k, [i for i, _ in rows])
+        stats = dict(rounds=len(round_s), swaps=srv.swaps, recoveries=srv.recoveries,
+                     swap_ms_p50=statistics.median(swap_ms) if swap_ms else None,
+                     swap_ms_max=max(swap_ms) if swap_ms else None,
+                     round_p50_ms=statistics.median(round_s) * 1e3,
+                     round_max_ms=max(round_s) * 1e3,
+                     aggregate_frames_per_s=2 * SERVER_CLIENTS * SERVER_CHUNKS / wall, wall_s=wall)
+        del srv, ms
+        torch.cuda.empty_cache()
+        return [[g for _, g in rows] for rows in got], stats
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    base, stats = run()
+    torch.cuda.synchronize()
+    launches = _counts()
+    print(f"  K: {SERVER_CLIENTS} clients on {SERVER_LANES} lanes, {SERVER_CHUNKS} chunks each, "
+          f"background thread: {stats['rounds']} rounds, {stats['swaps']} swaps (snapshot_lane / "
+          f"restore_lane p50 {stats['swap_ms_p50']:.2f} ms, max {stats['swap_ms_max']:.2f}), round "
+          f"wall p50 {stats['round_p50_ms']:.2f} ms, max {stats['round_max_ms']:.2f} ms, aggregate "
+          f"{stats['aggregate_frames_per_s']:.3f} frames/s ({stats['wall_s']:.3f} s); every client "
+          f"got chunks 0-{SERVER_CHUNKS - 1} in order; launches {launches}")
+    assert stats["swaps"] > 0, "no swap happened"
+    missing = [k for k in expect if not launches.get(k)]
+    assert not missing, f"slice K launched no {missing}"
+    faulted, fstats = run(fault_round=6)
+    same = sum(int(np.array_equal(a, b)) for ra, rb in zip(base, faulted) for a, b in zip(ra, rb))
+    toks = sum(min(len(a), len(b)) for ra, rb in zip(base, faulted) for a, b in zip(ra, rb))
+    same_tok = sum(int((a[:len(b)] == b[:len(a)]).sum()) for ra, rb in zip(base, faulted)
+                   for a, b in zip(ra, rb))
+    print(f"  K with engine_factory, a device fault in round 6: {fstats['recoveries']} "
+          f"recovery, {fstats['rounds']} rounds, no chunk lost; chunks equal to the unfaulted "
+          f"run's {same} of {SERVER_CLIENTS * SERVER_CHUNKS}, tokens {same_tok} of {toks}")
+    assert fstats["recoveries"] == 1, fstats
+    stats["faulted"] = dict(fstats, chunks_equal=same, tokens_equal=same_tok, tokens=toks)
+    return launches, stats
+
+
 def phase_mutants() -> dict:
     """For each fault in MUTANTS: copy the port and this script into
     build/mutants/<i>/ (git-ignored), apply the fault there, build the
@@ -1608,16 +2096,28 @@ def phase_mutants() -> dict:
                                         stderr=subprocess.DEVNULL))
     for p in running:
         p.wait()
+    # the copies' checks, MUTANT_RUNS processes at a time on the card (each
+    # writes to a file: pipes could fill while another process is awaited)
+    check = [sys.executable, "-c",
+             "import chip_smoke; chip_smoke._TIMED = False; chip_smoke.phase_kernels()"]
+    runs, running = {}, []
+    for d in dirs:
+        if len(running) == MUTANT_RUNS:
+            running.pop(0).wait(timeout=600)
+        with open(d / "out.txt", "w") as out, open(d / "err.txt", "w") as err:
+            p = subprocess.Popen(check, cwd=d, stdout=out, stderr=err, text=True)
+        runs[d] = p
+        running.append(p)
+    for p in running:
+        p.wait(timeout=600)
     found = {}
     for d, (name, (kernel, src, text, repl, where)) in zip(dirs, MUTANTS.items()):
-        r = subprocess.run(
-            [sys.executable, "-c",
-             "import chip_smoke; chip_smoke._TIMED = False; chip_smoke.phase_kernels()"],
-            cwd=d, capture_output=True, text=True, timeout=600,
-        )
+        r = subprocess.CompletedProcess(check, runs[d].returncode, (d / "out.txt").read_text(),
+                                        (d / "err.txt").read_text())
         kernels = {kernel} if isinstance(kernel, str) else set(kernel)
         lines = r.stdout.splitlines()
-        checks = [x.strip() for x in lines if re.match(r"  K\d(\+K\d)*( merged)? \{", x)]
+        checks = [x.strip() for x in lines
+                  if re.match(r"  K\d(-int4)?(\+K\d)*( merged)? \{", x)]
         mine = [x for x in checks if set(x.split(" ", 1)[0].split("+")) & kernels]
         failed = [x for x in checks if x.endswith("FAIL")]
         print(f"  mutant {name!r}: exit {r.returncode}, {len(failed)} checks failed")
@@ -1642,15 +2142,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=Path, metavar="DIR",
                     help="trace the slices with torch.profiler; kernel tables -> "
-                         "DIR/profile_slice_{a,...,h}.txt")
-    ap.add_argument("--slices", default="ABCDEFGH",
-                    help="the slices of phase 5 to run (default all: ABCDEFGH)")
+                         "DIR/profile_slice_{a,...,i}.txt")
+    ap.add_argument("--slices", default="ABCDEFGHIJK",
+                    help="the slices of phase 5 to run (default all: ABCDEFGHIJK)")
     args = ap.parse_args()
     if not (REPO / "streaming_vlm_tpu_torch").is_dir():
         raise SystemExit("chip_smoke.py must run from a checkout of the repository")
     sys.path.insert(0, str(REPO))
     import torch
 
+    t_start = time.perf_counter()
     print("[1/5] device")
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the port's smoke test runs only on the card")
@@ -1663,13 +2164,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    print("[2/5] build")
+    print(f"[2/5] build (at {time.perf_counter() - t_start:.1f} s)")
     from streaming_vlm_tpu_torch.ops import _kernels
 
     t0 = time.perf_counter()
     ptxas = {src: _ptxas_verbose(_kernels, src)
              for src in ("prefill_attention.cu", "decode_attention.cu", "decode_attention_raw.cu",
-                         "int8_gemm.cu")}
+                         "int8_gemm.cu", "int4_gemv.cu")}
     so = _kernels.build()
     _kernels.lib()
     print(f"  {so.name}: {time.perf_counter() - t0:.2f} s (nvcc {_kernels.build_seconds} s)")
@@ -1682,12 +2183,13 @@ def main() -> int:
             ("K3 bf16 arena", "decode_attention_raw.cu", "decode_raw_kernelILb0E"),
             ("K5 tiled, tile 128x256, bf16 out", "int8_gemm.cu", "gemm_tiled_kernelILi256E13__nv_bfloat16"),
             ("K5 tiled, tile 128x128, bf16 out", "int8_gemm.cu", "gemm_tiled_kernelILi128E13__nv_bfloat16"),
-            ("K5 decode GEMV, bf16 in and out", "int8_gemm.cu", "gemv_kernelI13__nv_bfloat16S")):
+            ("K5 decode GEMV, bf16 in and out", "int8_gemm.cu", "gemv_kernelI13__nv_bfloat16S"),
+            ("K5-int4, one row, 16-byte loads (4 dtype forms)", "int4_gemv.cu", "Li1ELb1E")):
         print(f"  {what} " + _ptxas_lines(text[src], kernel))
 
-    print("[3/5] kernels vs plain versions")
+    print(f"[3/5] kernels vs plain versions (at {time.perf_counter() - t_start:.1f} s)")
     kstats = phase_kernels()
-    print("  phase 3 against copies of the port with K1, K2, K3 or K5 broken on purpose")
+    print("  phase 3 against copies of the port with K1, K2, K3, K5 or K5-int4 broken on purpose")
     print("  " + json.dumps({"mutants": phase_mutants()}))
 
     from streaming_vlm_tpu_torch.config import StreamConfig, qwen2_vl_7b, qwen25_vl_7b
@@ -1699,13 +2201,14 @@ def main() -> int:
     from streaming_vlm_tpu_torch.ops import quant as Q
 
     cfg, cfg2 = qwen25_vl_7b(), qwen2_vl_7b()
-    print("[4/5] reference: streaming forward vs plain oracle at 7B width")
+    print(f"[4/5] reference: streaming forward vs plain oracle at 7B width "
+          f"(at {time.perf_counter() - t_start:.1f} s)")
     phase_reference(cfg)
     print(f"  {cfg2.name} (its decoder's widths: the bf16 and W8A8 cases)")
     phase_reference(cfg2, cases="ac")
     phase_vision_reference(cfg2)
 
-    print("[5/5] slices: the serving entry points at 7B width")
+    print(f"[5/5] slices: the serving entry points at 7B width (at {time.perf_counter() - t_start:.1f} s)")
     t0 = time.perf_counter()
     model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                         device="cuda", dtype=torch.bfloat16)
@@ -1714,6 +2217,7 @@ def main() -> int:
           f"in {time.perf_counter() - t0:.2f} s")
     L, max_new = cfg.text.num_hidden_layers, StreamConfig().max_tokens_per_chunk
     k1, k2 = "streaming_prefill_attention", "streaming_decode_attention_full"
+    k3 = "streaming_decode_attention_int8"
 
     def k5(blocks: int, per_block: int) -> dict:
         """K5's launches a chunk with W8A8 weights: the 7 projections of
@@ -1727,6 +2231,13 @@ def main() -> int:
                 "int8_gemm/tiled": 7 * L + vision,
                 "int8_gemm/gemv": 7 * L * max_new + 1 + max_new}
 
+    # W4A8 (slice I): K5-int4 runs every decode product (7 a layer) and
+    # every one-row lm_head (the prefill's last row and each decode step's);
+    # the prefill's products take qdot4's bf16 path; the vision tower stays
+    # int8 (K5 tiled: 5 products a block + the merger's 2)
+    vision25 = 5 * cfg.vision.depth + 2
+    w4a8 = {k1: L, k2: L * max_new, "int8_gemm": vision25, "int8_gemm/tiled": vision25,
+            "int8_gemm/int4": 7 * L * max_new + max_new + 1}
     # efficiency config (c) (eval/efficiency.py): window 16, text rounds 16,
     # no previous-text sink or window, the cache recomputed every chunk;
     # kv_capacity_for(16, ., 560) = 14848 slots, buckets past 4096 so that
@@ -1737,8 +2248,9 @@ def main() -> int:
     slices = {  # name -> (weights, StreamConfig, launches per chunk, recompute)
         "A": ("bf16", StreamConfig(), {k1: L, k2: L * max_new}, False),
         "B": ("bf16", StreamConfig(kv_quant="int8", prerotate_arena=False),
-              {k1: L, "streaming_decode_attention_int8": L * max_new}, False),
+              {k1: L, k3: L * max_new}, False),
         "H": ("bf16", recompute, {k1: L, k2: L * max_new}, True),
+        "I": ("W4A8", StreamConfig(kv_quant="int8"), w4a8, False),
         # K5: 5 products a Qwen2.5-VL vision block (qkv, proj, gate, up, down)
         "C": ("W8A8", StreamConfig(kv_quant="int8"),
               {k1: L, k2: L * max_new, **k5(cfg.vision.depth, 5)}, False),
@@ -1757,7 +2269,20 @@ def main() -> int:
     for name, (weights, stream, expect, rec) in slices.items():
         if name not in args.slices:
             continue
-        if weights != loaded:  # W8A8: free the bf16 model first
+        print(f"  (at {time.perf_counter() - t_start:.1f} s)")
+        if weights != loaded and weights == "W4A8":  # the bf16 weights, quantized in place
+            if loaded != "bf16":
+                del model
+                torch.cuda.empty_cache()
+                model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                    device="cuda", dtype=torch.bfloat16)
+            t0 = time.perf_counter()
+            model, loaded = Q.quantize_model(model, bits=4), weights
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            print(f"  {cfg.name}: slice A's bf16 weights -> W4A8 (quantize_model(bits=4)) in "
+                  f"{time.perf_counter() - t0:.2f} s")
+        elif weights != loaded:  # W8A8: free the bf16 (or W4A8) model first
             del model
             model, loaded = w8a8(cfg), weights
         print(f"  slice {name}: {weights} weights, kv_quant={stream.kv_quant} "
@@ -1767,6 +2292,11 @@ def main() -> int:
         prof = args.profile / f"profile_slice_{name.lower()}.txt" if args.profile else None
         by_slice[name], slice_stats[name] = phase_slice(cfg, model, N_CHUNKS, stream, expect,
                                                         prof, recompute=rec)
+    if "I" in slice_stats and "C" in slice_stats:
+        i_, c_ = slice_stats["I"], slice_stats["C"]
+        print(f"  W4A8 (I) against W8A8 (C), this run: chunk p50 {i_['chunk_p50_ms']:.2f} vs "
+              f"{c_['chunk_p50_ms']:.2f} ms, max {i_['chunk_max_ms']:.2f} vs "
+              f"{c_['chunk_max_ms']:.2f} ms")
 
     # D, E, F: B lanes in lockstep rounds through MultiStreamEngine on the W8A8
     # weights. Per round: K1 once a layer; K2 (or K3) once a layer a decode
@@ -1779,15 +2309,14 @@ def main() -> int:
         "F": (4, StreamConfig(kv_quant="int8", prerotate_arena=False)),
     }
     ms_stats = {}
-    if set(args.slices) & set(ms_slices) and loaded != "W8A8":
+    if set(args.slices) & set("DEFJK") and loaded != "W8A8":
         del model
         model, loaded = w8a8(cfg), "W8A8"
     for name, (B, stream) in ms_slices.items():
         if name not in args.slices:
             continue
-        dec = "streaming_decode_attention_full" if stream.effective_prerotate else \
-            "streaming_decode_attention_int8"
-        vision = B * (5 * cfg.vision.depth + 2)
+        dec = k2 if stream.effective_prerotate else k3
+        vision = B * vision25
         decode = 7 * L * max_new + 1 + max_new
         small = B <= Q.lib().int8_small_m
         expect = {k1: L, dec: L * max_new, "int8_gemm": 7 * L + vision + decode,
@@ -1799,10 +2328,28 @@ def main() -> int:
         by_slice[name], ms_stats[name] = phase_multistream(cfg, model, stream, B, expect, prof)
     print("  " + json.dumps({"multistream": ms_stats}))
 
+    # J: snapshots (W8A8, C's stream; K1/K2, the raw arena's K1/K3, K5 both
+    # paths); K: the oversubscribed server (4 lanes: K5's decode GEMV)
+    if "J" in args.slices:
+        print(f"  (at {time.perf_counter() - t_start:.1f} s)")
+        print(f"  slice J: snapshot / resume, W8A8 weights, kv_quant=int8, sampled; pre-rotated "
+              f"and raw arenas, then {SNAP_LANES} lanes")
+        by_slice["J"], slice_stats["J"] = phase_snapshots(
+            cfg, model, StreamConfig(kv_quant="int8"),
+            (k1, k2, k3, "int8_gemm/gemv", "int8_gemm/tiled"))
+    if "K" in args.slices:
+        print(f"  (at {time.perf_counter() - t_start:.1f} s)")
+        print(f"  slice K: MultiStreamServer, {SERVER_CLIENTS} clients on {SERVER_LANES} lanes "
+              f"(max_clients={SERVER_CLIENTS}), W8A8 weights, kv_quant=int8")
+        by_slice["K"], slice_stats["K"] = phase_server(
+            cfg, model, StreamConfig(kv_quant="int8"),
+            (k1, k2, "int8_gemm/gemv", "int8_gemm/tiled"))
+
     # G: Qwen2-VL-7B (all 28 layers, 32 vision blocks), random W8A8 weights,
     # bench.py's 7B serving defaults, through bench.py's single-stream
     # route. K5: 4 products a Qwen2-VL vision block (qkv, proj, fc1, fc2)
     if "G" in args.slices:
+        print(f"  (at {time.perf_counter() - t_start:.1f} s)")
         del model
         model, loaded = w8a8(cfg2), "W8A8 qwen2"
         print(f"  slice G: {cfg2.name}, W8A8 weights, kv_quant=int8, bench.py's route "
@@ -1816,20 +2363,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("  " + json.dumps({"slices": slice_stats}))
 
-    kernels = [
-        {"name": n, "route": "cuda", "source": SRC[n][0], "replaces": SRC[n][1],
-         "launches": sum(c[n] for c in by_slice.values()),
-         "launches_by_slice": {s: c[n] for s, c in by_slice.items()},
-         **kstats[n]}
-        for n in SRC if n != "int8_gemm"
-    ]
-    for path in ("gemv", "tiled"):  # K5's two paths, each with its own launches
+    def launches(key):
+        return dict(launches=sum(c[key] for c in by_slice.values()),
+                    launches_by_slice={s: c[key] for s, c in by_slice.items()})
+
+    kernels = [{"name": n, "route": "cuda", "source": SRC[n][0], "replaces": SRC[n][1],
+                **launches(n), **kstats[n]}
+               for n in SRC if not n.startswith("int8_gemm")]
+    for path in ("gemv", "tiled", "int4"):  # K5's paths and K5-int4, each its own launches
         key = f"int8_gemm/{path}"
-        kernels.append({"name": key, "route": "cuda", "source": SRC["int8_gemm"][0],
-                        "replaces": SRC["int8_gemm"][1],
-                        "launches": sum(c[key] for c in by_slice.values()),
-                        "launches_by_slice": {s: c[key] for s, c in by_slice.items()},
-                        **kstats["int8_gemm"][path]})
+        src = SRC[key] if key in SRC else SRC["int8_gemm"]
+        kernels.append({"name": key, "route": "cuda", "source": src[0], "replaces": src[1],
+                        **launches(key), **kstats["int8_gemm"][path]})
+    print(f"  all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

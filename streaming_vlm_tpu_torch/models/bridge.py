@@ -8,6 +8,10 @@ layer axis is unstacked and matrices are transposed into nn.Linear's
 this module never imports jax. W8A8 trees (the JAX package's
 `quantize_model_params`) hold {"q" int8 [L, in, out], "s" f32 [L, 1, out]}
 leaves; they become `ops.quant.QLinear` modules with q [out, in], s [out].
+W4A8 trees (`quantize_model_params(text_bits=4)`) hold {"q4" int8 [L, in/2,
+out] (two contract rows a byte), "s" f32 [L, ng, out]} leaves; they become
+`ops.quant.QLinear4` modules with q4 [out, in/2] (the same bytes, so the
+same nibble order) and s [out, ng].
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
-from ..ops.quant import QLinear, is_qtensor
+from ..ops.quant import QLinear, QLinear4, is_qtensor
 from .qwen25_vl.model import Qwen25VL
 
 _TEXT_LAYER = {  # port submodule attr -> (JAX weight key, JAX bias key or None)
@@ -55,10 +59,19 @@ def _set(p: torch.Tensor, arr: np.ndarray) -> None:
 
 def _linear(lin: nn.Module, w, b=None) -> None:
     """A JAX [in, out] weight (or its {"q" [in, out], "s" [1, out]} int8
-    form, for a QLinear: q -> [out, in], s -> [out]) and bias."""
+    form, for a QLinear: q -> [out, in], s -> [out]; or its {"q4" [in/2,
+    out], "s" [ng, out]} int4 form, for a QLinear4: q4 -> [out, in/2], s ->
+    [out, ng]) and bias."""
     if isinstance(lin, QLinear):
         lin.q.copy_(torch.from_numpy(np.ascontiguousarray(np.asarray(w["q"]).T)))
         _set(lin.s, np.asarray(w["s"]).reshape(-1))
+    elif isinstance(lin, QLinear4):
+        q4 = np.asarray(w["q4"]).T
+        if q4.shape != tuple(lin.q4.shape):
+            raise ValueError(f"shape mismatch: JAX q4 {q4.shape[::-1]} vs port "
+                             f"{tuple(lin.q4.shape)}")
+        lin.q4.copy_(torch.from_numpy(np.ascontiguousarray(q4, np.int8)))
+        _set(lin.s, np.asarray(w["s"]).T)
     else:
         _set(lin.weight, np.asarray(w).T)
     if b is not None:
@@ -74,13 +87,12 @@ def _layer(leaf, i: int):
 
 
 def _like(leaf, lin: nn.Linear) -> nn.Module:
-    """An empty QLinear in lin's place where the JAX leaf is quantized."""
+    """An empty QLinear (QLinear4 for an int4 leaf) in lin's place where
+    the JAX leaf is quantized."""
     if not is_qtensor(leaf):
         return lin
-    if "q4" in leaf:
-        raise NotImplementedError("int4 weights (W4A8) are not ported")
-    return QLinear(lin.in_features, lin.out_features, lin.bias is not None,
-                   dtype=lin.weight.dtype)
+    cls = QLinear4 if "q4" in leaf else QLinear
+    return cls(lin.in_features, lin.out_features, lin.bias is not None, dtype=lin.weight.dtype)
 
 
 @torch.no_grad()
@@ -88,11 +100,12 @@ def from_jax_params(
     cfg: ModelConfig, params: Dict[str, Any], *, device="cuda", dtype=torch.float32
 ) -> Qwen25VL:
     """Build the port's model from a JAX `model.init_params` pytree, or the
-    W8A8 tree `quantize_model_params` makes of one (leaves as numpy arrays
-    or anything np.asarray accepts), on the card unless the caller passes
-    device="cpu". Either vision variant (qwen2: the LayerNorm biases
+    W8A8 or W4A8 tree `quantize_model_params` makes of one (leaves as
+    numpy arrays or anything np.asarray accepts), on the card unless the
+    caller passes device="cpu". Either vision variant (qwen2: the LayerNorm biases
     norm1_b, norm2_b and the merger's ln_q_b, and fc1/fc2 in place of the
-    SwiGLU). A {"q", "s"} leaf becomes a QLinear, bit for bit; a tied
+    SwiGLU). A {"q", "s"} leaf becomes a QLinear and a {"q4", "s"} leaf a
+    QLinear4, bit for bit; a tied
     model's "lm_head_q" becomes its lm_head."""
     t, v = params["text"], params["vision"]
     tl, vb = t["layers"], v["blocks"]
@@ -104,8 +117,8 @@ def from_jax_params(
                 setattr(layer, attr, _like(tl[wk], getattr(layer, attr)))
         head = t.get("lm_head_q", t.get("lm_head"))
         if head is not None and is_qtensor(head):
-            lm.lm_head = QLinear(cfg.text.hidden_size, cfg.text.vocab_size, bias=False,
-                                 dtype=dtype)
+            cls = QLinear4 if "q4" in head else QLinear
+            lm.lm_head = cls(cfg.text.hidden_size, cfg.text.vocab_size, bias=False, dtype=dtype)
         for blk in tower.blocks:
             for attr, (wk, _) in _block_linears(blk):
                 setattr(blk, attr, _like(vb[wk], getattr(blk, attr)))

@@ -5,7 +5,9 @@ Port of streaming_vlm_tpu/models/qwen25_vl/language.py. Layers are an
 weights). Weights are stored as `nn.Linear` ([out, in]); the bridge in
 models/bridge.py transposes the JAX [in, out] layout. With W8A8 weights
 (`ops.quant.quantize_model`) the seven projections of each layer and the
-lm_head are `ops.quant.QLinear` (kernel K5), called the same way.
+lm_head are `ops.quant.QLinear` (kernel K5), with W4A8 weights
+(`quantize_model(bits=4)`) `ops.quant.QLinear4` (qdot4: kernel K5-int4
+below 32 rows), called the same way.
 
 The KV arena is a pair of [L, C, Hkv, hd] tensors holding UN-rotated K, or,
 with `kv_quant="int8"`, a pair of `ops.quant.QuantKV` (int8 [L, C, Hkv, hd]
@@ -48,9 +50,10 @@ from ...ops.attention import (
 )
 from ...ops.quant import (
     Arena,
-    QLinear,
+    QUANTIZED_LINEARS,
     QuantKV,
     as_float,
+    f32_product,
     lanes_layer,
     storage,
     with_lanes,
@@ -307,14 +310,13 @@ def embed_tokens(cfg: TextConfig, lm: LanguageModel, input_ids: torch.Tensor) ->
 def lm_logits(cfg: TextConfig, lm: LanguageModel, hidden: torch.Tensor) -> torch.Tensor:
     """[T, D] -> [T, V] float32 logits: the f32 product of the (bf16)
     operands with no bf16 round, as the JAX package's
-    preferred_element_type=float32. A W8A8 lm_head (tied embeddings: the
-    quantized copy of embed) runs K5 with an f32 output."""
-    if isinstance(lm.lm_head, QLinear):
+    preferred_element_type=float32. A W8A8 or W4A8 lm_head (tied
+    embeddings: the quantized copy of embed) runs K5 or qdot4 with an f32
+    output."""
+    if isinstance(lm.lm_head, QUANTIZED_LINEARS):
         return lm.lm_head(hidden, out_dtype=torch.float32)
     w = lm.embed.weight if cfg.tie_word_embeddings else lm.lm_head.weight
-    if hidden.device.type == "cpu" or w.dtype == torch.float32:
-        return F.linear(hidden.float(), w.float())
-    return torch.mm(hidden, w.t(), out_dtype=torch.float32)
+    return f32_product(hidden, w)
 
 
 def init_kv_arena(

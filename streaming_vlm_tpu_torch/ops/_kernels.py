@@ -26,6 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (
     "prefill_attention.cu", "decode_attention.cu", "decode_attention_raw.cu", "int8_gemm.cu",
+    "int4_gemv.cu",
 )
 HEADERS = ("decode_common.cuh", "hopper.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -160,6 +161,10 @@ def lib() -> ctypes.CDLL:
         for fn in ("svt_int8_small_m", "svt_int8_block_m", "svt_int8_block_k"):
             getattr(so, fn).argtypes = []
             getattr(so, fn).restype = I
+        so.svt_qdot4.argtypes = [P, I, P, P, P, P, I, I, I, I, I, P]
+        so.svt_qdot4.restype = I
+        so.svt_int4_max_rows.argtypes = []
+        so.svt_int4_max_rows.restype = I
         so.svt_int8_maps_encoded.argtypes = []
         so.svt_int8_maps_encoded.restype = ctypes.c_longlong
         # compile-time constants of the decode kernels, read once
@@ -169,6 +174,7 @@ def lib() -> ctypes.CDLL:
         so.raw_decode_max_split = so.svt_decode_raw_max_split()
         so.raw_decode_max_parts = so.svt_decode_raw_max_parts()
         so.int8_small_m = so.svt_int8_small_m()
+        so.int4_max_rows = so.svt_int4_max_rows()
         so.int8_block = (so.svt_int8_block_m(), so.svt_int8_block_k())
         so.prefill_block = (so.svt_prefill_block_rows(), so.svt_prefill_block_keys())
         _lib = so

@@ -21,15 +21,28 @@ dynamic int8 activations x int8 weights -> int32, rescaled by (sx * s).
 and their plain versions on CPU tensors; there is no other fallback.
 `quantize_model` turns a float model into this layout; the embedding table
 stays float for gathers and tied embeddings get a quantized lm_head copy.
+
+W4A8 weights (`quantize_model(bits=4)`, the JAX package's
+`quantize_model_params(text_bits=4)`): the decoder's projections and the
+lm_head as symmetric int4 with one f32 scale per (128-row contract group,
+output channel), two values packed per byte along the contract axis
+(`quantize_weight_int4`), held by `QLinear4`. Its forward is `qdot4`: at
+32 rows or more the weight is dequantized to bf16 and multiplied with f32
+accumulation (torch.mm; the JAX package's XLA dot); below 32 rows kernel
+K5-int4 (csrc/int4_gemv.cu) takes int8 rows x packed int4 weights to
+per-group int32 sums and folds the groups in order. The vision tower
+stays int8.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import Mapping, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ._kernels import check_cuda, check_rows, lib, ptr, sm_count, stream
@@ -186,7 +199,7 @@ def compute_dtype(arena: Arena, default: torch.dtype) -> torch.dtype:
 # and the tiled product; it counts once), and the same calls by path: the
 # decode GEMV (M <= the library's int8_small_m) or the tiled product
 launch_counts = {"int8_gemm": 0}
-path_counts = {"gemv": 0, "tiled": 0}
+path_counts = {"gemv": 0, "tiled": 0, "int4": 0}  # int4: K5-int4's launches (qdot4)
 
 
 def reset_launch_counts() -> None:
@@ -549,6 +562,206 @@ class QLinear(nn.Module):
         return qdot(x, self.q, self.s, self.bias, out_dtype)
 
 
+# ---------------------------------------------------------------------------
+# W4A8 weights
+# ---------------------------------------------------------------------------
+
+INT4_GROUP = 128  # contract rows per int4 scale group
+INT4_MAX_ROWS = 31  # qdot4 runs K5-int4 below 32 rows (the JAX package's threshold)
+# 1/7 in f32: the JAX package's int4 quantization runs jitted, where XLA
+# folds max|w| / 7.0 into a product with this reciprocal (as with INV127)
+INV7 = float(np.float32(1.0) / np.float32(7.0))
+
+
+def int4_groups(D: int) -> int:
+    """Scale groups along a contract axis of D rows: D // INT4_GROUP, or one
+    group when INT4_GROUP does not divide D."""
+    return D // INT4_GROUP if D % INT4_GROUP == 0 else 1
+
+
+def quantize_weight_int4(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric group-wise int4 quantization of a [out, in] weight, the
+    JAX package's `quantize_weight_int4` in the port's layout: s = max|w|
+    over each group of INT4_GROUP contract rows (one group when that does
+    not divide `in`) * f32(1/7), clamped at 1e-12; q = clip(round(w / s),
+    -7, 7); contract rows 2d and 2d+1 of one output channel share byte d,
+    2d in the low nibble. Returns (q4 int8 [out, in/2], s f32 [out, ng])."""
+    out_f, D = w.shape
+    if D % 2:
+        raise ValueError(f"int4 weights need an even contract axis, got {D}")
+    ng = int4_groups(D)
+    wg = w.float().reshape(out_f, ng, D // ng)
+    s = (wg.abs().amax(dim=-1, keepdim=True) * INV7).clamp_min(1e-12)
+    q = torch.round(wg / s).clamp(-7, 7).to(torch.int8).reshape(out_f, D)
+    packed = (q[:, 0::2] & 0xF) | (q[:, 1::2] << 4)
+    return packed.contiguous(), s[..., 0].contiguous()
+
+
+def unpack_int4(q4: torch.Tensor) -> torch.Tensor:
+    """[out, in/2] packed int4 -> int8 [out, in]: each nibble sign-extended
+    by two arithmetic shifts, as the JAX package's right_shift(left_shift(p,
+    4), 4) (low) and right_shift(p, 4) (high)."""
+    lo, hi = (q4 << 4) >> 4, q4 >> 4
+    return torch.stack([lo, hi], dim=-1).reshape(q4.shape[0], -1)
+
+
+def dequantize_int4(q4: torch.Tensor, s: torch.Tensor,
+                    dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The [out, in] weight q * s (f32 products, one scale per group) in
+    `dtype`: what qdot4 multiplies at 32 rows or more."""
+    q = unpack_int4(q4)
+    out_f, D = q.shape
+    ng = s.shape[1]
+    return (q.float().reshape(out_f, ng, D // ng) * s[:, :, None]).reshape(out_f, D).to(dtype)
+
+
+def f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """f32 [M, N] = x [M, K] . w [N, K]^T with f32 accumulation and no round
+    of the result (the JAX package's preferred_element_type=float32):
+    torch.mm with an f32 output for bf16 operands on the card, else the f32
+    product of the operands' values (the CPU's torch.mm lacks out_dtype)."""
+    if x.device.type == "cpu" or x.dtype == torch.float32 or w.dtype == torch.float32:
+        return F.linear(x.float(), w.float())
+    return torch.mm(x, w.t(), out_dtype=torch.float32)
+
+
+def _qdot4_dense(x, q4, s, bias, out_dtype) -> torch.Tensor:
+    """qdot4 at 32 rows or more: the weight dequantized to bf16, x rounded
+    to bf16, their f32-accumulated product cast to out_dtype, + bias."""
+    lead, K = x.shape[:-1], x.shape[-1]
+    out = f32_product(x.reshape(-1, K).to(torch.bfloat16), dequantize_int4(q4, s))
+    out = out.to(out_dtype or x.dtype).reshape(*lead, -1)
+    return out if bias is None else out + bias
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c for f32 tensors with one rounding, as a fused multiply-add:
+    the product is exact in float64 (24 + 24 bits); the float64 sum is made
+    round-to-odd (its exact error by TwoSum, then the odd neighbour where
+    it was inexact), and a round-to-odd 53-bit value rounds to 24 bits as
+    the exact one would."""
+    p, c = a.double() * b.double(), c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    away = torch.where(err > 0, torch.full_like(s, math.inf), torch.full_like(s, -math.inf))
+    return torch.where((err != 0) & even, torch.nextafter(s, away), s).float()
+
+
+def qdot4_plain(x, q4, s, bias=None, out_dtype=None) -> torch.Tensor:
+    """Plain version of `qdot4`, op for op the JAX package's as jit runs
+    it: [..., K] x ([N, K/2] packed int4, [N, ng] f32) -> [..., N] in
+    out_dtype (default x's dtype), then + bias. Below 32 rows: x quantized
+    per row (as qdot), int32 sums per scale group (exact, through float64),
+    folded over the groups in order, fold = fma(f32(acc_g), s_g, fold) from
+    0 (XLA contracts jnp.sum(acc * s, axis=0) into that chain), times sx;
+    with one group, acc * (sx * s). In f32 the last product and + bias are
+    one fused multiply-add, as jit fuses `mm(x, w) + b`; in bf16 the bias is
+    added after the cast."""
+    lead, K = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, K)
+    M, N, ng = x2.shape[0], q4.shape[0], s.shape[1]
+    if M > INT4_MAX_ROWS:
+        return _qdot4_dense(x, q4, s, bias, out_dtype)
+    xq, sx = quantize_rows(x2)
+    G = K // ng
+    xg = xq.double().reshape(M, ng, G).transpose(0, 1)  # [ng, M, G]
+    wg = unpack_int4(q4).double().reshape(N, ng, G).permute(1, 2, 0)  # [ng, G, N]
+    acc = torch.bmm(xg, wg).float()  # [ng, M, N], exact: |acc| < 2^24
+    fused = bias is not None and (out_dtype or x.dtype) == torch.float32
+    if ng == 1:
+        a, b = acc[0], (sx * s[:, 0]).expand(M, N)
+    else:
+        a = torch.zeros(M, N, dtype=torch.float32, device=x.device)
+        for g in range(ng):
+            a = fma_f32(acc[g], s[:, g].expand(M, N), a)
+        b = sx.expand(M, N)
+    if fused:
+        return fma_f32(a, b, bias.expand(M, N)).reshape(*lead, N)
+    out = (a * b).to(out_dtype or x.dtype).reshape(*lead, N)
+    return out if bias is None else out + bias
+
+
+def qdot4(x, q4, s, bias=None, out_dtype=None) -> torch.Tensor:
+    """Dynamic-activation W4A8 product, the JAX package's `qdot4` + bias:
+    below 32 rows through kernel K5-int4 (x quantized per row in the
+    kernel's prologue, packed nibbles sign-extended in registers, int32 sums
+    per group folded in group order, bitwise equal to `qdot4_plain`); at 32
+    rows or more the dequantized bf16 weight's f32-accumulated product. On
+    a CPU tensor, `qdot4_plain`."""
+    if x.device.type == "cpu":
+        return qdot4_plain(x, q4, s, bias, out_dtype)
+    name = "qdot4"
+    out_dtype = out_dtype or x.dtype
+    lead, K = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, K).contiguous()
+    M, N = x2.shape[0], q4.shape[0]
+    if M > INT4_MAX_ROWS:
+        return _qdot4_dense(x, q4, s, bias, out_dtype)
+    so = lib()
+    if so.int4_max_rows != INT4_MAX_ROWS:
+        raise RuntimeError(f"{name}: the library takes {so.int4_max_rows} rows, not "
+                           f"{INT4_MAX_ROWS}")
+    tensors = [x2, q4, s] + ([] if bias is None else [bias])
+    check_cuda(name, *tensors)
+    floats = (torch.bfloat16, torch.float32)
+    if x2.dtype not in floats or out_dtype not in floats:
+        raise ValueError(f"{name}: x and the output must be bf16 or f32")
+    ng = int4_groups(K)
+    if (q4.dtype != torch.int8 or q4.shape != (N, K // 2) or s.dtype != torch.float32
+            or s.shape != (N, ng)):
+        raise ValueError(f"{name}: the weight must be packed int8 [N, {K // 2}] with f32 "
+                         f"scales [N, {ng}]")
+    if K % 8 or M == 0:
+        raise ValueError(f"{name}: K must be a multiple of 8 and M >= 1, got {tuple(x.shape)}")
+    if bias is not None and (bias.dtype != out_dtype or bias.shape != (N,)):
+        raise ValueError(f"{name}: the bias must be [N] in the output dtype")
+    out = torch.empty(M, N, dtype=out_dtype, device=x.device)
+    err = so.svt_qdot4(ptr(x2), int(x2.dtype == torch.bfloat16), ptr(q4), ptr(s), ptr(bias),
+                          ptr(out), int(out_dtype == torch.bfloat16), M, N, K, ng, stream())
+    if err:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+    path_counts["int4"] += 1
+    return out.reshape(*lead, N)
+
+
+class QLinear4(nn.Module):
+    """nn.Linear's W4A8 counterpart: packed int4 q4 [out, in/2] (int8
+    storage, contract rows 2d / 2d+1 in the low / high nibble of byte d),
+    f32 scales s [out, ng] (ng = in / INT4_GROUP, or 1), and the bias in the
+    model's dtype. forward(x, out_dtype) is `qdot4`; the bias is added
+    after the cast to the output dtype."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, *,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        if in_features % 2:
+            raise ValueError(f"int4 weights need an even in_features, got {in_features}")
+        self.in_features, self.out_features = in_features, out_features
+        self.register_buffer("q4", torch.zeros(out_features, in_features // 2, dtype=torch.int8,
+                                               device=device))
+        self.register_buffer("s", torch.empty(out_features, int4_groups(in_features),
+                                              dtype=torch.float32, device=device))
+        self.bias = (nn.Parameter(torch.empty(out_features, dtype=dtype, device=device),
+                                  requires_grad=False) if bias else None)
+
+    @classmethod
+    @torch.no_grad()
+    def from_weight(cls, w: torch.Tensor, bias: Optional[torch.Tensor] = None) -> "QLinear4":
+        m = cls(w.shape[1], w.shape[0], bias is not None, device=w.device, dtype=w.dtype)
+        m.q4, m.s = quantize_weight_int4(w)
+        if bias is not None:
+            m.bias.copy_(bias)
+        return m
+
+    def forward(self, x: torch.Tensor, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        return qdot4(x, self.q4, self.s, self.bias, out_dtype)
+
+
+QUANTIZED_LINEARS = (QLinear, QLinear4)
+
+
 # the port's modules that the JAX package's quantize_*_params turn into
 # {"q", "s"} leaves (its LAYER_WEIGHTS, VISION_BLOCK_WEIGHTS, ...)
 LAYER_LINEARS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
@@ -559,9 +772,9 @@ VISION_MERGER_LINEARS = ("merger_fc1", "merger_fc2")
 
 
 def is_qtensor(w) -> bool:
-    """A quantized weight: a QLinear, or a JAX-layout {"q", "s"} (or int4
-    {"q4", "s"}) mapping as models/bridge.py reads it."""
-    if isinstance(w, QLinear):
+    """A quantized weight: a QLinear or QLinear4, or a JAX-layout {"q", "s"}
+    (or int4 {"q4", "s"}) mapping as models/bridge.py reads it."""
+    if isinstance(w, QUANTIZED_LINEARS):
         return True
     return isinstance(w, Mapping) and ("q" in w or "q4" in w) and "s" in w
 
@@ -571,7 +784,7 @@ def is_model_quantized(model) -> bool:
     holds quantized weights: callers that quantize on load skip their own
     pass."""
     if isinstance(model, nn.Module):
-        return any(isinstance(m, QLinear) for m in model.modules())
+        return any(isinstance(m, QUANTIZED_LINEARS) for m in model.modules())
     if is_qtensor(model):
         return True
     if isinstance(model, Mapping):
@@ -581,28 +794,38 @@ def is_model_quantized(model) -> bool:
     return False
 
 
-def _swap(parent: nn.Module, name: str) -> None:
+def _swap(parent: nn.Module, name: str, bits: int = 8) -> None:
     lin = getattr(parent, name)
-    if not isinstance(lin, QLinear):
+    if isinstance(lin, QUANTIZED_LINEARS):
+        return
+    if bits == 4:
+        setattr(parent, name, QLinear4.from_weight(lin.weight, lin.bias))
+    else:
         setattr(parent, name, QLinear.from_linear(lin))
 
 
 @torch.no_grad()
-def quantize_language(lm: nn.Module) -> nn.Module:
+def quantize_language(lm: nn.Module, bits: int = 8) -> nn.Module:
     """Quantize the decoder-layer projections and the lm_head of a
-    models/qwen25_vl/language.LanguageModel in place. The embedding table,
-    biases and norms keep their dtype; tied embeddings get a separate
-    quantized lm_head (the JAX package's "lm_head_q")."""
+    models/qwen25_vl/language.LanguageModel in place: int8 (QLinear) or,
+    with bits=4, int4 (QLinear4). The embedding table, biases and norms keep
+    their dtype; tied embeddings get a separate quantized lm_head (the JAX
+    package's "lm_head_q")."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
     for layer in lm.layers:
         for name in LAYER_LINEARS:
-            _swap(layer, name)
+            _swap(layer, name, bits)
     if lm.lm_head is None:  # tied: quantize embed (already [V, D] = [out, in])
         w = lm.embed.weight
-        head = QLinear(w.shape[1], w.shape[0], bias=False, device=w.device, dtype=w.dtype)
-        head.q, head.s = quantize_weight(w)
-        lm.lm_head = head
+        if bits == 4:
+            lm.lm_head = QLinear4.from_weight(w)
+        else:
+            head = QLinear(w.shape[1], w.shape[0], bias=False, device=w.device, dtype=w.dtype)
+            head.q, head.s = quantize_weight(w)
+            lm.lm_head = head
     else:
-        _swap(lm, "lm_head")
+        _swap(lm, "lm_head", bits)
     return lm
 
 
@@ -621,11 +844,11 @@ def quantize_vision(tower: nn.Module) -> nn.Module:
 
 
 def quantize_model(model: nn.Module, bits: int = 8) -> nn.Module:
-    """W8A8 for a full model (vision tower + language model), in place."""
-    if bits != 8:
-        raise NotImplementedError(
-            f"bits={bits}: only int8 weights are ported (W4A8, the JAX package's qdot4, is not)"
-        )
+    """W8A8 (bits=8) or W4A8 (bits=4) for a full model, in place. The
+    vision tower is int8 either way, as the JAX package's
+    quantize_model_params(text_bits=4) keeps it."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
     quantize_vision(model.vision)
-    quantize_language(model.text)
+    quantize_language(model.text, bits)
     return model

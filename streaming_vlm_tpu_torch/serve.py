@@ -17,20 +17,23 @@ early encode keeps the chunk's frames for its own step to encode.
 Two entry points share the loop: `streaming_inference` reads a video file
 through the native FFmpeg ingest library, and `streaming_inference_frames`
 takes already-decoded uint8 frames (one [n, H, W, 3] array per chunk), for
-machines without that library. Snapshots (`resume_snapshot`) and
-speculative decoding (`spec_decode`) are not ported: neither entry point
-takes them.
+machines without that library. Both take `resume_snapshot` (a
+`StreamingSession.snapshot()` or `streaming.snapshot.load_snapshot` dict):
+the run continues an interrupted one of the same video at the snapshot's
+chunk, and the WebVTT file is appended to, not truncated. Speculative
+decoding (`spec_decode`) is not ported: neither entry point takes it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,6 +84,23 @@ class StreamingSession:
         self.recompute = recompute
         # recompute mode: the last visual_round chunks' (patches, frames, grid)
         self._recent_videos: List[Tuple] = []
+
+    def snapshot(self) -> Dict[str, Any]:
+        """The live stream as a snapshot (streaming/snapshot.py): arena
+        prefix, segment table, accounting, generator state. Resume in any
+        process with `restore(snap)` and continue at
+        `engine.chunk_index`. Recompute mode is refused: its per-window
+        frames (`_recent_videos`) are not part of a snapshot, so a restored
+        stream could not re-encode its window."""
+        if self.recompute:
+            raise ValueError("snapshot does not capture recompute mode's per-window frames; "
+                             "a restored recompute stream could not re-encode its window")
+        return self.engine.snapshot()
+
+    def restore(self, snap: Dict[str, Any]) -> None:
+        if self.recompute:
+            raise ValueError("restore: recompute mode is not supported (see snapshot())")
+        self.engine.restore(snap)
 
     def _decode_text(self, ids: np.ndarray) -> str:
         if hasattr(self.tokenizer, "decode"):
@@ -209,11 +229,12 @@ def _serve_loop(
     gt_lookup: Optional[Dict[str, str]],
     skip_first_chunk: float = 0,
     emit_json: bool = False,
+    i_start: int = 0,  # the first chunk (a resumed stream's chunk_index)
 ):
     stream = session.stream
     engine = session.engine
     if output_dir is not None:
-        if os.path.exists(output_dir):
+        if os.path.exists(output_dir) and i_start == 0:  # a resumed run appends
             os.remove(output_dir)
         with open_vtt(output_dir):
             pass
@@ -225,12 +246,12 @@ def _serve_loop(
     # chunk i's step, before the host blocks on chunk i's tokens (not in
     # recompute mode, whose chunk re-encodes its whole window itself)
     with ThreadPoolExecutor(max_workers=1) as pool:
-        pending = pool.submit(read_chunk, 0)
+        pending = pool.submit(read_chunk, i_start)
         with timer.section("VIDEO"):
-            first = _read_result(pending, 0)
-        pending = pool.submit(read_chunk, 1)
+            first = _read_result(pending, i_start)
+        pending = pool.submit(read_chunk, i_start + 1)
         cur = None if first is None else (*first, None)  # + its vision embeds
-        i = 0
+        i = i_start
         while cur is not None:
             patches, grid, embeds = cur
             start_time = (i + skip_first_chunk) * stream.chunk_duration
@@ -333,13 +354,18 @@ def streaming_inference(
     time_test: bool = False,
     gt_lookup: Optional[Dict[str, str]] = None,
     recompute: bool = False,
+    resume_snapshot: Optional[Dict[str, Any]] = None,  # streaming/snapshot.py dict
     trace_dir: Optional[str] = None,  # torch.profiler Chrome trace of the whole run
     dtype: Optional[torch.dtype] = None,
 ):
     """Chunked streaming inference over a video file (decoded by the native
     FFmpeg ingest library). Returns the per-chunk responses, plus per-chunk
-    section timings when time_test=True. `trace_dir` wraps the whole run in
-    `utils.profiling.trace` (a failure to write the trace raises)."""
+    section timings when time_test=True. `resume_snapshot` (from
+    StreamingSession.snapshot() or snapshot.load_snapshot) continues an
+    interrupted run of the same video and config at its chunk_index: the
+    VTT is appended to and the returned lists cover the resumed chunks.
+    `trace_dir` wraps the whole run in `utils.profiling.trace` (a failure
+    to write the trace raises)."""
     if trace_dir is not None:
         kw = {k: v for k, v in locals().items() if k != "trace_dir"}
         with trace(trace_dir):
@@ -361,6 +387,7 @@ def streaming_inference(
     )
     total = duration if duration is not None else src.duration
     num_chunks = int((total + stream.chunk_duration - 1) // stream.chunk_duration)
+    i_start = _resume(session, resume_snapshot)
 
     def read_chunk(i: int):
         if i >= num_chunks:
@@ -372,7 +399,16 @@ def streaming_inference(
     return _serve_loop(
         session, read_chunk, output_dir=output_dir, quiet=quiet, time_test=time_test,
         gt_lookup=gt_lookup, skip_first_chunk=skip_first_chunk, emit_json=emit_json,
+        i_start=i_start,
     )
+
+
+def _resume(session: StreamingSession, snap: Optional[Dict[str, Any]]) -> int:
+    """Restore a resumed run's snapshot; the chunk to start at."""
+    if snap is None:
+        return 0
+    session.restore(snap)
+    return session.engine.chunk_index
 
 
 def streaming_inference_frames(
@@ -390,17 +426,22 @@ def streaming_inference_frames(
     time_test: bool = False,
     gt_lookup: Optional[Dict[str, str]] = None,
     recompute: bool = False,
+    resume_snapshot: Optional[Dict[str, Any]] = None,  # streaming/snapshot.py dict
     dtype: Optional[torch.dtype] = None,
 ):
     """Chunked streaming inference over already-decoded frames: each item of
     `frames` is one chunk's uint8 RGB frames, already sized to the pixel
     budget (H and W multiples of patch_size * merge_size). The stream ends
-    when the iterable does. Returns what `streaming_inference` returns."""
+    when the iterable does. With `resume_snapshot`, `frames` is still the
+    whole stream's: its first chunk_index items are skipped (not read into
+    patches) and the run continues at the snapshot's chunk, appending to
+    the VTT. Returns what `streaming_inference` returns."""
     session = StreamingSession(
         cfg, model, tokenizer, stream=stream, sampling=sampling,
         previous_text=previous_text, query=query, recompute=recompute, dtype=dtype,
     )
-    it = iter(frames)
+    i_start = _resume(session, resume_snapshot)
+    it = itertools.islice(iter(frames), i_start, None)
     v = cfg.vision
 
     def read_chunk(i: int):
@@ -416,7 +457,7 @@ def streaming_inference_frames(
 
     return _serve_loop(
         session, read_chunk, output_dir=output_dir, quiet=quiet, time_test=time_test,
-        gt_lookup=gt_lookup,
+        gt_lookup=gt_lookup, i_start=i_start,
     )
 
 

@@ -637,6 +637,36 @@ class StreamingEngine:
         self._sync()
         return n_run
 
+    # -------------------------------------------------------------- snapshot
+    def snapshot(self) -> Dict[str, Any]:
+        """The live stream's whole state (the arena's valid prefix, table,
+        accounting, positions, generator state) as host numpy; see
+        streaming/snapshot.py. Continuing after `restore` gives exactly the
+        tokens of never having stopped."""
+        from .snapshot import snapshot_arena, snapshot_host
+
+        if self.k_arena is None:
+            raise ValueError("this engine owns no arena (a multi-stream lane): use "
+                             "MultiStreamEngine.snapshot_lane")
+        snap = snapshot_host(self)
+        snapshot_arena(snap, self.k_arena, self.v_arena, self.ids_arena)
+        return snap
+
+    def restore(self, snap: Dict[str, Any]) -> None:
+        """Adopt a snapshot (from `snapshot()`, `snapshot.load_snapshot`, or
+        the JAX package's) in place of this engine's stream. The configs must
+        agree on kv_quant and pos_mode; kv_capacity may differ as long as it
+        holds `cached` slots; the geometry must be the model's. The
+        pre-rotated K copy is rebuilt from the raw arena at the next chunk,
+        and the decode scratch stays as the constructor sized it."""
+        from .snapshot import restore_arena, restore_host
+
+        if self.k_arena is None:
+            raise ValueError("this engine owns no arena (a multi-stream lane): use "
+                             "MultiStreamEngine.restore_lane")
+        restore_host(self, snap)
+        restore_arena(self.k_arena, self.v_arena, self.ids_arena, snap)
+
     def _statics(self, t_pad: int, max_new: int, eos_threshold=None) -> ChunkStatics:
         st = self.stream
         return ChunkStatics(

@@ -1,7 +1,7 @@
 """Multi-stream serving: B independent live streams on one card.
 
 Port of streaming_vlm_tpu/streaming/multistream.py (without its TP/DP
-mesh and snapshots). One stream's decode reads every weight once
+mesh). One stream's decode reads every weight once
 per token; B streams in lockstep rounds share each of those reads:
 
   1. every lane's eviction policy runs on the host (`evict_plan`), and the
@@ -21,7 +21,9 @@ state. A lane with no chunk in a round passes None (idle): it still flows
 through the step (its uncached tail re-forwards; its decode output is
 discarded), its table and chunk clock do not advance, a vision round drops
 its rows of the embeddings, and its sampling generator does not advance.
-`reset_lane` hands a lane to a new client mid-flight.
+`reset_lane` hands a lane to a new client mid-flight; `snapshot_lane` /
+`restore_lane` move a live stream out of or into a lane in the format of
+`StreamingEngine.snapshot` (streaming/snapshot.py), other lanes untouched.
 
 Sampling: lane b draws from its own `torch.Generator`, seeded with
 `sampling.seed + b` (so lane 0 draws what a solo engine with the same
@@ -489,6 +491,40 @@ class MultiStreamEngine:
         if seed is None:
             seed = lane_seed(self.sampling.seed, b, self.n, self._resets[b])
         self.generators[b] = self._generator(seed)
+
+
+    def snapshot_lane(self, b: int) -> Dict:
+        """Lane b's live stream as a snapshot (streaming/snapshot.py), the
+        format of StreamingEngine.snapshot, so that a lane can be written
+        to disk, or restored into a solo engine or another lane. Its "rng"
+        is the lane's generator (`generators[b]`), not the lane engine's
+        unused one."""
+        from ..ops.quant import lane
+        from .snapshot import generator_state, snapshot_arena, snapshot_host
+
+        assert self._inflight is None, "snapshot_lane mid-round"
+        snap = snapshot_host(self.engines[b])
+        snap["rng"] = generator_state(self.generators[b])
+        snapshot_arena(snap, lane(self.k_arena, b), lane(self.v_arena, b), self.ids_arena[b])
+        return snap
+
+    def restore_lane(self, b: int, snap: Dict) -> None:
+        """Adopt a snapshot into lane b (a live stream joining the batched
+        engine): a fresh lane engine with the snapshot's host state, the
+        lane's generator from its "rng" (where the generator takes it; see
+        snapshot.check_rng), and lane b's rows of the stacked arenas. Other
+        lanes and the shared decode scratch are left alone."""
+        from ..ops.quant import lane
+        from .snapshot import check_rng, restore_arena, restore_host, takes_rng
+
+        assert self._inflight is None, "restore_lane mid-round"
+        check_rng(snap, self.generators[b], self.sampling.do_sample)
+        eng = self._lane_engine()
+        restore_host(eng, snap)
+        if takes_rng(snap, self.generators[b]):
+            self.generators[b].set_state(torch.from_numpy(np.array(snap["rng"], np.uint8)))
+        restore_arena(lane(self.k_arena, b), lane(self.v_arena, b), self.ids_arena[b], snap)
+        self.engines[b] = eng
 
 
 def p_high_water(ms: MultiStreamEngine, b: int, prep: Dict, max_new: int) -> int:

@@ -407,3 +407,60 @@ def test_frames_on_card(cuda):
     out = tm.encode_video_frames(cfg, model, up, (1, 4, 6), dtype=torch.float32)
     cpu = tm.encode_video_frames(cfg, model.cpu(), frames, (1, 4, 6), dtype=torch.float32)
     torch.testing.assert_close(out.cpu(), cpu, atol=1e-4, rtol=1e-3)
+
+
+def _int4_weight(g, N, K, dev):
+    """A random packed int4 weight [N, K/2] (every nibble value) and group
+    scales [N, ng]."""
+    q4 = torch.randint(-128, 128, (N, K // 2), generator=g, device=dev, dtype=torch.int16)
+    s = torch.rand(N, Q.int4_groups(K), generator=g, device=dev) * 1e-2 + 1e-4
+    return q4.to(torch.int8), s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 4, 8, 31])
+@pytest.mark.parametrize("K", [3584, 18944, 3592, 3616], ids=["ng28", "ng148", "ng1", "ng1-vec16"])
+@pytest.mark.parametrize("x_dtype,out_dtype,bias", [
+    (torch.bfloat16, torch.bfloat16, True), (torch.bfloat16, torch.float32, False),
+    (torch.float32, torch.float32, True), (torch.float32, torch.bfloat16, False),
+])
+def test_qdot4_matches_plain_on_card(cuda, M, K, x_dtype, out_dtype, bias):
+    """K5-int4 (row quantization in the prologue, nibbles sign-extended,
+    int32 group sums, the group fold in order, cast, + bias) is bitwise
+    equal to qdot4_plain, with an all-zero row and an outlier row; each call
+    counts one launch."""
+    g = torch.Generator(device=cuda).manual_seed(M * K)
+    N = 520
+    x = torch.randn(M, K, generator=g, device=cuda).to(x_dtype)
+    if M > 2:
+        x[1] = 0
+        x[2, 7] = 500.0
+    q4, s = _int4_weight(g, N, K, cuda)
+    b = torch.randn(N, generator=g, device=cuda).to(out_dtype) if bias else None
+    n = Q.path_counts["int4"]
+    got = Q.qdot4(x, q4, s, b, out_dtype)
+    assert Q.path_counts["int4"] == n + 1
+    assert got.dtype == out_dtype
+    assert torch.equal(got, Q.qdot4_plain(x, q4, s, b, out_dtype))
+
+
+@pytest.mark.gpu
+def test_qlinear4_and_lm_head_on_card(cuda):
+    """QLinear4 at 1 row (K5-int4) and at 64 rows (the bf16 product, no
+    launch) against qdot4_plain; the W4A8 lm_head's logits are f32."""
+    cfg = qwen25_vl_tiny().text
+    g = torch.Generator(device=cuda).manual_seed(5)
+    lm = lang.LanguageModel(cfg, device=cuda, dtype=torch.bfloat16).requires_grad_(False)
+    lm.lm_head.weight.copy_(torch.randn(lm.lm_head.weight.shape, generator=g, device=cuda))
+    lm.lm_head = Q.QLinear4.from_weight(lm.lm_head.weight)
+    for T in (1, 64):
+        h = torch.randn(T, cfg.hidden_size, generator=g, device=cuda).to(torch.bfloat16)
+        n = Q.path_counts["int4"]
+        got = lang.lm_logits(cfg, lm, h)
+        want = Q.qdot4_plain(h, lm.lm_head.q4, lm.lm_head.s, out_dtype=torch.float32)
+        assert got.dtype == torch.float32
+        assert Q.path_counts["int4"] == n + (T < 32)
+        if T < 32:
+            assert torch.equal(got, want)
+        else:  # both the dequantized bf16 product with f32 sums, in their own order
+            torch.testing.assert_close(got, want, atol=1e-5 * float(want.abs().max()), rtol=0)

@@ -48,6 +48,7 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
         "streaming_vlm_tpu_torch.serve", "streaming_vlm_tpu_torch.ops.quant",
         "streaming_vlm_tpu_torch.ops._kernels", "streaming_vlm_tpu_torch.models.bridge",
         "streaming_vlm_tpu_torch.streaming.multistream", "streaming_vlm_tpu_torch.models.convert",
+        "streaming_vlm_tpu_torch.streaming.snapshot", "streaming_vlm_tpu_torch.streaming.multiserve",
     } <= set(mods)
     code = (
         "import importlib, sys\n"

@@ -179,8 +179,8 @@ def test_quantize_model_matches_the_bridged_jax_tree(trees):
         n_q += gs[k].dtype == torch.int8
     L, depth = cfg.text.num_hidden_layers, cfg.vision.depth
     assert n_q == 7 * L + 1 + 5 * depth + 2
-    with pytest.raises(NotImplementedError, match="W4A8"):
-        tq.quantize_model(got, bits=4)
+    with pytest.raises(ValueError, match="bits must be 4 or 8"):
+        tq.quantize_model(got, bits=3)
 
 
 @pytest.mark.parametrize("cfg", [CFG, TIED], ids=["untied", "tied"])
