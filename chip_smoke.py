@@ -25,7 +25,8 @@ Phases; any failure exits non-zero:
    products included, bf16 and f32 out, weights in QLinear's padded rows),
    K5-int4 W4A8 products (qdot4 below 32 rows: every decode product of the
    7B path and the lm_head at M in {1, 4, 8, 31}, bf16 and f32 out, one
-   scale group and many). K1 and the decode kernels are held to
+   scale group and many, under the planner's plan and with K cut into
+   slabs by force). K1 and the decode kernels are held to
    one bf16 ulp of each output value (plus one ulp of the largest for K1, a
    small fraction of it for the others), K5 and K5-int4 to bitwise
    equality, and phase 3 is run again on copies of the port with K1
@@ -40,8 +41,11 @@ Phases; any failure exits non-zero:
    kernel's bound and, where one PyTorch call computes the same function,
    that call's time (K5's int32 form at every tiled shape beside
    torch._int_mm; K2's and K3's device time at visible 640, 4500 and
-   9000). K3's bound counts the f32 work that its dtype chain keeps off the
-   tensor cores at the f32 rate beside its bytes.
+   9000; K5-int4 at every decode product and M in {1, 4, 8} and K5's
+   decode GEMV also with cold weights: each call rotates over copies of its
+   weight past twice the 50 MB L2, as a decode step finds them). K3's bound
+   counts the f32 work that its dtype chain keeps off the tensor cores at
+   the f32 rate beside its bytes.
 4. reference: at 7B width (decoder cut to 4 layers), the streaming forward
    through the kernels (chunk prefill, then one decode token) in bf16
    against the plain full-attention oracle `language_forward` in f32 on the
@@ -249,11 +253,24 @@ MUTANTS = {
         "if (tid == 0) counters[head] = 0;",
         "if (tid == 0) counters[kvh] = 0;", "'lanes'",
     ),
-    # K5-int4 (W4A8): negative high nibbles read as 8..15
+    # K5-int4 (W4A8): negative high nibbles read as 8..15 (n + 8 where the
+    # offset form is n ^ 8); a split tile's last part folding its groups in
+    # reverse; a split tile's counter left unreset (the next call's parts
+    # never see a last arrival)
     "int4: high nibbles not sign-extended": (
         "K5-int4", "csrc/int4_gemv.cu",
-        "return (int)__vsub4(((v >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);",
-        "return (int)((v >> 4) & 0x0F0F0F0Fu);", None,
+        "return ((v >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;",
+        "return ((v >> 4) & 0x0F0F0F0Fu) + 0x08080808u;", None,
+    ),
+    "int4: a split tile's groups folded out of order": (
+        "K5-int4", "csrc/int4_gemv.cu",
+        "const float* rg = rbuf + gi * rec;",
+        "const float* rg = rbuf + (cn - 1 - gi) * rec;", "'slabs': ",
+    ),
+    "int4: a split tile's counter left unreset": (
+        "K5-int4", "csrc/int4_gemv.cu",
+        "if (lane == 0) counters[tile] = 0;  // ready for the next call",
+        "", "'slabs': ",
     ),
 }
 # the lane forms' checks (phase 3): K2 and K3 at B in {1, 4, 8} lanes with
@@ -980,6 +997,8 @@ def _phase_k5(g) -> dict:
         r = dict(M=M, K=K, N=N, ms=_median_ms(lambda: Q.qdot(x, q, s, b, od)),
                  device_ms=_device_ms(lambda: Q.qdot(x, q, s, b, od)),
                  plain_ms=_median_ms(lambda: Q.qdot_plain(x, q, s, b, od)))
+        if M == 1:  # the decode GEMV with cold weights, as K5-int4's are timed
+            r["device_ms_cold"] = _cold_device_ms(lambda qq, ss: Q.qdot(x, qq, ss, b, od), (q, s))
         out_bytes = M * N * (4 if od == torch.float32 else 2)
         r["bound_ms"], r["bound_by"] = _bound(_nbytes(x, q, s, b) + out_bytes, 2 * M * N * K,
                                               INT8_OPS)
@@ -996,7 +1015,8 @@ def _phase_k5(g) -> dict:
             del wb
         by_shape[what] = r
         print(f"  K5 {what} M={M} K={K} N={N}: kernel {r['ms']:.4f} ms (device "
-              f"{r['device_ms']:.4f} ms), plain "
+              f"{r['device_ms']:.4f} ms" + (f", cold {r['device_ms_cold']:.4f} ms"
+                                            if "device_ms_cold" in r else "") + "), plain "
               f"{r['plain_ms']:.4f} ms, library "
               + (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None else
                  f"none ({r['library']}; bf16 F.linear, another function, "
@@ -1054,7 +1074,8 @@ def _phase_k5(g) -> dict:
     qwen2_vision = {w: by_shape[w] for w in K5_QWEN2_VISION}
     return {
         "gemv": dict(max_abs_err=err, shape="decode gate/up_proj (M=1, K=3584, N=18944)",
-                     bf16_linear_ms=gemv["bf16_linear_ms"], **{k: gemv[k] for k in keys},
+                     bf16_linear_ms=gemv["bf16_linear_ms"], device_ms_cold=gemv["device_ms_cold"],
+                     **{k: gemv[k] for k in keys},
                      lm_head=by_shape["lm_head"]),
         "tiled": dict(max_abs_err=err, shape="prefill gate/up_proj (M=640, K=3584, N=18944), "
                       "serving form (row quantization + product + epilogue)",
@@ -1065,9 +1086,12 @@ def _phase_k5(g) -> dict:
 
 # K5-int4 (W4A8's qdot4 below 32 rows): every decode product of the 7B
 # path (what, K, N, bias), at each of K5_INT4_ROWS rows (1: one stream; 4,
-# 8: lanes; 31: qdot4's threshold), bf16 and f32 out; 3592 and 3616 are
-# K % 128 != 0 (one scale group; 3592's packed rows are not 16-byte
-# multiples). Times at M = 1 for K5_INT4_TIMED.
+# 8: lanes; 31: qdot4's threshold, where K = 18944 is cut into slabs), bf16
+# and f32 out; 3592 and 3616 are K % 128 != 0 (one scale group; 3592's
+# packed rows are not 16-byte multiples). K5_INT4_SPLIT: the same checks
+# with K cut into slabs by force (per-group records folded by a tile's last
+# part), at the narrow and long-K products. Timed at K5_INT4_TIMED_ROWS for
+# the decode products and at M = 1 for the lm_head, warm and cold.
 K5_INT4 = (
     ("decode q_proj", 3584, 3584, True),
     ("decode k/v_proj", 3584, 512, True),
@@ -1078,24 +1102,57 @@ K5_INT4 = (
     ("one group, 16-byte rows", 3616, 3584, False),
 )
 K5_INT4_ROWS = (1, 4, 8, 31)
-K5_INT4_TIMED = ("decode gate/up_proj", "decode down_proj", "decode q_proj", "lm_head")
+K5_INT4_SPLIT = {"decode k/v_proj": (2, 4), "decode q_proj": (2,), "decode down_proj": (2, 37)}
+K5_INT4_SPLIT_ROWS = (1, 8)
+K5_INT4_TIMED = ("decode q_proj", "decode k/v_proj", "decode o_proj", "decode gate/up_proj",
+                 "decode down_proj", "lm_head")
+K5_INT4_TIMED_ROWS = (1, 4, 8)
+# cold weights: a timed call rotates over copies of its weight whose bytes
+# exceed twice the H100's 50 MB L2, as a decode step walks 28 layers of
+# weights and finds each cold
+COLD_BYTES = 2 * 50 * 2**20
+
+
+def _cold_device_ms(call, weights) -> float:
+    """Device time of one call(*w) with cold weights: the calls rotate over
+    copies of `weights` (tensors) whose bytes exceed COLD_BYTES (the
+    weights themselves when they alone do)."""
+    import torch
+
+    nbytes = _nbytes(*weights)
+    copies = [weights] + [tuple(w.clone() for w in weights)
+                          for _ in range(-(-COLD_BYTES // nbytes) - 1)]
+    i = [0]
+
+    def rotate():
+        call(*copies[i[0] % len(copies)])
+        i[0] += 1
+
+    ms = _device_ms(rotate, n=max(20, 2 * len(copies)))
+    del copies
+    torch.cuda.empty_cache()
+    return ms
 
 
 def _phase_k5_int4(g) -> dict:
     """K5-int4 against qdot4_plain, bitwise: K5_INT4 at K5_INT4_ROWS, bf16
     and f32 out (bias where the product has one), all-zero and outlier rows
-    where M > 2, and the lm_head (f32 out) at the same rows. Random packed
-    weights (every nibble value) and group scales. Times at M = 1 beside
-    the bound (the packed weight, its scales, x and the output at the HBM
-    rate) and bf16 F.linear over the dequantized weight (another function:
-    no single PyTorch call computes qdot4)."""
+    where M > 2, the lm_head (f32 out) at the same rows, and K5_INT4_SPLIT's
+    forced slabs. Random packed weights (every nibble value) and group
+    scales. Device times warm (one weight, back to back) and cold (rotated
+    copies) at every decode product and M in K5_INT4_TIMED_ROWS and at the
+    lm_head, beside the bound (the packed weight, its scales, x and the
+    output at the HBM rate); at M = 1 also the CUDA-event time, the plain
+    version's and bf16 F.linear over the dequantized weight (another
+    function: no single PyTorch call computes qdot4)."""
     import torch
     import torch.nn.functional as F
 
     from streaming_vlm_tpu_torch.ops import quant as Q
 
     dev = "cuda"
-    err, timed = 0.0, {}
+    err, weights = 0.0, {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for what, K, N, bias in K5_INT4 + (("lm_head", 3584, 152064, False),):
         q4 = torch.randint(-128, 128, (N, K // 2), generator=g, device=dev,
                            dtype=torch.int16).to(torch.int8)
@@ -1105,47 +1162,65 @@ def _phase_k5_int4(g) -> dict:
             if M > 2:
                 x[0] = 0
                 x[1, 11] = 300.0
-            for od in ((torch.float32,) if what == "lm_head" else
-                       (torch.bfloat16, torch.float32)):
-                b = torch.randn(N, generator=g, device=dev).to(od) if bias else None
-                args = (x, q4, s, b, od)
-                err = max(err, _check_equal("K5-int4", Q.qdot4(*args), Q.qdot4_plain(*args), dict(
-                    what=what, M=M, K=K, N=N, ng=Q.int4_groups(K), bias=bias,
-                    out="f32" if od == torch.float32 else "bf16")))
-                if M == 1 and what in K5_INT4_TIMED and what not in timed:
-                    timed[what] = args
-        del q4, s
+            forced = K5_INT4_SPLIT.get(what, ()) if M in K5_INT4_SPLIT_ROWS else ()
+            for slabs in (None,) + forced:
+                plan = Q.int4_plan(M, N, K, sms, slabs)
+                for od in ((torch.float32,) if what == "lm_head" else
+                           (torch.bfloat16, torch.float32)):
+                    b = torch.randn(N, generator=g, device=dev).to(od) if bias else None
+                    got = Q._qdot4_with_plan(x, q4, s, b, od, slabs)
+                    err = max(err, _check_equal("K5-int4", got, Q.qdot4_plain(x, q4, s, b, od),
+                                                dict(what=what, M=M, K=K, N=N,
+                                                     ng=Q.int4_groups(K), bias=bias,
+                                                     out="f32" if od == torch.float32 else "bf16",
+                                                     **({"slabs": plan.slabs} if plan.slabs > 1
+                                                        else {}))))
+        if what in K5_INT4_TIMED:
+            weights[what] = (q4, s, bias)
+        else:
+            del q4, s
     torch.cuda.synchronize()
+    if not _TIMED:
+        return dict(max_abs_err=err)
     by_shape = {}
-    for what, (x, q4, s, b, od) in timed.items():
-        (M, K), N = x.shape, q4.shape[0]
-        f = lambda: Q.qdot4(x, q4, s, b, od)  # noqa: E731
-        r = dict(M=M, K=K, N=N, ms=_median_ms(f), device_ms=_device_ms(f),
-                 plain_ms=_median_ms(lambda: Q.qdot4_plain(x, q4, s, b, od), reps=3, batch=2))
-        r["bound_ms"], r["bound_by"] = _bound(
-            _nbytes(x, q4, s, b) + M * N * (4 if od == torch.float32 else 2), 2 * M * N * K,
-            INT8_OPS)
-        wb = Q.dequantize_int4(q4, s)
-        r["library_ms"] = None
-        r["library"] = "none: no single PyTorch call"
-        r["bf16_linear_ms"] = _median_ms(lambda: F.linear(x, wb))  # another function
-        del wb
-        if what == "decode gate/up_proj":  # the lanes' rows
-            for m in (4, 8):
-                xm = torch.randn(m, K, generator=g, device=dev).to(torch.bfloat16)
-                r[f"device_ms_M{m}"] = _device_ms(lambda: Q.qdot4(xm, q4, s, b, od))
+    for what, (q4, s, bias) in weights.items():
+        N, K = q4.shape[0], 2 * q4.shape[1]
+        od = torch.float32 if what == "lm_head" else torch.bfloat16
+        b = torch.randn(N, generator=g, device=dev).to(od) if bias else None
+        r = {}
+        for M in ((1,) if what == "lm_head" else K5_INT4_TIMED_ROWS):
+            x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+            f = lambda: Q.qdot4(x, q4, s, b, od)  # noqa: E731
+            bound, by = _bound(_nbytes(x, q4, s, b) + M * N * (4 if od == torch.float32 else 2),
+                               2 * M * N * K, INT8_OPS)
+            rm = dict(M=M, K=K, N=N, plan=Q.int4_plan(M, N, K, sms)._asdict(),
+                      device_ms=_device_ms(f),
+                      device_ms_cold=_cold_device_ms(lambda q, sc: Q.qdot4(x, q, sc, b, od),
+                                                     (q4, s)),
+                      bound_ms=bound, bound_by=by)
+            if M == 1:
+                rm.update(ms=_median_ms(f), plain_ms=_median_ms(
+                    lambda: Q.qdot4_plain(x, q4, s, b, od), reps=3, batch=2))
+                wb = Q.dequantize_int4(q4, s)
+                rm.update(library_ms=None, library="none: no single PyTorch call",
+                          bf16_linear_ms=_median_ms(lambda: F.linear(x, wb)))  # another function
+                del wb
+                r.update(rm)
+            else:
+                r[f"M{M}"] = rm
+            print(f"  K5-int4 {what} M={M} K={K} N={N}: device {rm['device_ms']:.4f} ms warm, "
+                  f"{rm['device_ms_cold']:.4f} ms cold; bound {bound:.4f} ms ({by}), cold share "
+                  f"{bound / rm['device_ms_cold']:.2f}" if rm["device_ms_cold"] else "")
+            if M == 1:
+                print(f"    event {rm['ms']:.4f} ms, plain {rm['plain_ms']:.4f} ms, library none "
+                      f"(no single PyTorch call; bf16 F.linear over the dequantized weight, "
+                      f"another function, {rm['bf16_linear_ms']:.4f} ms)")
         by_shape[what] = r
-        print(f"  K5-int4 {what} M={M} K={K} N={N}: kernel {r['ms']:.4f} ms (device "
-              f"{r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library none (no single "
-              f"PyTorch call; bf16 F.linear over the dequantized weight, another function, "
-              f"{r['bf16_linear_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
-              + (f"; device at M=4 {r['device_ms_M4']:.4f}, M=8 {r['device_ms_M8']:.4f} ms"
-                 if "device_ms_M4" in r else ""))
-    timed.clear()
+    weights.clear()
     torch.cuda.empty_cache()
     main = by_shape.get("decode gate/up_proj", {})
-    keys = ("M", "K", "N", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "library", "bf16_linear_ms")
+    keys = ("M", "K", "N", "ms", "device_ms", "device_ms_cold", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library", "bf16_linear_ms")
     return dict(max_abs_err=err, shape="decode gate/up_proj (M=1, K=3584, N=18944), bf16 out",
                 **{k: main.get(k) for k in keys}, by_shape=by_shape)
 
@@ -2184,7 +2259,7 @@ def main() -> int:
             ("K5 tiled, tile 128x256, bf16 out", "int8_gemm.cu", "gemm_tiled_kernelILi256E13__nv_bfloat16"),
             ("K5 tiled, tile 128x128, bf16 out", "int8_gemm.cu", "gemm_tiled_kernelILi128E13__nv_bfloat16"),
             ("K5 decode GEMV, bf16 in and out", "int8_gemm.cu", "gemv_kernelI13__nv_bfloat16S"),
-            ("K5-int4, one row, 16-byte loads (4 dtype forms)", "int4_gemv.cu", "Li1ELb1E")):
+            ("K5-int4, one row tile (4 dtype forms)", "int4_gemv.cu", "Li1EE")):
         print(f"  {what} " + _ptxas_lines(text[src], kernel))
 
     print(f"[3/5] kernels vs plain versions (at {time.perf_counter() - t_start:.1f} s)")

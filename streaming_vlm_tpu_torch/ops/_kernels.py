@@ -161,7 +161,7 @@ def lib() -> ctypes.CDLL:
         for fn in ("svt_int8_small_m", "svt_int8_block_m", "svt_int8_block_k"):
             getattr(so, fn).argtypes = []
             getattr(so, fn).restype = I
-        so.svt_qdot4.argtypes = [P, I, P, P, P, P, I, I, I, I, I, P]
+        so.svt_qdot4.argtypes = [P, I, P, I, P, I, P, P] + [I] * 9 + [P] * 3
         so.svt_qdot4.restype = I
         so.svt_int4_max_rows.argtypes = []
         so.svt_int4_max_rows.restype = I

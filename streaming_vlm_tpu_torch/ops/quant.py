@@ -30,8 +30,9 @@ output channel), two values packed per byte along the contract axis
 32 rows or more the weight is dequantized to bf16 and multiplied with f32
 accumulation (torch.mm; the JAX package's XLA dot); below 32 rows kernel
 K5-int4 (csrc/int4_gemv.cu) takes int8 rows x packed int4 weights to
-per-group int32 sums and folds the groups in order. The vision tower
-stays int8.
+per-group int32 sums and folds the groups in order, over a host-made plan
+(`int4_plan`: how K is cut into slabs across CTAs). The vision tower stays
+int8.
 """
 
 from __future__ import annotations
@@ -669,27 +670,203 @@ def qdot4_plain(x, q4, s, bias=None, out_dtype=None) -> torch.Tensor:
     xg = xq.double().reshape(M, ng, G).transpose(0, 1)  # [ng, M, G]
     wg = unpack_int4(q4).double().reshape(N, ng, G).permute(1, 2, 0)  # [ng, G, N]
     acc = torch.bmm(xg, wg).float()  # [ng, M, N], exact: |acc| < 2^24
-    fused = bias is not None and (out_dtype or x.dtype) == torch.float32
     if ng == 1:
-        a, b = acc[0], (sx * s[:, 0]).expand(M, N)
-    else:
-        a = torch.zeros(M, N, dtype=torch.float32, device=x.device)
-        for g in range(ng):
-            a = fma_f32(acc[g], s[:, g].expand(M, N), a)
-        b = sx.expand(M, N)
-    if fused:
+        return _qdot4_out(acc[0], (sx * s[:, 0]).expand(M, N), bias, out_dtype or x.dtype, lead)
+    a = torch.zeros(M, N, dtype=torch.float32, device=x.device)
+    for g in range(ng):
+        a = fma_f32(acc[g], s[:, g].expand(M, N), a)
+    return _qdot4_out(a, sx.expand(M, N), bias, out_dtype or x.dtype, lead)
+
+
+def _qdot4_out(a, b, bias, out_dtype, lead) -> torch.Tensor:
+    """qdot4's epilogue below 32 rows: a * b in out_dtype, + bias; in f32 the
+    product and + bias are one fused multiply-add, as jit fuses `mm(x, w) +
+    b`; in bf16 the bias is added after the cast."""
+    M, N = a.shape
+    if bias is not None and out_dtype == torch.float32:
         return fma_f32(a, b, bias.expand(M, N)).reshape(*lead, N)
-    out = (a * b).to(out_dtype or x.dtype).reshape(*lead, N)
+    out = (a * b).to(out_dtype).reshape(*lead, N)
     return out if bias is None else out + bias
+
+
+# ---- K5-int4's plan: tiles, slabs and stages (made on the host) ------------
+
+INT4_TILE_N = 16  # output channels of a warp's tile (csrc/int4_gemv.cu TILE_N)
+INT4_WARPS = 8  # warps of a CTA (WARPS)
+INT4_STAGE_GROUPS = 4  # 128-row groups of a ring stage (GS)
+# a stage: the tile's packed bytes of 4 groups, then their scales (STAGE)
+INT4_STAGE_BYTES = INT4_TILE_N * INT4_STAGE_GROUPS * (INT4_GROUP // 2 + 4)
+INT4_MAX_STAGES = 16  # ring stages a warp may hold (MAX_STAGES)
+INT4_STAGES = 4  # a warp's stages when every warp of its CTA is busy, where they fit
+INT4_MIN_STAGES = 2  # fewer would not overlap copies with products: cut K into slabs instead
+INT4_SMEM_CAP = 232448  # shared memory a block may take (SMEM_CAP)
+
+
+class Int4Plan(NamedTuple):
+    """Which CTA of K5-int4 runs which (16-channel tile, 128-row groups).
+    K's nk = ceil(K / 128) groups are cut into `slabs` slabs of
+    `slab_groups` groups (the last may be shorter); CTA b runs slab b %
+    slabs, and warp w of it the tiles j + ctas * w + ctas * WARPS * i (j =
+    b // slabs), i = 0, 1, ... (csrc/int4_gemv.cu). With one slab every
+    warp folds its tiles whole; with more, each part leaves per-group
+    records and the tile's last part folds them all in group order.
+    `stages`: ring stages a warp."""
+
+    slabs: int
+    slab_groups: int
+    ctas: int  # CTAs a slab
+    stages: int
+
+    @property
+    def n_ctas(self) -> int:
+        return self.slabs * self.ctas
+
+
+def int4_row_tiles(M: int) -> int:
+    """mma column tiles of 8 rows that K5-int4 runs for M rows (1, 2 or 4)."""
+    return 1 if M <= 8 else 2 if M <= 16 else 4
+
+
+def int4_smem_bytes(M: int, slab_groups: int, stages: int) -> int:
+    """K5-int4's dynamic shared memory (csrc/int4_gemv.cu Layout): the warps'
+    ring, the quantized rows of one slab, their group sums, row scales and
+    maxima, the mbarriers, and 128 bytes to align the base."""
+    mp = 8 * int4_row_tiles(M)
+    return (INT4_WARPS * stages * INT4_STAGE_BYTES + M * INT4_GROUP * slab_groups
+            + slab_groups * mp * 4 + 2 * mp * 4 + INT4_WARPS * INT4_MAX_STAGES * 8 + 128)
+
+
+def _int4_slab_groups(nk: int, slabs: int) -> int:
+    """Groups a slab when nk groups are cut into `slabs`: all of them for one
+    slab, else ceil(nk / slabs) rounded up to whole stages."""
+    if slabs == 1:
+        return nk
+    per_slab = -(-nk // slabs)
+    return -(-per_slab // INT4_STAGE_GROUPS) * INT4_STAGE_GROUPS
+
+
+def int4_plan(M: int, N: int, K: int, n_sms: int, slabs: Optional[int] = None) -> Int4Plan:
+    """K5-int4's plan for an [M, K] x [N, K/2] product on n_sms SMs. Slabs:
+    `slabs` when given, else as many as keep every warp of the card on at
+    most one (tile, slab) part where the tiles alone are fewer than the
+    warps (a warp's stages run one after another, so a long K on few tiles
+    is a long chain: k/v, q/o and down_proj are cut, gate/up and the lm_head
+    not), and in either case at least enough that the quantized rows leave
+    room for INT4_MIN_STAGES stages a warp; rounded to whole stages; more
+    than one needs scale groups (ng > 1). As many stages as fit, up to
+    INT4_STAGES; one CTA a tile up to n_sms // slabs CTAs a slab."""
+    nk = -(-K // INT4_GROUP)
+    T = -(-N // INT4_TILE_N)
+
+    def fits(gps: int, stages: int) -> bool:
+        return int4_smem_bytes(M, gps, stages) <= INT4_SMEM_CAP
+
+    if slabs is None:
+        warps = n_sms * INT4_WARPS
+        slabs = max(1, min(nk // INT4_STAGE_GROUPS, warps // T)) if int4_groups(K) > 1 else 1
+    while slabs < nk and not fits(_int4_slab_groups(nk, slabs), INT4_MIN_STAGES):
+        slabs += 1
+    if slabs > 1 and int4_groups(K) == 1:
+        raise ValueError(f"qdot4: K = {K} has one scale group; its K cannot be cut into slabs")
+    gps = _int4_slab_groups(nk, min(slabs, nk))
+    slabs = -(-nk // gps)
+    stages = max((s for s in range(2, INT4_STAGES + 1) if fits(gps, s)), default=0)
+    if not stages:
+        raise ValueError(f"qdot4: {M} rows of a {gps}-group slab do not fit in shared memory")
+    return Int4Plan(slabs, gps, max(1, min(n_sms // slabs, T)), stages)
+
+
+@functools.lru_cache(maxsize=256)
+def _int4_plan_on(M: int, N: int, K: int, n_sms: int, slabs: Optional[int]) -> Int4Plan:
+    return int4_plan(M, N, K, n_sms, slabs)
+
+
+_int4_scratch = {}  # device -> (f32 records, int32 counters kept zero by the kernel)
+# (device, weight pointers, shapes, strides and dtypes, M, forced slabs) ->
+# svt_qdot4's weight arguments and its shape, plan and scratch arguments:
+# what a decode step's 197 calls would otherwise work out again each call
+_int4_calls = {}
+INT4_CALLS_MAX = 4096
+
+
+def _int4_workspace(device: torch.device, plan: Int4Plan, M: int, N: int, K: int):
+    """A split plan's records [T, nk, M + 1, 16] f32 and tile counters [T]
+    from a per-device cache that grows to the largest plan seen (None, None
+    for one slab). The counters are zeroed once; the tile's last part resets
+    its own. Calls on one stream run in order, so they share the cache.
+    Growing it drops the cached call arguments, which hold its pointers."""
+    if plan.slabs == 1:
+        return None, None
+    T, nk = -(-N // INT4_TILE_N), -(-K // INT4_GROUP)
+    recs = T * nk * (M + 1) * INT4_TILE_N
+    have = _int4_scratch.get(device)
+    if have is None or have[0].numel() < recs or have[1].numel() < T:
+        old = (0, 0) if have is None else (have[0].numel(), have[1].numel())
+        have = (torch.empty(max(recs, old[0]), dtype=torch.float32, device=device),
+                torch.zeros(max(T, old[1]), dtype=torch.int32, device=device))
+        _int4_scratch[device] = have
+        _int4_calls.clear()
+    return have
+
+
+def _int4_weight_rows(name: str, t: torch.Tensor, shape, dtype, align: int,
+                      device: torch.device) -> torch.Tensor:
+    """A qdot4 weight operand (packed rows or their scales) on x's device
+    with dense rows a multiple of `align` elements apart (16 bytes; what the
+    kernel's tensor maps read): t itself when it is laid out so (QLinear4
+    stores them so), else a padded copy."""
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
+        raise ValueError(f"{name}: the weight must be packed int8 [N, K / 2] with f32 scales "
+                         f"[N, ng] on x's device, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if t.stride(1) == 1 and t.stride(0) % align == 0 and t.data_ptr() % 16 == 0:
+        return t
+    rows = torch.zeros(shape[0], -(-shape[1] // align) * align, dtype=dtype, device=t.device)
+    rows[:, : shape[1]] = t
+    return rows[:, : shape[1]]
+
+
+def _int4_args(name: str, device: torch.device, q4, s, M: int, N: int, K: int,
+               slabs: Optional[int]):
+    """svt_qdot4's arguments for this weight at M rows: (the weight and
+    scales with their row strides), (shapes, plan, scratch) and the padded
+    copies they point into (None where the weight is read in place: those
+    arguments are cached per (weight, M, slabs))."""
+    key = (device, q4.data_ptr(), s.data_ptr(), q4.shape, s.shape, q4.stride(), s.stride(),
+           q4.dtype, s.dtype, M, slabs)
+    args = _int4_calls.get(key)
+    if args is not None:
+        return args
+    ng = int4_groups(K)
+    rows = _int4_weight_rows(name, q4, (N, K // 2), torch.int8, ROW_ALIGN, device)
+    srows = _int4_weight_rows(name, s, (N, ng), torch.float32, 4 if ng > 1 else 1, device)
+    plan = _int4_plan_on(M, N, K, sm_count(device), slabs)
+    scratch, counters = _int4_workspace(device, plan, M, N, K)
+    args = ((ptr(rows), rows.stride(0), ptr(srows), srows.stride(0)),
+            (M, N, K, ng, *plan, ptr(scratch), ptr(counters)), None)
+    if rows is not q4 or srows is not s:
+        return args[:2] + ((rows, srows),)
+    if len(_int4_calls) >= INT4_CALLS_MAX:
+        _int4_calls.clear()
+    _int4_calls[key] = args
+    return args
 
 
 def qdot4(x, q4, s, bias=None, out_dtype=None) -> torch.Tensor:
     """Dynamic-activation W4A8 product, the JAX package's `qdot4` + bias:
-    below 32 rows through kernel K5-int4 (x quantized per row in the
-    kernel's prologue, packed nibbles sign-extended in registers, int32 sums
-    per group folded in group order, bitwise equal to `qdot4_plain`); at 32
-    rows or more the dequantized bf16 weight's f32-accumulated product. On
-    a CPU tensor, `qdot4_plain`."""
+    below 32 rows through kernel K5-int4 over `int4_plan` (x quantized per
+    row in the kernel's prologue, packed nibbles unpacked into int8
+    tensor-core products, int32 sums per group folded in group order,
+    bitwise equal to `qdot4_plain` under every plan); at 32 rows or more the
+    dequantized bf16 weight's f32-accumulated product. On a CPU tensor,
+    `qdot4_plain`. The weight's packed rows and (ng > 1) its scales' rows
+    must lie a multiple of 16 bytes apart for the kernel, as QLinear4 keeps
+    them; other layouts are copied into such rows at every call."""
+    return _qdot4_with_plan(x, q4, s, bias, out_dtype, None)
+
+
+def _qdot4_with_plan(x, q4, s, bias=None, out_dtype=None, slabs: Optional[int] = None):
+    """`qdot4` with K cut into `slabs` slabs by force (None: the planner's
+    choice); the card's checks and tools reach every plan through it."""
     if x.device.type == "cpu":
         return qdot4_plain(x, q4, s, bias, out_dtype)
     name = "qdot4"
@@ -703,23 +880,19 @@ def qdot4(x, q4, s, bias=None, out_dtype=None) -> torch.Tensor:
     if so.int4_max_rows != INT4_MAX_ROWS:
         raise RuntimeError(f"{name}: the library takes {so.int4_max_rows} rows, not "
                            f"{INT4_MAX_ROWS}")
-    tensors = [x2, q4, s] + ([] if bias is None else [bias])
-    check_cuda(name, *tensors)
+    check_cuda(name, *([x2] if bias is None else [x2, bias]))
     floats = (torch.bfloat16, torch.float32)
     if x2.dtype not in floats or out_dtype not in floats:
         raise ValueError(f"{name}: x and the output must be bf16 or f32")
-    ng = int4_groups(K)
-    if (q4.dtype != torch.int8 or q4.shape != (N, K // 2) or s.dtype != torch.float32
-            or s.shape != (N, ng)):
-        raise ValueError(f"{name}: the weight must be packed int8 [N, {K // 2}] with f32 "
-                         f"scales [N, {ng}]")
     if K % 8 or M == 0:
         raise ValueError(f"{name}: K must be a multiple of 8 and M >= 1, got {tuple(x.shape)}")
     if bias is not None and (bias.dtype != out_dtype or bias.shape != (N,)):
         raise ValueError(f"{name}: the bias must be [N] in the output dtype")
+    weight, dims, copies = _int4_args(name, x2.device, q4, s, M, N, K, slabs)
     out = torch.empty(M, N, dtype=out_dtype, device=x.device)
-    err = so.svt_qdot4(ptr(x2), int(x2.dtype == torch.bfloat16), ptr(q4), ptr(s), ptr(bias),
-                          ptr(out), int(out_dtype == torch.bfloat16), M, N, K, ng, stream())
+    err = so.svt_qdot4(ptr(x2), int(x2.dtype == torch.bfloat16), *weight, ptr(bias), ptr(out),
+                       int(out_dtype == torch.bfloat16), *dims, stream())
+    del copies  # padded copies (if any) live until their launch is queued
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
     path_counts["int4"] += 1
@@ -731,7 +904,13 @@ class QLinear4(nn.Module):
     storage, contract rows 2d / 2d+1 in the low / high nibble of byte d),
     f32 scales s [out, ng] (ng = in / INT4_GROUP, or 1), and the bias in the
     model's dtype. forward(x, out_dtype) is `qdot4`; the bias is added
-    after the cast to the output dtype."""
+    after the cast to the output dtype.
+
+    The packed rows live in the buffer `q4_rows` [out, padded_k(in/2)] and
+    the scales in `s_rows` [out, ng rounded up to 4 where ng > 1], rows
+    zero-padded to multiples of 16 bytes (what K5-int4's tensor maps read
+    in place); `q4` and `s` are their [out, in/2] and [out, ng] views, so
+    reading, copying into and assigning them work as on plain tensors."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True, *,
                  device=None, dtype=torch.float32):
@@ -739,12 +918,52 @@ class QLinear4(nn.Module):
         if in_features % 2:
             raise ValueError(f"int4 weights need an even in_features, got {in_features}")
         self.in_features, self.out_features = in_features, out_features
-        self.register_buffer("q4", torch.zeros(out_features, in_features // 2, dtype=torch.int8,
-                                               device=device))
-        self.register_buffer("s", torch.empty(out_features, int4_groups(in_features),
-                                              dtype=torch.float32, device=device))
+        self.ng = int4_groups(in_features)
+        self.register_buffer("q4_rows", torch.zeros(out_features, padded_k(in_features // 2),
+                                                    dtype=torch.int8, device=device))
+        self.register_buffer("s_rows", torch.zeros(out_features, self._s_cols(),
+                                                   dtype=torch.float32, device=device))
         self.bias = (nn.Parameter(torch.empty(out_features, dtype=dtype, device=device),
                                   requires_grad=False) if bias else None)
+
+    def _s_cols(self) -> int:
+        return self.ng if self.ng == 1 else -(-self.ng // 4) * 4
+
+    @property
+    def q4(self) -> torch.Tensor:
+        r, k = self.q4_rows, self.in_features // 2
+        return r if r.shape[1] == k else r[:, :k]
+
+    @q4.setter
+    def q4(self, value: torch.Tensor) -> None:
+        self.q4_rows = self._padded("q4", value, self.in_features // 2, self.q4_rows.shape[1])
+
+    @property
+    def s(self) -> torch.Tensor:
+        r = self.s_rows
+        return r if r.shape[1] == self.ng else r[:, : self.ng]
+
+    @s.setter
+    def s(self, value: torch.Tensor) -> None:
+        self.s_rows = self._padded("s", value, self.ng, self._s_cols())
+
+    def _padded(self, name: str, value: torch.Tensor, cols: int, width: int) -> torch.Tensor:
+        if tuple(value.shape) != (self.out_features, cols):
+            raise ValueError(f"QLinear4.{name} must be [{self.out_features}, {cols}], got "
+                             f"{tuple(value.shape)}")
+        rows = torch.zeros(self.out_features, width, dtype=value.dtype, device=value.device)
+        rows[:, :cols] = value
+        return rows
+
+    def _apply(self, fn, recurse=True):
+        # to_empty / .to(...) make fresh buffers (to_empty leaves them
+        # uninitialised): keep the padding columns zero
+        out = super()._apply(fn, recurse)
+        with torch.no_grad():
+            for r, cols in ((self.q4_rows, self.in_features // 2), (self.s_rows, self.ng)):
+                if r.shape[1] > cols and r.device.type != "meta":
+                    r[:, cols:] = 0
+        return out
 
     @classmethod
     @torch.no_grad()

@@ -445,6 +445,30 @@ def test_qdot4_matches_plain_on_card(cuda, M, K, x_dtype, out_dtype, bias):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 8, 31])
+@pytest.mark.parametrize("K,N", [(3584, 512), (3584, 3584), (18944, 520)],
+                         ids=["kv", "q", "ng148"])
+@pytest.mark.parametrize("slabs", [None, 2, 3, 37])
+def test_qdot4_plans_on_card(cuda, M, K, N, slabs):
+    """K5-int4 under the planner's plan and forced slabs (per-group records
+    folded by each tile's last part), bitwise equal to qdot4_plain, twice in
+    a row (the tile counters must come back to zero), bf16 and f32 out."""
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x = torch.randn(M, K, generator=g, device=cuda).to(torch.bfloat16)
+    if M > 2:
+        x[1] = 0
+        x[2, 7] = 500.0
+    q4, s = _int4_weight(g, N, K, cuda)
+    plan = Q.int4_plan(M, N, K, torch.cuda.get_device_properties(cuda).multi_processor_count,
+                       slabs)
+    for od in (torch.bfloat16, torch.float32, torch.float32):
+        b = torch.randn(N, generator=g, device=cuda).to(od)
+        assert torch.equal(Q._qdot4_with_plan(x, q4, s, b, od, slabs), Q.qdot4_plain(x, q4, s, b, od))
+    if plan.slabs > 1:
+        assert not Q._int4_scratch[x.device][1].any()
+
+
+@pytest.mark.gpu
 def test_qlinear4_and_lm_head_on_card(cuda):
     """QLinear4 at 1 row (K5-int4) and at 64 rows (the bf16 product, no
     launch) against qdot4_plain; the W4A8 lm_head's logits are f32."""

@@ -1,13 +1,19 @@
 """Two checkouts of the port on one card, in turns: the one-stream device
 times of K1 (T=640 over 9600 visible slots), K2 and K3 (int8; visible
-9000), each timed twice, and with --slice slice C's chunk p50 (20 chunks,
-random W8A8 weights; as chip_smoke.py's slice C).
+9000), each timed twice; K5-int4's device time with cold weights (each
+call rotates over copies of its weight past 100 MB, twice the L2) at every
+7B decode product (q_proj and k/v_proj with their bias, o_proj,
+gate/up_proj, down_proj) at M = 1 and 8 rows, each timed twice, and its
+CUDA-event time a call, back to back on one weight (the wrapper's host
+time where it exceeds the device's), at gate/up and q_proj, M = 1; and with
+--slices the chunk p50 of chip_smoke.py's slices C (random W8A8 weights)
+and I (random bf16 weights quantized to W4A8), 20 chunks each.
 
     git archive <commit> | tar -x -C build/parent   # build/ is git-ignored
-    python3 tools/ab_torch.py build/parent [--slice]
+    python3 tools/ab_torch.py build/parent [--slices CI]
 
 Runs the other checkout, this one, this one, the other (then this one and
-the other once more without --slice), each in its own process from its
+the other once more without the slices), each in its own process from its
 root, and prints one JSON line per run. Each checkout builds its own
 kernels."""
 
@@ -40,20 +46,49 @@ for _ in range(2):
     out["K1"].append(c._device_ms(lambda: A.streaming_prefill_attention(q, ka, va, None, None, ks, vs, 9600), n=50))
     out["K2"].append(c._device_ms(lambda: A.streaming_decode_attention_full(qd, ka, va, ksm, vsm, 9000, 7, e_delta=20), n=200))
     out["K3"].append(c._device_ms(lambda: A.streaming_decode_attention_int8(qd, kq, ksc, vq, vsc, pos.contiguous(), ksm, vsm, 9000, 7, **kw), n=200))
-if "--slice" in sys.argv:
+from streaming_vlm_tpu_torch.ops import quant as Q
+out["K5-int4 cold"], out["K5-int4 event"] = {}, {}
+for what, K, N, bias in (("q_proj", 3584, 3584, True), ("k/v_proj", 3584, 512, True),
+                         ("o_proj", 3584, 3584, False), ("gate/up_proj", 3584, 18944, False),
+                         ("down_proj", 18944, 3584, False)):
+    q4 = torch.randint(-128, 128, (N, K // 2), generator=g, device=dev, dtype=torch.int16).to(torch.int8)
+    s = torch.rand(N, K // 128, generator=g, device=dev) * 1e-2 + 1e-4
+    b = rn(N) if bias else None
+    copies = [(q4, s)] + [(q4.clone(), s.clone()) for _ in range(-(-100 * 2**20 // (q4.numel() + 4 * s.numel())) - 1)]
+    for M in (1, 8):
+        x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+        i = [0]
+        def rotate():
+            w, sc = copies[i[0] % len(copies)]
+            i[0] += 1
+            Q.qdot4(x, w, sc, b, torch.bfloat16)
+        out["K5-int4 cold"][f"{what} M={M}"] = [c._device_ms(rotate, n=max(20, 2 * len(copies))) for _ in range(2)]
+        if M == 1 and what in ("q_proj", "gate/up_proj"):
+            out["K5-int4 event"][f"{what} M=1"] = [c._median_ms(lambda: Q.qdot4(x, q4, s, b, torch.bfloat16), reps=20, batch=50) for _ in range(2)]
+    del copies, q4, s
+    torch.cuda.empty_cache()
+slices = sys.argv[sys.argv.index("--slices") + 1] if "--slices" in sys.argv else ""
+if slices:
     from streaming_vlm_tpu_torch.config import StreamConfig, qwen25_vl_7b
-    from streaming_vlm_tpu_torch.models.qwen25_vl.model import random_quantized_model
+    from streaming_vlm_tpu_torch.models.qwen25_vl.model import init_params, random_quantized_model
     cfg = qwen25_vl_7b()
-    model = random_quantized_model(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    L, mn = cfg.text.num_hidden_layers, 20
-    expect = {"streaming_prefill_attention": L, "streaming_decode_attention_full": L * mn,
-              "int8_gemm": 7 * L * (1 + mn) + (1 + mn) + 5 * cfg.vision.depth + 2,
-              "int8_gemm/tiled": 7 * L + 5 * cfg.vision.depth + 2,
-              "int8_gemm/gemv": 7 * L * mn + 1 + mn}
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        c.phase_slice(cfg, model, 20, StreamConfig(kv_quant="int8"), expect)
-    out["slice_c"] = [x.strip() for x in buf.getvalue().splitlines() if "chunk latency" in x][0]
+    L, mn, vision = cfg.text.num_hidden_layers, 20, 5 * cfg.vision.depth + 2
+    expect = {  # launches a chunk, as chip_smoke.py's slices C and I
+        "C": {"streaming_prefill_attention": L, "streaming_decode_attention_full": L * mn,
+              "int8_gemm": 7 * L * (1 + mn) + (1 + mn) + vision, "int8_gemm/tiled": 7 * L + vision,
+              "int8_gemm/gemv": 7 * L * mn + 1 + mn},
+        "I": {"streaming_prefill_attention": L, "streaming_decode_attention_full": L * mn,
+              "int8_gemm": vision, "int8_gemm/tiled": vision, "int8_gemm/int4": 7 * L * mn + mn + 1}}
+    for name in slices:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = (random_quantized_model(cfg, gen, device=dev) if name == "C" else
+                 Q.quantize_model(init_params(cfg, gen, device=dev, dtype=torch.bfloat16), bits=4))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            c.phase_slice(cfg, model, 20, StreamConfig(kv_quant="int8"), expect[name])
+        out[f"slice_{name.lower()}"] = [x.strip() for x in buf.getvalue().splitlines() if "chunk latency" in x][0]
+        del model
+        torch.cuda.empty_cache()
 print("RESULT " + json.dumps(out))
 '''
 
@@ -61,13 +96,16 @@ print("RESULT " + json.dumps(out))
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("other", type=Path, help="the other checkout's root (e.g. build/parent)")
-    ap.add_argument("--slice", action="store_true", help="also serve slice C (~1 min a run)")
+    ap.add_argument("--slices", default="", help="also serve these of slices C and I "
+                    "(e.g. CI; ~40 s a slice a run)")
     args = ap.parse_args()
+    if set(args.slices) - set("CI"):
+        ap.error(f"--slices takes C and I, got {args.slices!r}")
     other = args.other.resolve()
-    runs = [(other, args.slice), (REPO, args.slice), (REPO, args.slice), (other, args.slice),
-            (REPO, False), (other, False)]
-    for root, with_slice in runs:
-        r = subprocess.run([sys.executable, "-c", CODE] + (["--slice"] if with_slice else []),
+    runs = [(other, args.slices), (REPO, args.slices), (REPO, args.slices), (other, args.slices),
+            (REPO, ""), (other, "")]
+    for root, slices in runs:
+        r = subprocess.run([sys.executable, "-c", CODE] + (["--slices", slices] if slices else []),
                            cwd=root, capture_output=True, text=True, timeout=900)
         line = [x for x in r.stdout.splitlines() if x.startswith("RESULT ")]
         name = "this" if root == REPO else str(args.other)
