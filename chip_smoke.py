@@ -8,7 +8,7 @@ Phases; any failure exits non-zero:
 1. device: requires CUDA; prints `nvidia-smi` name and power limit.
 2. build: compiles the port's kernels (streaming_vlm_tpu_torch/csrc, nvcc,
    sm_90a, one nvcc per source in parallel) into build/torch_kernels/, and
-   prints -Xptxas -v registers and spills of K1-K5's kernels.
+   prints -Xptxas -v registers and spills of K1-K5's and K2-verify's kernels.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes (Qwen2.5-VL-7B attention geometry: H=28, Hkv=4,
    hd=128, arena C=10240): K1 prefill (both arena modes; T in {640, 200,
@@ -19,7 +19,12 @@ Phases; any failure exits non-zero:
    and bf16 storage, shrink- and append-range positions, visible 0 to C on
    and off the host's split, a small block longer than the kernel's tile;
    one kernel a call), K4 decode
-   partials (and their merge with the small block against K2), K5 W8A8
+   partials (and their merge with the small block against K2), K2-verify
+   (spec decode's verify attention: T in {1, 2, 8, 16} queries, visible 0
+   to C - e_delta - T on and off the host's split, extra_visible 0 to
+   e_delta; each of its rows also bitwise against K2 on that query with
+   the small block cut to the rows it sees; timed at T = 8, visible 9000
+   beside K2 called 8 times), K5 W8A8
    products (the int32 form at the TPU probe's 4096^3 and at ragged shapes;
    the serving form at every (M, K, N) of the 7B path, Qwen2-VL's vision
    products included, bf16 and f32 out, weights in QLinear's padded rows),
@@ -57,7 +62,11 @@ Phases; any failure exits non-zero:
    the dequantized int4 weights), the same at Qwen2-VL-7B's widths (bf16
    and W8A8), and Qwen2-VL-7B's
    vision tower (4 of its blocks, one chunk's frames patchified on the card)
-   in bf16 and W8A8 (K5) against its f32 oracle.
+   in bf16 and W8A8 (K5) against its f32 oracle. Then a spec-decode verify
+   forward of 8 tokens after the prefill (K2-verify; over the pre-rotated
+   bf16 arena, and with W8A8 weights over the int8 arena) against the f32
+   oracle on the same tokens, and r, the largest logit difference between
+   its rows and K2 decode steps over the same tokens (over max |logit|).
 5. slices: Qwen2.5-VL-7B served through `serve.streaming_inference_frames`,
    20 one-second chunks of 2 synthetic 476x840 frames each, three times:
    slice A with random bf16 weights and the default StreamConfig (the
@@ -103,7 +112,15 @@ Phases; any failure exits non-zero:
    chunk delivered in order; rounds, swaps and their ms, round wall, frames
    /s), then again with an engine_factory and one injected device fault:
    one recovery, no chunk lost, the tokens equal to the unfaulted run's
-   counted.
+   counted. Slice L (after C, on its W8A8 weights; kv_quant="int8",
+   greedy, window 4): speculative decoding, 8 chunks, each run from the
+   autoregressive run's state (snapshot / restore) four ways: the
+   autoregressive chunk, then spec with no draft, an adversarial draft and
+   a clairvoyant one (the autoregressive tokens); tokens equal, or parting
+   only where that step's top-two penalised-logit gap is under 2 r max
+   |logit|; fewer rounds with the clairvoyant draft than with none; an
+   eviction; every verify attention through K2-verify (L launches a
+   round), K1 L a chunk, K5 tiled at the verify's 8 rows.
 
 The second-to-last line is a JSON object with each kernel's numbers; the
 last line is {"ok": true, "device": {...}}.
@@ -150,7 +167,7 @@ PART_TOL = 1e-3
 REF_LAYERS = 4
 N_CHUNKS = 20  # slice length: past visual_round=16, so eviction runs
 REF_NOISE_FACTOR = 2.0
-MUTANT_BUILDS = 4  # mutant copies whose kernels build at once (5 nvcc each)
+MUTANT_BUILDS = 8  # mutant copies whose kernels build at once (most compile one source)
 MUTANT_RUNS = 3  # mutant copies whose checks run at once on the card
 TRACE_PAD_S = 0.05  # host time between a trace's start or end and the traced calls
 # the H100 SXM's published peaks (dense bf16 and int8, f32 outside the
@@ -250,8 +267,16 @@ MUTANTS = {
     ),
     "lane-strided counters left unreset": (
         ("K2", "K3"), "csrc/decode_common.cuh",
-        "if (tid == 0) counters[head] = 0;",
-        "if (tid == 0) counters[kvh] = 0;", "'lanes'",
+        "if (threadIdx.x == 0) counters[head] = 0;",
+        "if (threadIdx.x == 0) counters[kvh] = 0;", "'lanes'",
+    ),
+    # K2-verify: query t also sees the next token's self row (not past the
+    # staged rows); its checks alone must fail (those labelled
+    # "K2-verify+K2" hold it bitwise to K2 and belong to both)
+    "K2-verify: query t sees self row t + 1": (
+        "K2-verify", "csrc/verify_attention.cu",
+        "const int n = small ? e_delta + t + 1 : rows;",
+        "const int n = small ? min(e_delta + t + 2, rows) : rows;", None,
     ),
     # K5-int4 (W4A8): negative high nibbles read as 8..15 (n + 8 where the
     # offset form is n ^ 8); a split tile's last part folding its groups in
@@ -301,6 +326,12 @@ SRC = {  # kernel -> (source, the TPU kernel's pallas_call it replaces)
     "streaming_decode_attention": (
         "streaming_vlm_tpu_torch/csrc/decode_attention.cu",
         "streaming_vlm_tpu/ops/attention.py:362",
+    ),
+    # K2-verify: no pallas_call; the JAX package's verify attention is XLA
+    # (`_gqa_attention_multi` from the streaming forward's delta path)
+    "streaming_verify_attention": (
+        "streaming_vlm_tpu_torch/csrc/verify_attention.cu",
+        "streaming_vlm_tpu/models/qwen25_vl/language.py:106",
     ),
     "int8_gemm": (
         "streaming_vlm_tpu_torch/csrc/int8_gemm.cu",
@@ -688,6 +719,7 @@ def phase_kernels():
     print(f"  K4 visible_len={vis}: kernel {k4['ms']:.4f} ms (device {k4['device_ms']:.4f} ms), "
           f"plain {k4['plain_ms']:.4f} ms, "
           f"no single PyTorch call, bound {k4['bound_ms']:.4f} ms ({k4['bound_by']})")
+    stats["streaming_verify_attention"] = _phase_verify(g, ka, va, sdpa_ms)
     for name, lane_stats in _phase_lanes(g).items():
         stats[name]["lanes"] = lane_stats
         stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], lane_stats["max_abs_err"])
@@ -696,6 +728,91 @@ def phase_kernels():
     if _FAILED:
         raise AssertionError("kernels disagree with their plain versions: " + "; ".join(_FAILED))
     return stats
+
+
+# K2-verify (phase 3): spec decode's verify widths, at the spec path's
+# decode delta with the default budget (max_new 20 + k_pad 8)
+VERIFY_T = (1, 2, 8, 16)
+VERIFY_E_DELTA = 28
+
+
+def _phase_verify(g, ka, va, sdpa_ms) -> dict:
+    """K2-verify against its plain version at K2's tolerance, and its rows
+    bitwise against K2 called on each query with the small block cut to
+    the rows that query sees ("K2-verify+K2": a check of both kernels; at
+    T = 1 the wrapper is K2 itself, so its checks carry both names), over
+    T in VERIFY_T, visible 0, 640 (on the host's split), 9000 and C -
+    e_delta - T (off it), extra_visible 0, 5 and e_delta. Then its times at
+    T = 8, visible 9000: CUDA events and device time, beside its plain
+    version, SDPA with a boolean mask over the concatenated keys, K2 called
+    T times, and its bound."""
+    import torch
+
+    from streaming_vlm_tpu_torch.ops import attention as A
+
+    dev = "cuda"
+    C, Hkv, hd = ka.shape
+    H, e_delta = 28, VERIFY_E_DELTA
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def inputs(T):
+        return rn(T, H, hd), rn(e_delta + T, Hkv, hd), rn(e_delta + T, Hkv, hd)
+
+    def k2_rows(q, ksm, vsm):
+        return [(q[t].contiguous(), ksm[: e_delta + t + 1], vsm[: e_delta + t + 1])
+                for t in range(q.shape[0])]
+
+    err = 0.0
+    for T in VERIFY_T:
+        q, ksm, vsm = inputs(T)
+        label = "K2-verify" if T > 1 else "K2-verify+K2"
+        for vis in (0, 640, 9000, C - e_delta - T):
+            for evis in (0, 5, e_delta):
+                args = (q, ka, va, ksm, vsm, vis, evis)
+                cases = dict(T=T, visible_len=vis, extra_visible=evis)
+                out = A.streaming_verify_attention(*args, e_delta=e_delta)
+                err = max(err, _check_decode(label, out, A.verify_attention_plain(
+                    *args, e_delta=e_delta), cases))
+                k2 = torch.stack([A.streaming_decode_attention_full(
+                    qt, ka, va, kt, vt, vis, evis, e_delta=e_delta)
+                    for qt, kt, vt in k2_rows(q, ksm, vsm)])
+                _check_equal("K2-verify+K2", out, k2, dict(cases, rows="each row vs K2"))
+    T, vis, evis = 8, 9000, 5
+    q, ksm, vsm = inputs(T)
+    args = (q, ka, va, ksm, vsm, vis, evis)
+    rows = k2_rows(q, ksm, vsm)
+
+    def kern():
+        return A.streaming_verify_attention(*args, e_delta=e_delta)
+
+    def k2_x_t():
+        return [A.streaming_decode_attention_full(qt, ka, va, kt, vt, vis, evis, e_delta=e_delta)
+                for qt, kt, vt in rows]
+
+    st = dict(T=T, visible_len=vis, extra_visible=evis, e_delta=e_delta, max_abs_err=err,
+              ms=_median_ms(kern), device_ms=_device_ms(kern),
+              plain_ms=_median_ms(lambda: A.verify_attention_plain(*args, e_delta=e_delta)),
+              k2_x_T_ms=_median_ms(k2_x_t), k2_x_T_device_ms=_device_ms(k2_x_t))
+    mask = torch.cat([torch.ones(T, vis, dtype=torch.bool, device=dev),
+                      A.verify_small_mask(T, e_delta + T, evis, e_delta, dev)], 1)
+    st["library_ms"] = sdpa_ms(q, torch.cat([ka[:vis], ksm]), torch.cat([va[:vis], vsm]), mask)
+    keys = sum(vis + evis + t + 1 for t in range(T))  # the keys each query sees
+    st["bound_ms"], st["bound_by"] = _bound(_nbytes(q, ka[:vis], va[:vis], ksm, vsm, q),
+                                            4 * H * hd * keys)
+    by_t = {}
+    for t in (2, 16):
+        qt, kt, vt = inputs(t)
+        by_t[t] = _device_ms(lambda: A.streaming_verify_attention(
+            qt, ka, va, kt, vt, vis, evis, e_delta=e_delta))
+    st["device_ms_by_T"] = {2: by_t[2], 8: st["device_ms"], 16: by_t[16]}
+    print(f"  K2-verify T={T} visible_len={vis} extra_visible={evis} e_delta={e_delta}: kernel "
+          f"{st['ms']:.4f} ms (device {st['device_ms']:.4f} ms), K2 x {T} {st['k2_x_T_ms']:.4f} ms "
+          f"(device {st['k2_x_T_device_ms']:.4f} ms), plain {st['plain_ms']:.4f} ms, sdpa "
+          f"{st['library_ms']:.4f} ms, bound {st['bound_ms']:.4f} ms ({st['bound_by']}); device "
+          f"ms by T {st['device_ms_by_T']}")
+    return st
 
 
 # recompute mode (efficiency config (c), slice H): the whole window re-
@@ -1506,6 +1623,131 @@ def phase_vision_reference(cfg):
     return {"bf16": err16, "w8a8": got, "w8a8_plain_k5": floor}
 
 
+@contextlib.contextmanager
+def _plain_verify():
+    """Bind K2-verify's plain version where the decoder calls it (phase 4's
+    noise floor; the serving path has no such route)."""
+    from streaming_vlm_tpu_torch.models.qwen25_vl import language as lang
+    from streaming_vlm_tpu_torch.ops import attention as A
+
+    kernel = lang.streaming_verify_attention
+    lang.streaming_verify_attention = A.verify_attention_plain
+    try:
+        yield
+    finally:
+        lang.streaming_verify_attention = kernel
+
+
+VERIFY_K_PAD = 8  # spec decode's verify width at the default k_draft (7)
+
+
+def phase_verify_reference(cfg) -> dict:
+    """Phase 4's verify forward at 7B width (REF_LAYERS decoder layers):
+    after a T = 64 chunk prefill, one spec-decode verify forward of
+    VERIFY_K_PAD tokens over an empty decode delta (K2-verify), against the
+    f32 full-attention oracle over the same 72 tokens, all 8 rows' logits:
+    (e) over the pre-rotated bf16 arena (noise floor: the oracle in bf16),
+    (f) with W8A8 weights over the int8 arena and its pre-rotated K copy
+    (K5 tiled at 8 rows; against the oracle on the dequantized weights;
+    noise floor: the same forward with K5's and K2-verify's plain
+    versions). Each may be at most REF_NOISE_FACTOR times its floor. r:
+    the largest |logit difference| over max |logit| between the verify's
+    rows and K2 decode steps over the same tokens (each step writing its
+    K/V into the delta, as the autoregressive loop does). Returns {case:
+    r}."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from streaming_vlm_tpu_torch.models.qwen25_vl import language as lang
+    from streaming_vlm_tpu_torch.models.qwen25_vl.model import init_params
+    from streaming_vlm_tpu_torch.ops import attention as A
+    from streaming_vlm_tpu_torch.ops.quant import LAYER_LINEARS, quantize_language, write_slots
+
+    tcfg = dataclasses.replace(cfg.text, num_hidden_layers=REF_LAYERS)
+    rcfg = dataclasses.replace(cfg, text=tcfg)
+    lm = init_params(rcfg, torch.Generator(device="cuda").manual_seed(2),
+                     device="cuda", dtype=torch.bfloat16).text
+    dev = lm.embed.weight.device
+    T0, K, C, E = 64, VERIFY_K_PAD, 512, VERIFY_E_DELTA
+    L, Hkv, hd = tcfg.num_hidden_layers, tcfg.num_key_value_heads, tcfg.head_dim
+    rng = np.random.default_rng(6)
+    ids = torch.from_numpy(rng.integers(0, tcfg.vocab_size, T0 + K)).to(dev)
+    pos = torch.arange(T0 + K, dtype=torch.float32, device=dev).expand(3, T0 + K).contiguous()
+    emb = lang.embed_tokens(tcfg, lm, ids)
+
+    def oracle(m):
+        x = emb.to(m.embed.weight.dtype)
+        return lang.lm_logits(tcfg, m, lang.language_forward(tcfg, m, x, pos))[T0:]
+
+    def rel(x, ref):
+        return float((x - ref).abs().max() / ref.abs().max())
+
+    def verify_and_steps(m, int8_v: bool):
+        """(the verify's logits [K, V], K2 decode steps' logits [K, V],
+        K2-verify launches) for model m after the prefill."""
+        kr = torch.zeros(L, C, Hkv, hd, dtype=torch.bfloat16, device=dev)  # rotated K copy
+        if int8_v:
+            _, va = lang.init_kv_arena(tcfg, C, torch.bfloat16, dev, quant="int8")
+        else:
+            va = torch.zeros_like(kr)
+        arena = dict(arena=(kr, va), arena_rotated=True)
+        _, (_, kbr, vb) = lang.language_forward_streaming(
+            tcfg, m, emb[:T0], pos[:, :T0], visible_len=0, **arena)
+        kr[:, :T0] = kbr
+        write_slots(va, vb, 0)
+        dk = torch.zeros(L, E, Hkv, hd, dtype=torch.bfloat16, device=dev)
+        dv = torch.zeros_like(dk)
+        n = A.launch_counts["streaming_verify_attention"]
+        h, _ = lang.language_forward_streaming(
+            tcfg, m, emb[T0:], pos[:, T0:], visible_len=T0, extra=(dk, dv), extra_visible=0,
+            **arena)
+        launched = A.launch_counts["streaming_verify_attention"] - n
+        verify = lang.lm_logits(tcfg, m, h)
+        steps = []
+        for t in range(K):
+            h1, (_, k1r, v1) = lang.language_forward_streaming(
+                tcfg, m, emb[T0 + t : T0 + t + 1], pos[:, T0 + t : T0 + t + 1], visible_len=T0,
+                extra=(dk, dv), extra_visible=t, **arena)
+            dk[:, t], dv[:, t] = k1r[:, 0], v1[:, 0]
+            steps.append(lang.lm_logits(tcfg, m, h1)[0])
+        return verify, torch.stack(steps), launched
+
+    out = {}
+    lm32 = copy.deepcopy(lm).float()
+    o32, o16 = oracle(lm32), oracle(lm)
+    verify, steps, launched = verify_and_steps(lm, False)
+    out["bf16 pre-rotated (K1, K2-verify)"] = (rel(verify, o32), rel(o16, o32),
+                                               rel(steps, verify), launched)
+    lmq = quantize_language(copy.deepcopy(lm))
+    for layer, qlayer in zip(lm32.layers, lmq.layers):
+        for name in LAYER_LINEARS:
+            ql = getattr(qlayer, name)
+            getattr(layer, name).weight.copy_(ql.q.float() * ql.s[:, None])
+    lm32.lm_head.weight.copy_(lmq.lm_head.q.float() * lmq.lm_head.s[:, None])
+    oq = oracle(lm32)
+    verify, steps, launched = verify_and_steps(lmq, True)
+    with _plain_k5(), _plain_verify():
+        floor, _, _ = verify_and_steps(lmq, True)
+    out["W8A8, int8 pre-rotated (K5, K1, K2-verify)"] = (rel(verify, oq), rel(floor, oq),
+                                                         rel(steps, verify), launched)
+    torch.cuda.synchronize()
+    r = {}
+    for name, (err, floor, r_case, launched) in out.items():
+        ok = math.isfinite(err) and err <= REF_NOISE_FACTOR * floor and launched == L
+        print(f"  verify forward, {name}: {L} layers, T={T0} prefill + {K} verify tokens, "
+              f"max|diff|/max|logit| of the {K} rows vs the f32 oracle: kernels {err:.3e}, plain "
+              f"{floor:.3e} (bound {REF_NOISE_FACTOR} x plain); {launched} K2-verify launches; "
+              f"r (verify rows vs K2 decode steps) {r_case:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"verify forward ({name}) disagrees with the plain oracle")
+        r[name] = r_case
+    del lm, lm32, lmq
+    torch.cuda.empty_cache()
+    return r
+
+
 def _ptxas_verbose(kernels, source: str) -> subprocess.Popen:
     """Start nvcc -Xptxas -v on one kernel source (its object discarded),
     beside the library's build."""
@@ -1878,6 +2120,107 @@ def _reset_counts():
     Q.reset_launch_counts()
 
 
+SPEC_CHUNKS = 8  # slice L: chunks, each run four ways from one state
+SPEC_K = 7  # draft tokens a verify round (VERIFY_K_PAD rows)
+
+
+def phase_spec(cfg, model, stream, r: float, vision_products: int) -> tuple:
+    """Slice L: speculative decoding on `model` (W8A8) with `stream`,
+    greedy. For each of SPEC_CHUNKS chunks (2 synthetic 476x840 frames,
+    patchified on the host) the engine's state is snapshotted, then the
+    chunk runs autoregressively (the state carried on) and, each from the
+    snapshot, by process_chunk_spec with no draft, an adversarial
+    FixedDraft and a clairvoyant one fed the autoregressive tokens. Each
+    spec chunk's tokens must equal the autoregressive chunk's, or part from
+    them only at a step whose top-two penalised-logit gap (the spec run's
+    own, recorded in `engine.spec_gaps`) is under 2 r max |logit|. The
+    clairvoyant draft must take fewer rounds than none; an eviction must
+    happen; launches a spec chunk: K2-verify L a round, K2 none, K1 L, K5
+    tiled 7 L + the tower's + (7 L + 1) a round, the GEMV once (the
+    prefill's last row). Returns (launches over the slice, stats)."""
+    import numpy as np
+    import torch
+
+    from streaming_vlm_tpu_torch.config import SamplingConfig
+    from streaming_vlm_tpu_torch.streaming.engine import StreamingEngine
+    from streaming_vlm_tpu_torch.streaming.protocol import FakeTokenizer, PromptBuilder
+    from streaming_vlm_tpu_torch.streaming.specdecode import FixedDraft
+
+    L = cfg.text.num_hidden_layers
+    kv, k1, k2 = "streaming_verify_attention", "streaming_prefill_attention", \
+        "streaming_decode_attention_full"
+    chunks = _patches(cfg, np.random.default_rng(11), SPEC_CHUNKS)
+    eng = StreamingEngine(cfg, model, stream, SamplingConfig(do_sample=False), dtype=torch.bfloat16)
+    eng.spec_gaps = []
+    builder = PromptBuilder(cfg.tokens, FakeTokenizer(cfg.tokens))
+    _, end_bias = builder.measure_biases()
+    runs = ("autoregressive", "no draft", "adversarial", "clairvoyant")
+    times = {k: [] for k in runs}
+    rounds = {k: [] for k in runs[1:]}
+    total, divergences, evicted = {}, [], False
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        gen, _ = fn()
+        torch.cuda.synchronize()
+        times[name].append(time.perf_counter() - t0)
+        c = _counts()
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+        return gen, c
+
+    for i, (px, grid) in enumerate(chunks):
+        segs = _client_segs(cfg, builder, i, "Commentate on this match", grid)
+        before = eng.snapshot()
+        g_ar, c = run("autoregressive", lambda: eng.process_chunk(segs, px, grid))
+        evicted |= eng.cached_after_evict < eng.cached_before_evict
+        assert c[kv] == 0 and c[k1] == L and c[k2] == L * stream.max_tokens_per_chunk, c
+        eng.commit_assistant(g_ar, end_bias, i)
+        after = eng.snapshot()
+        for name, draft in (("no draft", None),
+                            ("adversarial", FixedDraft(np.full(64, 1000, np.int32))),
+                            ("clairvoyant", FixedDraft(g_ar))):
+            eng.restore(before)
+            g, c = run(name, lambda: eng.process_chunk_spec(segs, px, grid, draft_fn=draft,
+                                                            k_draft=SPEC_K))
+            n = eng._spec_rounds
+            rounds[name].append(n)
+            want = {kv: L * n, k2: 0, k1: L, "int8_gemm/gemv": 1,
+                    "int8_gemm/tiled": 7 * L + vision_products + n * (7 * L + 1)}
+            got = {k: c[k] for k in want}
+            assert got == want, (name, i, got, want)
+            if not np.array_equal(g, g_ar):
+                m = min(len(g), len(g_ar))
+                p = next((j for j in range(m) if g[j] != g_ar[j]), m)
+                gap, mx = eng.spec_gaps[p] if p < len(eng.spec_gaps) else (math.nan, math.nan)
+                ok = gap < 2 * r * mx
+                divergences.append(dict(chunk=i, run=name, step=p, gap=gap, max_logit=mx, ok=ok))
+                print(f"  chunk {i} {name}: parts from the autoregressive tokens at step {p}: "
+                      f"top-two gap {gap:.4f} against 2 r max|logit| = {2 * r * mx:.4f} "
+                      f"{'ok' if ok else 'FAIL'}")
+                assert ok, f"slice L: spec tokens part from the autoregressive run at chunk {i}"
+        eng.restore(after)
+        print(f"  chunk {i}: {len(g_ar)} tokens, kv={eng.cached} (evict {eng.cached_before_evict} "
+              f"-> {eng.cached_after_evict}); rounds no draft / adversarial / clairvoyant "
+              f"{rounds['no draft'][-1]} / {rounds['adversarial'][-1]} / "
+              f"{rounds['clairvoyant'][-1]}; ms " + " / ".join(
+                  f"{times[k][-1] * 1e3:.1f}" for k in runs))
+    assert evicted, "slice L: no eviction happened"
+    assert sum(rounds["clairvoyant"]) < sum(rounds["no draft"]), rounds
+    stats = {"rounds": {k: sum(v) for k, v in rounds.items()}, "divergences": divergences,
+             "r": r}
+    for k in runs:
+        lat = sorted(t * 1e3 for t in times[k])
+        stats[k] = dict(chunk_p50_ms=statistics.median(lat), chunk_max_ms=lat[-1])
+        print(f"  {k}: chunk p50 {statistics.median(lat):.2f} ms, max {lat[-1]:.2f} ms" + (
+            f", {sum(rounds[k])} rounds for {SPEC_CHUNKS} chunks" if k in rounds else ""))
+    del eng
+    torch.cuda.empty_cache()
+    return total, stats
+
+
 SNAP_CHUNKS, SNAP_CUT = 12, 6  # slice J: a stream of 12 chunks, cut after 6
 SNAP_LANES, SNAP_ROUNDS = 4, 17  # slice J's lanes: rounds past the 16-chunk window
 
@@ -2137,9 +2480,11 @@ def phase_server(cfg, model, stream, expect: tuple) -> tuple:
 
 
 def phase_mutants() -> dict:
-    """For each fault in MUTANTS: copy the port and this script into
-    build/mutants/<i>/ (git-ignored), apply the fault there, build the
-    copies' kernels (MUTANT_BUILDS at a time), then run phase 3's checks
+    """For each fault in MUTANTS: copy the port, this script and the
+    checkout's compiled kernel objects into build/mutants/<i>/ (git-
+    ignored), apply the fault there, build the copies' kernels
+    (MUTANT_BUILDS at a time; each compiles only the sources its fault
+    changed), then run phase 3's checks
     (not its timings) in each copy in a subprocess. Each must fail, on the
     named kernels' checks only (and, where MUTANTS gives a text, only on
     checks that contain it). Returns {fault: {"kernel", "failed": checks
@@ -2156,6 +2501,9 @@ def phase_mutants() -> dict:
         shutil.copytree(REPO / "streaming_vlm_tpu_torch", d / "streaming_vlm_tpu_torch",
                         ignore=shutil.ignore_patterns("__pycache__"))
         shutil.copy2(REPO / "chip_smoke.py", d)
+        # the checkout's compiled objects: the copy compiles only what its fault changed
+        shutil.copytree(REPO / "build" / "torch_kernels" / "obj",
+                        d / "build" / "torch_kernels" / "obj")
         f = d / "streaming_vlm_tpu_torch" / src
         code = f.read_text()
         if code.count(text) != 1:
@@ -2164,6 +2512,7 @@ def phase_mutants() -> dict:
         dirs.append(d)
     build = [sys.executable, "-c", "from streaming_vlm_tpu_torch.ops import _kernels; _kernels.build()"]
     running = []
+    t0 = time.perf_counter()
     for d in dirs:
         if len(running) == MUTANT_BUILDS:
             running.pop(0).wait()
@@ -2171,6 +2520,8 @@ def phase_mutants() -> dict:
                                         stderr=subprocess.DEVNULL))
     for p in running:
         p.wait()
+    print(f"  the copies' kernels built in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     # the copies' checks, MUTANT_RUNS processes at a time on the card (each
     # writes to a file: pipes could fill while another process is awaited)
     check = [sys.executable, "-c",
@@ -2185,6 +2536,7 @@ def phase_mutants() -> dict:
         running.append(p)
     for p in running:
         p.wait(timeout=600)
+    print(f"  the copies' checks ran in {time.perf_counter() - t0:.1f} s")
     found = {}
     for d, (name, (kernel, src, text, repl, where)) in zip(dirs, MUTANTS.items()):
         r = subprocess.CompletedProcess(check, runs[d].returncode, (d / "out.txt").read_text(),
@@ -2192,7 +2544,7 @@ def phase_mutants() -> dict:
         kernels = {kernel} if isinstance(kernel, str) else set(kernel)
         lines = r.stdout.splitlines()
         checks = [x.strip() for x in lines
-                  if re.match(r"  K\d(-int4)?(\+K\d)*( merged)? \{", x)]
+                  if re.match(r"  K\d(-int4|-verify)?(\+K\d)*( merged)? \{", x)]
         mine = [x for x in checks if set(x.split(" ", 1)[0].split("+")) & kernels]
         failed = [x for x in checks if x.endswith("FAIL")]
         print(f"  mutant {name!r}: exit {r.returncode}, {len(failed)} checks failed")
@@ -2218,8 +2570,8 @@ def main() -> int:
     ap.add_argument("--profile", type=Path, metavar="DIR",
                     help="trace the slices with torch.profiler; kernel tables -> "
                          "DIR/profile_slice_{a,...,i}.txt")
-    ap.add_argument("--slices", default="ABCDEFGHIJK",
-                    help="the slices of phase 5 to run (default all: ABCDEFGHIJK)")
+    ap.add_argument("--slices", default="ABCDEFGHIJKL",
+                    help="the slices of phase 5 to run (default all: ABCDEFGHIJKL)")
     args = ap.parse_args()
     if not (REPO / "streaming_vlm_tpu_torch").is_dir():
         raise SystemExit("chip_smoke.py must run from a checkout of the repository")
@@ -2245,7 +2597,7 @@ def main() -> int:
     t0 = time.perf_counter()
     ptxas = {src: _ptxas_verbose(_kernels, src)
              for src in ("prefill_attention.cu", "decode_attention.cu", "decode_attention_raw.cu",
-                         "int8_gemm.cu", "int4_gemv.cu")}
+                         "int8_gemm.cu", "int4_gemv.cu", "verify_attention.cu")}
     so = _kernels.build()
     _kernels.lib()
     print(f"  {so.name}: {time.perf_counter() - t0:.2f} s (nvcc {_kernels.build_seconds} s)")
@@ -2254,6 +2606,7 @@ def main() -> int:
             ("K1", "prefill_attention.cu", "prefill_attention_kernel"),
             ("K2 (bf16 out, small block)", "decode_attention.cu", "decode_split_kernelILb1E"),
             ("K4", "decode_attention.cu", "decode_split_kernelILb0E"),
+            ("K2-verify", "verify_attention.cu", "verify_split_kernel"),
             ("K3 int8 arena", "decode_attention_raw.cu", "decode_raw_kernelILb1E"),
             ("K3 bf16 arena", "decode_attention_raw.cu", "decode_raw_kernelILb0E"),
             ("K5 tiled, tile 128x256, bf16 out", "int8_gemm.cu", "gemm_tiled_kernelILi256E13__nv_bfloat16"),
@@ -2264,7 +2617,9 @@ def main() -> int:
 
     print(f"[3/5] kernels vs plain versions (at {time.perf_counter() - t_start:.1f} s)")
     kstats = phase_kernels()
-    print("  phase 3 against copies of the port with K1, K2, K3, K5 or K5-int4 broken on purpose")
+    print(f"  (at {time.perf_counter() - t_start:.1f} s)")
+    print("  phase 3 against copies of the port with K1, K2, K3, K5, K5-int4 or K2-verify broken "
+          "on purpose")
     print("  " + json.dumps({"mutants": phase_mutants()}))
 
     from streaming_vlm_tpu_torch.config import StreamConfig, qwen2_vl_7b, qwen25_vl_7b
@@ -2282,6 +2637,8 @@ def main() -> int:
     print(f"  {cfg2.name} (its decoder's widths: the bf16 and W8A8 cases)")
     phase_reference(cfg2, cases="ac")
     phase_vision_reference(cfg2)
+    print(f"  {cfg.name}: the spec-decode verify forward")
+    r_verify = phase_verify_reference(cfg)
 
     print(f"[5/5] slices: the serving entry points at 7B width (at {time.perf_counter() - t_start:.1f} s)")
     t0 = time.perf_counter()
@@ -2367,6 +2724,19 @@ def main() -> int:
         prof = args.profile / f"profile_slice_{name.lower()}.txt" if args.profile else None
         by_slice[name], slice_stats[name] = phase_slice(cfg, model, N_CHUNKS, stream, expect,
                                                         prof, recompute=rec)
+    # L: speculative decoding on C's W8A8 weights, C's arena, a window of 4
+    # chunks (eviction within 8), greedy; r from phase 4's W8A8 case
+    if "L" in args.slices:
+        print(f"  (at {time.perf_counter() - t_start:.1f} s)")
+        if loaded != "W8A8":
+            del model
+            model, loaded = w8a8(cfg), "W8A8"
+        print(f"  slice L: speculative decoding, W8A8 weights, kv_quant=int8, greedy, window 4, "
+              f"k_draft {SPEC_K}, {SPEC_CHUNKS} chunks four ways (autoregressive, no draft, "
+              f"adversarial, clairvoyant)")
+        by_slice["L"], slice_stats["L"] = phase_spec(
+            cfg, model, StreamConfig(kv_quant="int8", window_size=4, text_round=4),
+            r_verify["W8A8, int8 pre-rotated (K5, K1, K2-verify)"], vision25)
     if "I" in slice_stats and "C" in slice_stats:
         i_, c_ = slice_stats["I"], slice_stats["C"]
         print(f"  W4A8 (I) against W8A8 (C), this run: chunk p50 {i_['chunk_p50_ms']:.2f} vs "

@@ -74,20 +74,6 @@ static_assert(CHUNK % 4 == 0, "a warp's group of 4 rows lies in one chunk");
 static_assert(EMAX <= 2 * TILE, "the small block must fit in two tiles");
 static_assert(QUARTERS * GMAX * HD * sizeof(float) <= TILE * ROW_BYTES, "reduction fits in a tile");
 
-// One step of a transposing warp reduction: lanes that differ in bit OFF
-// swap halves of their first 2 OFF values and add, so that after the steps
-// 16, 8, 4, 2, 1 lane l holds the warp's sum of value l.
-template <int OFF>
-__device__ __forceinline__ void butterfly(float (&v)[32], int lane) {
-  const bool upper = lane & OFF;
-#pragma unroll
-  for (int i = 0; i < OFF; ++i) {
-    const float send = upper ? v[i] : v[i + OFF];
-    const float keep = upper ? v[i + OFF] : v[i];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
-  }
-}
-
 // One split (or K2's small block) of one kv head of one lane -> its partial
 // (m, l, acc) in part_* [B * Hkv, gridDim.x, G(, HD)]; the last CTA of the
 // (lane, kv head) to finish folds the lane's n_parts partials into the

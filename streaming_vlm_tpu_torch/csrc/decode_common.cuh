@@ -1,7 +1,9 @@
 // Shared parts of the port's split-K decode kernels (K2 and K4 in
-// decode_attention.cu, K3 in decode_attention_raw.cu): the constants, the
-// warp reductions, and the end of every part: its partial written, then
-// the fused combine by the last CTA of each kv head (`finish_part`).
+// decode_attention.cu, K3 in decode_attention_raw.cu, K2-verify in
+// verify_attention.cu): the constants, the warp reductions, and the end of
+// every part: its partial written (`store_partial`), then the fused combine
+// by the last CTA of each kv head (`arrive_last`, `fold_parts`; the three
+// in turn are `finish_part`).
 //
 // Lanes: a call may cover B independent streams (grid axis z), each with
 // its own visible length, read from an int32 device array. A (lane, kv
@@ -55,30 +57,31 @@ __device__ __forceinline__ int lane_visible(const int* __restrict__ vis_lanes, i
   return min(vis_lanes != nullptr ? vis_lanes[lane] : vis_host, max_rows);
 }
 
-// The end of a part, called by all DEC_THREADS threads of its CTA. acc holds
+// One step of a transposing warp reduction: lanes that differ in bit OFF
+// swap halves of their first 2 OFF values and add, so that after the steps
+// 16, 8, 4, 2, 1 lane l holds the warp's sum of value l (K2, K2-verify).
+template <int OFF>
+__device__ __forceinline__ void butterfly(float (&v)[32], int lane) {
+  const bool upper = lane & OFF;
+#pragma unroll
+  for (int i = 0; i < OFF; ++i) {
+    const float send = upper ? v[i] : v[i + OFF];
+    const float keep = upper ? v[i + OFF] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+  }
+}
+
+// A part's partial, called by all DEC_THREADS threads of its CTA. acc holds
 // this thread's P.V sums (head dims 2 (tid % 64) + {0, 1} of its quarter's
 // rows); s_m / s_l the part's running max and sum per query head. The
-// quarters meet in buf_a, the part's partial goes to slot `part` of its
-// head's `stride` slots, and the CTA counts itself in on its head's counter
-// (head = lane * Hkv + kvh). The last of the head's n_parts CTAs to arrive
-// reads every part's (m, l) into shared memory in
-// one coalesced pass, folds the partial rows in parallel (each quarter of
-// the threads a strided subset of the parts) and writes the output (FULL:
-// the normalised bf16 row per query head of kv head kvh, `out` being the
-// lane's [H, HD]; else the merged partials m_out, l_out, acc_out), then
-// resets the counter for the next call.
-// buf_a and buf_b hold max(QUARTERS * GMAX * HD, n_parts * G) floats each;
-// s_m, s_l, s_den GMAX floats each; s_last one int.
-template <bool FULL>
-__device__ __forceinline__ void finish_part(
-    const float (&acc)[GMAX][2], float* buf_a, float* buf_b, float* s_m, const float* s_l,
-    float* s_den, int* s_last, float* __restrict__ part_m, float* __restrict__ part_l,
-    float* __restrict__ part_acc, int* __restrict__ counters, bf16* __restrict__ out,
-    float* __restrict__ m_out, float* __restrict__ l_out, float* __restrict__ acc_out, int head,
-    int kvh, int part, int n_parts, int stride, int G) {
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+// quarters meet in `red` (QUARTERS * GMAX * HD floats) and the partial goes
+// to slot `part` of head `head`'s `stride` slots.
+__device__ __forceinline__ void store_partial(
+    const float (&acc)[GMAX][2], float* red, const float* s_m, const float* s_l,
+    float* __restrict__ part_m, float* __restrict__ part_l, float* __restrict__ part_acc,
+    int head, int part, int stride, int G) {
+  const int tid = threadIdx.x;
   const int dp = tid % (HD / 2), quarter = tid / (HD / 2);
-  float* red = buf_a;  // [QUARTERS][GMAX][HD]
 #pragma unroll
   for (int g = 0; g < GMAX; ++g) {
     if (g < G) {
@@ -99,16 +102,37 @@ __device__ __forceinline__ void finish_part(
     part_m[base + tid] = s_m[tid];
     part_l[base + tid] = s_l[tid];
   }
+}
 
-  // count in; the last CTA of this kv head folds its parts
+// Count the CTA in on counter `counter` after its partials are written;
+// true in the last of n_parts CTAs to arrive (every thread of it).
+__device__ __forceinline__ bool arrive_last(int* __restrict__ counters, int counter,
+                                            int n_parts, int* s_last) {
   __threadfence();
   __syncthreads();
-  if (tid == 0) *s_last = atomicAdd(&counters[head], 1) == n_parts - 1;
+  if (threadIdx.x == 0) *s_last = atomicAdd(&counters[counter], 1) == n_parts - 1;
   __syncthreads();
-  if (!*s_last) return;
+  if (!*s_last) return false;
   __threadfence();
+  return true;
+}
 
-  // one coalesced pass brings every part's (m, l) into shared memory; then
+// The fused combine of head `head`'s n_parts partials, in the last CTA to
+// arrive: one coalesced pass brings every part's (m, l) into shared memory,
+// the partial rows fold in parallel (each quarter of the threads a strided
+// subset of the parts), and the output is written (FULL: the normalised
+// bf16 row per query head of kv head kvh, `out` being the lane's [H, HD];
+// else the merged partials m_out, l_out, acc_out). buf_a and buf_b hold
+// max(QUARTERS * GMAX * HD, n_parts * G) floats each; s_m, s_den GMAX
+// floats each.
+template <bool FULL>
+__device__ __forceinline__ void fold_parts(
+    float* buf_a, float* buf_b, float* s_m, float* s_den, const float* __restrict__ part_m,
+    const float* __restrict__ part_l, const float* __restrict__ part_acc,
+    bf16* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
+    float* __restrict__ acc_out, int head, int kvh, int n_parts, int stride, int G) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int dp = tid % (HD / 2), quarter = tid / (HD / 2);
   // query head g's weights and denominator are warp g's
   float* w = buf_a;   // [n_parts][G] maxima, then weights
   float* pl = buf_b;  // [n_parts][G]
@@ -180,7 +204,25 @@ __device__ __forceinline__ void finish_part(
       l_out[kvh * G + tid] = s_den[tid];
     }
   }
-  if (tid == 0) counters[head] = 0;  // ready for the next call
+}
+
+// The end of a part (K2, K3, K4), called by all DEC_THREADS threads of its
+// CTA: its partial stored (the quarters meet in buf_a), the CTA counted in
+// on its head's counter (head = lane * Hkv + kvh), and in the last of the
+// head's n_parts CTAs to arrive the fused combine (`fold_parts`), which
+// then resets the counter for the next call.
+template <bool FULL>
+__device__ __forceinline__ void finish_part(
+    const float (&acc)[GMAX][2], float* buf_a, float* buf_b, float* s_m, const float* s_l,
+    float* s_den, int* s_last, float* __restrict__ part_m, float* __restrict__ part_l,
+    float* __restrict__ part_acc, int* __restrict__ counters, bf16* __restrict__ out,
+    float* __restrict__ m_out, float* __restrict__ l_out, float* __restrict__ acc_out, int head,
+    int kvh, int part, int n_parts, int stride, int G) {
+  store_partial(acc, buf_a, s_m, s_l, part_m, part_l, part_acc, head, part, stride, G);
+  if (!arrive_last(counters, head, n_parts, s_last)) return;
+  fold_parts<FULL>(buf_a, buf_b, s_m, s_den, part_m, part_l, part_acc, out, m_out, l_out,
+                   acc_out, head, kvh, n_parts, stride, G);
+  if (threadIdx.x == 0) counters[head] = 0;  // ready for the next call
 }
 
 }  // namespace

@@ -22,7 +22,11 @@ returns the block's new K/V as [L, T, Hkv, hd] for the caller to merge:
   pre-rotated arena, kernel K2 (`streaming_decode_attention_full`) with V
   dequantized per layer; over a raw arena, kernel K3
   (`streaming_decode_attention_int8`), which reads the arena in its storage
-  form and dequantizes and rotates in the kernel.
+  form and dequantizes and rotates in the kernel;
+* verify mode (`extra` and T > 1: a speculative-decoding round's T tokens
+  of one stream) runs kernel K2-verify (`streaming_verify_attention`) over
+  the pre-rotated float arena, the delta and the T tokens' causal self
+  rows.
 
 `language_forward_lanes` is the multi-stream form: B streams' [B, L, C,
 Hkv, hd] arenas in one pass, [B * T, D] rows through every projection (one
@@ -47,6 +51,7 @@ from ...ops.attention import (
     streaming_decode_attention_full,
     streaming_decode_attention_int8,
     streaming_prefill_attention,
+    streaming_verify_attention,
 )
 from ...ops.quant import (
     Arena,
@@ -230,7 +235,11 @@ def language_forward_lanes(
     decode delta with rows < `extra_visible` visible and T == 1; K2 over a
     pre-rotated arena, K3 over a raw one, the lanes' lengths an int32
     device tensor (with max_visible) or host ints. An int8 arena is
-    dequantized per layer (K1, K2) or in the kernel (K3)."""
+    dequantized per layer (K1, K2) or in the kernel (K3). Verify mode
+    (`extra`, T > 1, one lane, a host length): K2-verify, token t seeing
+    the delta rows < extra_visible and the block's tokens <= t; it takes a
+    pre-rotated arena whose K is float (ValueError for a raw arena or a
+    requantized rotated copy, rot_quant="int8")."""
     B, T, D = inputs_embeds.shape
     H, Hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     cdt = inputs_embeds.dtype  # compute dtype of dequantized arena slices
@@ -261,9 +270,25 @@ def language_forward_lanes(
             ).reshape(B * T, H * hd)
             hidden = _layer_tail(layer, hidden, attn)
             outs.append((k_new, k_new_rot, v_new))
+    elif T > 1:
+        if not arena_rotated or isinstance(arena[0], QuantKV):
+            raise ValueError(
+                "verify mode (T > 1 tokens over the decode delta) reads a pre-rotated float "
+                "arena: a raw arena (prerotate_arena=False) or a rotated copy requantized to "
+                "int8 (rot_quant='int8') is not supported")
+        if B != 1 or isinstance(visible_len, torch.Tensor):
+            raise ValueError("verify mode takes one lane and a host visible length")
+        vis = int(np.asarray(visible_len).reshape(-1)[0])
+        e_delta = extra[0].shape[2]
+        for l, layer in enumerate(lm.layers):
+            q, k_new, k_new_rot, v_new = _qkv(cfg, hidden, layer, q_cos, q_sin)
+            out = streaming_verify_attention(
+                q, arena[0][0, l], as_float(lanes_layer(arena[1], l), cdt)[0],
+                torch.cat([extra[0][0, l], k_new_rot]), torch.cat([extra[1][0, l], v_new]),
+                vis, extra_visible, e_delta=e_delta)
+            hidden = _layer_tail(layer, hidden, out.reshape(T, H * hd))
+            outs.append((k_new, k_new_rot, v_new))
     else:
-        if T != 1:
-            raise ValueError("decode mode takes one token a lane")
         vis_kw = dict(max_visible=max_visible) if isinstance(visible_len, torch.Tensor) else {}
         if not isinstance(visible_len, torch.Tensor) and np.ndim(visible_len):
             visible_len = _host_lengths(visible_len, inputs_embeds.device, vis_kw)

@@ -6,7 +6,10 @@ runs at first use into `build/torch_kernels/` at the repository root (listed
 in .gitignore) and is keyed by a hash of the sources and headers, so an
 edited source rebuilds and an unchanged one loads the existing library.
 Each source compiles in its own nvcc process, all started together, and one
-more nvcc call links the objects.
+more nvcc call links the objects. The objects are kept in `obj/` there,
+each keyed by its source, the headers and the flags, so a build after an
+edit recompiles only the sources whose key changed (a copy of the tree
+seeded with these objects compiles only what it changed).
 """
 
 from __future__ import annotations
@@ -26,10 +29,11 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (
     "prefill_attention.cu", "decode_attention.cu", "decode_attention_raw.cu", "int8_gemm.cu",
-    "int4_gemv.cu",
+    "int4_gemv.cu", "verify_attention.cu",
 )
 HEADERS = ("decode_common.cuh", "hopper.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+OBJ_DIR = BUILD_DIR / "obj"
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -46,12 +50,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256()
-    for name in SOURCES + HEADERS:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libsvt_torch_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libsvt_torch_kernels_{_key(*SOURCES, *HEADERS)}.so"
 
 
 def _run(cmds):
@@ -66,28 +65,47 @@ def _run(cmds):
             f"({rc}) {' '.join(c)}\n{o}" for c, rc, o in failed))
 
 
+def _key(*names: str) -> str:
+    h = hashlib.sha256()
+    for name in names:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def object_path(source: str) -> Path:
+    """The compiled object of one source, keyed by it, the headers (any
+    source may include them) and the flags."""
+    return OBJ_DIR / f"{Path(source).stem}_{_key(source, *HEADERS)}.o"
+
+
 def build() -> Path:
-    """Compile the kernels if no library for the current sources exists.
-    Returns the library path. Raises with nvcc's output when it fails."""
+    """Compile the kernels if no library for the current sources exists:
+    the sources whose object is missing, then the link. Returns the library
+    path. Raises with nvcc's output when it fails."""
     global build_seconds
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"{out.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+    OBJ_DIR.mkdir(parents=True, exist_ok=True)
+    objs = [object_path(s) for s in SOURCES]
+    todo = [(s, o) for s, o in zip(SOURCES, objs) if not o.exists()]
+    tmps = [o.with_suffix(f".{os.getpid()}.tmp.o") for _, o in todo]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     nvcc = _nvcc()
     t0 = time.perf_counter()
     try:
-        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
-              for s, o in zip(SOURCES, objs)])
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(t), str(CSRC / s)]
+              for (s, _), t in zip(todo, tmps)])
+        for (_, o), t in zip(todo, tmps):
+            os.replace(t, o)
         _run([[nvcc, *GENCODE, "-shared", "-o", str(tmp), *map(str, objs)]])
         os.replace(tmp, out)
     finally:
         tmp.unlink(missing_ok=True)
-        for o in objs:
-            o.unlink(missing_ok=True)
+        for t in tmps:
+            t.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
     return out
 
@@ -150,8 +168,12 @@ def lib() -> ctypes.CDLL:
         so.svt_decode_attention_raw.restype = I
         so.svt_decode_partials.argtypes = [P] * 10 + [I] * 5 + [P]
         so.svt_decode_partials.restype = I
+        so.svt_verify_attention.argtypes = [P] * 10 + [I] * 8 + [P]
+        so.svt_verify_attention.restype = I
         for fn in ("svt_decode_max_small_rows", "svt_decode_max_split", "svt_decode_max_parts",
-                   "svt_decode_raw_max_split", "svt_decode_raw_max_parts"):
+                   "svt_decode_raw_max_split", "svt_decode_raw_max_parts",
+                   "svt_verify_max_split", "svt_verify_max_parts", "svt_verify_max_queries",
+                   "svt_verify_max_small_rows"):
             getattr(so, fn).argtypes = []
             getattr(so, fn).restype = I
         so.svt_int8_gemm.argtypes = [P, I, P, I, P, I, I, I, P, I, I, I, P, P, P]
@@ -173,6 +195,10 @@ def lib() -> ctypes.CDLL:
         so.decode_max_parts = so.svt_decode_max_parts()
         so.raw_decode_max_split = so.svt_decode_raw_max_split()
         so.raw_decode_max_parts = so.svt_decode_raw_max_parts()
+        so.verify_max_split = so.svt_verify_max_split()
+        so.verify_max_parts = so.svt_verify_max_parts()
+        so.verify_max_queries = so.svt_verify_max_queries()
+        so.verify_max_small_rows = so.svt_verify_max_small_rows()
         so.int8_small_m = so.svt_int8_small_m()
         so.int4_max_rows = so.svt_int4_max_rows()
         so.int8_block = (so.svt_int8_block_m(), so.svt_int8_block_k())

@@ -1,4 +1,4 @@
-"""Streaming attention: the port's four hand-written CUDA kernels, their
+"""Streaming attention: the port's five hand-written CUDA kernels, their
 plain PyTorch versions, and the plain multi-source softmax they are held
 against. Each replaces the function of the same name in the JAX package's
 streaming_vlm_tpu/ops/attention.py:
@@ -14,6 +14,11 @@ streaming_vlm_tpu/ops/attention.py:
 * `streaming_decode_attention_int8` (K3, csrc/decode_attention_raw.cu): one
   token over the RAW arena in its storage form (int8 + scales, or bf16),
   dequantized and mRoPE-rotated in the kernel, + decode delta + self.
+* `streaming_verify_attention` (K2-verify, csrc/verify_attention.cu): the
+  T = k + 1 queries of a speculative-decoding verify round over the
+  pre-rotated arena + decode delta + their own causal self rows, each
+  split's rows staged once for all T (the JAX package computes this in
+  XLA, `_gqa_attention_multi`); T == 1 is K2 itself.
 * `streaming_decode_attention` (K4, csrc/decode_attention.cu): the arena's
   log2-space softmax partials of one token; `decode_attention_merge` folds
   them with the small parts (K2's independent cross-check, on no runtime
@@ -57,6 +62,7 @@ launch_counts = {
     "streaming_prefill_attention": 0,
     "streaming_decode_attention_full": 0,
     "streaming_decode_attention_int8": 0,
+    "streaming_verify_attention": 0,
     "streaming_decode_attention": 0,
 }
 
@@ -535,19 +541,26 @@ def _decode_scratch(device, lanes: int, Hkv: int, n_parts: int, G: int, hd: int)
             buf[2 * n_ml : need].view(*shape, hd), counters)
 
 
-def reserve_decode_scratch(device, lanes: int, Hkv: int, capacity: int, G: int, hd: int) -> None:
+def reserve_decode_scratch(device, lanes: int, Hkv: int, capacity: int, G: int, hd: int,
+                           verify_queries: int = 0) -> None:
     """Size the shared decode scratch for `lanes` lanes over an arena of
-    `capacity` slots (K2's and K3's largest split count), so that no call
-    of an engine's rounds grows it. A no-op off the card."""
+    `capacity` slots (K2's and K3's largest split count), and with
+    `verify_queries` for K2-verify's T queries of one stream (their
+    partials take T heads' rows), so that no call of an engine's rounds
+    grows it. A no-op off the card."""
     device = torch.device(device)
     if device.type != "cuda":
         return
     from ._kernels import lib
 
     so = lib()
-    n = max(decode_max_parts(capacity, Hkv, sm_count(device), m, lanes)
+    sms = sm_count(device)
+    n = max(decode_max_parts(capacity, Hkv, sms, m, lanes)
             for m in (so.decode_max_split, so.raw_decode_max_split))
     _decode_scratch(device, lanes, Hkv, n, G, hd)
+    if verify_queries:
+        _decode_scratch(device, verify_queries, Hkv,
+                        decode_max_parts(capacity, Hkv, sms, so.verify_max_split), G, hd)
 
 
 def _decode_parts(name: str, visible_len: int, Hkv: int, device, max_split: int,
@@ -650,6 +663,100 @@ def streaming_decode_attention_full(
         ptr(q_rot), ptr(k_arena), ptr(v_arena), ptr(k_small), ptr(v_small),
         ptr(part_m), ptr(part_l), ptr(part_acc), ptr(counters), ptr(out), ptr(vis_dev), B, H, Hkv,
         hd, E1, int(e_delta), vis_max, int(extra_visible), split, ka_lane, va_lane, stream(),
+    )
+    if err:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+    launch_counts[name] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K2-verify: T queries of one stream over arena + decode delta + causal self
+# ---------------------------------------------------------------------------
+
+
+def verify_small_mask(T: int, e1: int, extra_visible: int, e_delta: int, device) -> torch.Tensor:
+    """[T, e1] bool: query t sees delta rows < extra_visible and self rows
+    e_delta .. e_delta + t of the small block."""
+    col = torch.arange(e1, device=device)[None, :]
+    t = torch.arange(T, device=device)[:, None]
+    return (col < int(extra_visible)) | ((col >= e_delta) & (col <= e_delta + t))
+
+
+def verify_attention_plain(
+    q_rot, k_arena, v_arena, k_small, v_small, visible_len: int, extra_visible: int, *,
+    e_delta: int,
+) -> torch.Tensor:
+    """Plain version of K2-verify: f32 joint softmax of each of the T
+    queries over arena slots < visible_len, delta rows k_small[:e_delta]
+    below extra_visible, and the self rows k_small[e_delta:e_delta + t + 1]
+    (causal). Returns [T, H, hd] in v_small's dtype; at T == 1 it is
+    `decode_attention_plain`."""
+    T, H, hd = q_rot.shape
+    dev = q_rot.device
+    vis = int(visible_len)
+    parts = [(k_small, v_small,
+              verify_small_mask(T, k_small.shape[0], extra_visible, e_delta, dev))]
+    if vis:
+        parts.insert(
+            0, (k_arena[:vis], v_arena[:vis], torch.ones(T, vis, dtype=torch.bool, device=dev))
+        )
+    return gqa_attention_multi(q_rot, parts).reshape(T, H, hd).to(v_small.dtype)
+
+
+def streaming_verify_attention(
+    q_rot: torch.Tensor,  # [T, H, hd] rotated queries of the T verify tokens (unscaled)
+    k_arena: torch.Tensor,  # [C, Hkv, hd] pre-rotated arena K
+    v_arena: torch.Tensor,
+    k_small: torch.Tensor,  # [e_delta + T, Hkv, hd] rotated delta rows ++ the T self rows
+    v_small: torch.Tensor,
+    visible_len: int,
+    extra_visible: int,
+    *,
+    e_delta: int,
+) -> torch.Tensor:
+    """K2-verify. Returns [T, H, hd] in v_small's dtype: row t is K2 of
+    query t over the arena, the delta rows below extra_visible and the self
+    rows e_delta .. e_delta + t (bitwise, on the card, K2 called with
+    k_small[:e_delta + t + 1]). T == 1 runs K2 itself (and counts as K2).
+    One launch a call, on the host's split (as K2's)."""
+    T, H, hd = q_rot.shape
+    if k_small.shape[0] != e_delta + T or v_small.shape != k_small.shape:
+        raise ValueError(f"k_small must hold e_delta ({e_delta}) + T ({T}) rows, got "
+                         f"{k_small.shape[0]}")
+    if T == 1:
+        return streaming_decode_attention_full(q_rot[0], k_arena, v_arena, k_small, v_small,
+                                               visible_len, extra_visible, e_delta=e_delta)[None]
+    if q_rot.device.type == "cpu":
+        return verify_attention_plain(q_rot, k_arena, v_arena, k_small, v_small, visible_len,
+                                      extra_visible, e_delta=e_delta)
+    name = "streaming_verify_attention"
+    check_cuda(name, q_rot, k_arena, v_arena, k_small, v_small)
+    if any(t.dtype != torch.bfloat16 for t in (q_rot, k_arena, v_arena, k_small, v_small)):
+        raise ValueError(f"{name}: the CUDA kernel takes bf16 q/k/v")
+    from ._kernels import lib
+
+    so = lib()
+    C, Hkv = k_arena.shape[0], k_arena.shape[1]
+    if (hd != 128 or H % Hkv or H // Hkv > 8 or v_arena.shape != k_arena.shape
+            or k_small.shape[1:] != (Hkv, hd)):
+        raise ValueError(f"{name}: unsupported shapes q={tuple(q_rot.shape)} "
+                         f"arena={tuple(k_arena.shape)} k_small={tuple(k_small.shape)}")
+    if T > so.verify_max_queries or e_delta + T > so.verify_max_small_rows:
+        raise ValueError(f"{name}: T {T} (at most {so.verify_max_queries}) and e_delta + T "
+                         f"{e_delta + T} (at most {so.verify_max_small_rows}) out of range")
+    vis = int(visible_len)
+    if not 0 <= vis <= C or not 0 <= int(extra_visible) <= e_delta:
+        raise ValueError(f"{name}: visible_len {vis} / extra_visible {extra_visible} out of range")
+    split, n_splits = _decode_parts(name, vis, Hkv, q_rot.device, so.verify_max_split,
+                                    so.verify_max_parts)
+    part_m, part_l, part_acc, counters = _decode_scratch(q_rot.device, T, Hkv, n_splits + 1,
+                                                         H // Hkv, hd)
+    out = torch.empty(T, H, hd, dtype=v_small.dtype, device=q_rot.device)
+    err = so.svt_verify_attention(
+        ptr(q_rot), ptr(k_arena), ptr(v_arena), ptr(k_small), ptr(v_small), ptr(part_m),
+        ptr(part_l), ptr(part_acc), ptr(counters), ptr(out), T, H, Hkv, hd, int(e_delta), vis,
+        int(extra_visible), split, stream(),
     )
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")

@@ -20,8 +20,12 @@ takes already-decoded uint8 frames (one [n, H, W, 3] array per chunk), for
 machines without that library. Both take `resume_snapshot` (a
 `StreamingSession.snapshot()` or `streaming.snapshot.load_snapshot` dict):
 the run continues an interrupted one of the same video at the snapshot's
-chunk, and the WebVTT file is appended to, not truncated. Speculative
-decoding (`spec_decode`) is not ported: neither entry point takes it.
+chunk, and the WebVTT file is appended to, not truncated. Both take
+`spec_decode` (and `spec_k`): each chunk is generated by speculative
+decoding with an n-gram draft (`engine.process_chunk_spec`), greedy
+emitting the same tokens as the autoregressive loop; its rounds are
+host-sequential, so that loop runs each chunk to its end before the next
+chunk's encode (the video read still runs ahead on its thread).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from .config import ModelConfig, SamplingConfig, StreamConfig, VideoConfig
 from .models.qwen25_vl import model as vlm
 from .streaming.engine import StreamingEngine
 from .streaming.protocol import PromptBuilder, build_round_segs, hf_encode_fn
+from .streaming.specdecode import NGramDraft
 from .utils.profiling import SectionTimer, trace
 from .utils.vtt import open_vtt, sec2ts
 from .video.ingest import ChunkedVideoSource, patchify_frames, select_chunk_frames
@@ -66,8 +71,13 @@ class StreamingSession:
         previous_text: str = "",
         query: str = DEFAULT_QUERY,
         recompute: bool = False,
+        spec_decode: bool = False,  # speculative decoding with an n-gram draft
+        spec_k: int = 7,  # draft tokens a verify round
         dtype: Optional[torch.dtype] = None,
     ):
+        if spec_decode and recompute:
+            raise ValueError("spec_decode with recompute is not supported (as in the JAX package): "
+                             "pick one")
         self.cfg = cfg
         self.stream = stream or StreamConfig()
         self.sampling = sampling or SamplingConfig()
@@ -84,6 +94,11 @@ class StreamingSession:
         self.recompute = recompute
         # recompute mode: the last visual_round chunks' (patches, frames, grid)
         self._recent_videos: List[Tuple] = []
+        self.spec_decode = spec_decode
+        self.spec_k = spec_k
+        # the draft's statistics are not part of a snapshot (they change
+        # spec decode's speed, never its tokens)
+        self._draft = NGramDraft(n=2) if spec_decode else None
 
     def snapshot(self) -> Dict[str, Any]:
         """The live stream as a snapshot (streaming/snapshot.py): arena
@@ -131,12 +146,39 @@ class StreamingSession:
     ) -> Tuple[str, np.ndarray]:
         """Ingest chunk i and generate. Returns (response text, generated
         ids). `question` is a mid-stream qa injection placed after the Time
-        text."""
+        text. With spec_decode the chunk is generated by
+        `engine.process_chunk_spec` with the session's n-gram draft."""
+        if self.spec_decode:
+            return self._run_chunk_spec(
+                i, start_time, frames_u8=frames_u8, grid_thw=grid_thw,
+                pixel_patches=pixel_patches, vis_embeds=vis_embeds,
+                forced_response_ids=forced_response_ids, question=question, timer=timer,
+            )
         handle = self.run_chunk_async(
             i, start_time, frames_u8=frames_u8, grid_thw=grid_thw, pixel_patches=pixel_patches,
             vis_embeds=vis_embeds, question=question, timer=timer,
         )
         return self.finish_chunk(i, handle, forced_response_ids=forced_response_ids)
+
+    def _run_chunk_spec(self, i: int, start_time: float, *, frames_u8, grid_thw, pixel_patches,
+                        vis_embeds, forced_response_ids, question: str, timer):
+        """run_chunk with speculative decoding (synchronous)."""
+        with timer.section("INPUT") if timer else contextlib.nullcontext():
+            segs = self._build_segs(i, start_time, grid_thw, question)
+        gen, _ = self.engine.process_chunk_spec(
+            segs, pixel_patches=pixel_patches, grid_thw=tuple(int(x) for x in grid_thw),
+            frames_u8=frames_u8, vis_embeds=vis_embeds, draft_fn=self._draft,
+            k_draft=self.spec_k, timer=timer,
+        )
+        if forced_response_ids is not None:
+            # the spec path commits K/V inline; ground-truth forcing rolls it
+            # back as the autoregressive path does
+            self.engine.rollback_generation(len(gen))
+            gen = np.asarray(forced_response_ids, np.int32)
+            self.engine.append_uncached(gen)
+        self._draft.observe(gen)
+        self.engine.commit_assistant(gen, self.end_bias, i)
+        return self._decode_text(gen), gen
 
     def _build_segs(self, i: int, start_time: float, grid_thw, question: str = ""):
         return build_round_segs(
@@ -263,23 +305,30 @@ def _serve_loop(
                         forced = np.asarray(
                             session.builder.encode(gt_lookup[key] + "<|im_end|>"), np.int32
                         )
-            handle = session.run_chunk_async(
-                i, start_time, grid_thw=grid,
-                pixel_patches=None if embeds is not None else patches,
-                vis_embeds=embeds, timer=timer,
-            )
+            chunk_kw = dict(grid_thw=grid, pixel_patches=None if embeds is not None else patches,
+                            vis_embeds=embeds, timer=timer)
+            if session.spec_decode:
+                # spec rounds are host-sequential: the chunk runs to its end
+                # before the next chunk's encode (its read still runs ahead)
+                response, gen = session.run_chunk(i, start_time, forced_response_ids=forced,
+                                                  **chunk_kw)
+                prefill_len = engine._spec_prefill_len
+            else:
+                handle = session.run_chunk_async(i, start_time, **chunk_kw)
+                prefill_len = handle.n_real
             with timer.section("VIDEO"):
                 nxt = _read_result(pending, i + 1)
             if nxt is not None:
                 pending = pool.submit(read_chunk, i + 2)
                 nxt_embeds = None
-                if not session.recompute:
+                if not session.recompute and not session.spec_decode:
                     try:
                         nxt_embeds = session.encode_patches(*nxt)
                     except Exception:  # as the JAX loop: the frames stay, and chunk
                         nxt_embeds = None  # i+1's own step encodes them (pixel_patches)
                 nxt = (*nxt, nxt_embeds)
-            response, gen = session.finish_chunk(i, handle, forced_response_ids=forced)
+            if not session.spec_decode:
+                response, gen = session.finish_chunk(i, handle, forced_response_ids=forced)
 
             with timer.section("POST"):
                 clean = response[:-4] if response.endswith(" ...") else response
@@ -315,7 +364,7 @@ def _serve_loop(
                 section["gen_time_sec"] = loop_total
                 section["decoded_tokens"] = int(len(gen))
                 section["kv"] = engine.cached
-                section["prefill_len"] = handle.n_real  # the chunk's real prefill tokens
+                section["prefill_len"] = prefill_len  # the chunk's real prefill tokens
                 section["kv_pre_evict"] = engine.cached_before_evict
                 section["kv_post_evict"] = engine.cached_after_evict
                 time_results.append(section)
@@ -354,6 +403,8 @@ def streaming_inference(
     time_test: bool = False,
     gt_lookup: Optional[Dict[str, str]] = None,
     recompute: bool = False,
+    spec_decode: bool = False,  # speculative decoding with an n-gram draft
+    spec_k: int = 7,  # draft tokens a verify round
     resume_snapshot: Optional[Dict[str, Any]] = None,  # streaming/snapshot.py dict
     trace_dir: Optional[str] = None,  # torch.profiler Chrome trace of the whole run
     dtype: Optional[torch.dtype] = None,
@@ -374,7 +425,8 @@ def streaming_inference(
     video = video or VideoConfig(fps=stream.fps)
     session = StreamingSession(
         cfg, model, tokenizer, stream=stream, sampling=sampling,
-        previous_text=previous_text, query=query, recompute=recompute, dtype=dtype,
+        previous_text=previous_text, query=query, recompute=recompute,
+        spec_decode=spec_decode, spec_k=spec_k, dtype=dtype,
     )
     src = ChunkedVideoSource(
         video_path,
@@ -426,6 +478,8 @@ def streaming_inference_frames(
     time_test: bool = False,
     gt_lookup: Optional[Dict[str, str]] = None,
     recompute: bool = False,
+    spec_decode: bool = False,  # speculative decoding with an n-gram draft
+    spec_k: int = 7,  # draft tokens a verify round
     resume_snapshot: Optional[Dict[str, Any]] = None,  # streaming/snapshot.py dict
     dtype: Optional[torch.dtype] = None,
 ):
@@ -438,7 +492,8 @@ def streaming_inference_frames(
     the VTT. Returns what `streaming_inference` returns."""
     session = StreamingSession(
         cfg, model, tokenizer, stream=stream, sampling=sampling,
-        previous_text=previous_text, query=query, recompute=recompute, dtype=dtype,
+        previous_text=previous_text, query=query, recompute=recompute,
+        spec_decode=spec_decode, spec_k=spec_k, dtype=dtype,
     )
     i_start = _resume(session, resume_snapshot)
     it = itertools.islice(iter(frames), i_start, None)

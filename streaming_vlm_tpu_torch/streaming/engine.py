@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -228,6 +228,84 @@ def rotated_copy(tcfg, lm, k_arena: Arena, slot_positions: torch.Tensor, adt: to
     return k_rot
 
 
+class Prefill(NamedTuple):
+    """What a chunk prefill hands the decode that follows it."""
+
+    slot_positions: torch.Tensor  # [B, 3, C] f32 (descriptors resolved)
+    k_rot: Optional[Arena]  # the rotated K copy the decode reads (pre-rotated mode)
+    arena_kw: Dict[str, Any]  # the arena arguments of language_forward_lanes
+    presence: torch.Tensor  # [B, V] bool: the ids of every visible slot
+    logits: torch.Tensor  # [B, V] f32 at each lane's last real chunk row
+
+
+def prefill_lanes(
+    cfg: ModelConfig,
+    model: vlm.Qwen25VL,
+    k_arena: Arena,
+    v_arena: Arena,
+    slot_positions,
+    tokens: torch.Tensor,
+    vis_embeds: Optional[torch.Tensor],
+    vis_slots,
+    ids_arena: torch.Tensor,
+    insert_at: Sequence[int],
+    ins_d: torch.Tensor,  # insert_at, n_real and their sum as [B] int64 on the device
+    nreal_d: torch.Tensor,
+    base_d: torch.Tensor,
+    *,
+    t_pad: int,
+    use_descriptors: bool,
+    prerotate: bool,
+    rot_quant: str,
+) -> Prefill:
+    """The prefill phase of a chunk step for B lanes (`chunk_step_batched`'s
+    and `specdecode.spec_prefill_step`'s): the rotated K copy (pre-rotated
+    mode), the chunk's ids into the ids arena and the repetition-penalty
+    presence mask, embeddings with the vision rows scattered in, one
+    streaming forward (K1), the block's K/V merged into the arenas, and the
+    logits at each lane's last real row."""
+    tcfg = cfg.text
+    lm = model.text
+    B, C = ids_arena.shape
+    dev = ids_arena.device
+    adt = compute_dtype(k_arena, lm.embed.weight.dtype)
+    if use_descriptors:
+        slot_positions = positions_from_descriptors(slot_positions, C)
+
+    k_rot = None
+    if prerotate:
+        k_rot = rotated_copy(tcfg, lm, k_arena, slot_positions, adt, rot_quant)
+        arena_kw = dict(arena=(k_rot, v_arena), arena_rotated=True)
+    else:
+        # the raw arena is read in its storage form; K1 and K3 rotate it
+        arena_kw = dict(arena=(k_arena, v_arena), arena_positions=slot_positions)
+
+    # chunk token ids, then the repetition-penalty presence mask (column V
+    # takes the ids of invisible slots, dropped)
+    V = tcfg.vocab_size
+    cols = ins_d[:, None] + torch.arange(t_pad, device=dev)
+    ids_arena.scatter_(1, cols, tokens)
+    valid = torch.arange(C, device=dev)[None, :] < base_d[:, None]
+    presence = torch.zeros(B, V + 1, dtype=torch.bool, device=dev)
+    presence.scatter_(1, torch.where(valid, ids_arena, V), True)
+    presence = presence[:, :V]
+
+    embeds = language.embed_tokens(tcfg, lm, tokens)
+    if vis_embeds is not None:
+        _merge_vision_lanes(embeds, vis_embeds, vis_slots)
+
+    q_pos = torch.gather(slot_positions, 2, cols[:, None, :].expand(B, 3, t_pad))
+    hidden, (k_block, k_block_rot, v_block) = language.language_forward_lanes(
+        tcfg, lm, embeds, q_pos, visible_len=insert_at, **arena_kw
+    )
+    write_slots_lanes(k_arena, k_block, insert_at)
+    if prerotate:
+        write_slots_lanes(k_rot, k_block_rot, insert_at)
+    write_slots_lanes(v_arena, v_block, insert_at)
+    logits = language.lm_logits(tcfg, lm, hidden[torch.arange(B, device=dev), nreal_d - 1])
+    return Prefill(slot_positions, k_rot, arena_kw, presence, logits)
+
+
 @torch.no_grad()
 def chunk_step_batched(
     statics: ChunkStatics,
@@ -263,40 +341,14 @@ def chunk_step_batched(
     ins_d, nreal_d, eos_d, nmax_d = lanes
     decode_base = [a + n for a, n in zip(insert_at, n_real)]
     base_d = ins_d + nreal_d
-    if statics.use_descriptors:
-        slot_positions = positions_from_descriptors(slot_positions, C)
-
-    if statics.prerotate:
-        k_rot = rotated_copy(tcfg, lm, k_arena, slot_positions, adt, statics.rot_quant)
-        arena_kw = dict(arena=(k_rot, v_arena), arena_rotated=True)
-    else:
-        # the raw arena is read in its storage form; K1 and K3 rotate it
-        arena_kw = dict(arena=(k_arena, v_arena), arena_positions=slot_positions)
-
-    # chunk token ids, then the repetition-penalty presence mask (column V
-    # takes the ids of invisible slots, dropped)
-    V = tcfg.vocab_size
-    t_pad = statics.t_pad
-    cols = ins_d[:, None] + torch.arange(t_pad, device=dev)
-    ids_arena.scatter_(1, cols, tokens)
-    valid = torch.arange(C, device=dev)[None, :] < base_d[:, None]
-    presence = torch.zeros(B, V + 1, dtype=torch.bool, device=dev)
-    presence.scatter_(1, torch.where(valid, ids_arena, V), True)
-    presence = presence[:, :V]
-
-    embeds = language.embed_tokens(tcfg, lm, tokens)
-    if vis_embeds is not None:
-        _merge_vision_lanes(embeds, vis_embeds, vis_slots)
-
-    q_pos = torch.gather(slot_positions, 2, cols[:, None, :].expand(B, 3, t_pad))
-    hidden, (k_block, k_block_rot, v_block) = language.language_forward_lanes(
-        tcfg, lm, embeds, q_pos, visible_len=insert_at, **arena_kw
+    pre = prefill_lanes(
+        cfg, model, k_arena, v_arena, slot_positions, tokens, vis_embeds, vis_slots, ids_arena,
+        insert_at, ins_d, nreal_d, base_d, t_pad=statics.t_pad,
+        use_descriptors=statics.use_descriptors, prerotate=statics.prerotate,
+        rot_quant=statics.rot_quant,
     )
-    write_slots_lanes(k_arena, k_block, insert_at)
-    if statics.prerotate:
-        write_slots_lanes(k_rot, k_block_rot, insert_at)
-    write_slots_lanes(v_arena, v_block, insert_at)
-    logits = language.lm_logits(tcfg, lm, hidden[torch.arange(B, device=dev), nreal_d - 1])
+    slot_positions, arena_kw, presence, logits = (pre.slot_positions, pre.arena_kw,
+                                                  pre.presence, pre.logits)
 
     max_new = statics.max_new
     dcols = base_d[:, None] + torch.arange(max_new, device=dev)
@@ -440,6 +492,10 @@ class StreamingEngine:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(sampling.seed)
         self._inflight: Optional[ChunkHandle] = None
+        # a list: process_chunk_spec records each emitted token's [top-two
+        # gap of the penalised logits, max |logit|] there (nan for the first
+        # token, sampled by the prefill); None: nothing recorded
+        self.spec_gaps: Optional[List[Tuple[float, float]]] = None
 
     # -------------------------------------------------------------- plumbing
     def _check_memory_budget(self) -> None:
@@ -742,6 +798,7 @@ class StreamingEngine:
         recompute: bool = False,
         eos_id: Optional[int] = None,
         timer=None,
+        extra_slots: int = 0,  # decode-delta rows beyond max_new (spec decode: k_pad)
         evict: bool = True,  # False: the caller already ran evict_plan and the gather
         device_arrays: bool = True,  # False: tokens and positions stay host numpy (a
         # multi-stream round stacks B preps and uploads them once)
@@ -782,11 +839,12 @@ class StreamingEngine:
 
         C = st.kv_capacity
         total = self.cached + n_real
+        n_delta = max_new + extra_slots
         # chunk_step writes t_pad rows at `cached` (the padded prefill block)
-        # and max_new rows at cached + n_real (the decode delta); both high-
+        # and n_delta rows at cached + n_real (the decode delta); both high-
         # water marks must fit. Checked before the table append so a caller
         # that catches the ValueError keeps a consistent engine.
-        high_water = max(self.cached + t_pad, total + max_new)
+        high_water = max(self.cached + t_pad, total + n_delta)
         if high_water > C:
             raise ValueError(
                 f"KV arena capacity exceeded: need {high_water} slots "
@@ -808,9 +866,9 @@ class StreamingEngine:
             desc, _, tot_full, next_p = self.table.position_descriptors(
                 spatial_merge_size=self.cfg.vision.spatial_merge_size,
                 tokens_per_second=self.cfg.vision.tokens_per_second,
-                extra_text=max_new,
+                extra_text=n_delta,
             )
-            assert tot_full == total + max_new
+            assert tot_full == total + n_delta
             slot_pos = {k: torch.from_numpy(v).to(dev) for k, v in desc.items()} \
                 if device_arrays else desc
         else:  # append: chunk tokens extend from last_cache_position + 1
@@ -837,8 +895,8 @@ class StreamingEngine:
             )
             self._pos_host[:, self.cached : total] = cpos
             next_p = float(cpos.max()) + 1.0 if n_real else self._next_pos
-            self._pos_host[:, total : total + max_new] = np.broadcast_to(
-                np.arange(max_new, dtype=np.float32) + next_p, (3, max_new)
+            self._pos_host[:, total : total + n_delta] = np.broadcast_to(
+                np.arange(n_delta, dtype=np.float32) + next_p, (3, n_delta)
             )
             slot_pos = (torch.from_numpy(self._pos_host.copy()).to(dev) if device_arrays
                         else self._pos_host.copy())
@@ -879,6 +937,142 @@ class StreamingEngine:
             "next_p": next_p,
             "gen_cm": gen_cm,
         }
+
+    def process_chunk_spec(
+        self,
+        chunk_segs: List[Seg],
+        pixel_patches: Optional[np.ndarray] = None,
+        grid_thw: Optional[Tuple[int, int, int]] = None,
+        *,
+        frames_u8=None,
+        vis_embeds: Optional[torch.Tensor] = None,
+        max_new: Optional[int] = None,
+        eos_id: Optional[int] = None,
+        eos_threshold: Optional[Tuple[int, float, float]] = None,
+        draft_fn: Optional[Callable] = None,
+        k_draft: int = 7,
+        timer=None,
+    ) -> Tuple[np.ndarray, int]:
+        """Speculative-decoding chunk (streaming/specdecode.py): the
+        equivalent of process_chunk + finish_chunk, greedy emitting the
+        autoregressive stream's tokens and sampling the same distribution.
+        `draft_fn(context_ids, k) -> proposals` is the draft (NGramDraft,
+        FixedDraft, ...); with no proposals each round emits one token.
+        Each round is one verify forward of k_draft + 1 tokens (K2-verify
+        over the pre-rotated float arena) and one host sync. Returns
+        (generated ids including the final eos, count); the rounds taken
+        are in `_spec_rounds`. Raises ValueError for a raw arena
+        (prerotate_arena=False) and for rot_quant="int8"."""
+        from .specdecode import SpecStatics, spec_commit_step, spec_prefill_step, spec_verify_step
+
+        assert self._inflight is None
+        st = self.stream
+        if not st.effective_prerotate:
+            raise ValueError("spec decode reads the pre-rotated arena; prerotate_arena=False is "
+                             "not supported. Fix: leave StreamConfig.prerotate_arena on.")
+        if st.rot_quant != "none":
+            raise ValueError(
+                "spec decode reads a float rotated K copy; rot_quant='int8' is not supported "
+                "(its verify would need a dense rotated copy that the memory budget does not "
+                "count). Fix: set StreamConfig.rot_quant='none', or serve without spec_decode.")
+        k_pad = int(k_draft) + 1
+        max_new = max_new or st.max_tokens_per_chunk
+        n_delta = max_new + k_pad
+        t = self.cfg.text
+        G = t.num_attention_heads // t.num_key_value_heads
+        if self.device.type == "cuda" and k_pad > 1:
+            from ..ops._kernels import lib
+
+            so = lib()
+            if k_pad > so.verify_max_queries or n_delta + k_pad > so.verify_max_small_rows:
+                raise ValueError(
+                    f"spec decode: k_draft + 1 = {k_pad} (at most {so.verify_max_queries}) and "
+                    f"max_new + 2 (k_draft + 1) = {n_delta + k_pad} (at most "
+                    f"{so.verify_max_small_rows}) must fit the verify kernel. Fix: lower k_draft "
+                    f"or max_tokens_per_chunk.")
+        # before the first round: the verify's partials take k_pad heads' rows
+        reserve_decode_scratch(self.device, 1, t.num_key_value_heads, st.kv_capacity, G,
+                               t.head_dim, verify_queries=k_pad)
+        prep = self._prepare_chunk(
+            chunk_segs, pixel_patches=pixel_patches, grid_thw=grid_thw, frames_u8=frames_u8,
+            vis_embeds=vis_embeds, max_new=max_new, eos_id=eos_id, timer=timer,
+            extra_slots=k_pad,
+        )
+        statics = SpecStatics(
+            cfg=self.cfg, t_pad=prep["t_pad"], k_pad=k_pad, n_delta=n_delta,
+            temperature=self.sampling.temperature,
+            repetition_penalty=self.sampling.repetition_penalty,
+            do_sample=self.sampling.do_sample, max_new=max_new, eos_threshold=eos_threshold,
+            use_descriptors=(st.pos_mode == "shrink"),
+        )
+        decode_base = self.cached + prep["n_real"]
+        eos = prep["eos"]
+        k_rot, pending, presence, delta_pos = spec_prefill_step(
+            statics, self.model, self.k_arena, self.v_arena, prep["slot_pos"], prep["tokens"],
+            prep["vis_embeds"], prep["vis_slots"], self.ids_arena, self.cached, prep["n_real"],
+            self.generator,
+        )
+        # the deltas stay in the compute dtype; the commit quantizes them
+        # per slot into an int8 arena
+        dk = torch.zeros(t.num_hidden_layers, n_delta, t.num_key_value_heads, t.head_dim,
+                         dtype=k_rot.dtype, device=self.device)
+        dkr, dv = torch.zeros_like(dk), torch.zeros_like(dk)
+
+        emitted_all: List[int] = [int(pending)]
+        record = self.spec_gaps is not None
+        if record:
+            self.spec_gaps = [(float("nan"), float("nan"))]
+        ctx_ids = self.table.token_ids()
+        n_delta_cur = 0
+        done = False
+        rounds = 0
+        while not done and len(emitted_all) < max_new:
+            full_ctx = np.concatenate([ctx_ids, np.asarray(emitted_all, np.int32)])
+            proposals = (np.asarray(draft_fn(full_ctx, k_draft), np.int64)
+                         if draft_fn is not None else np.zeros(0, np.int64))
+            inputs = np.zeros(k_pad, np.int64)
+            n_prop = min(len(proposals), k_pad - 1)
+            inputs[0] = emitted_all[-1]
+            inputs[1 : 1 + n_prop] = proposals[:n_prop]
+            gaps = [] if record else None
+            out = spec_verify_step(
+                statics, self.model, k_rot, self.v_arena, dk, dkr, dv, presence,
+                torch.from_numpy(inputs).to(self.device), n_prop, n_delta_cur, decode_base,
+                len(emitted_all), delta_pos, eos, self.generator, gaps,
+            ).cpu().numpy()  # the round's one sync: ids, n_emit, n_keep, done
+            n_emit, n_keep, done = int(out[k_pad]), int(out[k_pad + 1]), bool(out[k_pad + 2])
+            if record:
+                self.spec_gaps.extend(map(tuple, torch.stack(gaps)[:n_emit].tolist()))
+            emitted_all.extend(int(x) for x in out[:n_emit])
+            n_delta_cur += n_keep
+            rounds += 1
+
+        # merge the delta and the ids into the arena (rows past n_delta_cur
+        # are invisible: only the valid prefix is committed below)
+        pad_emit = np.zeros(n_delta, np.int64)
+        pad_emit[: min(len(emitted_all), n_delta)] = emitted_all[:n_delta]
+        spec_commit_step(self.k_arena, self.v_arena, self.ids_arena, dk, dv,
+                         torch.from_numpy(pad_emit).to(self.device), decode_base)
+        if prep["gen_cm"] is not None:
+            self._sync()
+            prep["gen_cm"].__exit__(None, None, None)
+
+        # as finish_chunk: the FINAL sampled token is never committed (its
+        # K/V re-prefills with the next chunk), so spec matches the AR path
+        n_commit = min(n_delta_cur, max(len(emitted_all) - 1, 0))
+        self.cached += prep["n_real"] + n_commit
+        if st.pos_mode == "append":
+            self._next_pos = prep["next_p"] + len(emitted_all)
+        gen_real = np.asarray(emitted_all, np.int32)
+        self.uncached_tail = len(emitted_all) - n_commit
+        assert self.uncached_tail in (0, 1, 2), self.uncached_tail
+        if len(gen_real) == 0 or gen_real[-1] != eos:
+            gen_real = np.concatenate([gen_real, [eos]]).astype(np.int32)
+            self.uncached_tail += 1
+        self.chunk_index += 1
+        self._spec_rounds = rounds  # observability: verify forwards this chunk
+        self._spec_prefill_len = prep["n_real"]
+        return gen_real, len(gen_real)
 
     def finish_chunk(self, handle: ChunkHandle) -> Tuple[np.ndarray, int]:
         """Materialise an in-flight chunk's generation and commit host-side

@@ -249,7 +249,10 @@ def test_cpu_wrappers_do_not_count_launches():
         rope_theta=THETA,
     )
     A.streaming_decode_attention(q, ka, va, 10)
+    kv = _t(x["ks"][:4])
+    A.streaming_verify_attention(_t(x["q"][:2]), ka, va, kv, kv, 10, 1, e_delta=2)
     assert A.launch_counts == {
         "streaming_prefill_attention": 0, "streaming_decode_attention_full": 0,
         "streaming_decode_attention_int8": 0, "streaming_decode_attention": 0,
+        "streaming_verify_attention": 0,
     }

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K5) against their plain PyTorch versions, on the
+"""The port's CUDA kernels (K1-K5, K2-verify) against their plain PyTorch versions, on the
 card. Skips without one. Imports no jax, so that it runs on the card's
 machine, which has none:
 
@@ -307,6 +307,34 @@ def test_decode_kernel_splits_on_card(cuda, vis, e1, evis):
     want = A.decode_attention_partials_plain(q, ka, va, vis)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 2, 8, 16])
+@pytest.mark.parametrize("vis", [0, 641, 4501, 8192 - 44])
+def test_verify_kernel_on_card(cuda, T, vis):
+    """K2-verify against its plain version to one bf16 ulp (as K2), and
+    each of its rows bitwise equal to K2 on that query with the small block
+    cut to the rows it sees; twice, so the per-kv-head counters are shown
+    back at zero."""
+    g = torch.Generator(device=cuda).manual_seed(T * 10000 + vis)
+    H, Hkv, hd, Cc, e_delta = 28, 4, 128, 8192, 28
+
+    def rn(*s):
+        return torch.randn(*s, generator=g, device=cuda).to(torch.bfloat16)
+
+    q, ka, va = rn(T, H, hd), rn(Cc, Hkv, hd), rn(Cc, Hkv, hd)
+    ksm, vsm = rn(e_delta + T, Hkv, hd), rn(e_delta + T, Hkv, hd)
+    for evis in (0, 5, e_delta):
+        args = (q, ka, va, ksm, vsm, vis, evis)
+        for _ in range(2):
+            out = A.streaming_verify_attention(*args, e_delta=e_delta)
+            _assert_decode_close(out, A.verify_attention_plain(*args, e_delta=e_delta))
+        for t in range(T):
+            k2 = A.streaming_decode_attention_full(
+                q[t], ka, va, ksm[: e_delta + t + 1], vsm[: e_delta + t + 1], vis, evis,
+                e_delta=e_delta)
+            assert torch.equal(out[t], k2), (t, evis)
 
 
 @pytest.mark.gpu

@@ -49,6 +49,8 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
         "streaming_vlm_tpu_torch.ops._kernels", "streaming_vlm_tpu_torch.models.bridge",
         "streaming_vlm_tpu_torch.streaming.multistream", "streaming_vlm_tpu_torch.models.convert",
         "streaming_vlm_tpu_torch.streaming.snapshot", "streaming_vlm_tpu_torch.streaming.multiserve",
+        "streaming_vlm_tpu_torch.streaming.specdecode", "streaming_vlm_tpu_torch.eval.soak",
+        "streaming_vlm_tpu_torch.eval.efficiency",
     } <= set(mods)
     code = (
         "import importlib, sys\n"
