@@ -20,11 +20,12 @@ Phases; any failure exits non-zero:
    and off the host's split, a small block longer than the kernel's tile;
    one kernel a call), K4 decode
    partials (and their merge with the small block against K2), K2-verify
-   (spec decode's verify attention: T in {1, 2, 8, 16} queries, visible 0
-   to C - e_delta - T on and off the host's split, extra_visible 0 to
-   e_delta; each of its rows also bitwise against K2 on that query with
-   the small block cut to the rows it sees; timed at T = 8, visible 9000
-   beside K2 called 8 times), K5 W8A8
+   (spec decode's verify attention: T in {1, 2, 3, 8, 9, 16} queries, the
+   m-tile edges, visible 0 to C - e_delta - T on and off the host's split,
+   extra_visible 0 to e_delta; each of its rows also against K2 on that
+   query with the small block cut to the rows it sees, to K2's tolerance
+   (bitwise at T = 1, where the wrapper is K2); timed at T = 8, visible
+   9000 beside K2 called 8 times, and at T = 2 and 16), K5 W8A8
    products (the int32 form at the TPU probe's 4096^3 and at ragged shapes;
    the serving form at every (M, K, N) of the 7B path, Qwen2-VL's vision
    products included, bf16 and f32 out, weights in QLinear's padded rows),
@@ -118,7 +119,7 @@ Phases; any failure exits non-zero:
    autoregressive chunk, then spec with no draft, an adversarial draft and
    a clairvoyant one (the autoregressive tokens); tokens equal, or parting
    only where that step's top-two penalised-logit gap is under 2 r max
-   |logit|; fewer rounds with the clairvoyant draft than with none; an
+   |logit| (it prints how many such steps it saw); fewer rounds with the clairvoyant draft than with none; an
    eviction; every verify attention through K2-verify (L launches a
    round), K1 L a chunk, K5 tiled at the verify's 8 rows.
 
@@ -271,12 +272,24 @@ MUTANTS = {
         "if (threadIdx.x == 0) counters[kvh] = 0;", "'lanes'",
     ),
     # K2-verify: query t also sees the next token's self row (not past the
-    # staged rows); its checks alone must fail (those labelled
-    # "K2-verify+K2" hold it bitwise to K2 and belong to both)
+    # staged rows); P.V without P_lo (P in bf16 alone); the fold of all T x G
+    # rows reading query 0's (m, l) for every query. Each must fail
+    # K2-verify's checks alone (those labelled "K2-verify+K2", against K2
+    # row by row, belong to both)
     "K2-verify: query t sees self row t + 1": (
         "K2-verify", "csrc/verify_attention.cu",
-        "const int n = small ? e_delta + t + 1 : rows;",
-        "const int n = small ? min(e_delta + t + 2, rows) : rows;", None,
+        "j <= e_delta + tq[e / 2])",
+        "j <= e_delta + tq[e / 2] + 1)", None,
+    ),
+    "K2-verify: P.V without P_lo": (
+        "K2-verify", "csrc/verify_attention.cu",
+        "const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);",
+        "const __nv_bfloat162 l = __floats2bfloat162_rn(0.f, 0.f);", None,
+    ),
+    "K2-verify: the fold reads query 0's (m, l) for every query": (
+        "K2-verify", "csrc/verify_attention.cu",
+        "const float *mr = sm + r, *lr = sl + r;",
+        "const float *mr = sm + r % G, *lr = sl + r % G;", None,
     ),
     # K5-int4 (W4A8): negative high nibbles read as 8..15 (n + 8 where the
     # offset form is n ^ 8); a split tile's last part folding its groups in
@@ -732,15 +745,18 @@ def phase_kernels():
 
 # K2-verify (phase 3): spec decode's verify widths, at the spec path's
 # decode delta with the default budget (max_new 20 + k_pad 8)
-VERIFY_T = (1, 2, 8, 16)
+# (T x G = 7, 14, 21, 56, 63, 112 query rows a kv head: 1, 1, 2, 4, 4, 7 m-tiles)
+VERIFY_T = (1, 2, 3, 8, 9, 16)
 VERIFY_E_DELTA = 28
 
 
 def _phase_verify(g, ka, va, sdpa_ms) -> dict:
     """K2-verify against its plain version at K2's tolerance, and its rows
-    bitwise against K2 called on each query with the small block cut to
-    the rows that query sees ("K2-verify+K2": a check of both kernels; at
-    T = 1 the wrapper is K2 itself, so its checks carry both names), over
+    against K2 called on each query with the small block cut to the rows
+    that query sees, at the same tolerance (the tensor cores sum in another
+    order than K2's f32 loop; "K2-verify+K2": a check of both kernels; at
+    T = 1 the wrapper is K2 itself, so its checks carry both names and the
+    rows' check is bitwise), over
     T in VERIFY_T, visible 0, 640 (on the host's split), 9000 and C -
     e_delta - T (off it), extra_visible 0, 5 and e_delta. Then its times at
     T = 8, visible 9000: CUDA events and device time, beside its plain
@@ -778,7 +794,11 @@ def _phase_verify(g, ka, va, sdpa_ms) -> dict:
                 k2 = torch.stack([A.streaming_decode_attention_full(
                     qt, ka, va, kt, vt, vis, evis, e_delta=e_delta)
                     for qt, kt, vt in k2_rows(q, ksm, vsm)])
-                _check_equal("K2-verify+K2", out, k2, dict(cases, rows="each row vs K2"))
+                rows = dict(cases, rows="each row vs K2")
+                if T == 1:
+                    _check_equal("K2-verify+K2", out, k2, rows)
+                else:
+                    _check_decode("K2-verify+K2", out, k2, rows)
     T, vis, evis = 8, 9000, 5
     q, ksm, vsm = inputs(T)
     args = (q, ka, va, ksm, vsm, vis, evis)
@@ -2207,6 +2227,8 @@ def phase_spec(cfg, model, stream, r: float, vision_products: int) -> tuple:
               f"{rounds['no draft'][-1]} / {rounds['adversarial'][-1]} / "
               f"{rounds['clairvoyant'][-1]}; ms " + " / ".join(
                   f"{times[k][-1] * 1e3:.1f}" for k in runs))
+    print(f"  slice L: the spec runs parted from the autoregressive tokens at {len(divergences)} "
+          f"step(s), each inside 2 r max|logit| (r = {r:.3e})")
     assert evicted, "slice L: no eviction happened"
     assert sum(rounds["clairvoyant"]) < sum(rounds["no draft"]), rounds
     stats = {"rounds": {k: sum(v) for k, v in rounds.items()}, "divergences": divergences,
@@ -2606,7 +2628,7 @@ def main() -> int:
             ("K1", "prefill_attention.cu", "prefill_attention_kernel"),
             ("K2 (bf16 out, small block)", "decode_attention.cu", "decode_split_kernelILb1E"),
             ("K4", "decode_attention.cu", "decode_split_kernelILb0E"),
-            ("K2-verify", "verify_attention.cu", "verify_split_kernel"),
+            ("K2-verify", "verify_attention.cu", "verify_tc_kernel"),
             ("K3 int8 arena", "decode_attention_raw.cu", "decode_raw_kernelILb1E"),
             ("K3 bf16 arena", "decode_attention_raw.cu", "decode_raw_kernelILb0E"),
             ("K5 tiled, tile 128x256, bf16 out", "int8_gemm.cu", "gemm_tiled_kernelILi256E13__nv_bfloat16"),

@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels:
 // mbarriers, TMA tile loads and their host-side tensor maps, wgmma shared
 // memory descriptors and the bf16 and s8 wgmma shapes the kernels use,
-// warpgroup register reallocation, named barriers and the warp-level bf16
-// mma. Inline PTX only; nothing here launches or allocates. Used by
-// prefill_attention.cu (K1), int8_gemm.cu (K5's tiled path),
-// decode_attention.cu (K2, K4) and decode_attention_raw.cu (K3).
+// warpgroup register reallocation, named barriers, the warp-level bf16
+// mma and ldmatrix. Inline PTX only; nothing here launches or allocates.
+// Used by prefill_attention.cu (K1), int8_gemm.cu (K5's tiled path),
+// decode_attention.cu (K2, K4), decode_attention_raw.cu (K3), int4_gemv.cu
+// (K5-int4) and verify_attention.cu (K2-verify).
 #pragma once
 
 #include <cuda.h>
@@ -141,6 +142,22 @@ __device__ __forceinline__ void mma_m16n8k16_bf16(float (&d)[4], const uint32_t 
       "{%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 b16 matrices from shared memory, one warp: lanes 8i .. 8i + 7
+// give the 16-byte rows of matrix i, and r[i] is lane l's share of it (row
+// l / 4, elements 2 (l % 4), +1; with trans, the transposed matrix's: rows
+// 2 (l % 4), +1 of column l / 4).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row)));
 }
 
 // ---- wgmma ------------------------------------------------------------------

@@ -2,35 +2,65 @@
 // K2-verify of the port, the attention of one speculative-decoding verify
 // round (T = k + 1 tokens of one stream at once).
 //
-// The JAX package computes this attention in XLA (`_gqa_attention_multi`,
-// streaming_vlm_tpu/models/qwen25_vl/language.py, reached from
-// `language_forward_streaming`'s decode-delta path at T = k_pad). Query t
-// (t < T) sees three parts under one joint softmax: arena slots <
-// visible_len, delta rows k_small[:e_delta] below extra_visible, and the
-// self rows k_small[e_delta:e_delta + t + 1] (the T tokens' own K/V,
-// causal).
+// It replaces no pl.pallas_call: the JAX package computes this attention in
+// XLA (`_gqa_attention_multi`, streaming_vlm_tpu/models/qwen25_vl/
+// language.py:106, reached from `language_forward_streaming`'s decode-delta
+// path at T = k_pad). Query t (t < T) sees three parts under one joint
+// softmax: arena slots < visible_len, delta rows k_small[:e_delta] below
+// extra_visible, and the self rows k_small[e_delta:e_delta + t + 1] (the T
+// tokens' own K/V, causal).
 //
-// It is K2 (decode_attention.cu) with the T queries of a CTA's rows taken
-// in turn over rows staged once:
-//   * grid (splits + the small block, kv heads): the host picks the split
-//     exactly as for K2 (ops/attention.py `decode_split_size`), so each
-//     split's K and V rows cross HBM once a launch, not T times: one warp
-//     stages them with one cp.async.bulk per row, counted on four
-//     mbarriers, and Q.K starts on the first rows while the rest fly;
-//   * for each query t in turn: its scaled queries in registers, Q.K by the
-//     transposing butterfly, the softmax of each query head by one warp and
-//     P.V by four quarters of the threads, all as K2 does it, then the
-//     part's partial (m, l, acc) for t stored (the quarters meet in a
-//     buffer of their own: the K tile must outlive the t loop). The small
-//     block's query t reads only its first e_delta + t + 1 rows;
-//   * one arrival a CTA on its kv head's counter after all T partials; the
-//     last CTA folds the n_parts partials of each t in turn
-//     (decode_common.cuh `fold_parts`) and resets the counter.
-// So row t of the output is bitwise K2 called on query t with k_small cut
-// to its first e_delta + t + 1 rows: the same splits, the same order of
-// every f32 sum. The arithmetic per query is K2's f32 work, so the CTA's
-// time grows with T while its bytes do not (a tensor-core form, all T * G
-// query rows in one mma.sync m16n8k16 pass, is the faster design).
+// What bounds it on an H100: bytes. A call reads every visible arena slot's
+// K and V once, whatever T is (at visible 9000: 18.4 MB, 0.0056 ms at 3.35
+// TB/s), against T x G query rows of tensor-core work a slot (T = 8: 56
+// rows, ~1.8 GFLOP with the two P.V products below, ~2 us at the bf16
+// peak). So the design reads the arena once and keeps the arithmetic per
+// slot off the CUDA cores:
+//   * grid (parts, kv heads), one CTA an SM: a part is one split of the
+//     arena or the small block of delta + self rows. A CTA stages all its
+//     rows at once, one cp.async.bulk per 256-byte row, issued by all its
+//     threads (one warp issuing them all took 1.4x as long at T = 8) and
+//     counted on one mbarrier per 32-row step, into rows 272 bytes apart (so
+//     ldmatrix's 8 rows fall on 8 distinct groups of banks), and starts on
+//     the first step while the rest fly;
+//   * all T x G query rows of the kv head at once (row r = t G + g), in
+//     m-tiles of 16 rows (at most 8: T <= 16, G <= 8), one a warp; where
+//     the tiles are fewer than the 8 warps, the idle warps take the other
+//     steps (KG = 8 / tiles key groups: warp w runs tile w % tiles over the
+//     steps w / tiles, + KG, ...), so every warp works at T = 8;
+//   * per 32-key step and warp: S = Q K^T by mma.sync m16n8k16 (bf16 in,
+//     f32 out; Q's A fragments built once from the unscaled bf16 queries,
+//     K's B fragments by ldmatrix), scaled to K2's log2 space, masked (the
+//     part's rows; in the small block delta rows < extra_visible and self
+//     rows e_delta .. e_delta + t), an online softmax whose row max and sum
+//     are reduced over the quad that holds each row, and O += P V by
+//     mma.sync with P from the S registers (the FA2 layout) and V's
+//     fragments by ldmatrix.trans. P is split P_hi + P_lo, both bf16, and
+//     both go through P.V: P in bf16 alone errs ~2^-9 on every weight, which
+//     K2's tolerance (one bf16 ulp of each output) does not allow
+//     (tests/test_torch_verify_plan.py shows both);
+//   * the key groups' (m, l, O) meet in shared memory and the part's
+//     partial of every query row is stored (f32, log2 space, layout [Hkv,
+//     parts, T G(, HD)] in the shared decode scratch); one arrival a CTA on
+//     its kv head's counter; the last to arrive folds the partials of all T
+//     x G rows in one pass with all its threads (two threads a row make the
+//     weights; then every thread keeps 16 predicated loads in flight, so
+//     that the one SM reads the parts' rows at ~95 GB/s) and resets the
+//     counter.
+// The split (ops/attention.py `verify_split_size`): whole 32-key steps,
+// ~sqrt(18 visible_len) rows, at least one wave of one CTA an SM, at most
+// the 384-row tile. The fold reads parts x T G x 512 bytes a kv head at one
+// SM's rate, a CTA its split at its share of HBM's, so the split balances
+// the two; the constant is fitted to tools/profile_verify_torch.py's sweep
+// (NVIDIA H100 80GB HBM3, 700 W, device ms at visible 9000 by split 288 /
+// 320 / 384: T = 2 0.0177 / 0.0167 / 0.0167, T = 8 0.0297 / 0.0290 /
+// 0.0288, T = 16 0.0458 / 0.0445 / 0.0437; 256 and below take a second
+// wave and more parts: 0.0242 / 0.0413 / 0.0622 at 256; at 4500 the best
+// were 224-256, the rule's 288 within 10%; at 640 the rule's 128).
+// MAX_PARTS is what the fold's shared memory holds, far past the 25 parts
+// the split gives at 9000.
+// Its rows agree with K2 on each query to K2's tolerance, not bitwise: the
+// tensor cores sum in another order than K2's f32 loop.
 
 #include "decode_common.cuh"
 #include "hopper.cuh"
@@ -39,28 +69,57 @@ namespace {
 
 using namespace hopper;
 
-constexpr int TILE = 160;  // rows staged at once: the largest split, and the small block
+constexpr int VT_THREADS = 256;                // 8 warps
+constexpr int VT_WARPS = VT_THREADS / 32;
+constexpr int STEP = 32;                       // keys a warp takes at once; one mbarrier each
+constexpr int TILE = 384;                      // rows a part stages: a split or small block, at most
+constexpr int NSTEP = TILE / STEP;
 constexpr int ROW_BYTES = HD * 2;
-constexpr int CHUNKS = 4;
-constexpr int CHUNK = TILE / CHUNKS;
-constexpr int TMAX = 16;  // the most queries a call takes
-constexpr size_t VERIFY_SMEM = 2 * (size_t)TILE * ROW_BYTES            // K, V tiles
-                               + sizeof(float) * GMAX * HD               // scaled q of query t
-                               + sizeof(float) * GMAX * TILE             // logits, then weights
-                               + sizeof(float) * QUARTERS * GMAX * HD    // the quarters' P.V
-                               + sizeof(float) * 4 * GMAX                // m, l, alpha, den
-                               + sizeof(uint64_t) * CHUNKS;              // mbarriers
-// the fold keeps one weight per (query head, part) in the K tile
-constexpr int MAX_PARTS = TILE * ROW_BYTES / (GMAX * (int)sizeof(float));
+constexpr int RS = ROW_BYTES + 16;             // a staged row's stride in shared memory
+constexpr int TMAX = 16;                       // the most queries a call takes
+constexpr int RMAX = TMAX * GMAX;              // the most query rows of a kv head
+constexpr int OS = HD + 8;                     // a row's stride in the key groups' meeting buffer
+constexpr size_t STAGE_BYTES = 2 * (size_t)TILE * RS;  // K, V rows
+constexpr int FOLD_SLOTS = 16;                 // the fold's loads in flight a thread
+constexpr size_t VERIFY_SMEM = STAGE_BYTES + sizeof(uint64_t) * NSTEP;
+// the fold keeps every part's m, l and weight of each row and each row's
+// denominator in the staged rows' space, then the weights, the
+// denominators and its slots' sums
+constexpr int MAX_PARTS = (int)((STAGE_BYTES / sizeof(float) - RMAX) / (3 * RMAX));
 
-static_assert(CHUNK % 4 == 0, "a warp's group of 4 rows lies in one chunk");
-static_assert(QUARTERS * GMAX * HD * sizeof(float) <= TILE * ROW_BYTES, "the fold fits in a tile");
+static_assert(4 * VT_THREADS * FOLD_SLOTS + (MAX_PARTS + 1) * RMAX <=
+                  STAGE_BYTES / sizeof(float),
+              "the fold's sums fit beside the weights");
+static_assert(VT_THREADS * FOLD_SLOTS % (128 * (HD / 4)) == 0, "every Rp divides the slots");
+static_assert(RMAX / 16 <= VT_WARPS, "an m-tile a warp");
+static_assert(NSTEP <= 32, "warp 0's lanes set up the step barriers");
+static_assert(VT_WARPS * 16 * (OS + 2) * sizeof(float) <= STAGE_BYTES, "the meeting buffer fits");
 
-// One split (or the small block) of one kv head, for all T queries -> T
-// partials (m, l, acc) in part_* [T * Hkv, gridDim.x, G(, HD)] (query t's
-// at head t * Hkv + kvh); the last CTA of the kv head folds each query's
-// into out [T, H, HD].
-__global__ void __launch_bounds__(DEC_THREADS, 2) verify_split_kernel(
+// bf16 pair (x, y) -> hi = round(x, y) and lo = round of what hi missed,
+// each packed with x in the low half (an A fragment register)
+__device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// *p (ld.global.cg: from L2) if `in`, else zeros; a predicated load, so
+// that a loop of them issues every load before any sum waits on one
+__device__ __forceinline__ float4 ldcg_if(const float4* p, bool in) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  asm("{\n.reg .pred q;\nsetp.ne.b32 q, %5, 0;\n"
+      "@q ld.global.cg.v4.f32 {%0, %1, %2, %3}, [%4];\n}\n"
+      : "+f"(v.x), "+f"(v.y), "+f"(v.z), "+f"(v.w)
+      : "l"(p), "r"((int)in));
+  return v;
+}
+
+// One part (a split, or the small block) of one kv head for all T x G
+// query rows -> its partial in part_* [Hkv, gridDim.x, T G(, HD)]; the last
+// CTA of the kv head folds every part's into out [T, H, HD].
+__global__ void __launch_bounds__(VT_THREADS, 1) verify_tc_kernel(
     const bf16* __restrict__ q,    // [T, H, HD]
     const bf16* __restrict__ ka,   // [C, Hkv, HD] pre-rotated
     const bf16* __restrict__ va,   // [C, Hkv, HD]
@@ -72,168 +131,297 @@ __global__ void __launch_bounds__(DEC_THREADS, 2) verify_split_kernel(
     int visible_len, int Hkv, int G, int split_rows, int T, int e_delta, int extra_visible,
     float qscale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* sk = smem;                                      // [TILE][HD] bf16
-  unsigned char* sv = sk + TILE * ROW_BYTES;                     // [TILE][HD] bf16
-  float* sq = reinterpret_cast<float*>(sv + TILE * ROW_BYTES);  // [GMAX][HD]
-  float* sp = sq + GMAX * HD;                                    // [GMAX][TILE]
-  float* sred = sp + GMAX * TILE;                                // [QUARTERS][GMAX][HD]
-  float* s_m = sred + QUARTERS * GMAX * HD;
-  float* s_l = s_m + GMAX;
-  float* s_alpha = s_l + GMAX;
-  float* s_den = s_alpha + GMAX;
-  uint64_t* bar = reinterpret_cast<uint64_t*>(s_den + GMAX);
+  unsigned char* sk = smem;            // [TILE][RS] K rows
+  unsigned char* sv = sk + TILE * RS;  // [TILE][RS] V rows
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + STAGE_BYTES);  // one a step
   __shared__ int s_last;
 
   const int kvh = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int n_parts = gridDim.x;  // the splits + the small block
-  const int n_splits = n_parts - 1;
-  const bool small = blockIdx.x == n_splits;
-  const int part = blockIdx.x;
-  const size_t H = (size_t)Hkv * G;
+  const int n_parts = gridDim.x, part = blockIdx.x;
+  const bool small = part == n_parts - 1;  // the delta + self rows
+  const int H = Hkv * G, R = T * G;
   const bf16* kbase = small ? ksm : ka;
   const bf16* vbase = small ? vsm : va;
   const int row0 = small ? 0 : part * split_rows;
-  // the staged rows: the split's, or every delta and self row
   const int rows = small ? e_delta + T : min(split_rows, visible_len - row0);
+  const int n_steps = (rows + STEP - 1) / STEP;
 
+  // stage every row of the part, step by step: the step barriers first,
+  // then every thread issues some rows' copies
   if (warp == 0) {
-    if (lane < CHUNKS) {
-      mbar_init(&bar[lane], 1);
-      mbar_fence_init();
-    }
+    if (lane < n_steps) mbar_init(&bar[lane], 1);
+    mbar_fence_init();
     __syncwarp();
-    if (lane < CHUNKS && lane * CHUNK < rows) {
-      mbar_arrive_expect_tx(&bar[lane], 2u * min(CHUNK, rows - lane * CHUNK) * ROW_BYTES);
-    }
-    __syncwarp();
-    for (int j = lane; j < rows; j += 32) {
-      const size_t src = ((size_t)(row0 + j) * Hkv + kvh) * HD;
-      bulk_load(sk + j * ROW_BYTES, kbase + src, ROW_BYTES, &bar[j / CHUNK]);
-      bulk_load(sv + j * ROW_BYTES, vbase + src, ROW_BYTES, &bar[j / CHUNK]);
+    if (lane < n_steps) {
+      mbar_arrive_expect_tx(&bar[lane], 2u * min(STEP, rows - lane * STEP) * ROW_BYTES);
     }
   }
-  const int dp = tid % (HD / 2), quarter = tid / (HD / 2);
-
-  for (int t = 0; t < T; ++t) {
-    // query t's scaled queries, its running max and sum
-    for (int i = tid; i < GMAX * HD; i += DEC_THREADS) {
-      sq[i] = i < G * HD ? __bfloat162float(q[((size_t)t * H + (size_t)kvh * G) * HD + i]) * qscale
-                         : 0.f;
-    }
-    if (tid < GMAX) {
-      s_m[tid] = -INFINITY;
-      s_l[tid] = 0.f;
-    }
-    __syncthreads();
-
-    float qr[GMAX][4];
-#pragma unroll
-    for (int g = 0; g < GMAX; ++g) {
-      const float4 v = *reinterpret_cast<const float4*>(sq + g * HD + 4 * lane);
-      qr[g][0] = v.x;
-      qr[g][1] = v.y;
-      qr[g][2] = v.z;
-      qr[g][3] = v.w;
-    }
-    float acc[GMAX][2];
-#pragma unroll
-    for (int g = 0; g < GMAX; ++g) acc[g][0] = acc[g][1] = 0.f;
-    // the rows query t reads: the split's, or the delta rows and self rows <= t
-    const int n = small ? e_delta + t + 1 : rows;
-    const int n4 = (n + 3) / 4 * 4;
-
-    // logits: warp w takes the groups of 4 rows starting at 4 (w + 8 i)
-    for (int j0 = 4 * warp; j0 < n; j0 += 4 * DEC_WARPS) {
-      if (t == 0 && j0 % CHUNK < 4 * DEC_WARPS) mbar_wait(&bar[j0 / CHUNK], 0);
-      float v[32];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const uint2 u = *reinterpret_cast<const uint2*>(sk + (j0 + r) * ROW_BYTES + 8 * lane);
-        const float2 k01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-        const float2 k23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-#pragma unroll
-        for (int g = 0; g < GMAX; ++g) {
-          v[r * GMAX + g] =
-              qr[g][0] * k01.x + qr[g][1] * k01.y + qr[g][2] * k23.x + qr[g][3] * k23.y;
-        }
-      }
-      butterfly<16>(v, lane);
-      butterfly<8>(v, lane);
-      butterfly<4>(v, lane);
-      butterfly<2>(v, lane);
-      butterfly<1>(v, lane);
-      const int g = lane % GMAX, j = j0 + lane / GMAX;
-      const bool vis = j < n && (!small || j < extra_visible || j >= e_delta);
-      if (g < G) sp[g * TILE + j] = vis ? v[0] : -INFINITY;
-    }
-    // every staged chunk has landed (later queries read rows this one did not)
-    if (t == 0) {
-      for (int c = 0; c * CHUNK < rows; ++c) mbar_wait(&bar[c], 0);
-    }
-    __syncthreads();
-
-    // softmax of query head g over the rows: warp g
-    if (warp < G) {
-      const int g = warp;
-      float mx = -INFINITY;
-      for (int j = lane; j < n4; j += 32) mx = fmaxf(mx, sp[g * TILE + j]);
-      mx = warp_max(mx);
-      const float m_old = s_m[g];
-      const float m_new = fmaxf(m_old, mx);
-      const float base = m_new == -INFINITY ? 0.f : m_new;
-      float sum = 0.f;
-      for (int j = lane; j < n4; j += 32) {
-        const float p = exp2f(sp[g * TILE + j] - base);
-        sp[g * TILE + j] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = m_old == -INFINITY ? 0.f : exp2f(m_old - base);
-        s_alpha[g] = alpha;
-        s_l[g] = s_l[g] * alpha + sum;
-        s_m[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // P.V: head dims 2 dp + {0, 1} of the groups of 4 rows starting at 4 (quarter + 4 i)
-#pragma unroll
-    for (int g = 0; g < GMAX; ++g) {
-      const float a = g < G ? s_alpha[g] : 0.f;
-      acc[g][0] *= a;
-      acc[g][1] *= a;
-    }
-    for (int j0 = 4 * quarter; j0 < n; j0 += 4 * QUARTERS) {
-      float2 v[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        v[r] = j0 + r < n ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                                sv + (j0 + r) * ROW_BYTES + 4 * dp))
-                          : make_float2(0.f, 0.f);
-      }
-#pragma unroll
-      for (int g = 0; g < GMAX; ++g) {
-        if (g < G) {
-          const float4 p = *reinterpret_cast<const float4*>(sp + g * TILE + j0);
-          acc[g][0] += p.x * v[0].x + p.y * v[1].x + p.z * v[2].x + p.w * v[3].x;
-          acc[g][1] += p.x * v[0].y + p.y * v[1].y + p.z * v[2].y + p.w * v[3].y;
-        }
-      }
-    }
-    __syncthreads();  // sp and s_alpha are free for the next query
-    store_partial(acc, sred, s_m, s_l, part_m, part_l, part_acc, t * Hkv + kvh, part, n_parts,
-                  G);
+  // the last step's rows past the part are zero (masked keys' weights are
+  // 0, and 0 times stale bits could be NaN)
+  for (int i = tid; i < (n_steps * STEP - rows) * (ROW_BYTES / 16); i += VT_THREADS) {
+    const int off = (rows + i / (ROW_BYTES / 16)) * RS + 16 * (i % (ROW_BYTES / 16));
+    *reinterpret_cast<uint4*>(sk + off) = make_uint4(0u, 0u, 0u, 0u);
+    *reinterpret_cast<uint4*>(sv + off) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();  // the barriers are set up
+  for (int j = tid; j < rows; j += VT_THREADS) {
+    const size_t src = ((size_t)(row0 + j) * Hkv + kvh) * HD;
+    bulk_load(sk + j * RS, kbase + src, ROW_BYTES, &bar[j / STEP]);
+    bulk_load(sv + j * RS, vbase + src, ROW_BYTES, &bar[j / STEP]);
   }
 
-  // one arrival for the T partials; the last CTA of the kv head folds each query's
+  // warp w: m-tile w % n_mt over the steps w / n_mt, + KG, ...
+  const int n_mt = (R + 15) / 16, KG = VT_WARPS / n_mt;
+  const int mt = warp % n_mt, kg = warp / n_mt;
+  const bool active = kg < KG;
+  const int g4 = lane / 4, t4 = lane % 4;  // the lane's rows 16 mt + g4 (+8), its columns 2 t4 (+1)
+  float o[HD / 8][4];  // O: dims 8 nd + 2 t4 (+1) of the two rows
+#pragma unroll
+  for (int nd = 0; nd < HD / 8; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
+  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
+  if (active) {
+    // Q's A fragments, one per 16 head dims (pad rows r >= R are zero)
+    uint32_t qa[HD / 16][4];
+    int tq[2];  // the rows' queries
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * mt + g4 + 8 * h;
+      tq[h] = r / G;
+      const bf16* qrow = q + ((size_t)(r / G) * H + (size_t)kvh * G + r % G) * HD + 2 * t4;
+      const unsigned int* qw = reinterpret_cast<const unsigned int*>(qrow);  // bf16 pairs
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        qa[kk][h] = r < R ? __ldg(qw + 8 * kk) : 0u;
+        qa[kk][2 + h] = r < R ? __ldg(qw + 8 * kk + 4) : 0u;
+      }
+    }
+    // ldmatrix rows of this lane: K (keys + (lane / 16) 8 + lane % 8, dims
+    // + (lane / 8 % 2) 8); V transposed (keys + (lane / 8 % 2) 8 + lane % 8,
+    // dims + (lane / 16) 8)
+    const unsigned char* krow = sk + ((lane / 16) * 8 + lane % 8) * RS + (lane / 8 % 2) * 16;
+    const unsigned char* vrow = sv + ((lane / 8 % 2) * 8 + lane % 8) * RS + (lane / 16) * 16;
+
+    for (int b = kg; b < n_steps; b += KG) {
+      mbar_wait(&bar[b], 0);
+      const int j0 = b * STEP;
+      // S = Q K^T over the step's 32 keys: 4 blocks of 8 keys
+      float s[STEP / 8][4];
+#pragma unroll
+      for (int nb = 0; nb < STEP / 8; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+#pragma unroll
+        for (int kb = 0; kb < STEP / 16; ++kb) {
+          uint32_t f[4];
+          ldmatrix_x4(f, krow + (j0 + 16 * kb) * RS + 32 * kk);
+          mma_m16n8k16_bf16(s[2 * kb], qa[kk], f[0], f[1]);
+          mma_m16n8k16_bf16(s[2 * kb + 1], qa[kk], f[2], f[3]);
+        }
+      }
+      // log2-space logits; the keys this row does not see are -inf
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int nb = 0; nb < STEP / 8; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = j0 + 8 * nb + 2 * t4 + (e & 1);
+          bool vis = j < rows;
+          if (small) vis = vis && (j < extra_visible || (j >= e_delta && j <= e_delta + tq[e / 2]));
+          s[nb][e] = vis ? s[nb][e] * qscale : -INFINITY;
+          mx[e / 2] = fmaxf(mx[e / 2], s[nb][e]);
+        }
+      }
+      // the online softmax: row maxima over the quad, O and l rescaled
+      float base[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m_r[h], mx[h]);
+        base[h] = m_new == -INFINITY ? 0.f : m_new;  // no visible key yet: subtract 0
+        const float alpha = m_r[h] == -INFINITY ? 0.f : exp2f(m_r[h] - base[h]);
+        m_r[h] = m_new;
+        l_r[h] *= alpha;
+#pragma unroll
+        for (int nd = 0; nd < HD / 8; ++nd) {
+          o[nd][2 * h] *= alpha;
+          o[nd][2 * h + 1] *= alpha;
+        }
+      }
+#pragma unroll
+      for (int nb = 0; nb < STEP / 8; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[nb][e] = exp2f(s[nb][e] - base[e / 2]);
+          l_r[e / 2] += s[nb][e];
+        }
+      }
+      // O += P V over each 16 keys: P_hi and P_lo (A fragments from the S
+      // registers), V's B fragments for 16 head dims a ldmatrix.trans
+#pragma unroll
+      for (int ks = 0; ks < STEP / 16; ++ks) {
+        uint32_t ph[4], pl[4];
+        split_bf16x2(s[2 * ks][0], s[2 * ks][1], ph[0], pl[0]);
+        split_bf16x2(s[2 * ks][2], s[2 * ks][3], ph[1], pl[1]);
+        split_bf16x2(s[2 * ks + 1][0], s[2 * ks + 1][1], ph[2], pl[2]);
+        split_bf16x2(s[2 * ks + 1][2], s[2 * ks + 1][3], ph[3], pl[3]);
+#pragma unroll
+        for (int nd2 = 0; nd2 < HD / 16; ++nd2) {
+          uint32_t f[4];
+          ldmatrix_x4_trans(f, vrow + (j0 + 16 * ks) * RS + 32 * nd2);
+          mma_m16n8k16_bf16(o[2 * nd2], ph, f[0], f[1]);
+          mma_m16n8k16_bf16(o[2 * nd2], pl, f[0], f[1]);
+          mma_m16n8k16_bf16(o[2 * nd2 + 1], ph, f[2], f[3]);
+          mma_m16n8k16_bf16(o[2 * nd2 + 1], pl, f[2], f[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 1);
+      l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 2);
+    }
+  }
+  __syncthreads();  // every step is read (each was waited on by its warps): the rows' space is free
+
+  // the key groups meet: each warp's (m, l, O) of its 16 rows
+  float* mo = reinterpret_cast<float*>(smem);  // [VT_WARPS][16][OS]
+  float* mm = mo + VT_WARPS * 16 * OS;         // [VT_WARPS][16]
+  float* ml = mm + VT_WARPS * 16;
+  if (active) {
+    float* base_w = mo + warp * 16 * OS + 2 * t4;
+#pragma unroll
+    for (int nd = 0; nd < HD / 8; ++nd) {
+      *reinterpret_cast<float2*>(base_w + g4 * OS + 8 * nd) = make_float2(o[nd][0], o[nd][1]);
+      *reinterpret_cast<float2*>(base_w + (g4 + 8) * OS + 8 * nd) = make_float2(o[nd][2], o[nd][3]);
+    }
+    if (t4 == 0) {
+      mm[warp * 16 + g4] = m_r[0];
+      mm[warp * 16 + g4 + 8] = m_r[1];
+      ml[warp * 16 + g4] = l_r[0];
+      ml[warp * 16 + g4 + 8] = l_r[1];
+    }
+  }
+  __syncthreads();
+  // the part's partial of each query row: its key groups merged
+  const size_t head_rows = (size_t)kvh * n_parts * R;  // this kv head's first partial row
+  const size_t prow = head_rows + (size_t)part * R;
+  for (int i = tid; i < R * (HD / 4); i += VT_THREADS) {
+    const int r = i / (HD / 4), d = 4 * (i % (HD / 4));
+    const int w0 = r / 16, rr = r % 16;  // the warps of the row's m-tile: w0 + n_mt k
+    float mx = -INFINITY;
+    for (int k = 0; k < KG; ++k) mx = fmaxf(mx, mm[(w0 + n_mt * k) * 16 + rr]);
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    float l = 0.f;
+    for (int k = 0; k < KG; ++k) {
+      const int w = w0 + n_mt * k;
+      const float m = mm[w * 16 + rr];
+      const float wt = m == -INFINITY ? 0.f : exp2f(m - mx);
+      const float4 x = *reinterpret_cast<const float4*>(mo + (w * 16 + rr) * OS + d);
+      a.x += wt * x.x;
+      a.y += wt * x.y;
+      a.z += wt * x.z;
+      a.w += wt * x.w;
+      l += wt * ml[w * 16 + rr];
+    }
+    *reinterpret_cast<float4*>(part_acc + (prow + r) * HD + d) = a;
+    if (d == 0) {
+      part_m[prow + r] = mx;
+      part_l[prow + r] = l;
+    }
+  }
+
+  // one arrival a CTA; the last of the kv head folds all T x G rows
   if (!arrive_last(counters, kvh, n_parts, &s_last)) return;
-  for (int t = 0; t < T; ++t) {
-    __syncthreads();  // the previous query's fold has read the tiles
-    fold_parts<true>(reinterpret_cast<float*>(sk), reinterpret_cast<float*>(sv), s_m, s_den,
-                     part_m, part_l, part_acc, out + (size_t)t * H * HD, nullptr, nullptr, nullptr,
-                     t * Hkv + kvh, kvh, n_parts, n_parts, G);
+  // shared memory: (m, l) of every part and row from the start, each row's
+  // weights and denominator at the end
+  float* sw = reinterpret_cast<float*>(smem + STAGE_BYTES) - (n_parts + 1) * R;  // [n_parts][R]
+  float* sden = sw + n_parts * R;                                                  // [R]
+  float* sm = reinterpret_cast<float*>(smem);  // [n_parts][R]
+  float* sl = sm + n_parts * R;                // [n_parts][R]
+#pragma unroll 4
+  for (int i = tid; i < n_parts * R; i += VT_THREADS) {
+    sm[i] = __ldcg(part_m + head_rows + i);
+    sl[i] = __ldcg(part_l + head_rows + i);
+  }
+  __syncthreads();
+  {  // row r's maximum, weights and denominator: threads 2 r and 2 r + 1, every other part each
+    const int r = tid / 2, h = tid % 2;
+    const float *mr = sm + r, *lr = sl + r;  // row r's (m, l) in each part
+    float mx = -INFINITY;
+#pragma unroll 4
+    for (int p = h; r < R && p < n_parts; p += 2) mx = fmaxf(mx, mr[p * R]);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    float den = 0.f;
+#pragma unroll 4
+    for (int p = h; r < R && p < n_parts; p += 2) {
+      const float m = mr[p * R];
+      const float wt = m == -INFINITY ? 0.f : exp2f(m - mx);
+      sw[p * R + r] = wt;
+      den += wt * lr[p * R];
+    }
+    den += __shfl_xor_sync(0xffffffffu, den, 1);
+    if (r < R && h == 0) sden[r] = den;
+  }
+  __syncthreads();  // the weights are made; (m, l)'s space takes the sums
+  // Each row's weighted sum of the parts' partial rows, FOLD_SLOTS loads
+  // in flight a thread: item i = row i / 32, dims 4 (i % 32), of Rp rows
+  // (R to a power of two); slot k of thread tid is pair j = tid +
+  // VT_THREADS k: item j % (32 Rp) of the parts j / (32 Rp) + pps n, with
+  // pps = VT_THREADS FOLD_SLOTS / (32 Rp) parts in flight at once. A slot
+  // keeps its float4's offset in part 0's place (a row past R: never
+  // read); its weight's offset is that over 32.
+  const int Rp = R <= 16 ? 16 : R <= 32 ? 32 : R <= 64 ? 64 : 128;
+  const int items = Rp * (HD / 4), pps = VT_THREADS * FOLD_SLOTS / items;
+  const int shift = 31 - __clz(items);
+  const float4* src = reinterpret_cast<const float4*>(part_acc + head_rows * HD);
+  const int end = n_parts * R * (HD / 4);  // past the last part's float4s
+  int off[FOLD_SLOTS];
+  float4 a[FOLD_SLOTS];
+#pragma unroll
+  for (int k = 0; k < FOLD_SLOTS; ++k) {
+    const int j = tid + VT_THREADS * k, i = j & (items - 1), r = i / (HD / 4);
+    off[k] = r < R ? ((j >> shift) * R + r) * (HD / 4) + i % (HD / 4) : end;
+    a[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+#pragma unroll 1
+  for (int base = 0; base < end; base += pps * R * (HD / 4)) {
+#pragma unroll
+    for (int k = 0; k < FOLD_SLOTS; ++k) {  // no branch: every slot's load is in flight at once
+      const int o = off[k] + base;
+      const bool in = o < end;
+      const float4 x = ldcg_if(src + o, in);
+      const float wt = in ? sw[min(o, end - 1) / (HD / 4)] : 0.f;
+      a[k].x += wt * x.x;
+      a[k].y += wt * x.y;
+      a[k].z += wt * x.z;
+      a[k].w += wt * x.w;
+    }
+  }
+  float4* red = reinterpret_cast<float4*>(smem);  // [VT_THREADS FOLD_SLOTS] the slots' sums
+#pragma unroll
+  for (int k = 0; k < FOLD_SLOTS; ++k) red[tid + VT_THREADS * k] = a[k];
+  __syncthreads();
+  // the output rows: each item's pps slots added, divided by the row's denominator
+#pragma unroll 4
+  for (int i = tid; i < R * (HD / 4); i += VT_THREADS) {
+    const int r = i / (HD / 4), d = 4 * (i % (HD / 4));
+    float4 x = red[i];
+    for (int ph = 1; ph < pps; ++ph) {
+      const float4 y = red[ph * items + i];
+      x.x += y.x;
+      x.y += y.y;
+      x.z += y.z;
+      x.w += y.w;
+    }
+    const float inv = 1.f / fmaxf(sden[r], 1e-20f);
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x * inv, x.y * inv);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z * inv, x.w * inv);
+    uint2 pk;
+    pk.x = *reinterpret_cast<const uint32_t*>(&lo);
+    pk.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(out + ((size_t)(r / G) * H + (size_t)kvh * G + r % G) * HD + d) = pk;
   }
   if (tid == 0) counters[kvh] = 0;  // ready for the next call
 }
@@ -248,9 +436,10 @@ extern "C" int svt_verify_max_queries() { return TMAX; }
 extern "C" int svt_verify_max_small_rows() { return TILE; }
 
 // K2-verify: q [T, H, HD], arenas [C, Hkv, HD], small block [e_delta + T,
-// Hkv, HD], out [T, H, HD]. Scratch: part_m / part_l [T * Hkv, n_parts, G],
-// part_acc [T * Hkv, n_parts, G, HD] f32 and counters [Hkv] int32 (zero
-// between calls), n_parts = ceil(visible_len / split_rows) + 1.
+// Hkv, HD], out [T, H, HD]. Scratch: part_m / part_l [Hkv, n_parts, T G],
+// part_acc [Hkv, n_parts, T G, HD] f32 (the decode scratch's rows of T
+// heads) and counters [Hkv] int32 (zero between calls), n_parts =
+// ceil(visible_len / split_rows) + 1.
 extern "C" int svt_verify_attention(
     const void* q, const void* ka, const void* va, const void* ksm, const void* vsm,
     void* part_m, void* part_l, void* part_acc, void* counters, void* out, int T, int H, int Hkv,
@@ -265,12 +454,12 @@ extern "C" int svt_verify_attention(
   static bool opted = false;
   if (!opted) {
     const cudaError_t e = cudaFuncSetAttribute(
-        verify_split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)VERIFY_SMEM);
+        verify_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)VERIFY_SMEM);
     if (e != cudaSuccess) return (int)e;
     opted = true;
   }
   const dim3 grid(n_splits + 1, Hkv);
-  verify_split_kernel<<<grid, DEC_THREADS, VERIFY_SMEM, reinterpret_cast<cudaStream_t>(stream)>>>(
+  verify_tc_kernel<<<grid, VT_THREADS, VERIFY_SMEM, reinterpret_cast<cudaStream_t>(stream)>>>(
       (const bf16*)q, (const bf16*)ka, (const bf16*)va, (const bf16*)ksm, (const bf16*)vsm,
       (float*)part_m, (float*)part_l, (float*)part_acc, (int*)counters, (bf16*)out, visible_len,
       Hkv, H / Hkv, split_rows, T, e_delta, extra_visible, LOG2E / sqrtf((float)HD));

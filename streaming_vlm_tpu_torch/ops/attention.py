@@ -16,9 +16,10 @@ streaming_vlm_tpu/ops/attention.py:
   dequantized and mRoPE-rotated in the kernel, + decode delta + self.
 * `streaming_verify_attention` (K2-verify, csrc/verify_attention.cu): the
   T = k + 1 queries of a speculative-decoding verify round over the
-  pre-rotated arena + decode delta + their own causal self rows, each
-  split's rows staged once for all T (the JAX package computes this in
-  XLA, `_gqa_attention_multi`); T == 1 is K2 itself.
+  pre-rotated arena + decode delta + their own causal self rows, all T x G
+  query rows of a kv head through the tensor cores over each split's rows
+  staged once (split by `verify_split_size`; the JAX package computes this
+  in XLA, `_gqa_attention_multi`); T == 1 is K2 itself.
 * `streaming_decode_attention` (K4, csrc/decode_attention.cu): the arena's
   log2-space softmax partials of one token; `decode_attention_merge` folds
   them with the small parts (K2's independent cross-check, on no runtime
@@ -440,29 +441,53 @@ DECODE_SPLIT_ALIGN = 8  # split sizes are multiples of this
 DECODE_CTAS_PER_SM = 2  # CTAs of the split pass resident on one SM (shared memory)
 
 
+# K2-verify's split: its CTA stages up to 384 rows (most of an SM's shared
+# memory), one CTA an SM, and the last CTA of each kv head folds every
+# part's partials of all T x G query rows at one SM's rate, so its parts
+# are fewer and larger than K2's
+VERIFY_SPLIT_ALIGN = 32  # whole 32-key steps (STEP in csrc/verify_attention.cu)
+VERIFY_CTAS_PER_SM = 1
+# a split of ~sqrt(VERIFY_SPLIT_BALANCE * visible_len) rows balances a
+# CTA's rows (~split) against the fold's parts (~visible_len / split); the
+# constant is fitted to tools/profile_verify_torch.py's sweep on an H100
+VERIFY_SPLIT_BALANCE = 18
+
+
 def decode_split_size(visible_len: int, Hkv: int, n_sms: int, max_split: int = 160,
-                      lanes: int = 1) -> int:
+                      lanes: int = 1, *, ctas_per_sm: int = DECODE_CTAS_PER_SM,
+                      align: int = DECODE_SPLIT_ALIGN) -> int:
     """Slots per split of the decode kernels' split pass (K2, K3, K4): as
     few as give the kv heads' splits plus the small-block CTAs (K2's and
-    K3's, one per kv head) of all `lanes` one wave of DECODE_CTAS_PER_SM
-    CTAs per SM, in multiples of DECODE_SPLIT_ALIGN, at most max_split (the
-    kernel's tile: TILE in csrc/decode_attention.cu and
-    csrc/decode_attention_raw.cu). The lane form passes its largest
-    visible length."""
+    K3's, one per kv head) of all `lanes` one wave of `ctas_per_sm` CTAs
+    per SM, in multiples of `align`, at most max_split (the kernel's tile:
+    TILE in csrc/decode_attention.cu and csrc/decode_attention_raw.cu).
+    The lane form passes its largest visible length. K2-verify passes
+    VERIFY_CTAS_PER_SM and VERIFY_SPLIT_ALIGN (`verify_split_size`)."""
     heads = int(lanes) * Hkv
-    per_head = max((DECODE_CTAS_PER_SM * int(n_sms) - heads) // heads, 1)
+    per_head = max((int(ctas_per_sm) * int(n_sms) - heads) // heads, 1)
     split = -(-int(visible_len) // per_head)
-    split = -(-split // DECODE_SPLIT_ALIGN) * DECODE_SPLIT_ALIGN
-    return int(min(max(split, DECODE_SPLIT_ALIGN), max_split))
+    split = -(-split // align) * align
+    return int(min(max(split, align), max_split))
 
 
 def decode_max_parts(capacity: int, Hkv: int, n_sms: int, max_split: int = 160,
-                     lanes: int = 1) -> int:
+                     lanes: int = 1, *, ctas_per_sm: int = DECODE_CTAS_PER_SM) -> int:
     """The most parts (splits + the small block) a decode call over at most
     `capacity` visible slots can have: what one lane's scratch must hold."""
     heads = int(lanes) * Hkv
-    per_head = max((DECODE_CTAS_PER_SM * int(n_sms) - heads) // heads, 1)
+    per_head = max((int(ctas_per_sm) * int(n_sms) - heads) // heads, 1)
     return max(per_head, -(-int(capacity) // max_split)) + 1
+
+
+def verify_split_size(visible_len: int, Hkv: int, n_sms: int, max_split: int = 384) -> int:
+    """Slots per split of K2-verify (csrc/verify_attention.cu, whose tile
+    holds max_split rows), in whole 32-key steps: ~sqrt(VERIFY_SPLIT_BALANCE
+    * visible_len), and at least as many as keep the kv heads' splits and
+    small blocks to one wave of one CTA an SM."""
+    one_wave = decode_split_size(visible_len, Hkv, n_sms, max_split,
+                                 ctas_per_sm=VERIFY_CTAS_PER_SM, align=VERIFY_SPLIT_ALIGN)
+    balance = math.ceil(math.sqrt(VERIFY_SPLIT_BALANCE * int(visible_len)) / VERIFY_SPLIT_ALIGN)
+    return int(min(max(one_wave, balance * VERIFY_SPLIT_ALIGN), max_split))
 
 
 def decode_splits(visible_len: int, split: int) -> list:
@@ -560,7 +585,8 @@ def reserve_decode_scratch(device, lanes: int, Hkv: int, capacity: int, G: int, 
     _decode_scratch(device, lanes, Hkv, n, G, hd)
     if verify_queries:
         _decode_scratch(device, verify_queries, Hkv,
-                        decode_max_parts(capacity, Hkv, sms, so.verify_max_split), G, hd)
+                        decode_max_parts(capacity, Hkv, sms, so.verify_max_split,
+                                         ctas_per_sm=VERIFY_CTAS_PER_SM), G, hd)
 
 
 def _decode_parts(name: str, visible_len: int, Hkv: int, device, max_split: int,
@@ -715,11 +741,12 @@ def streaming_verify_attention(
     *,
     e_delta: int,
 ) -> torch.Tensor:
-    """K2-verify. Returns [T, H, hd] in v_small's dtype: row t is K2 of
-    query t over the arena, the delta rows below extra_visible and the self
-    rows e_delta .. e_delta + t (bitwise, on the card, K2 called with
-    k_small[:e_delta + t + 1]). T == 1 runs K2 itself (and counts as K2).
-    One launch a call, on the host's split (as K2's)."""
+    """K2-verify. Returns [T, H, hd] in v_small's dtype: row t is query t
+    over the arena, the delta rows below extra_visible and the self rows
+    e_delta .. e_delta + t (on the card, K2 called with k_small[:e_delta +
+    t + 1] to K2's tolerance: all T x G query rows of a kv head go through
+    the tensor cores at once). T == 1 runs K2 itself (and counts as K2).
+    One launch a call, on the host's split (`verify_split_size`)."""
     T, H, hd = q_rot.shape
     if k_small.shape[0] != e_delta + T or v_small.shape != k_small.shape:
         raise ValueError(f"k_small must hold e_delta ({e_delta}) + T ({T}) rows, got "
@@ -748,8 +775,12 @@ def streaming_verify_attention(
     vis = int(visible_len)
     if not 0 <= vis <= C or not 0 <= int(extra_visible) <= e_delta:
         raise ValueError(f"{name}: visible_len {vis} / extra_visible {extra_visible} out of range")
-    split, n_splits = _decode_parts(name, vis, Hkv, q_rot.device, so.verify_max_split,
-                                    so.verify_max_parts)
+    split = verify_split_size(vis, Hkv, sm_count(q_rot.device), so.verify_max_split)
+    n_splits = -(-vis // split)
+    if n_splits + 1 > so.verify_max_parts:
+        raise ValueError(f"{name}: visible_len {vis} needs {n_splits} splits of {split}, more "
+                         f"than the kernel's {so.verify_max_parts - 1}")
+    # partials [Hkv, n_parts, T G(, hd)]: the scratch's rows of T heads
     part_m, part_l, part_acc, counters = _decode_scratch(q_rot.device, T, Hkv, n_splits + 1,
                                                          H // Hkv, hd)
     out = torch.empty(T, H, hd, dtype=v_small.dtype, device=q_rot.device)

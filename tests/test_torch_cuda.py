@@ -310,13 +310,14 @@ def test_decode_kernel_splits_on_card(cuda, vis, e1, evis):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("T", [1, 2, 8, 16])
+@pytest.mark.parametrize("T", [1, 2, 3, 8, 9, 16])
 @pytest.mark.parametrize("vis", [0, 641, 4501, 8192 - 44])
 def test_verify_kernel_on_card(cuda, T, vis):
     """K2-verify against its plain version to one bf16 ulp (as K2), and
-    each of its rows bitwise equal to K2 on that query with the small block
-    cut to the rows it sees; twice, so the per-kv-head counters are shown
-    back at zero."""
+    each of its rows against K2 on that query with the small block cut to
+    the rows it sees, to the same tolerance (the tensor cores sum in
+    another order than K2's f32 loop; at T = 1 the wrapper is K2, so
+    bitwise); twice, so the per-kv-head counters are shown back at zero."""
     g = torch.Generator(device=cuda).manual_seed(T * 10000 + vis)
     H, Hkv, hd, Cc, e_delta = 28, 4, 128, 8192, 28
 
@@ -334,7 +335,10 @@ def test_verify_kernel_on_card(cuda, T, vis):
             k2 = A.streaming_decode_attention_full(
                 q[t], ka, va, ksm[: e_delta + t + 1], vsm[: e_delta + t + 1], vis, evis,
                 e_delta=e_delta)
-            assert torch.equal(out[t], k2), (t, evis)
+            if T == 1:
+                assert torch.equal(out[t], k2), (t, evis)
+            else:
+                _assert_decode_close(out[t], k2)
 
 
 @pytest.mark.gpu

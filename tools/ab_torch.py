@@ -1,6 +1,7 @@
 """Two checkouts of the port on one card, in turns: the one-stream device
 times of K1 (T=640 over 9600 visible slots), K2 and K3 (int8; visible
-9000), each timed twice; K5-int4's device time with cold weights (each
+9000), and K2-verify at T = 2, 8 and 16 (visible 9000, e_delta 28,
+extra_visible 5), each timed twice; K5-int4's device time with cold weights (each
 call rotates over copies of its weight past 100 MB, twice the L2) at every
 7B decode product (q_proj and k/v_proj with their bias, o_proj,
 gate/up_proj, down_proj) at M = 1 and 8 rows, each timed twice, and its
@@ -41,11 +42,14 @@ qd, ksm, vsm = rn(H, hd), rn(21, Hkv, hd), rn(21, Hkv, hd)
 (kq, ksc), (vq, vsc) = quantize_kv(ka), quantize_kv(va)
 pos = (torch.rand(C, 3, generator=g, device=dev) * torch.tensor([C, 50.0, 50.0], device=dev)).floor()
 kw = dict(e_delta=20, mrope_section=(16, 24, 24), rope_theta=1e6)
-out = {"K1": [], "K2": [], "K3": []}
+verify = {T: (rn(T, H, hd), rn(28 + T, Hkv, hd), rn(28 + T, Hkv, hd)) for T in (2, 8, 16)}
+out = {"K1": [], "K2": [], "K3": [], "K2-verify": {f"T={T}": [] for T in verify}}
 for _ in range(2):
     out["K1"].append(c._device_ms(lambda: A.streaming_prefill_attention(q, ka, va, None, None, ks, vs, 9600), n=50))
     out["K2"].append(c._device_ms(lambda: A.streaming_decode_attention_full(qd, ka, va, ksm, vsm, 9000, 7, e_delta=20), n=200))
     out["K3"].append(c._device_ms(lambda: A.streaming_decode_attention_int8(qd, kq, ksc, vq, vsc, pos.contiguous(), ksm, vsm, 9000, 7, **kw), n=200))
+    for T, (qv, kv, vv) in verify.items():
+        out["K2-verify"][f"T={T}"].append(c._device_ms(lambda: A.streaming_verify_attention(qv, ka, va, kv, vv, 9000, 5, e_delta=28), n=200))
 from streaming_vlm_tpu_torch.ops import quant as Q
 out["K5-int4 cold"], out["K5-int4 event"] = {}, {}
 for what, K, N, bias in (("q_proj", 3584, 3584, True), ("k/v_proj", 3584, 512, True),
