@@ -8,7 +8,8 @@ Phases; any failure exits non-zero:
 1. device: requires CUDA; prints `nvidia-smi` name and power limit.
 2. build: compiles the port's kernels (streaming_vlm_tpu_torch/csrc, nvcc,
    sm_90a, one nvcc per source in parallel) into build/torch_kernels/, and
-   prints -Xptxas -v registers and spills of K1-K5's and K2-verify's kernels.
+   prints -Xptxas -v registers and spills of K1-K5's, K2-verify's, K1-bwd's
+   and CE-row's kernels.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes (Qwen2.5-VL-7B attention geometry: H=28, Hkv=4,
    hd=128, arena C=10240): K1 prefill (both arena modes; T in {640, 200,
@@ -32,7 +33,16 @@ Phases; any failure exits non-zero:
    K5-int4 W4A8 products (qdot4 below 32 rows: every decode product of the
    7B path and the lm_head at M in {1, 4, 8, 31}, bf16 and f32 out, one
    scale group and many, under the planner's plan and with K cut into
-   slabs by force). K1 and the decode kernels are held to
+   slabs by force), training's kernels: K1's log-sum-exp output (rows the
+   plan keeps whole and rows it splits, both arena modes; K1's output
+   unchanged by asking for it; timed at T = 8192 with and without it),
+   K1-bwd (dQ, dK, dV against the plain algebra in f32 at T in {64, 200,
+   640, 2048, 8192}, two bf16 ulps of each value plus two of the largest;
+   two calls bitwise equal; timed at T = 8192 beside K1's forward, SDPA's
+   causal forward + backward and the bound), and CE-row (NLL to 1e-5
+   relative, dlog to 1e-6 absolute, at V = 152064 and rows {1, 77, 2048},
+   masked rows, targets 0 and V - 1; timed at [2048, V] beside its byte
+   bound and F.cross_entropy's forward + backward). K1 and the decode kernels are held to
    one bf16 ulp of each output value (plus one ulp of the largest for K1, a
    small fraction of it for the others), K5 and K5-int4 to bitwise
    equality, and phase 3 is run again on copies of the port with K1
@@ -68,6 +78,12 @@ Phases; any failure exits non-zero:
    bf16 arena, and with W8A8 weights over the int8 arena) against the f32
    oracle on the same tokens, and r, the largest logit difference between
    its rows and K2 decode steps over the same tokens (over max |logit|).
+   Then training: `sft_loss` at 7B widths (decoder cut to 4 layers, T =
+   2048, vision embeddings scattered in) and its text gradients through the
+   kernels in bf16 (K1 with its log-sum-exp, K1-bwd, CE-row) against the
+   same loss through the plain path in f32: the loss's relative error <=
+   2e-2 and each leaf's relative L2 error <= 5e-2, or each within 2x the
+   plain path's own error in bf16 (the noise floor).
 5. slices: Qwen2.5-VL-7B served through `serve.streaming_inference_frames`,
    20 one-second chunks of 2 synthetic 476x840 frames each, three times:
    slice A with random bf16 weights and the default StreamConfig (the
@@ -121,7 +137,22 @@ Phases; any failure exits non-zero:
    only where that step's top-two penalised-logit gap is under 2 r max
    |logit| (it prints how many such steps it saw); fewer rounds with the clairvoyant draft than with none; an
    eviction; every verify attention through K2-verify (L launches a
-   round), K1 L a chunk, K5 tiled at the verify's 8 rows.
+   round), K1 L a chunk, K5 tiled at the verify's 8 rows. Slice M
+   (training): the `Trainer` at Qwen2.5-VL-7B widths with the decoder cut
+   to 4 layers (embed, lm_head and the frozen tower whole), random bf16
+   weights, over a `StreamDataset` of one synthetic 476x840 10-second clip
+   (raw frames in a .npz, read by `_RawClip` bound in place of ingest's
+   FFmpeg reader: the card's machine has no FFmpeg libraries; ~510 vision
+   tokens a second, one phrase a second: the 8192 bucket),
+   grad_accum 2, max_steps 2, remat "full", prefetch 2, no save: finite
+   losses and gradient norms, every attention through K1 (twice a layer a
+   micro-step) and K1-bwd, CE-row once a 2048-row chunk; it prints the
+   micro-step time, tokens/s (over the example's tokens, its labeled
+   tokens and the padded bucket), peak memory beside the reckoned one and
+   K1-bwd's and CE-row's device time a call. Then a resume check at narrow
+   widths (hidden 512, head_dim 128, 2 layers, vocab 4096): 6 micro-steps
+   straight through against 4, a checkpoint and a fresh Trainer for the
+   last 2, bitwise.
 
 The second-to-last line is a JSON object with each kernel's numbers; the
 last line is {"ok": true, "device": {...}}.
@@ -310,6 +341,32 @@ MUTANTS = {
         "if (lane == 0) counters[tile] = 0;  // ready for the next call",
         "", "'slabs': ",
     ),
+    # training: K1-bwd's dK/dV kernel drops the causal diagonal (a key no
+    # longer sees its own token's rows); K1's merge pass writes a split row's
+    # log-sum-exp without its log2(l) (only the LSE checks of split rows may
+    # fail); CE-row's block reduction skips the last warp's (max, sum); CE-row
+    # writes every fourth probability under 1e-7 as 0
+    "K1-bwd: the dK/dV causal edge off by one": (
+        "K1-bwd", "csrc/attention_bwd.cu",
+        "const bool ok = r < R && key <= r / G;",
+        "const bool ok = r < R && key < r / G;", None,
+    ),
+    "K1 lse: a split row's log-sum-exp without log2(l)": (
+        "K1", "csrc/prefill_attention.cu",
+        "lse[((size_t)b * T + t) * H + kvh * G + g] = m + log2f(den);",
+        "lse[((size_t)b * T + t) * H + kvh * G + g] = m;", "'out': 'lse'",
+    ),
+    "CE-row: the reduction skips the last warp": (
+        "CE-row", "csrc/linear_ce.cu",
+        "for (int w = 1; w < WARPS; ++w)",
+        "for (int w = 1; w < WARPS - 1; ++w)", None,
+    ),
+    "CE-row: probabilities under 1e-7 flushed to zero": (
+        "CE-row", "csrc/linear_ce.cu",
+        "v.x = (expf(v.x - m) / s - (j == tgt ? 1.f : 0.f)) * mk;",
+        "v.x = ((expf(v.x - m) / s < 1e-7f ? 0.f : expf(v.x - m) / s) - (j == tgt ? 1.f : 0.f)) "
+        "* mk;", None,
+    ),
 }
 # the lane forms' checks (phase 3): K2 and K3 at B in {1, 4, 8} lanes with
 # these per-lane visible lengths (empty lanes, lanes shorter than one split,
@@ -349,6 +406,17 @@ SRC = {  # kernel -> (source, the TPU kernel's pallas_call it replaces)
     "int8_gemm": (
         "streaming_vlm_tpu_torch/csrc/int8_gemm.cu",
         "tools/profile_s8_mxu.py:78",
+    ),
+    # K1-bwd: no pallas_call; the JAX package trains through XLA's autodiff
+    # of `_gqa_attention_chunked`
+    "attention_bwd": (
+        "streaming_vlm_tpu_torch/csrc/attention_bwd.cu",
+        "streaming_vlm_tpu/models/qwen25_vl/language.py:147",
+    ),
+    # CE-row: no pallas_call; the row pass of `_fused_ce_pass` (XLA)
+    "ce_rows": (
+        "streaming_vlm_tpu_torch/csrc/linear_ce.cu",
+        "streaming_vlm_tpu/train/step.py:37",
     ),
     # K5-int4: no pallas_call; the JAX package's qdot4 (XLA) below 32 rows
     "int8_gemm/int4": (
@@ -738,6 +806,9 @@ def phase_kernels():
         stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], lane_stats["max_abs_err"])
     stats["int8_gemm"] = _phase_k5(g)
     stats["int8_gemm"]["int4"] = _phase_k5_int4(g)
+    stats["streaming_prefill_attention"]["lse"] = _phase_k1_lse(g, ka, va)
+    stats["attention_bwd"] = _phase_k1_bwd(g)
+    stats["ce_rows"] = _phase_ce_rows(g)
     if _FAILED:
         raise AssertionError("kernels disagree with their plain versions: " + "; ".join(_FAILED))
     return stats
@@ -1833,8 +1904,6 @@ def phase_slice(cfg, model, n_chunks: int, stream, expect: dict, profile: Path |
     import numpy as np
     import torch
 
-    from streaming_vlm_tpu_torch.ops import attention as A
-    from streaming_vlm_tpu_torch.ops import quant as Q
     from streaming_vlm_tpu_torch.serve import streaming_inference_frames
     from streaming_vlm_tpu_torch.streaming.protocol import FakeTokenizer
     from streaming_vlm_tpu_torch.utils.buckets import bucket_for
@@ -1844,8 +1913,7 @@ def phase_slice(cfg, model, n_chunks: int, stream, expect: dict, profile: Path |
     frames = [rng.integers(0, 256, (2, 476, 840, 3), dtype=np.uint8) for _ in range(n_chunks)]
     prof = _profiler() if profile else contextlib.nullcontext()
     torch.cuda.synchronize()
-    A.reset_launch_counts()
-    Q.reset_launch_counts()
+    _reset_counts()
     t0 = time.perf_counter()
     with prof:
         responses, times = streaming_inference_frames(
@@ -1854,8 +1922,7 @@ def phase_slice(cfg, model, n_chunks: int, stream, expect: dict, profile: Path |
         )
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {**A.launch_counts, **Q.launch_counts,
-                **{f"int8_gemm/{k}": v for k, v in Q.path_counts.items()}}
+    launches = _counts()
     if profile:
         _report_profile(prof, wall, profile)
     for i, t in enumerate(times):
@@ -1909,8 +1976,6 @@ def phase_bench_route(cfg, model, n_chunks: int, stream, expect: dict,
     import torch
 
     from streaming_vlm_tpu_torch.models.qwen25_vl.model import encode_video_frames
-    from streaming_vlm_tpu_torch.ops import attention as A
-    from streaming_vlm_tpu_torch.ops import quant as Q
     from streaming_vlm_tpu_torch.serve import StreamingSession
     from streaming_vlm_tpu_torch.streaming.protocol import FakeTokenizer
     from streaming_vlm_tpu_torch.utils.buckets import bucket_for
@@ -1934,8 +1999,7 @@ def phase_bench_route(cfg, model, n_chunks: int, stream, expect: dict,
     prof = _profiler() if profile else contextlib.nullcontext()
     lat, info, embeds = [], [], None
     torch.cuda.synchronize()
-    A.reset_launch_counts()
-    Q.reset_launch_counts()
+    _reset_counts()
     t_all = time.perf_counter()
     with prof:
         for i in range(n_chunks):
@@ -1956,8 +2020,7 @@ def phase_bench_route(cfg, model, n_chunks: int, stream, expect: dict,
                          bucket_for(n_real, stream.prefill_buckets)))
         torch.cuda.synchronize()
     wall = time.perf_counter() - t_all
-    launches = {**A.launch_counts, **Q.launch_counts,
-                **{f"int8_gemm/{k}": v for k, v in Q.path_counts.items()}}
+    launches = _counts()
     if profile:
         _report_profile(prof, wall, profile)
     for i, (ms, (n, kv, pre, post, b)) in enumerate(zip(lat, info)):
@@ -2003,8 +2066,6 @@ def phase_multistream(cfg, model, stream, B: int, expect: dict, profile: Path | 
     import torch
 
     from streaming_vlm_tpu_torch.config import SamplingConfig
-    from streaming_vlm_tpu_torch.ops import attention as A
-    from streaming_vlm_tpu_torch.ops import quant as Q
     from streaming_vlm_tpu_torch.streaming.multistream import MultiStreamEngine
     from streaming_vlm_tpu_torch.streaming.protocol import FakeTokenizer, PromptBuilder
     from streaming_vlm_tpu_torch.video.ingest import patchify_frames
@@ -2045,8 +2106,7 @@ def phase_multistream(cfg, model, stream, B: int, expect: dict, profile: Path | 
     walls, frames, evictions, cached = [], 0, [], []
     prof = _profiler() if profile else contextlib.nullcontext()
     torch.cuda.synchronize()
-    A.reset_launch_counts()
-    Q.reset_launch_counts()
+    _reset_counts()
     t_all = time.perf_counter()
     with prof:
         for i in range(MS_ROUNDS):
@@ -2070,8 +2130,7 @@ def phase_multistream(cfg, model, stream, B: int, expect: dict, profile: Path | 
             assert max(e.cached for e in ms.engines) <= stream.kv_capacity
         torch.cuda.synchronize()
     wall = time.perf_counter() - t_all
-    launches = {**A.launch_counts, **Q.launch_counts,
-                **{f"int8_gemm/{k}": c for k, c in Q.path_counts.items()}}
+    launches = _counts()
     busy = None
     if profile:
         _report_profile(prof, wall, profile)
@@ -2126,18 +2185,21 @@ def _client_segs(cfg, builder, i: int, query: str, grid):
 
 def _counts():
     from streaming_vlm_tpu_torch.ops import attention as A
+    from streaming_vlm_tpu_torch.ops import linear_ce as CE
     from streaming_vlm_tpu_torch.ops import quant as Q
 
-    return {**A.launch_counts, **Q.launch_counts,
+    return {**A.launch_counts, **Q.launch_counts, **CE.launch_counts,
             **{f"int8_gemm/{k}": v for k, v in Q.path_counts.items()}}
 
 
 def _reset_counts():
     from streaming_vlm_tpu_torch.ops import attention as A
+    from streaming_vlm_tpu_torch.ops import linear_ce as CE
     from streaming_vlm_tpu_torch.ops import quant as Q
 
     A.reset_launch_counts()
     Q.reset_launch_counts()
+    CE.reset_launch_counts()
 
 
 SPEC_CHUNKS = 8  # slice L: chunks, each run four ways from one state
@@ -2501,6 +2563,585 @@ def phase_server(cfg, model, stream, expect: tuple) -> tuple:
     return launches, stats
 
 
+# ---- training: K1's log-sum-exp, K1-bwd and CE-row (phase 3), the
+# training gradients against the plain path (phase 4), slice M (phase 5)
+
+# K1-bwd (bf16 out, f32 accumulation) against the plain algebra in f32 from
+# the same bf16 inputs: two bf16 ulps of each value (2^-7 each, relative)
+# plus two of the tensor's largest |value|
+BWD_TOL = 2.0**-6
+BWD_T = (64, 200, 640, 2048, 8192)  # ragged causal edges: 200 and 640 are off the 64-row tiles
+BWD_PLAIN_ROWS = 512
+# CE-row against the plain f32 row pass: the NLL to 1e-5 relative (plus
+# 1e-5 of the largest), dlog to 1e-5 of each value (no absolute floor: at
+# logits of scale 4 most of a row's probabilities are far below 1e-6, and a
+# kernel that dropped them must fail). Logits N(0, 1) times each of
+# CE_SCALES: 4 spreads a row's probabilities over ~17 decades, 1 is about the
+# main path's (random weights: the 0.02-scaled lm_head over a normed hidden
+# state of width 3584 gives logits of ~1.2), where each is ~1/V
+CE_NLL_TOL, CE_DLOG_RTOL = 1e-5, 1e-5
+CE_SCALES = (4.0, 1.0)
+LSE_TOL = 1e-5  # K1's log-sum-exp against its plain version, relative (plus 1e-5 of the largest)
+CE_ROWS = (1, 77, 2048)
+VOCAB_7B = 152064
+# phase 4: sft_loss at 7B widths, REF_LAYERS decoder layers, through the
+# kernels in bf16 against the plain path in f32: the loss's relative error
+# and each text gradient leaf's relative L2 error, each within its limit or
+# within REF_NOISE_FACTOR times the plain bf16 path's own error (bf16
+# rounding alone takes a small gradient, as the last layer's q_proj, to
+# ~4.9e-2)
+TRAIN_REF_T = 2048
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 2e-2, 5e-2
+# slice M: the decoder cut to TRAIN_LAYERS layers, a synthetic clip of
+# TRAIN_CLIP seconds at 476x840, TRAIN_CLIP_FPS frames a second
+TRAIN_LAYERS = 4
+TRAIN_CLIP, TRAIN_CLIP_FPS = 10, 4
+
+
+def _check_bwd(got, want, cases):
+    atol = BWD_TOL * float(want.float().abs().max())
+    return _check("K1-bwd", got, want, cases, atol, BWD_TOL)
+
+
+def _phase_k1_lse(g, ka, va) -> dict:
+    """K1's log-sum-exp output against `prefill_lse_plain`: rows the plan
+    keeps whole and rows it splits (merged by the merge pass), both arena
+    modes; K1's output with the LSE asked for is bitwise its output
+    without. Times K1 at the training forward's shape (T = 8192, visible
+    0) with and without the LSE."""
+    import torch
+
+    from streaming_vlm_tpu_torch.ops import attention as A
+
+    dev = "cuda"
+    H, Hkv, hd, C = 28, 4, 128, ka.shape[0]
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ang = torch.randn(C, hd // 2, generator=g, device=dev)
+    acos2 = torch.cat([ang.cos(), ang.cos()], -1).contiguous()
+    asin2 = torch.cat([ang.sin(), ang.sin()], -1).contiguous()
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    err = 0.0
+    for T, vis in ((200, 0), (64, 4001), (640, C - 640), (2048, 0)):
+        q, ks, vs = rn(T, H, hd), rn(T, Hkv, hd), rn(T, Hkv, hd)
+        split = len(A.prefill_plan(T, H // Hkv, Hkv, vis, n_sms).merges) > 0
+        for mode, (c2, s2) in (("prerotated", (None, None)), ("raw", (acos2, asin2))):
+            lse = torch.full((T, H), math.nan, device=dev)
+            out = A.streaming_prefill_attention(q, ka, va, c2, s2, ks, vs, vis, lse=lse)
+            ref = A.prefill_lse_plain(q, ka, c2, s2, ks, vis)
+            cases = dict(T=T, visible_len=vis, mode=mode, split_rows=split)
+            err = max(err, _check("K1", lse, ref, dict(cases, out="lse"),
+                                  LSE_TOL * float(ref.abs().max()), LSE_TOL))
+            _check_equal("K1", out, A.streaming_prefill_attention(q, ka, va, c2, s2, ks, vs, vis),
+                         dict(cases, out="with lse"))
+    r = dict(max_abs_err=err)
+    T = 8192
+    q, k, v = rn(T, H, hd), rn(T, Hkv, hd), rn(T, Hkv, hd)
+    lse = torch.empty(T, H, device=dev)
+    with_lse = lambda: A.streaming_prefill_attention(q, k, v, None, None, k, v, 0, lse=lse)  # noqa: E731
+    without = lambda: A.streaming_prefill_attention(q, k, v, None, None, k, v, 0)  # noqa: E731
+    r["t8192_device_ms"] = _device_ms(with_lse, n=5)
+    r["t8192_device_ms_without_lse"] = _device_ms(without, n=5)
+    print(f"  K1 with its log-sum-exp, T={T} visible 0: device {r['t8192_device_ms']:.4f} ms "
+          f"(without it {r['t8192_device_ms_without_lse']:.4f} ms)")
+    return r
+
+
+def _phase_k1_bwd(g) -> dict:
+    """K1-bwd against `train_attention_bwd_plain` in f32 from the same bf16
+    inputs (O and the log-sum-exp from the plain forward, so that K1's own
+    checks stay apart), at T in BWD_T, and two calls bitwise equal; times at
+    T = 8192 beside K1's forward, the bound, SDPA's causal forward +
+    backward and, as the library call, aten's flash-attention backward from
+    its own forward's saved output and log-sum-exp over K and V repeated to
+    the H query heads (timed only; the sum of its dK and dV over each kv
+    head's G heads is not in its time)."""
+    import torch
+    import torch.nn.functional as F
+
+    from streaming_vlm_tpu_torch.ops import attention as A
+
+    dev = "cuda"
+    H, Hkv, hd = 28, 4, 128
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    err = 0.0
+    for T in BWD_T:
+        q, k, v, do = rn(T, H, hd), rn(T, Hkv, hd), rn(T, Hkv, hd), rn(T, H, hd)
+        with torch.no_grad():
+            o, lse2 = A.train_attention_plain(q.float(), k.float(), v.float(), BWD_PLAIN_ROWS,
+                                              return_lse=True)
+        o = o.reshape(T, H, hd).to(torch.bfloat16)
+        got = A.attention_bwd(q, k, v, o, lse2, do)
+        want = A.train_attention_bwd_plain(q, k, v, o, lse2, do, BWD_PLAIN_ROWS)
+        again = A.attention_bwd(q, k, v, o, lse2, do)
+        for name, a, b, c in zip(("dq", "dk", "dv"), got, want, again):
+            err = max(err, _check_bwd(a, b, dict(T=T, grad=name)))
+            _check_equal("K1-bwd", c, a, dict(T=T, grad=name, repeat=True))
+        del want, got, again
+        torch.cuda.empty_cache()
+    r = dict(max_abs_err=err, T=T)
+    lse = torch.empty(T, H, device=dev)
+    fwd = lambda: A.streaming_prefill_attention(q, k, v, None, None, k, v, 0, lse=lse)  # noqa: E731
+    bwd = lambda: A.attention_bwd(q, k, v, o, lse2, do)  # noqa: E731
+    r["ms"], r["device_ms"] = _median_ms(bwd, reps=5, batch=3), _device_ms(bwd, n=5)
+    r["fwd_ms"], r["fwd_device_ms"] = _median_ms(fwd, reps=5, batch=3), _device_ms(fwd, n=5)
+    r["plain_ms"] = _median_ms(lambda: A.train_attention_bwd_plain(q, k, v, o, lse2, do,
+                                                                   BWD_PLAIN_ROWS), reps=2, batch=1)
+    rep = lambda x: x.repeat_interleave(H // Hkv, dim=1).transpose(0, 1)[None].contiguous()  # noqa: E731
+    qq, kk, vv = (x.requires_grad_() for x in (q.transpose(0, 1)[None].contiguous(), rep(k), rep(v)))
+    dd = do.transpose(0, 1)[None].contiguous()
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+        torch.autograd.grad(out, (qq, kk, vv), dd)
+
+    with torch.no_grad():
+        r["sdpa_fwd_ms"] = _median_ms(
+            lambda: F.scaled_dot_product_attention(qq, kk, vv, is_causal=True), reps=5, batch=3)
+    r["sdpa_fwd_bwd_ms"] = _median_ms(sdpa_fwd_bwd, reps=5, batch=3)
+    with torch.no_grad():
+        fo, flse, cq, ck, mq, mk, seed, off, _ = torch.ops.aten._scaled_dot_product_flash_attention(
+            qq, kk, vv, 0.0, True)
+        r["library_ms"] = _median_ms(
+            lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                dd, qq, kk, vv, fo, flse, cq, ck, mq, mk, 0.0, True, seed, off), reps=5, batch=3)
+    del qq, kk, vv, dd, fo, flse
+    flops = 5 * 2 * H * hd * T * (T + 1) / 2  # S, dP, dV, dK, dQ over the causal half
+    r["bound_ms"], r["bound_by"] = _bound(_nbytes(q, k, v, o, do, lse2) + _nbytes(q, k, v), flops)
+    if _TIMED:
+        r["tflops"] = flops / ((r["device_ms"] or r["ms"]) * 1e-3) / 1e12
+        print(f"  K1-bwd T={T}: kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f} ms, "
+              f"{r['tflops']:.1f} TFLOP/s of the 5 products), plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}); K1 forward with lse {r['fwd_ms']:.4f} ms "
+              f"(device {r['fwd_device_ms']:.4f}); K1 + K1-bwd {r['fwd_ms'] + r['ms']:.4f} ms "
+              f"against SDPA causal forward + backward {r['sdpa_fwd_bwd_ms']:.4f} ms (forward "
+              f"{r['sdpa_fwd_ms']:.4f}; timed only); aten flash-attention backward "
+              f"{r['library_ms']:.4f} ms (timed only)")
+    del q, k, v, o, do, lse2, lse
+    torch.cuda.empty_cache()
+    return r
+
+
+def _phase_ce_rows(g) -> dict:
+    """CE-row against `ce_rows_plain` at the 7B vocabulary, rows in CE_ROWS,
+    logits at each of CE_SCALES, targets 0 and V - 1 and masked rows among
+    them, with and without the gradient; times [2048, V] (scale 1) beside its byte bound and F.cross_entropy's
+    forward + backward on the same logits (another function, timed only)."""
+    import torch
+    import torch.nn.functional as F
+
+    from streaming_vlm_tpu_torch.ops import linear_ce as CE
+
+    dev, V = "cuda", VOCAB_7B
+    err = 0.0
+    for rows in CE_ROWS:
+        for scale in CE_SCALES:
+            logits = torch.randn(rows, V, generator=g, device=dev) * scale
+            tgt = torch.randint(0, V, (rows,), generator=g, device=dev)
+            tgt[0] = V - 1 if rows == 1 else 0
+            if rows > 1:
+                tgt[1] = V - 1
+            mask = (torch.rand(rows, generator=g, device=dev) > 0.25).float()
+            mask[0] = 1.0
+            if rows > 2:
+                mask[2] = 0.0
+            for grads in (False, True):
+                a, b = logits.clone(), logits.clone()
+                nll = CE.ce_rows(a, tgt, mask, grads)
+                ref = CE.ce_rows_plain(b, tgt, mask, grads)
+                cases = dict(rows=rows, V=V, scale=scale, grads=grads)
+                err = max(err, _check("CE-row", nll, ref, dict(cases, out="nll"),
+                                      CE_NLL_TOL * float(ref.abs().max()), CE_NLL_TOL))
+                if grads:
+                    err = max(err, _check("CE-row", a, b, dict(cases, out="dlog"), 0.0,
+                                          CE_DLOG_RTOL))
+                else:
+                    _check_equal("CE-row", a, logits, dict(cases, out="logits untouched"))
+            del a, b
+    r = dict(max_abs_err=err, rows=rows, V=V, library_ms=None)
+    call = lambda: CE.ce_rows(logits, tgt, mask, True)  # noqa: E731  (dlog in place each call)
+    r["ms"], r["device_ms"] = _median_ms(call, reps=5, batch=3), _device_ms(call, n=5)
+    r["plain_ms"] = _median_ms(lambda: CE.ce_rows_plain(logits, tgt, mask, True), reps=3, batch=1)
+    x = logits.clone().requires_grad_()
+    r["cross_entropy_fwd_bwd_ms"] = _median_ms(lambda: torch.autograd.grad(
+        (F.cross_entropy(x, tgt, reduction="none") * mask).sum(), x), reps=3, batch=1)
+    del x
+    # one read of the unmasked rows, one write of every row's dlog
+    unmasked = int((mask != 0).sum())
+    r["bound_ms"], r["bound_by"] = _bound((unmasked + rows) * V * 4 + _nbytes(tgt, mask) + rows * 4,
+                                          0)
+    if _TIMED:
+        print(f"  CE-row [{rows}, {V}] with the gradient: kernel {r['ms']:.4f} ms (device "
+              f"{r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+              f"ms ({r['bound_by']}); F.cross_entropy forward + backward "
+              f"{r['cross_entropy_fwd_bwd_ms']:.4f} ms (timed only)")
+    del logits
+    torch.cuda.empty_cache()
+    return r
+
+
+@contextlib.contextmanager
+def _plain_train():
+    """Bind the plain versions where training calls its kernels: the
+    decoder's attention (`train_attention_plain`, autograd through plain
+    ops, 512-row blocks at T >= 2048) and the fused CE's row pass
+    (`ce_rows_plain`). Phase 4's reference; the trainer has no such route."""
+    from streaming_vlm_tpu_torch.models.qwen25_vl import language as lang
+    from streaming_vlm_tpu_torch.ops import attention as A
+    from streaming_vlm_tpu_torch.ops import linear_ce as CE
+    from streaming_vlm_tpu_torch.train import step as S
+
+    kernels = lang.train_attention, S.ce_rows
+    lang.train_attention, S.ce_rows = A.train_attention_plain, CE.ce_rows_plain
+    try:
+        yield
+    finally:
+        lang.train_attention, S.ce_rows = kernels
+
+
+def phase_train_reference(cfg) -> dict:
+    """sft_loss at the config's widths with the decoder cut to REF_LAYERS
+    layers, T = TRAIN_REF_T, random bf16 weights: the loss and its text
+    gradients through the kernels (K1 with its log-sum-exp, K1-bwd, CE-row)
+    against the same loss through the plain path in f32 on the card (the
+    same weights, cast), as the loss's relative error and each gradient
+    leaf's relative L2 error, each within its limit (TRAIN_LOSS_TOL,
+    TRAIN_GRAD_TOL) or within REF_NOISE_FACTOR times the plain path's own
+    error in bf16 (the noise floor). Checks the kernels' launches."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from streaming_vlm_tpu_torch.models.qwen25_vl.model import init_params
+    from streaming_vlm_tpu_torch.train import step as S
+
+    tcfg = dataclasses.replace(cfg.text, num_hidden_layers=REF_LAYERS)
+    rcfg = dataclasses.replace(cfg, text=tcfg)
+    model = init_params(rcfg, torch.Generator(device="cuda").manual_seed(3), device="cuda",
+                        dtype=torch.bfloat16)
+    T, D = TRAIN_REF_T, tcfg.hidden_size
+    n_vis = T // 8
+    rng = np.random.default_rng(11)
+    ids = rng.integers(0, tcfg.vocab_size, (1, T))
+    labels = ids.copy()
+    labels[:, : 2 * T // 5] = -100
+    slots = np.sort(rng.choice(2 * T // 5, n_vis, replace=False))[None]
+    slots[:, -2:] = T  # dropped
+    batch = {"input_ids": torch.from_numpy(ids).cuda(), "labels": torch.from_numpy(labels).cuda(),
+             "positions": torch.arange(T, dtype=torch.float32, device="cuda").expand(1, 3, T)
+             .contiguous(),
+             "vis_embeds": (torch.from_numpy(rng.standard_normal((1, n_vis, D))).float() * 0.02)
+             .cuda(),
+             "vis_slots": torch.from_numpy(slots).cuda()}
+
+    def loss_and_grads(m, dtype):
+        params = S.trained_params(m)
+        b = dict(batch, vis_embeds=batch["vis_embeds"].to(dtype))
+        loss, count = S.sft_loss(rcfg, m, b)
+        grads = torch.autograd.grad(loss, params)
+        names = [n for n, _ in m.text.named_parameters()]
+        return float(loss), int(count), dict(zip(names, (x.float() for x in grads)))
+
+    _reset_counts()
+    loss, count, grads = loss_and_grads(model, torch.bfloat16)
+    torch.cuda.synchronize()
+    launched = _counts()
+    with _plain_train():
+        loss16, _, grads16 = loss_and_grads(model, torch.bfloat16)
+        model32 = copy.deepcopy(model).float()
+        del model
+        torch.cuda.empty_cache()
+        loss32, _, grads32 = loss_and_grads(model32, torch.float32)
+    del model32
+    expect = {"streaming_prefill_attention": REF_LAYERS, "attention_bwd": REF_LAYERS,
+              "ce_rows": -(-(T - 1) // S.FUSED_CE_CHUNK)}
+    got = {k: launched[k] for k in expect}
+    if got != expect:
+        raise AssertionError(f"training forward + backward: launches {got}, expected {expect}")
+
+    def rel_l2(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    leaf = {n: (rel_l2(grads[n], grads32[n]), rel_l2(grads16[n], grads32[n])) for n in grads32}
+    worst = max(leaf, key=lambda n: leaf[n][0])
+    r = dict(T=T, layers=REF_LAYERS, labeled_tokens=count,
+             loss_rel_err=abs(loss - loss32) / abs(loss32),
+             loss_rel_err_plain_bf16=abs(loss16 - loss32) / abs(loss32),
+             grad_rel_l2_max=leaf[worst][0], grad_rel_l2_max_leaf=worst,
+             grad_rel_l2_plain_bf16_max=max(v[1] for v in leaf.values()), launches=got)
+    ok = (r["loss_rel_err"] <= max(TRAIN_LOSS_TOL, REF_NOISE_FACTOR * r["loss_rel_err_plain_bf16"])
+          and all(a <= max(TRAIN_GRAD_TOL, REF_NOISE_FACTOR * b) for a, b in leaf.values()))
+    print(f"  sft_loss, {REF_LAYERS} layers, T={T}, {count} labeled tokens: loss {loss:.6f} "
+          f"(kernels, bf16) vs {loss32:.6f} (plain, f32): rel err {r['loss_rel_err']:.3e} "
+          f"(plain bf16 {r['loss_rel_err_plain_bf16']:.3e}; limit {TRAIN_LOSS_TOL} or "
+          f"{REF_NOISE_FACTOR} x plain bf16); text gradients, rel L2 err by leaf (kernels / plain "
+          f"bf16; limit {TRAIN_GRAD_TOL} or {REF_NOISE_FACTOR} x plain bf16):")
+    for n, (a, b) in leaf.items():
+        print(f"    {n}: {a:.3e} / {b:.3e}")
+    print(f"  launches {got} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("training gradients through the kernels disagree with the plain path")
+    torch.cuda.empty_cache()
+    return r
+
+
+class _RawClip:
+    """A clip of raw uint8 RGB frames in a .npz (`frames` [n, H, W, 3],
+    `fps`) with what ChunkedVideoSource reads of ingest's VideoReader: frame
+    i spans [i / fps, (i + 1) / fps), and `fetch` returns frames at the
+    clip's own size (it refuses a resize)."""
+
+    def __init__(self, path: str):
+        import numpy as np
+
+        with np.load(path) as z:
+            self._frames = z["frames"]
+            fps = float(z["fps"])
+        self.n_frames, self.height, self.width = (int(d) for d in self._frames.shape[:3])
+        self.avg_fps = fps
+        i = np.arange(self.n_frames, dtype=np.float64)
+        self.frame_ts = np.stack([i / fps, (i + 1) / fps], -1)
+
+    def fetch(self, indices, out_w: int, out_h: int):
+        import numpy as np
+
+        if (out_w, out_h) != (self.width, self.height):
+            raise ValueError(f"a raw clip is read at its own size {self.width}x{self.height}, "
+                             f"not {out_w}x{out_h}")
+        return self._frames[np.asarray(indices, np.int64)]
+
+
+@contextlib.contextmanager
+def _raw_clips():
+    """Bind `_RawClip` in place of ingest's VideoReader for slice M: the
+    card's machine has no FFmpeg libraries, so its clips are raw frames."""
+    from streaming_vlm_tpu_torch.video import ingest
+
+    reader = ingest.VideoReader
+    ingest.VideoReader = _RawClip
+    try:
+        yield
+    finally:
+        ingest.VideoReader = reader
+
+
+def _train_annotation(root: Path, h: int, w: int, seconds: int, fps: int) -> str:
+    """A raw clip (a moving gradient, `_RawClip`'s .npz) and a jsonl of one
+    example over it: one phrase a second, a qa question at 2-3 s."""
+    import numpy as np
+
+    y, x = np.mgrid[0:h, 0:w]
+    frames = np.stack([np.stack([(x + y + 8 * i) & 0xFF, (64 + x // 2 + 4 * i) & 0xFF,
+                                 (128 + y // 2) & 0xFF], -1) for i in range(seconds * fps)])
+    clip = root / "clip.npz"
+    with open(clip, "wb") as f:
+        np.savez(f, frames=frames.astype(np.uint8), fps=np.float64(fps))
+    text_stream = [[i + 0.1, i + 0.8, f"phrase {i} of the stream"] for i in range(seconds)]
+    conv = [
+        {"role": "user", "content": [{"type": "video", "video": str(clip), "video_start": 0.0,
+                                      "video_end": float(seconds), "previous": "earlier words"}]},
+        {"role": "assistant", "content": [{"type": "text", "text_stream": text_stream,
+                                           "qa_stream": [[2.0, 3.0, " What moves?",
+                                                          "A gradient."]]}]},
+    ]
+    ann = root / "train.jsonl"
+    ann.write_text(json.dumps(conv) + "\n")
+    return str(ann)
+
+
+def phase_train(cfg) -> tuple:
+    """Slice M: the Trainer at the config's widths with the decoder cut to
+    TRAIN_LAYERS layers (embed, lm_head and the frozen vision tower whole),
+    random bf16 weights, over a StreamDataset of one synthetic 476x840 clip
+    (TRAIN_CLIP s): grad_accum 2, max_steps 2 (4 micro-steps), remat
+    "full", prefetch 2, no save. Asserts finite losses and gradient norms,
+    labeled tokens, and every attention through K1 (twice a layer a
+    micro-step: remat) and K1-bwd, CE-row once a 2048-row chunk. Prints the
+    micro-step time, tokens/s, the peak memory beside the reckoned one, and
+    K1-bwd's and CE-row's device time a call (one more micro-step, traced).
+    Returns (launch counts, stats)."""
+    import shutil
+
+    import torch
+
+    from streaming_vlm_tpu_torch.data.dataset import StreamDataset
+    from streaming_vlm_tpu_torch.models.qwen25_vl.model import init_params
+    from streaming_vlm_tpu_torch.streaming.protocol import FakeTokenizer
+    from streaming_vlm_tpu_torch.train import step as S
+    from streaming_vlm_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    L = TRAIN_LAYERS
+    mcfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_hidden_layers=L))
+    t0 = time.perf_counter()
+    model = init_params(mcfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
+                        dtype=torch.bfloat16)
+    root = REPO / "build" / "slice_m"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    ds = StreamDataset([_train_annotation(root, 476, 840, TRAIN_CLIP, TRAIN_CLIP_FPS)], cfg=mcfg,
+                       encode=FakeTokenizer(mcfg.tokens))
+    ex = ds[0]
+    tc = TrainConfig(output_dir=str(root / "run"), grad_accum=2, max_steps=2, remat="full",
+                     prefetch=2, save_steps=10**9, warmup_steps=1,
+                     vis_buckets=TrainConfig().vis_buckets + (8192,))
+    tr = Trainer(mcfg, model, tc)
+    t_pad = tr._prepare_batch(ex)["input_ids"].shape[1]
+    n_text = sum(p.numel() for p in model.text.parameters())
+    print(f"  {mcfg.name}, {L} layers: {n_text / 1e9:.3f} B text parameters + the frozen tower, "
+          f"random bf16, in {time.perf_counter() - t0:.2f} s; the example: {len(ex.input_ids)} "
+          f"tokens ({len(ex.vision_slots)} vision, {int((ex.labels != -100).sum())} labeled, "
+          f"{len(ex.frames)} turns) -> bucket {t_pad}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    tr.train(ds, resume=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    rows = [json.loads(x) for x in (root / "run" / "metrics.jsonl").read_text().splitlines()]
+    micro = len(rows)
+    chunks = -(-(t_pad - 1) // S.FUSED_CE_CHUNK)
+    expect = {"streaming_prefill_attention": 2 * L * micro, "attention_bwd": L * micro,
+              "ce_rows": chunks * micro}
+    got = {k: counts[k] for k in expect}
+    for rw in rows:
+        print(f"    step {rw['step']} (opt_step {rw['opt_step']}): loss {rw['loss']:.6f}, grad_norm "
+              f"{rw['grad_norm']:.6f}, labeled {rw['labeled_tokens']}, {rw['step_time'] * 1e3:.1f} ms")
+    ok = (micro == 4 and all(math.isfinite(rw["loss"]) and math.isfinite(rw["grad_norm"])
+                             and rw["labeled_tokens"] > 0 for rw in rows) and got == expect)
+    # K1-bwd's and CE-row's device time a call: one more micro-step, traced
+    batch = tr._prepare_batch(ex)
+    with _profiler() as prof:
+        loss, _ = S.sft_loss(mcfg, model, batch, remat="full")
+        torch.autograd.grad(loss, tr.params)
+        torch.cuda.synchronize()
+    dev_ms, by_kernel = {}, []
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        if str(e.device_type).endswith("CUDA") and t > 0:
+            by_kernel.append((t / 1e3, e.count, e.key))
+            for key, part in (("attention_bwd", "attn_bwd_"), ("ce_rows", "ce_rows_kernel")):
+                if part in e.key:
+                    dev_ms[key] = dev_ms.get(key, 0.0) + t / 1e3
+    by_kernel.sort(reverse=True)
+    print(f"  one more micro-step, traced (no optimizer update): device busy "
+          f"{sum(r[0] for r in by_kernel):.1f} ms; by kernel:")
+    for ms, n, key in by_kernel[:10]:
+        print(f"    {ms:10.3f} ms {n:6d} calls  {key[:110]}")
+    step_ms = [rw["step_time"] * 1e3 for rw in rows]
+    p50_s, n_labeled = statistics.median(step_ms) / 1e3, int((ex.labels != -100).sum())
+    # the text's parameters, gradients, MultiSteps' mean, mu, nu and the
+    # boundary's update list in bf16, the frozen tower, and the fused CE's
+    # transients: an f32 logits chunk, its bf16 copy, the f32 dW
+    V, D = mcfg.text.vocab_size, mcfg.text.hidden_size
+    n_tower = sum(p.numel() for p in model.vision.parameters())
+    reckoned = n_text * 2 * 6 + n_tower * 2 + S.FUSED_CE_CHUNK * V * 6 + V * D * 4
+    stats = dict(layers=L, tokens=len(ex.input_ids), bucket=t_pad, micro_steps=micro,
+                 wall_s=wall, micro_step_ms=step_ms, micro_step_p50_ms=statistics.median(step_ms),
+                 labeled=n_labeled, tokens_per_s=len(ex.input_ids) / p50_s,
+                 labeled_tokens_per_s=n_labeled / p50_s, bucket_tokens_per_s=t_pad / p50_s,
+                 max_memory_allocated=peak, reckoned_bytes=reckoned,
+                 attention_bwd_device_ms_a_call=dev_ms.get("attention_bwd", 0.0) / L,
+                 ce_rows_device_ms_a_call=dev_ms.get("ce_rows", 0.0) / chunks,
+                 losses=[rw["loss"] for rw in rows], grad_norms=[rw["grad_norm"] for rw in rows],
+                 launches=got)
+    print(f"  slice M: {micro} micro-steps in {wall:.2f} s; micro-step p50 "
+          f"{stats['micro_step_p50_ms']:.1f} ms; {stats['tokens_per_s']:.1f} tokens/s over the "
+          f"example's {len(ex.input_ids)} tokens ({stats['labeled_tokens_per_s']:.1f} over its "
+          f"{n_labeled} labeled, {stats['bucket_tokens_per_s']:.1f} over the {t_pad} bucket); "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB (reckoned {reckoned / 2**30:.2f} "
+          f"GiB); device a call: K1-bwd {stats['attention_bwd_device_ms_a_call']:.4f} ms, CE-row "
+          f"{stats['ce_rows_device_ms_a_call']:.4f} ms; launches {got} (expected {expect}) "
+          f"{'ok' if ok else 'FAIL'}")
+    del tr, model, batch, loss
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("slice M: a loss or gradient norm is not finite, no token is "
+                             "labeled, or a kernel's launches are off")
+    return counts, stats
+
+
+def _narrow_cfg():
+    """A narrow model the kernels accept (head_dim 128, G = 2): hidden 512, 4
+    heads, 2 kv heads, 2 layers, vocab 4096, the tiny tower widened to 512
+    out."""
+    from streaming_vlm_tpu_torch.config import qwen25_vl_tiny
+
+    base = qwen25_vl_tiny(vocab_size=4096)
+    text = dataclasses.replace(base.text, hidden_size=512, intermediate_size=1024,
+                               num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                               head_dim=128, mrope_section=(16, 24, 24))
+    return dataclasses.replace(base, text=text,
+                               vision=dataclasses.replace(base.vision, out_hidden_size=512))
+
+
+def phase_train_resume() -> dict:
+    """The Trainer's resume and prefetch on the card, bitwise, at
+    `_narrow_cfg`'s widths (bf16, K1 / K1-bwd / CE-row), grad_accum 2: 6
+    micro-steps straight through (prefetch 2), against 4 that save at each
+    optimizer boundary (2 and 4; the first update runs at lr 0, so the
+    parameters first move at 4), then a fresh Trainer and model resuming
+    from checkpoint-4 for the last 2 (prefetch 0). The final parameters
+    must be equal bit for bit, and differ from the initial ones."""
+    import shutil
+
+    import torch
+
+    from streaming_vlm_tpu_torch.config import VideoConfig
+    from streaming_vlm_tpu_torch.data.dataset import StreamDataset
+    from streaming_vlm_tpu_torch.models.qwen25_vl.model import init_params
+    from streaming_vlm_tpu_torch.streaming.protocol import FakeTokenizer
+    from streaming_vlm_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = _narrow_cfg()
+    root = REPO / "build" / "slice_m_resume"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    ds = StreamDataset([_train_annotation(root, 56, 56, 4, 4)], cfg=cfg,
+                       encode=FakeTokenizer(cfg.tokens),
+                       video=VideoConfig(video_min_pixels=28 * 28, video_max_pixels=4 * 28 * 28))
+    kw = dict(grad_accum=2, learning_rate=1e-3, warmup_steps=1, seq_buckets=(256, 512),
+              vis_buckets=(64,), remat="full")
+
+    def run(name, max_steps, prefetch, resume):
+        model = init_params(cfg, torch.Generator(device="cuda").manual_seed(5), device="cuda",
+                            dtype=torch.bfloat16)
+        tr = Trainer(cfg, model, TrainConfig(output_dir=str(root / name), max_steps=max_steps,
+                                             save_steps=1, prefetch=prefetch, **kw))
+        tr.train(ds, resume=resume)
+        return tr
+
+    straight = run("straight", 3, 2, False)
+    run("resumed", 2, 0, False)
+    resumed = run("resumed", 3, 0, True)
+    a, b = straight.model.state_dict(), resumed.model.state_dict()
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    init = init_params(cfg, torch.Generator(device="cuda").manual_seed(5), device="cuda",
+                       dtype=torch.bfloat16).state_dict()
+    moved = sum(not torch.equal(a[k], init[k]) for k in a)
+    losses = [json.loads(x)["loss"] for x in (root / "straight" / "metrics.jsonl").read_text()
+              .splitlines()]
+    r = dict(micro_steps=straight.step, resumed_at=4, tensors=len(a), moved=moved, differ=differ,
+             losses=losses)
+    ok = not differ and straight.step == resumed.step == 6 and moved > 0
+    print(f"  resume check ({cfg.text.hidden_size} wide, {cfg.text.num_hidden_layers} layers, "
+          f"vocab {cfg.text.vocab_size}): 6 micro-steps straight (prefetch 2) against 4 + resume "
+          f"+ 2 (prefetch 0): {len(a) - len(differ)} of {len(a)} tensors bitwise equal ({moved} "
+          f"moved by training); losses {losses} {'ok' if ok else 'FAIL'}")
+    shutil.rmtree(root, ignore_errors=True)
+    if not ok:
+        raise AssertionError(f"resume: the resumed run's parameters differ: {differ[:8]}")
+    return r
+
+
 def phase_mutants() -> dict:
     """For each fault in MUTANTS: copy the port, this script and the
     checkout's compiled kernel objects into build/mutants/<i>/ (git-
@@ -2566,7 +3207,7 @@ def phase_mutants() -> dict:
         kernels = {kernel} if isinstance(kernel, str) else set(kernel)
         lines = r.stdout.splitlines()
         checks = [x.strip() for x in lines
-                  if re.match(r"  K\d(-int4|-verify)?(\+K\d)*( merged)? \{", x)]
+                  if re.match(r"  (K\d(-int4|-verify|-bwd)?|CE-row)(\+K\d)*( merged)? \{", x)]
         mine = [x for x in checks if set(x.split(" ", 1)[0].split("+")) & kernels]
         failed = [x for x in checks if x.endswith("FAIL")]
         print(f"  mutant {name!r}: exit {r.returncode}, {len(failed)} checks failed")
@@ -2592,8 +3233,8 @@ def main() -> int:
     ap.add_argument("--profile", type=Path, metavar="DIR",
                     help="trace the slices with torch.profiler; kernel tables -> "
                          "DIR/profile_slice_{a,...,i}.txt")
-    ap.add_argument("--slices", default="ABCDEFGHIJKL",
-                    help="the slices of phase 5 to run (default all: ABCDEFGHIJKL)")
+    ap.add_argument("--slices", default="ABCDEFGHIJKLM",
+                    help="the slices of phase 5 to run (default all: ABCDEFGHIJKLM)")
     args = ap.parse_args()
     if not (REPO / "streaming_vlm_tpu_torch").is_dir():
         raise SystemExit("chip_smoke.py must run from a checkout of the repository")
@@ -2619,13 +3260,15 @@ def main() -> int:
     t0 = time.perf_counter()
     ptxas = {src: _ptxas_verbose(_kernels, src)
              for src in ("prefill_attention.cu", "decode_attention.cu", "decode_attention_raw.cu",
-                         "int8_gemm.cu", "int4_gemv.cu", "verify_attention.cu")}
+                         "int8_gemm.cu", "int4_gemv.cu", "verify_attention.cu", "attention_bwd.cu",
+                         "linear_ce.cu")}
     so = _kernels.build()
     _kernels.lib()
     print(f"  {so.name}: {time.perf_counter() - t0:.2f} s (nvcc {_kernels.build_seconds} s)")
     text = {src: _ptxas_text(p) for src, p in ptxas.items()}
     for what, src, kernel in (
-            ("K1", "prefill_attention.cu", "prefill_attention_kernel"),
+            ("K1", "prefill_attention.cu", "prefill_attention_kernelILb0E"),
+            ("K1 with its log-sum-exp", "prefill_attention.cu", "prefill_attention_kernelILb1E"),
             ("K2 (bf16 out, small block)", "decode_attention.cu", "decode_split_kernelILb1E"),
             ("K4", "decode_attention.cu", "decode_split_kernelILb0E"),
             ("K2-verify", "verify_attention.cu", "verify_tc_kernel"),
@@ -2634,14 +3277,18 @@ def main() -> int:
             ("K5 tiled, tile 128x256, bf16 out", "int8_gemm.cu", "gemm_tiled_kernelILi256E13__nv_bfloat16"),
             ("K5 tiled, tile 128x128, bf16 out", "int8_gemm.cu", "gemm_tiled_kernelILi128E13__nv_bfloat16"),
             ("K5 decode GEMV, bf16 in and out", "int8_gemm.cu", "gemv_kernelI13__nv_bfloat16S"),
-            ("K5-int4, one row tile (4 dtype forms)", "int4_gemv.cu", "Li1EE")):
+            ("K5-int4, one row tile (4 dtype forms)", "int4_gemv.cu", "Li1EE"),
+            ("K1-bwd dK/dV", "attention_bwd.cu", "attn_bwd_dkdv_kernel"),
+            ("K1-bwd dQ", "attention_bwd.cu", "attn_bwd_dq_kernel"),
+            ("K1-bwd D pass", "attention_bwd.cu", "attn_bwd_dot_kernel"),
+            ("CE-row", "linear_ce.cu", "ce_rows_kernel")):
         print(f"  {what} " + _ptxas_lines(text[src], kernel))
 
     print(f"[3/5] kernels vs plain versions (at {time.perf_counter() - t_start:.1f} s)")
     kstats = phase_kernels()
     print(f"  (at {time.perf_counter() - t_start:.1f} s)")
-    print("  phase 3 against copies of the port with K1, K2, K3, K5, K5-int4 or K2-verify broken "
-          "on purpose")
+    print("  phase 3 against copies of the port with K1, K2, K3, K5, K5-int4, K2-verify, K1-bwd "
+          "or CE-row broken on purpose")
     print("  " + json.dumps({"mutants": phase_mutants()}))
 
     from streaming_vlm_tpu_torch.config import StreamConfig, qwen2_vl_7b, qwen25_vl_7b
@@ -2661,6 +3308,8 @@ def main() -> int:
     phase_vision_reference(cfg2)
     print(f"  {cfg.name}: the spec-decode verify forward")
     r_verify = phase_verify_reference(cfg)
+    print(f"  {cfg.name}: training, sft_loss and its text gradients (K1, K1-bwd, CE-row)")
+    train_ref = phase_train_reference(cfg)
 
     print(f"[5/5] slices: the serving entry points at 7B width (at {time.perf_counter() - t_start:.1f} s)")
     t0 = time.perf_counter()
@@ -2828,6 +3477,17 @@ def main() -> int:
             {k1: L, k2: L * max_new, **k5(cfg2.vision.depth, 4)}, prof)
     del model
     torch.cuda.empty_cache()
+    # M: training (Trainer, StreamDataset, K1 + K1-bwd + CE-row), then the
+    # resume / prefetch check at narrow widths
+    if "M" in args.slices:
+        print(f"  (at {time.perf_counter() - t_start:.1f} s)")
+        print(f"  slice M: training, {cfg.name} widths with {TRAIN_LAYERS} decoder layers, "
+              f"random bf16 weights, a {TRAIN_CLIP} s 476x840 clip, grad_accum 2, max_steps 2, "
+              f"remat full, prefetch 2")
+        with _raw_clips():
+            by_slice["M"], slice_stats["M"] = phase_train(cfg)
+            slice_stats["M"]["resume"] = phase_train_resume()
+        slice_stats["M"]["reference"] = train_ref
     print("  " + json.dumps({"slices": slice_stats}))
 
     def launches(key):

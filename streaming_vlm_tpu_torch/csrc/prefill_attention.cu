@@ -60,6 +60,18 @@
 //     arena's row bound is the lanes' largest visible length, so a lane's
 //     tile that holds its own visible_len may read its later (finite,
 //     masked) slots.
+//   * training: the forward of causal self-attention is this kernel at
+//     visible 0 (ops/attention.py `train_attention`), and its backward
+//     (csrc/attention_bwd.cu, K1-bwd) needs each query row's log-sum-exp.
+//     Given an `lse` pointer, the kernel writes it for every (lane, token,
+//     head) as f32 in K1's log2 space: lse2 = m + log2(l) over the row's
+//     scaled logits (q * softmax-scale * log2(e), q rounded to bf16), so
+//     that P = exp2(s2 - lse2); the natural log-sum-exp is lse2 * ln(2).
+//     A row the plan splits gets it from the merge pass. The kernel is a
+//     template on whether it writes the LSE, so serving (a null pointer)
+//     runs the instantiation without it, the code it ran before the LSE
+//     existed: a runtime branch in the epilogue alone cost ~3.5% at T = 640
+//     (tools/ab_torch.py on an H100).
 //
 // Built by nvcc for sm_90a into a plain-C shared library (see
 // streaming_vlm_tpu_torch/ops/_kernels.py); the entry point returns
@@ -100,6 +112,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // the self block's causal limit: key j is visible to token t
 __device__ __forceinline__ bool causal_ok(int key, int t) { return key <= t; }
 
+template <bool LSE>
 __global__ void __launch_bounds__(THREADS, 1) prefill_attention_kernel(
     const __grid_constant__ CUtensorMap ka_map,  // arena K (pre-rotated) [B][rows, Hkv, HD]
     const __grid_constant__ CUtensorMap va_map,
@@ -112,6 +125,7 @@ __global__ void __launch_bounds__(THREADS, 1) prefill_attention_kernel(
     const int* __restrict__ segs,  // [n_segs, SEG_INTS]
     const int* __restrict__ cta_segs,  // [n_ctas + 1]
     const int* __restrict__ vis,   // [B] each lane's visible arena slots
+    float* __restrict__ lse,       // [B, T, H] log2-space log-sum-exp, or null
     int T, int H, int Hkv, int G, float qscale) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -358,6 +372,10 @@ __global__ void __launch_bounds__(THREADS, 1) prefill_attention_kernel(
           const int g = r - t * G;
           // the lane, from the plan again: one register fewer in the unit loop
           const int lane_b = segs[si * SEG_INTS] / Hkv;
+          if (LSE && lane % 4 == 0) {
+            lse[((size_t)lane_b * T + t) * H + kvh * G + g] =
+                half ? m_b + log2f(l_b) : m_a + log2f(l_a);
+          }
           bf16* orow = out + (((size_t)lane_b * T + t) * H + kvh * G + g) * HD;
           const float inv = half ? inv_b : inv_a;
 #pragma unroll
@@ -394,7 +412,8 @@ __global__ void __launch_bounds__(THREADS, 1) prefill_attention_kernel(
 // log2-space softmax over the shares (m, l, O), then O / l in bf16.
 __global__ void __launch_bounds__(HD) prefill_merge_kernel(
     const float* __restrict__ part_o, const float* __restrict__ part_ml,
-    const int* __restrict__ merges, bf16* __restrict__ out, int T, int H, int Hkv, int G) {
+    const int* __restrict__ merges, bf16* __restrict__ out, float* __restrict__ lse, int T,
+    int H, int Hkv, int G) {
   const int* mg = merges + blockIdx.x * MERGE_INTS;
   const int b = mg[0] / Hkv, kvh = mg[0] % Hkv;  // lane, kv head
   const int rt = mg[1], p0 = mg[2], n = mg[3];
@@ -417,6 +436,7 @@ __global__ void __launch_bounds__(HD) prefill_merge_kernel(
     const int g = gr - t * G;
     out[(((size_t)b * T + t) * H + kvh * G + g) * HD + d] =
         __float2bfloat16(num / fmaxf(den, 1e-20f));
+    if (lse != nullptr && d == 0) lse[((size_t)b * T + t) * H + kvh * G + g] = m + log2f(den);
   }
 }
 
@@ -483,12 +503,13 @@ extern "C" int svt_prefill_block_keys() { return BN; }
 // [n_ctas + 1 CTA offsets][n_merges * 4 merges][B visible lengths]
 // (ops/attention.py prefill_plan), vis_max the largest of the lengths. Raw
 // mode (acos2 != null) rotates each lane's visible rows of ka into k_rot
-// [B, vis_max, Hkv, HD] first and attends over k_rot.
+// [B, vis_max, Hkv, HD] first and attends over k_rot. lse: null, or f32
+// [B, T, H] for each row's log2-space log-sum-exp.
 extern "C" int svt_prefill_attention(
     const void* q, const void* ka, const void* va, const void* acos2, const void* asin2,
     void* k_rot, const void* ks, const void* vs, void* out, void* part_o, void* part_ml,
-    const void* plan, int n_ctas, int n_segs, int n_merges, int B, int T, int H, int Hkv, int hd,
-    int C, int vis_max, long long ka_lane, long long va_lane, void* stream) {
+    void* lse, const void* plan, int n_ctas, int n_segs, int n_merges, int B, int T, int H,
+    int Hkv, int hd, int C, int vis_max, long long ka_lane, long long va_lane, void* stream) {
   if (hd != HD || Hkv <= 0 || H % Hkv != 0 || T <= 0 || n_ctas <= 0 || vis_max < 0 || B < 1 ||
       vis_max > C)
     return (int)cudaErrorInvalidValue;
@@ -523,14 +544,15 @@ extern "C" int svt_prefill_attention(
                            (uint64_t)T * slot_stride))
     return (int)cudaErrorInvalidValue;
   const float qscale = 1.4426950408889634f / sqrtf((float)hd);
-  cudaFuncSetAttribute(prefill_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)SMEM_BYTES);
-  prefill_attention_kernel<<<n_ctas, THREADS, SMEM_BYTES, st>>>(
+  auto kernel = lse != nullptr ? prefill_attention_kernel<true> : prefill_attention_kernel<false>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+  kernel<<<n_ctas, THREADS, SMEM_BYTES, st>>>(
       ka_map, va_map, ks_map, vs_map, (const bf16*)q, (bf16*)out, (float*)part_o,
-      (float*)part_ml, segs, cta_segs, vis, T, H, Hkv, G, qscale);
+      (float*)part_ml, segs, cta_segs, vis, (float*)lse, T, H, Hkv, G, qscale);
   if (n_merges > 0) {
     prefill_merge_kernel<<<dim3(n_merges, BM / MERGE_ROWS), HD, 0, st>>>(
-        (const float*)part_o, (const float*)part_ml, merges, (bf16*)out, T, H, Hkv, G);
+        (const float*)part_o, (const float*)part_ml, merges, (bf16*)out, (float*)lse, T, H,
+        Hkv, G);
   }
   return (int)cudaGetLastError();
 }

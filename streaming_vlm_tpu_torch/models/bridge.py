@@ -11,7 +11,8 @@ leaves; they become `ops.quant.QLinear` modules with q [out, in], s [out].
 W4A8 trees (`quantize_model_params(text_bits=4)`) hold {"q4" int8 [L, in/2,
 out] (two contract rows a byte), "s" f32 [L, ng, out]} leaves; they become
 `ops.quant.QLinear4` modules with q4 [out, in/2] (the same bytes, so the
-same nibble order) and s [out, ng].
+same nibble order) and s [out, ng]. `to_jax_params` is the inverse for a
+float model (or its gradients): the JAX tree as numpy arrays.
 """
 
 from __future__ import annotations
@@ -153,3 +154,51 @@ def from_jax_params(
     _linear(tower.merger_fc1, mp["fc1_w"], mp["fc1_b"])
     _linear(tower.merger_fc2, mp["fc2_w"], mp["fc2_b"])
     return m.eval().requires_grad_(False)
+
+
+@torch.no_grad()
+def to_jax_params(cfg: ModelConfig, model: Qwen25VL, *, grads: bool = False) -> Dict[str, Any]:
+    """The inverse of `from_jax_params` for a float model: the JAX package's
+    parameter pytree as numpy f32 arrays, layers stacked along [L, ...] and
+    matrices transposed back to [in, out]. With grads=True each leaf is the
+    parameter's `.grad` (zeros where it has none), so tests compare the
+    port's gradients with jax.grad's leaf by leaf."""
+
+    def arr(p: torch.Tensor) -> np.ndarray:
+        t = p.grad if grads else p
+        if t is None:
+            t = torch.zeros_like(p)
+        return t.detach().to("cpu", torch.float32).numpy()
+
+    def stack(mods, get) -> np.ndarray:
+        return np.stack([get(m) for m in mods])
+
+    lm, tower = model.text, model.vision
+    layers = {
+        "input_ln": stack(lm.layers, lambda l: arr(l.input_ln.weight)),
+        "post_ln": stack(lm.layers, lambda l: arr(l.post_ln.weight)),
+    }
+    for attr, (wk, bk) in _TEXT_LAYER.items():
+        layers[wk] = stack(lm.layers, lambda l: arr(getattr(l, attr).weight).T)
+        if bk is not None:
+            layers[bk] = stack(lm.layers, lambda l: arr(getattr(l, attr).bias))
+    text = {"embed": arr(lm.embed.weight), "layers": layers, "final_ln": arr(lm.final_ln.weight)}
+    if lm.lm_head is not None:
+        text["lm_head"] = arr(lm.lm_head.weight).T
+    blocks = {
+        "norm1": stack(tower.blocks, lambda b: arr(b.norm1.weight)),
+        "norm2": stack(tower.blocks, lambda b: arr(b.norm2.weight)),
+    }
+    if getattr(tower.blocks[0].norm1, "bias", None) is not None:  # qwen2's LayerNorms
+        blocks["norm1_b"] = stack(tower.blocks, lambda b: arr(b.norm1.bias))
+        blocks["norm2_b"] = stack(tower.blocks, lambda b: arr(b.norm2.bias))
+    for attr, (wk, bk) in _block_linears(tower.blocks[0]):
+        blocks[wk] = stack(tower.blocks, lambda b: arr(getattr(b, attr).weight).T)
+        blocks[bk] = stack(tower.blocks, lambda b: arr(getattr(b, attr).bias))
+    merger = {"ln_q": arr(tower.ln_q.weight),
+              "fc1_w": arr(tower.merger_fc1.weight).T, "fc1_b": arr(tower.merger_fc1.bias),
+              "fc2_w": arr(tower.merger_fc2.weight).T, "fc2_b": arr(tower.merger_fc2.bias)}
+    if getattr(tower.ln_q, "bias", None) is not None:
+        merger["ln_q_b"] = arr(tower.ln_q.bias)
+    vision = {"patch_embed": arr(tower.patch_embed.weight).T, "blocks": blocks, "merger": merger}
+    return {"text": text, "vision": vision}

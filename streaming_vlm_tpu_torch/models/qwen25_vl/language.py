@@ -28,6 +28,10 @@ returns the block's new K/V as [L, T, Hkv, hd] for the caller to merge:
   the pre-rotated float arena, the delta and the T tokens' causal self
   rows.
 
+`language_forward_train` is the training stack: causal self-attention
+through `train_attention` (K1 forward, K1-bwd backward on the card),
+differentiable, with layer remat "none", "full" or "dots".
+
 `language_forward_lanes` is the multi-stream form: B streams' [B, L, C,
 Hkv, hd] arenas in one pass, [B * T, D] rows through every projection (one
 weight read for all lanes) and the kernels' lane forms; the one-stream
@@ -38,11 +42,13 @@ On CPU tensors the kernels' wrappers run their plain versions.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ...config import TextConfig
@@ -52,6 +58,7 @@ from ...ops.attention import (
     streaming_decode_attention_int8,
     streaming_prefill_attention,
     streaming_verify_attention,
+    train_attention,
 )
 from ...ops.quant import (
     Arena,
@@ -177,6 +184,64 @@ def language_forward(
     hidden = inputs_embeds
     for layer in lm.layers:
         hidden = _layer_body(cfg, hidden, layer, q_cos=q_cos, q_sin=q_sin, self_mask=attn_mask)
+    return lm.final_ln(hidden)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of remat="dots": keep the outputs of the
+    plain matrix products (the projections: aten.mm / addmm, no batch dims),
+    recompute everything else, as JAX's dots_with_no_batch_dims_saveable."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def language_forward_train(
+    cfg: TextConfig,
+    lm: LanguageModel,
+    inputs_embeds: torch.Tensor,  # [T, D]
+    positions: torch.Tensor,  # [3, T] float32
+    remat: str = "none",  # {"none", "full", "dots"} activation checkpointing
+    attn_q_block: Optional[int] = None,  # None: auto (512 at T >= 2048, else 0)
+) -> torch.Tensor:
+    """Training decoder stack, differentiable: causal self-attention through
+    `ops.attention.train_attention` (on the card K1 forward with each row's
+    log-sum-exp and K1-bwd backward). Returns hidden [T, D] post-final-norm.
+    Port of the JAX package's `language_forward` (language.py:348-397).
+
+    `remat` checkpoints each layer (torch.utils.checkpoint, non-reentrant):
+    "full" saves only the [T, D] carry between layers and recomputes the
+    rest in the backward (the forward, K1 included, runs twice), "dots"
+    also saves the outputs of the projections (a selective-checkpoint
+    policy, JAX's dots_with_no_batch_dims_saveable). `attn_q_block` is the
+    CPU plain attention's row block (as in JAX: None = 512 at T >= 2048,
+    else 0 = the naive [T, T] logits); the kernels hold O(T) memory whatever
+    it is."""
+    if remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat must be 'none', 'full' or 'dots', got {remat!r}")
+    T = inputs_embeds.shape[0]
+    q_cos, q_sin = mrope_cos_sin(positions, lm.inv_freq(positions.device), cfg.mrope_section)
+    if attn_q_block is None:
+        attn_q_block = 512 if T >= 2048 else 0
+
+    def layer_fn(hidden, layer):
+        q, _, k_rot, v = _qkv(cfg, hidden, layer, q_cos, q_sin)
+        return _layer_tail(layer, hidden, train_attention(q, k_rot, v, attn_q_block))
+
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            torch.utils.checkpoint.create_selective_checkpoint_contexts, _dots_saveable)
+    hidden = inputs_embeds
+    for layer in lm.layers:
+        if remat == "none":
+            hidden = layer_fn(hidden, layer)
+        else:
+            hidden = torch.utils.checkpoint.checkpoint(layer_fn, hidden, layer,
+                                                       use_reentrant=False, **kw)
     return lm.final_ln(hidden)
 
 

@@ -29,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (
     "prefill_attention.cu", "decode_attention.cu", "decode_attention_raw.cu", "int8_gemm.cu",
-    "int4_gemv.cu", "verify_attention.cu",
+    "int4_gemv.cu", "verify_attention.cu", "attention_bwd.cu", "linear_ce.cu",
 )
 HEADERS = ("decode_common.cuh", "hopper.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -156,7 +156,7 @@ def lib() -> ctypes.CDLL:
     if _lib is None:
         so = ctypes.CDLL(str(build()))
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        so.svt_prefill_attention.argtypes = [P] * 12 + [I] * 10 + [LL] * 2 + [P]
+        so.svt_prefill_attention.argtypes = [P] * 13 + [I] * 10 + [LL] * 2 + [P]
         so.svt_prefill_attention.restype = I
         so.svt_prefill_block_rows.argtypes = []
         so.svt_prefill_block_rows.restype = I
@@ -170,6 +170,10 @@ def lib() -> ctypes.CDLL:
         so.svt_decode_partials.restype = I
         so.svt_verify_attention.argtypes = [P] * 10 + [I] * 8 + [P]
         so.svt_verify_attention.restype = I
+        so.svt_attention_bwd.argtypes = [P] * 10 + [I] * 4 + [P]
+        so.svt_attention_bwd.restype = I
+        so.svt_ce_rows.argtypes = [P] * 4 + [I, LL, I, P]
+        so.svt_ce_rows.restype = I
         for fn in ("svt_decode_max_small_rows", "svt_decode_max_split", "svt_decode_max_parts",
                    "svt_decode_raw_max_split", "svt_decode_raw_max_parts",
                    "svt_verify_max_split", "svt_verify_max_parts", "svt_verify_max_queries",

@@ -1,4 +1,4 @@
-"""Streaming attention: the port's five hand-written CUDA kernels, their
+"""Streaming and training attention: the port's hand-written CUDA kernels, their
 plain PyTorch versions, and the plain multi-source softmax they are held
 against. Each replaces the function of the same name in the JAX package's
 streaming_vlm_tpu/ops/attention.py:
@@ -20,6 +20,11 @@ streaming_vlm_tpu/ops/attention.py:
   query rows of a kv head through the tensor cores over each split's rows
   staged once (split by `verify_split_size`; the JAX package computes this
   in XLA, `_gqa_attention_multi`); T == 1 is K2 itself.
+* `train_attention` (training's causal self-attention, an autograd
+  Function): K1 at visible 0 with each row's log-sum-exp in the forward,
+  and `attention_bwd` (K1-bwd, csrc/attention_bwd.cu; the JAX package
+  differentiates `_gqa_attention_chunked` by XLA's autodiff) in the
+  backward.
 * `streaming_decode_attention` (K4, csrc/decode_attention.cu): the arena's
   log2-space softmax partials of one token; `decode_attention_merge` folds
   them with the small parts (K2's independent cross-check, on no runtime
@@ -49,6 +54,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..models.qwen25_vl.rope import apply_rope, make_inv_freq, mrope_cos_sin, rotate_half
 from ._kernels import check_cuda, ptr, sm_count, stream
@@ -65,6 +71,7 @@ launch_counts = {
     "streaming_decode_attention_int8": 0,
     "streaming_verify_attention": 0,
     "streaming_decode_attention": 0,
+    "attention_bwd": 0,
 }
 
 
@@ -320,6 +327,32 @@ def prefill_attention_by_plan(
     return out.reshape(Hkv, T, G, hd).transpose(0, 1).reshape(T, H, hd).to(v_arena.dtype)
 
 
+def prefill_lse_plain(
+    q_rot, k_arena, acos2, asin2, k_self_rot, visible_len: int
+) -> torch.Tensor:
+    """Plain version of K1's log-sum-exp output: for each query row, log2 of
+    the sum of exp2 of its K1 logits over arena slots < visible_len and the
+    causal self block, in f32, with K1's q (scaled by softmax-scale *
+    log2(e), then rounded to q's dtype). Returns [T, H] f32: P = exp2(s2 -
+    lse2), and the natural log-sum-exp is lse2 * ln(2)."""
+    T, H, hd = q_rot.shape
+    Hkv = k_self_rot.shape[1]
+    vis = int(visible_len)
+    ka = k_arena[:vis]
+    if acos2 is not None:
+        ka = _rotate_dup_half(ka, acos2[:vis], asin2[:vis]).to(k_self_rot.dtype)
+    qs = (q_rot.float() * (LOG2E / math.sqrt(hd))).to(q_rot.dtype).float()
+    qg = qs.reshape(T, Hkv, H // Hkv, hd)
+    causal = torch.ones(T, T, dtype=torch.bool, device=q_rot.device).tril()
+    s2 = torch.einsum("tkgd,skd->tkgs", qg, k_self_rot.float())
+    s2 = s2.masked_fill(~causal[:, None, None, :], -math.inf)
+    if vis:
+        s2 = torch.cat([torch.einsum("tkgd,skd->tkgs", qg, ka.float()), s2], -1)
+    m = s2.amax(dim=-1, keepdim=True)
+    lse2 = m + torch.log2(torch.exp2(s2 - m).sum(dim=-1, keepdim=True))
+    return lse2.reshape(T, H)
+
+
 def prefill_attention_lanes_plain(
     q_rot, k_arena, v_arena, acos2, asin2, k_self_rot, v_self, visible_len
 ) -> torch.Tensor:
@@ -344,21 +377,34 @@ def streaming_prefill_attention(
     k_self_rot: torch.Tensor,  # [T, Hkv, hd], or [B, T, Hkv, hd]
     v_self: torch.Tensor,
     visible_len,  # int, or B host ints (the lane form)
+    *,
+    lse: Optional[torch.Tensor] = None,  # f32 [T, H] ([B, T, H]) out, or None
 ) -> torch.Tensor:
     """K1. Returns attention output [T, H, hd] (lane form: [B, T, H, hd]) in
     v's dtype. On the card: raw mode's rotate pass (into a [B, max visible,
     Hkv, hd] bf16 scratch), the attention over `prefill_plan`'s CTAs (all
     lanes' work in one grid), and the merge of split row tiles, one counted
-    launch. The lane form's arenas may be lane-strided views."""
+    launch. The lane form's arenas may be lane-strided views. Given `lse`,
+    each row's log2-space log-sum-exp (`prefill_lse_plain`) is written into
+    it too (training's forward saves it for K1-bwd)."""
     if q_rot.dim() == 3:  # one stream: the lane form at B = 1
         return streaming_prefill_attention(
             q_rot[None], k_arena[None], v_arena[None], _lead(acos2), _lead(asin2),
-            k_self_rot[None], v_self[None], [int(visible_len)])[0]
+            k_self_rot[None], v_self[None], [int(visible_len)], lse=_lead(lse))[0]
     B, T, H, hd = q_rot.shape
     vis = lane_lengths(visible_len, B)
     if len(vis) != B:
         raise ValueError(f"streaming_prefill_attention: {len(vis)} visible lengths for {B} lanes")
+    if lse is not None and (lse.shape != (B, T, H) or lse.dtype != torch.float32
+                            or lse.device != q_rot.device):
+        raise ValueError("streaming_prefill_attention: lse must be f32 [T, H] ([B, T, H]) on "
+                         "q's device")
     if q_rot.device.type == "cpu":
+        if lse is not None:
+            for b in range(B):
+                c2 = None if acos2 is None else acos2[b]
+                s2 = None if asin2 is None else asin2[b]
+                lse[b] = prefill_lse_plain(q_rot[b], k_arena[b], c2, s2, k_self_rot[b], vis[b])
         return prefill_attention_lanes_plain(
             q_rot, k_arena, v_arena, acos2, asin2, k_self_rot, v_self, vis
         )
@@ -382,6 +428,8 @@ def streaming_prefill_attention(
         check_cuda(name, acos2, asin2)
         if acos2.dtype != torch.float32 or acos2.shape != (B, C, hd) or asin2.shape != (B, C, hd):
             raise ValueError(f"{name}: acos2/asin2 must be f32 [B, C, hd]")
+    if lse is not None:
+        check_cuda(name, lse)
     from ._kernels import lib
 
     so = lib()
@@ -397,7 +445,7 @@ def streaming_prefill_attention(
              if acos2 is not None and vis_max else None)
     err = so.svt_prefill_attention(
         ptr(q_rot), ptr(k_arena), ptr(v_arena), ptr(acos2), ptr(asin2), ptr(k_rot),
-        ptr(k_self_rot), ptr(v_self), ptr(out), ptr(part_o), ptr(part_ml), ptr(plan_dev),
+        ptr(k_self_rot), ptr(v_self), ptr(out), ptr(part_o), ptr(part_ml), ptr(lse), ptr(plan_dev),
         plan.n_ctas, len(plan.segs), len(plan.merges), B, T, H, Hkv, hd, C, vis_max,
         ka_lane, va_lane, stream(),
     )
@@ -405,6 +453,203 @@ def streaming_prefill_attention(
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
     launch_counts[name] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Training attention: K1 forward (with each row's log-sum-exp) + K1-bwd
+# ---------------------------------------------------------------------------
+
+TRAIN_GMAX = 8  # the largest GQA group training's kernels take
+
+
+def _attention_rows(q, k, v, r0: int):
+    """Causal attention of query rows r0 .. r0 + len(q) over keys k, v [S,
+    Hkv, hd] with the JAX package's per-row math and dtype chain
+    (`_gqa_attention_chunked`'s block): f32 logits, max-subtracted exp, P
+    cast to v's dtype for P.V, times 1 / sum cast to the output's dtype.
+    Returns (out [t, H * hd] in v's dtype, natural log-sum-exp [t, H] f32)."""
+    t, H, hd = q.shape
+    S, Hkv, _ = k.shape
+    G = H // Hkv
+    rows = torch.arange(r0, r0 + t, device=q.device)
+    mask = torch.arange(S, device=q.device)[None, :] <= rows[:, None]
+    lg = torch.einsum("tkgd,skd->kgts", q.float().reshape(t, Hkv, G, hd), k.float())
+    lg = torch.where(mask[None, None], lg * (1.0 / math.sqrt(hd)), NEG_INF)
+    m = lg.amax(dim=-1, keepdim=True)
+    e = torch.exp(lg - m)
+    denom = e.sum(dim=-1, keepdim=True)
+    o = torch.einsum("kgts,skd->tkgd", e.to(v.dtype), v)
+    inv = (1.0 / denom).to(o.dtype)
+    out = (o * inv.permute(2, 0, 1, 3)).reshape(t, H * hd)
+    lse = (m + torch.log(denom)).reshape(H, t).transpose(0, 1)
+    return out, lse
+
+
+def train_attention_plain(
+    q_rot: torch.Tensor,  # [T, H, hd] rotated
+    k_rot: torch.Tensor,  # [T, Hkv, hd] rotated
+    v: torch.Tensor,  # [T, Hkv, hd]
+    q_block: int = 0,
+    *,
+    return_lse: bool = False,
+):
+    """Plain causal GQA self-attention for training, differentiable by
+    autograd: the JAX package's `_gqa_attention_chunked` (q_block > 0: row
+    blocks of q_block under torch.utils.checkpoint, so the backward
+    recomputes each block's [Hkv, G, q_block, T] logits and holds O(q_block
+    T) of them) or its naive form (q_block 0: one block of all rows), the
+    same per-row math either way. Returns [T, H * hd] in v's dtype, and with
+    return_lse the rows' log2-space log-sum-exp [T, H] f32 (K1's
+    convention: natural log-sum-exp * log2(e))."""
+    T = q_rot.shape[0]
+    step = int(q_block) if q_block and q_block > 0 else T
+    outs, lses = [], []
+    for r0 in range(0, T, step):
+        qi = q_rot[r0:r0 + step]
+        if step < T and torch.is_grad_enabled():
+            out, lse = torch.utils.checkpoint.checkpoint(
+                _attention_rows, qi, k_rot, v, r0, use_reentrant=False)
+        else:
+            out, lse = _attention_rows(qi, k_rot, v, r0)
+        outs.append(out)
+        lses.append(lse)
+    out = torch.cat(outs) if len(outs) > 1 else outs[0]
+    if not return_lse:
+        return out
+    return out, torch.cat(lses) * LOG2E
+
+
+def train_attention_bwd_plain(q_rot, k_rot, v, out, lse2, d_out, q_block: int = 0):
+    """The backward algebra K1-bwd implements, in f32 from the given
+    tensors: with the saved output O [T, H, hd] and log2-space log-sum-exp
+    lse2 [T, H], P = exp2(s2 - lse2) over the causal keys (s2 = q.k *
+    softmax-scale * log2(e)), D = rowsum(dO * O), dS = P (dP - D) with dP =
+    dO.v; dQ = dS.k * scale, dK = dS^T.q * scale and dV = P^T.dO, dK and dV
+    summed over each kv head's G query heads. Query rows are taken q_block
+    at a time (0: all at once). Returns f32 (dq [T, H, hd], dk, dv [T, Hkv,
+    hd])."""
+    T, H, hd = q_rot.shape
+    Hkv = k_rot.shape[1]
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    qf = q_rot.float().reshape(T, Hkv, G, hd)
+    kf, vf = k_rot.float(), v.float()
+    dof = d_out.float().reshape(T, Hkv, G, hd)
+    dsum = (dof * out.float().reshape(T, Hkv, G, hd)).sum(-1)  # [T, Hkv, G]
+    l2 = lse2.float().reshape(T, Hkv, G)
+    dq = torch.empty(T, Hkv, G, hd, dtype=torch.float32, device=q_rot.device)
+    dk = torch.zeros(T, Hkv, hd, dtype=torch.float32, device=q_rot.device)
+    dv = torch.zeros_like(dk)
+    step = int(q_block) if q_block and q_block > 0 else T
+    keys = torch.arange(T, device=q_rot.device)
+    for r0 in range(0, T, step):
+        r1 = min(r0 + step, T)
+        causal = keys[None, :] <= torch.arange(r0, r1, device=q_rot.device)[:, None]
+        s2 = torch.einsum("tkgd,skd->kgts", qf[r0:r1], kf) * (LOG2E * scale)
+        p = torch.where(causal[None, None], torch.exp2(s2 - l2[r0:r1].permute(1, 2, 0)[..., None]),
+                        0.0)
+        dp = torch.einsum("tkgd,skd->kgts", dof[r0:r1], vf)
+        ds = p * (dp - dsum[r0:r1].permute(1, 2, 0)[..., None])
+        dq[r0:r1] = torch.einsum("kgts,skd->tkgd", ds, kf) * scale
+        dk += torch.einsum("kgts,tkgd->skd", ds, qf[r0:r1]) * scale
+        dv += torch.einsum("kgts,tkgd->skd", p, dof[r0:r1])
+    return dq.reshape(T, H, hd), dk, dv
+
+
+def _check_train_shapes(name: str, q_rot, k_rot, v) -> None:
+    """Raise unless q [T, H, 128], k and v [T, Hkv, 128] with H = G Hkv, G <=
+    TRAIN_GMAX, bf16 on a CUDA device (what K1 and K1-bwd take)."""
+    T, H, hd = q_rot.shape
+    Hkv = k_rot.shape[1]
+    if hd != 128 or H % Hkv or H // Hkv > TRAIN_GMAX or k_rot.shape != (T, Hkv, hd) \
+            or v.shape != (T, Hkv, hd):
+        raise ValueError(f"{name}: unsupported shapes q={tuple(q_rot.shape)} "
+                         f"k={tuple(k_rot.shape)} v={tuple(v.shape)} (head_dim 128, G <= "
+                         f"{TRAIN_GMAX})")
+    if any(t.dtype != torch.bfloat16 for t in (q_rot, k_rot, v)):
+        raise ValueError(f"{name}: the CUDA kernels take bf16 q/k/v, got {q_rot.dtype}")
+
+
+def attention_bwd(q_rot, k_rot, v, out, lse2, d_out):
+    """K1-bwd: dq [T, H, hd], dk, dv [T, Hkv, hd] of causal GQA attention
+    from the saved output and log2-space log-sum-exp (`train_attention_bwd_
+    plain`'s algebra), in the inputs' dtype. On the card: the D pass, the
+    dK/dV kernel and the dQ kernel (csrc/attention_bwd.cu), one counted
+    launch, no atomics (bitwise repeatable). On the CPU: the plain version."""
+    if q_rot.device.type == "cpu":
+        dq, dk, dv = train_attention_bwd_plain(q_rot, k_rot, v, out, lse2, d_out)
+        return dq.to(q_rot.dtype), dk.to(k_rot.dtype), dv.to(v.dtype)
+    name = "attention_bwd"
+    _check_train_shapes(name, q_rot, k_rot, v)
+    T, H, hd = q_rot.shape
+    Hkv = k_rot.shape[1]
+    check_cuda(name, q_rot, k_rot, v, out, lse2, d_out)
+    if out.shape != q_rot.shape or d_out.shape != q_rot.shape or out.dtype != torch.bfloat16 \
+            or d_out.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: out and d_out must be bf16 [T, H, hd] like q")
+    if lse2.shape != (T, H) or lse2.dtype != torch.float32:
+        raise ValueError(f"{name}: lse2 must be f32 [T, H]")
+    from ._kernels import lib
+
+    dq, dk, dv = torch.empty_like(q_rot), torch.empty_like(k_rot), torch.empty_like(v)
+    dsum = torch.empty(T, H, dtype=torch.float32, device=q_rot.device)
+    err = lib().svt_attention_bwd(
+        ptr(q_rot), ptr(k_rot), ptr(v), ptr(out), ptr(lse2), ptr(d_out), ptr(dsum), ptr(dq),
+        ptr(dk), ptr(dv), T, H, Hkv, hd, stream())
+    if err:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+    launch_counts[name] += 1
+    return dq, dk, dv
+
+
+class _TrainAttention(torch.autograd.Function):
+    """Causal self-attention whose forward saves O and each row's log2-space
+    log-sum-exp and whose backward is K1-bwd's algebra: on the card K1 at
+    visible 0 (with lse) and K1-bwd; on the CPU their plain versions."""
+
+    @staticmethod
+    def forward(ctx, q_rot, k_rot, v, q_block):
+        T, H, hd = q_rot.shape
+        if q_rot.device.type == "cpu":
+            out, lse2 = train_attention_plain(q_rot, k_rot, v, q_block, return_lse=True)
+            out = out.reshape(T, H, hd)
+        else:  # train_attention checked the shapes
+            lse2 = torch.empty(T, H, dtype=torch.float32, device=q_rot.device)
+            # visible 0: the arena is never read (k stands in for it)
+            out = streaming_prefill_attention(q_rot, k_rot, v, None, None, k_rot, v, 0, lse=lse2)
+        ctx.save_for_backward(q_rot, k_rot, v, out, lse2)
+        ctx.q_block = q_block
+        return out.reshape(T, H * hd)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q_rot, k_rot, v, out, lse2 = ctx.saved_tensors
+        d_out = grad.reshape(out.shape).to(out.dtype).contiguous()
+        if q_rot.device.type == "cpu":
+            dq, dk, dv = train_attention_bwd_plain(q_rot, k_rot, v, out, lse2, d_out, ctx.q_block)
+            dq, dk, dv = dq.to(q_rot.dtype), dk.to(k_rot.dtype), dv.to(v.dtype)
+        else:
+            dq, dk, dv = attention_bwd(q_rot, k_rot, v, out, lse2, d_out)
+        return dq, dk, dv, None
+
+
+def train_attention(
+    q_rot: torch.Tensor,  # [T, H, hd] rotated
+    k_rot: torch.Tensor,  # [T, Hkv, hd] rotated
+    v: torch.Tensor,  # [T, Hkv, hd]
+    q_block: int = 0,
+) -> torch.Tensor:
+    """Causal GQA self-attention for training, [T, H * hd] in v's dtype, as a
+    torch.autograd.Function. On a CUDA tensor (bf16, head_dim 128, G <= 8;
+    anything else raises ValueError, nothing falls back) the forward is K1
+    at visible 0, which also writes each row's log-sum-exp, and the backward
+    is K1-bwd; both hold O(T) memory whatever q_block is. On a CPU tensor the
+    forward is `train_attention_plain` (q_block row blocks: its memory) and
+    the backward `train_attention_bwd_plain`."""
+    if q_rot.device.type != "cpu":
+        _check_train_shapes("train_attention", q_rot, k_rot, v)
+    return _TrainAttention.apply(q_rot.contiguous(), k_rot.contiguous(), v.contiguous(),
+                                 int(q_block or 0))
 
 
 # ---------------------------------------------------------------------------

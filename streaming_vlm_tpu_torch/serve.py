@@ -1,7 +1,8 @@
 """Streaming serve loop on the PyTorch engine.
 
 Port of streaming_vlm_tpu/serve.py (`StreamingSession`,
-`streaming_inference`, `caption_clip`) for the single-stream path. Per
+`streaming_inference`, `caption_clip`, `streaming_inference_from_dataset`)
+for the single-stream path. Per
 chunk: read + patchify the chunk's frames (prefetched on a thread) ->
 prompt assembly (Time=a-bs protocol, optionally with a mid-stream
 question) -> evict + chunk step on the card -> decode text -> WebVTT and
@@ -579,3 +580,61 @@ def caption_clip(
     if hasattr(tokenizer, "decode"):
         return tokenizer.decode(out, skip_special_tokens=True)
     return " ".join(str(t) for t in out)
+
+
+def streaming_inference_from_dataset(
+    *,
+    cfg: ModelConfig,
+    model: vlm.Qwen25VL,
+    tokenizer,
+    dataset,  # data.dataset.StreamDataset
+    index: int,
+    stream: Optional[StreamConfig] = None,
+    sampling: Optional[SamplingConfig] = None,
+    query: str = DEFAULT_QUERY,
+    use_gt: bool = False,
+    quiet: bool = True,
+    dtype: Optional[torch.dtype] = None,
+) -> Tuple[List[Dict], List[Dict]]:
+    """Dataset-driven streaming inference (the reference's test_data_json
+    mode, inference.py:244-254,333-338; the JAX package's function of the
+    same name): chunks come from the dataset's synthesized turns; with
+    use_gt=True each decoded round is replaced by the ground-truth text
+    (teacher forcing), so cache-policy correctness is isolated from
+    sampling drift. Returns (responses, ground truths), one dict a turn."""
+    stream = stream or StreamConfig()
+    session = StreamingSession(
+        cfg, model, tokenizer, stream=stream, sampling=sampling, query=query, dtype=dtype
+    )
+    turns, all_frames, previous_text, _ = dataset.get_stream(index)
+    session.previous_text = previous_text
+
+    responses: List[Dict] = []
+    ground_truths: List[Dict] = []
+    for i, turn in enumerate(turns):
+        frames = all_frames[turn.frame_indices]
+        pad = (-frames.shape[0]) % cfg.vision.temporal_patch_size
+        if pad:
+            frames = np.concatenate([frames, np.repeat(frames[-1:], pad, 0)])
+        patches, grid = patchify_frames(
+            frames,
+            patch_size=cfg.vision.patch_size,
+            temporal_patch_size=cfg.vision.temporal_patch_size,
+            merge_size=cfg.vision.spatial_merge_size,
+        )
+        forced = None
+        if use_gt:
+            forced = np.asarray(
+                session.builder.encode(turn.assistant_text + "<|im_end|>"), np.int32
+            )
+        response, _ = session.run_chunk(
+            i, turn.start, pixel_patches=patches, grid_thw=grid,
+            forced_response_ids=forced, question=turn.question,
+        )
+        if not quiet:
+            print(f"Time={turn.start:.1f}-{turn.end:.1f}s: {response}")
+        responses.append({"response": response, "start_time": turn.start, "end_time": turn.end})
+        ground_truths.append(
+            {"ground_truth": turn.assistant_text, "start_time": turn.start, "end_time": turn.end}
+        )
+    return responses, ground_truths

@@ -392,3 +392,54 @@ def _slice_ranges(
         acc += n
     return out
 
+
+
+
+# ---------------------------------------------------------------------------
+# Token-pattern scanner equivalent to the reference's get_qwen_range: the
+# dataset's previous-text cut (data/dataset.py) and the tests.
+# ---------------------------------------------------------------------------
+
+
+def scan_token_ranges(ids: Sequence[int], label: str, tokens) -> List[Tuple[int, int]]:
+    """Find [start, end] (inclusive) spans of structural segments by token
+    pattern, like the reference's get_qwen_range (get_qwen_range.py:15-86).
+    `tokens` is a SpecialTokens config."""
+    ids = list(ids)
+    n = len(ids)
+    if label == "user":
+        start_pat, end_pat = [tokens.im_start, tokens.user], [tokens.im_end]
+    elif label == "assistant":
+        start_pat, end_pat = [tokens.im_start, tokens.assistant], [tokens.im_end]
+    elif label == "previous text":
+        start_pat = [tokens.im_start, *tokens.previous_text, tokens.newline]
+        end_pat = [tokens.im_end]
+    elif label == "vision":
+        start_pat, end_pat = [tokens.vision_start], [tokens.vision_end]
+    elif label == "user_text":
+        start_pat, end_pat = [tokens.time_word], [tokens.vision_start]
+    else:
+        raise ValueError(label)
+
+    out = []
+    i = 0
+    while i <= n - len(start_pat):
+        if ids[i : i + len(start_pat)] == start_pat:
+            j = i + len(start_pat)
+            while j <= n - len(end_pat):
+                if ids[j : j + len(end_pat)] == end_pat:
+                    end = j + len(end_pat) - 1
+                    if end + 1 < n and ids[end + 1] == tokens.newline:
+                        end += 1
+                    if label == "user_text":
+                        out.append((i, j - 1))
+                    else:
+                        out.append((i, end))
+                    i = j + len(end_pat)
+                    break
+                j += 1
+            else:
+                break
+        else:
+            i += 1
+    return out

@@ -3,7 +3,8 @@
 A copy of what the serve loop uses from the JAX package's
 streaming_vlm_tpu/video/ingest.py: the native reader (`VideoReader`, over
 the C++ library in video/native/svt_ingest.cc), `smart_resize`,
-`select_chunk_frames`, `patchify_frames` and `ChunkedVideoSource`.
+`select_chunk_frames`, `patchify_frames` and `ChunkedVideoSource`, and
+`write_test_video` (a synthetic mp4 clip for the tests).
 tests/test_torch_imports.py holds the pure-numpy helpers bitwise equal to
 the JAX package's.
 
@@ -86,8 +87,18 @@ def _lib():
             ctypes.POINTER(ctypes.c_uint8),
         ]
         lib.svt_close.argtypes = [ctypes.c_void_p]
+        lib.svt_write_test_video.argtypes = [ctypes.c_char_p] + [ctypes.c_int] * 4
         _LIB = lib
     return _LIB
+
+
+def write_test_video(path: str, w: int = 128, h: int = 96, n_frames: int = 60, fps: int = 10) -> None:
+    """Write a synthetic mpeg4 clip of n_frames w x h frames at fps, a
+    moving gradient (w and h multiples of 4), through the native library's
+    `svt_write_test_video`."""
+    rc = _lib().svt_write_test_video(path.encode(), w, h, n_frames, fps)
+    if rc != 0:
+        raise RuntimeError(f"svt_write_test_video failed: {rc}")
 
 
 class VideoReader:

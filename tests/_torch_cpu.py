@@ -12,6 +12,7 @@ of them:
     from _torch_cpu import warm_cpu_math  # noqa: F401  (autouse fixture)
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -40,3 +41,27 @@ def one_cpu_thread():
     yield
     torch.set_num_threads(n)
 
+
+
+def numpy_params(cfg, seed: int = 0):
+    """A JAX-package parameter tree for cfg (`model.init_params`'s leaves and
+    shapes) as f32 numpy arrays from a numpy generator: norms 1 + N(0, 0.1),
+    every other leaf N(0, 1) * 0.02. Both sides of a parity test take the
+    same weights from it (the port's through `models/bridge.from_jax_params`);
+    it skips init_params' eager jax.random calls, each compiled on its own
+    (~7 s on the tiny model)."""
+    import jax
+
+    from streaming_vlm_tpu.models.qwen25_vl import model as jmodel
+
+    shapes = jax.eval_shape(lambda: jmodel.init_params(cfg, jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        name = jax.tree_util.keystr(path)
+        x = rng.standard_normal(leaf.shape).astype(np.float32)
+        if ("ln" in name or "norm" in name) and not name.endswith("_b']"):
+            return np.float32(1.0) + np.float32(0.1) * x
+        return np.float32(0.02) * x
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)

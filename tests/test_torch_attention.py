@@ -251,8 +251,11 @@ def test_cpu_wrappers_do_not_count_launches():
     A.streaming_decode_attention(q, ka, va, 10)
     kv = _t(x["ks"][:4])
     A.streaming_verify_attention(_t(x["q"][:2]), ka, va, kv, kv, 10, 1, e_delta=2)
+    qt, kt = _t(x["q"][:8]), _t(x["ks"][:8])
+    out, lse2 = A.train_attention_plain(qt, kt, kt, return_lse=True)
+    A.attention_bwd(qt, kt, kt, out.reshape(qt.shape), lse2, qt)
     assert A.launch_counts == {
         "streaming_prefill_attention": 0, "streaming_decode_attention_full": 0,
         "streaming_decode_attention_int8": 0, "streaming_decode_attention": 0,
-        "streaming_verify_attention": 0,
+        "streaming_verify_attention": 0, "attention_bwd": 0,
     }

@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (K1-K5, K2-verify) against their plain PyTorch versions, on the
-card. Skips without one. Imports no jax, so that it runs on the card's
-machine, which has none:
+"""The port's CUDA kernels (K1-K5, K2-verify, K1-bwd, CE-row) against their
+plain PyTorch versions, on the card. Skips without one. Imports no jax, so
+that it runs on the card's machine, which has none:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
@@ -520,3 +520,73 @@ def test_qlinear4_and_lm_head_on_card(cuda):
             assert torch.equal(got, want)
         else:  # both the dequantized bf16 product with f32 sums, in their own order
             torch.testing.assert_close(got, want, atol=1e-5 * float(want.abs().max()), rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 64, 200, 640])
+def test_attention_bwd_on_card(cuda, T):
+    """K1-bwd against the plain algebra in f32 from the same bf16 inputs: two
+    bf16 ulps of each value plus two of the largest (as chip_smoke.py holds
+    it), and two calls bitwise equal (no atomics)."""
+    g = torch.Generator(device=cuda).manual_seed(T)
+    H, Hkv, hd = 28, 4, 128
+
+    def rn(*s):
+        return torch.randn(*s, generator=g, device=cuda).to(torch.bfloat16)
+
+    q, k, v, do = rn(T, H, hd), rn(T, Hkv, hd), rn(T, Hkv, hd), rn(T, H, hd)
+    with torch.no_grad():
+        o, lse2 = A.train_attention_plain(q.float(), k.float(), v.float(), return_lse=True)
+    o = o.reshape(T, H, hd).to(torch.bfloat16)
+    got = A.attention_bwd(q, k, v, o, lse2, do)
+    want = A.train_attention_bwd_plain(q, k, v, o, lse2, do)
+    for a, b, c in zip(got, want, A.attention_bwd(q, k, v, o, lse2, do)):
+        torch.testing.assert_close(a.float(), b, atol=2.0**-6 * float(b.abs().max()), rtol=2.0**-6)
+        assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+def test_train_attention_lse_and_autograd_on_card(cuda):
+    """train_attention on bf16 card tensors: K1 (with its log-sum-exp, one
+    f32 row each, within 1e-5 relative of the plain one) and K1-bwd under
+    autograd, each launched once; an f32 card tensor raises."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    T, H, Hkv, hd = 300, 28, 4, 128
+    q, k, v = (torch.randn(T, h, hd, generator=g, device=cuda).to(torch.bfloat16).requires_grad_()
+               for h in (H, Hkv, Hkv))
+    lse = torch.empty(T, H, device=cuda)
+    A.streaming_prefill_attention(q.detach(), k.detach(), v.detach(), None, None, k.detach(),
+                                  v.detach(), 0, lse=lse)
+    ref = A.prefill_lse_plain(q.detach(), k.detach(), None, None, k.detach(), 0)
+    torch.testing.assert_close(lse, ref, atol=1e-5 * float(ref.abs().max()), rtol=1e-5)
+    A.reset_launch_counts()
+    A.train_attention(q, k, v).float().square().sum().backward()
+    assert A.launch_counts["streaming_prefill_attention"] == 1
+    assert A.launch_counts["attention_bwd"] == 1
+    with pytest.raises(ValueError):
+        A.train_attention(q.detach().float(), k.detach().float(), v.detach().float())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", [4.0, 1.0])
+@pytest.mark.parametrize("rows,V", [(1, 152064), (77, 152064), (33, 1001)])
+def test_ce_rows_on_card(cuda, rows, V, scale):
+    """CE-row against its plain version: the NLL to 1e-5 relative, dlog (in
+    place over the logits) to 1e-5 of each value, with no absolute floor
+    (logits of scale 4 put most probabilities far below 1e-6; scale 1 puts
+    each near 1/V, as random weights do); masked rows and targets 0 and
+    V - 1 among them; a V that is not a multiple of 4 takes the scalar
+    loop."""
+    from streaming_vlm_tpu_torch.ops import linear_ce as CE
+
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    logits = torch.randn(rows, V, generator=g, device=cuda) * scale
+    tgt = torch.randint(0, V, (rows,), generator=g, device=cuda)
+    tgt[0] = V - 1
+    tgt[-1] = 0
+    mask = (torch.rand(rows, generator=g, device=cuda) > 0.3).float()
+    mask[0] = 1.0
+    a, b = logits.clone(), logits.clone()
+    nll, ref = CE.ce_rows(a, tgt, mask, True), CE.ce_rows_plain(b, tgt, mask, True)
+    torch.testing.assert_close(nll, ref, atol=1e-5 * float(ref.abs().max()), rtol=1e-5)
+    torch.testing.assert_close(a, b, atol=0.0, rtol=1e-5)

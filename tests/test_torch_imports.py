@@ -50,7 +50,9 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
         "streaming_vlm_tpu_torch.streaming.multistream", "streaming_vlm_tpu_torch.models.convert",
         "streaming_vlm_tpu_torch.streaming.snapshot", "streaming_vlm_tpu_torch.streaming.multiserve",
         "streaming_vlm_tpu_torch.streaming.specdecode", "streaming_vlm_tpu_torch.eval.soak",
-        "streaming_vlm_tpu_torch.eval.efficiency",
+        "streaming_vlm_tpu_torch.eval.efficiency", "streaming_vlm_tpu_torch.train.step",
+        "streaming_vlm_tpu_torch.train.trainer", "streaming_vlm_tpu_torch.data.dataset",
+        "streaming_vlm_tpu_torch.ops.linear_ce",
     } <= set(mods)
     code = (
         "import importlib, sys\n"
@@ -136,3 +138,29 @@ def test_native_ingest_builds_outside_the_source_tree():
     p = ingest.library_path()
     assert p.parent == REPO / "build" / "torch_ingest"
     assert ingest.SOURCE.parent != p.parent and ingest.SOURCE.exists()
+
+
+def test_training_host_copies_equal_the_jax_package(tmp_path):
+    """TrainConfig's fields and defaults, find_resume_checkpoint and the
+    dataset's constants are the JAX package's."""
+    from streaming_vlm_tpu.data import dataset as jds
+    from streaming_vlm_tpu.train import step as jstep
+    from streaming_vlm_tpu.train import trainer as jtrainer
+    from streaming_vlm_tpu_torch.data import dataset as tds
+    from streaming_vlm_tpu_torch.train import step as tstep
+    from streaming_vlm_tpu_torch.train import trainer as ttrainer
+
+    tf = [(f.name, f.default) for f in dataclasses.fields(ttrainer.TrainConfig)]
+    jf = [(f.name, f.default) for f in dataclasses.fields(jtrainer.TrainConfig)]
+    assert tf == jf
+    assert (tstep.IGNORE_INDEX, tstep.CE_CHUNK, tstep.FUSED_CE_CHUNK) == \
+        (jstep.IGNORE_INDEX, jstep.CE_CHUNK, jstep.FUSED_CE_CHUNK) == (tds.IGNORE_INDEX, 256, 2048)
+    assert tds.IGNORE_INDEX == jds.IGNORE_INDEX
+    for name, state in (("checkpoint-2", True), ("checkpoint-10", True), ("checkpoint-12", False),
+                        ("checkpoint-x", True), ("other-30", True)):
+        (tmp_path / name).mkdir()
+        if state:
+            (tmp_path / name / "trainer_state.json").write_text("{}")
+    assert ttrainer.find_resume_checkpoint(str(tmp_path)) == \
+        jtrainer.find_resume_checkpoint(str(tmp_path)) == str(tmp_path / "checkpoint-10")
+    assert ttrainer.find_resume_checkpoint(str(tmp_path / "missing")) is None
