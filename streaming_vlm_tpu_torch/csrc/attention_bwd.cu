@@ -20,35 +20,73 @@
 //
 // What bounds it on an H100: operations. At T = 8192 (H 28, Hkv 4, HD 128)
 // the five products over the causal half are 5 * 2 * H * HD * T (T + 1) / 2
-// = 1.20 TFLOP, 1.21 ms at the bf16 tensor-core peak, against ~0.5 GB of
-// inputs and outputs (0.15 ms). What this first, simple design does:
-//   * three launches, no atomics, so a call is bitwise repeatable (training
-//     resumes bit for bit): a pass for D; a dK/dV kernel, one CTA per (kv
-//     head, 64-key block), looping over the packed query rows that see the
-//     block (from the diagonal down) 32 at a time; a dQ kernel, one CTA per
-//     (kv head, 64-row block), looping over the key blocks up to the
-//     diagonal. Each recomputes S and dP, so the card does 7 products where
-//     the bound counts 5;
-//   * every product is mma.sync m16n8k16 (bf16 in, f32 accumulate), one
-//     warp a 16-row (or 16-key) slice; S and dP stay in registers, and P
-//     and dS, rounded to bf16, go from the accumulator layout straight into
-//     the A operand of the next product (the FA2 register layout); B
-//     operands come from shared memory by ldmatrix (.trans where the tile is
-//     stored K-major the other way);
-//   * tiles are staged by cp.async, double-buffered, in rows of 256 bytes
-//     whose 16-byte chunks are XOR-swizzled with the row (so the 8 rows of
-//     an ldmatrix fall on distinct banks); rows past T (keys) or past T G
-//     (query rows) arrive as zeros, and every weight outside the causal
-//     triangle is selected to 0 (never multiplied: 0 * a stale value could
-//     be NaN);
-//   * the heaviest blocks launch first: key block 0 of the dK/dV kernel
-//     (every row sees it) and the last row block of the dQ kernel.
-// It is slower than its bound (on an NVIDIA H100 80GB HBM3 at 700 W,
-// chip_smoke.py phase 3: 12.8 ms of device time at T = 8192, 9.5% of the
-// 1.21 ms; SDPA's causal forward + backward takes 3.1 ms): no wgmma, no TMA,
-// 8 warps an SM, and the two recomputed products; a later redesign can take
-// FA3's shape (wgmma, a producer warp, dQ through a second pass over f32
-// partials).
+// = 1.20 TFLOP, 1.216 ms at the bf16 tensor-core peak, against ~0.5 GB of
+// inputs and outputs (0.15 ms). What the design (FA3's shape of the
+// backward) does about it:
+//   * the five products, each once, in one main kernel. A CTA owns one kv
+//     head and a block of BN = 128 keys; K and V of the block arrive once,
+//     by TMA, in K1's 128-byte swizzle. A producer warp streams row tiles
+//     through a ring of STAGES stages (full / empty mbarriers, as K1's
+//     ring): a tile is the packed rows of BT = 64 / G whole tokens (63 at
+//     G = 7, 64 at G = 8), its Q and dO by one 4-d TMA box each half (the
+//     G heads of BT tokens land in K1's row order) and its lse2 and D as one
+//     512-byte bulk copy of a record the pre pass packed;
+//   * two consumer warpgroups (registers rebalanced by setmaxnreg: 240
+//     each, 24 for the producer warpgroup), warpgroup w owning keys
+//     [64 w, 64 w + 64) of the block. Each computes S^T = K Q^T and
+//     dP^T = V dO^T with wgmma (m64n64k16, both operands from shared
+//     memory), forms P^T and dS^T in registers, rounded to bf16 (where
+//     the plain algebra's f32 is rounded for the tensor cores), and
+//     accumulates dV += P^T dO and dK += dS^T Q in registers over every
+//     row tile the block sees, P^T and dS^T being exactly the register A
+//     fragments of those products (m64n128k16, dO and Q read MN-major);
+//   * dS also goes to shared memory (keys x rows, the layout of an MN-major
+//     A operand), and the tile's dQ partial dS K (rows x 128) is the fifth
+//     product, split by columns between the warpgroups. The partial (f32,
+//     32 KB, its 16-byte chunks XOR-swizzled with the row) goes to a double
+//     buffer, and two warps of the producer warpgroup, one a buffer, fold
+//     it into an f32 accumulator in device memory by one bulk copy (the
+//     first key block) or one bulk reduce-add (cp.reduce.async.bulk
+//     .add.f32, the rest), so two folds are in flight;
+//   * bitwise repeatable: a row tile's partials are folded in one fixed
+//     order, key block 0 first, then 1, 2, ...: a per-(kv head, row tile)
+//     counter, released after each fold's writes completed, makes the
+//     block-n CTA wait (acquire) until it reads n. A CTA takes its job from
+//     a ticket (an atomic counter), jobs in the order (key block, kv head),
+//     so it waits only on the CTA of key block n - 1, which took an earlier
+//     ticket and so is running: no residency of CTAs can deadlock;
+//   * the makespan: every CTA visits its row tiles from the last one down
+//     to the diagonal, so all the CTAs of a kv head reach a row tile at the
+//     same time after their start and the block n - 1 CTA (started no
+//     later) folds it first; the waits cost one chain of folds, once.
+//     Tickets hand out the heaviest blocks first (block 0 sees every row
+//     tile), and a freed SM takes the next block, whose share ends when
+//     block 0's does (the light blocks fill the tail). Ascending tile order
+//     would make block n wait at its first tile for block n - 1 to get
+//     there (every CTA of a wave ending with block 0), and a descending fold
+//     would launch the heaviest blocks last: tests/test_torch_bwd_plan.py
+//     simulates the three;
+//   * the causal edge: only the row tiles that cross the block's diagonal
+//     are masked, and a weight outside the triangle is selected to 0, never
+//     multiplied (0 times a stale value could be NaN). Keys past T arrive as
+//     zeros from TMA's out-of-bounds fill (and are masked: they follow every
+//     token); rows past T, and the rows 64 - BT G of a tile that no box
+//     reaches (zeroed once), carry lse2 = +inf in the record, so P = 0;
+//   * a pre pass computes D and packs (lse2, D) per row tile, and zeroes
+//     the counters and the ticket; a post pass scales dQ, rounds it to bf16
+//     and unpacks the rows. The accumulator is [Hkv, tiles, 64, 128] f32
+//     (119 MB at T = 8192).
+// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W, T = 8192 (chip_smoke.py
+// phase 3, three runs): 2.86-2.92 ms of device time, 42% of the bound
+// (413-421 TFLOP/s of the five products), where the first design (two
+// kernels, seven products, no tensor-memory copies) took 12.57 ms;
+// tools/ab_torch.py, in turns on one card: 2.86 against 12.81. SDPA's own
+// backward (cuDNN) took 2.46-2.74 ms in the same runs, so this kernel is
+// still 1.07-1.16x it, and aten's flash-attention backward 4.41-4.43.
+// What holds it back (tools/profile_k1_bwd_torch.py): the dQ product and its fold (each
+// ~0.2-0.3 ms: 3.9 GB of f32 partials reduced in L2 at 128-key blocks),
+// and each warpgroup's chain of products and elementwise work per tile,
+// with its registers at the limit (dK and dV take 128 of the 240).
 //
 // Built by nvcc for sm_90a into the port's plain-C shared library (see
 // streaming_vlm_tpu_torch/ops/_kernels.py); the entry point returns
@@ -64,389 +102,469 @@ using bf16 = __nv_bfloat16;
 using namespace hopper;
 
 constexpr int HD = 128;          // head dim (the wrapper rejects others)
-constexpr int ROW = HD * 2;      // bytes of a staged row
-constexpr int THREADS = 128;     // 4 warps
-constexpr int KV_KEYS = 64;      // keys a dK/dV CTA owns (16 a warp)
-constexpr int KV_ROWS = 32;      // packed query rows a dK/dV step stages
-constexpr int Q_ROWS = 64;       // packed query rows a dQ CTA owns (16 a warp)
-constexpr int Q_KEYS = 64;       // keys a dQ step stages
-constexpr int KV_SMEM = 2 * KV_KEYS * ROW + 2 * (2 * KV_ROWS * ROW + 2 * KV_ROWS * 4);
-constexpr int Q_SMEM = 2 * Q_ROWS * ROW + 2 * (2 * Q_KEYS * ROW);
+constexpr int BN = 128;          // keys a CTA owns
+constexpr int ROWS = 64;         // packed query rows of a row tile, at most
+constexpr int CONSUMERS = 2;     // warpgroups, 64 keys each
+constexpr int STAGES = 2;        // row-tile ring depth
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+constexpr int KV_BYTES = BN * HD * 2;      // K or V of the block: 32 KB
+constexpr int KV_BOX = KV_BYTES / 2;       // one TMA box: 64 of the 128 columns
+constexpr int TILE_BYTES = ROWS * HD * 2;  // Q or dO of a row tile: 16 KB
+constexpr int TILE_BOX = TILE_BYTES / 2;
+constexpr int REC = 2 * ROWS;              // floats of a tile's record: lse2, then D
+constexpr int DS_BYTES = BN * ROWS * 2;    // dS of a tile, keys x rows: 16 KB
+constexpr int DQ_FLOATS = ROWS * HD;       // a tile's dQ partial: 32 KB of f32
+constexpr size_t SMEM_BYTES = 1024 + 2 * KV_BYTES + 2 * STAGES * TILE_BYTES + 2 * DS_BYTES +
+                              2 * DQ_FLOATS * 4 + STAGES * REC * 4 + 16 * sizeof(uint64_t);
 
-// byte offset of 16-byte chunk c of row r in a staged tile
-__device__ __forceinline__ int swz(int r, int c) { return r * ROW + ((c ^ (r & 7)) << 4); }
-
-// 16 bytes global -> shared, asynchronously; zeros when !valid
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-// 4 bytes global -> shared, asynchronously; zeros when !valid
-__device__ __forceinline__ void cp4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+static_assert(HD == 128 && BN == 128 && ROWS == 64 && CONSUMERS == 2,
+              "the wgmma shapes below assume these");
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// rows [r0, r0 + n) of a kv head's packed rows of x [T, H, HD] -> a staged
-// tile (zeros past R = T G)
-__device__ __forceinline__ void stage_rows(unsigned char* tile, const bf16* __restrict__ x, int r0,
-                                           int n, int R, int H, int kvh, int G) {
-  for (int i = threadIdx.x; i < n * (HD / 8); i += THREADS) {
-    const int r = i / (HD / 8), c = i % (HD / 8);
-    const int gr = r0 + r;
-    const bool ok = gr < R;
-    const int t = ok ? gr / G : 0, g = ok ? gr - t * G : 0;
-    cp16(tile + swz(r, c), x + ((size_t)t * H + kvh * G + g) * HD + c * 8, ok);
+// 2^x on the SFU (ex2.approx, subnormal results flushed to 0: a weight
+// below 2^-126 moves no gradient in bf16 or f32 sums)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the causal limit: key j is visible to token t
+__device__ __forceinline__ bool causal_ok(int key, int t) { return key <= t; }
+
+// S^T = K Q^T (or dP^T = V dO^T): warpgroup wg's 64 keys of the block in
+// kv (K or V) by the 64 rows of a staged tile (Q or dO), both K-major, as
+// one wgmma group
+__device__ __forceinline__ void keys_x_rows(float (&d)[32], const unsigned char* kv,
+                                            const unsigned char* rows, int wg) {
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < HD / 16; ++k) {
+    const int half = k / 4, kk = k % 4;
+    wgmma_m64n64k16_ss<0, 0>(d, smem_desc_sw128(kv + half * KV_BOX + wg * 8192 + kk * 32, 16, 1024),
+                             smem_desc_sw128(rows + half * TILE_BOX + kk * 32, 16, 1024), k > 0);
+  }
+  wgmma_commit();
+}
+
+// P^T = exp2(S^T * qscale - lse2) in place, each element's row's lse2 from
+// the tile's record; MASKED: 0 where bit 4j + e of vis is clear (selected,
+// never multiplied)
+template <bool MASKED>
+__device__ __forceinline__ void p_rows(float (&st)[32], const float* lse2, uint32_t vis,
+                                       float qscale, int lane) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * (lane % 4));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2(st[4 * j + e] * qscale - ((e & 1) ? l2.y : l2.x));
+      st[4 * j + e] = !MASKED || ((vis >> (4 * j + e)) & 1u) ? p : 0.f;
+    }
   }
 }
 
-// keys [k0, k0 + n) of a kv head of x [T, Hkv, HD] -> a staged tile (zeros
-// past T)
-__device__ __forceinline__ void stage_keys(unsigned char* tile, const bf16* __restrict__ x, int k0,
-                                           int n, int T, int Hkv, int kvh) {
-  for (int i = threadIdx.x; i < n * (HD / 8); i += THREADS) {
-    const int r = i / (HD / 8), c = i % (HD / 8);
-    const bool ok = k0 + r < T;
-    cp16(tile + swz(r, c), x + ((size_t)(ok ? k0 + r : 0) * Hkv + kvh) * HD + c * 8, ok);
+// dS^T = P^T (dP^T - D) in place of dP^T, each element's row's D from the
+// tile's record; MASKED: 0 where bit 4j + e of vis is clear
+template <bool MASKED>
+__device__ __forceinline__ void ds_rows(float (&dpt)[32], const float (&pt)[32], const float* d,
+                                        uint32_t vis, int lane) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 d2 = *reinterpret_cast<const float2*>(d + 8 * j + 2 * (lane % 4));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float ds = pt[4 * j + e] * (dpt[4 * j + e] - ((e & 1) ? d2.y : d2.x));
+      dpt[4 * j + e] = !MASKED || ((vis >> (4 * j + e)) & 1u) ? ds : 0.f;
+    }
   }
 }
 
-// D = rowsum(dO * O) in f32, one warp a (token, head) row
-__global__ void attn_bwd_dot_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                                    float* __restrict__ dsum, int rows) {
-  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+// float offset of (row, column) in a dQ partial (and in the accumulator):
+// 16-byte chunk c of row r stored at chunk c ^ (r % 8)
+__device__ __forceinline__ int dq_off(int r, int col) {
+  return r * HD + ((((col >> 2) ^ (r & 7)) << 2) | (col & 3));
+}
+
+// The pre pass, one warp a record row (kv head, row tile, row): D =
+// rowsum(dO * O) in f32 and lse2 into the tile's record, +inf and 0 for
+// rows no token fills; row 0 zeroes its tile's counter, record 0 the ticket.
+__global__ void attn_bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                                     const float* __restrict__ lse, float* __restrict__ rec,
+                                     int* __restrict__ counters, int T, int H, int Hkv, int G,
+                                     int BT, int M) {
+  const int e = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const uint2 a = *reinterpret_cast<const uint2*>(o + (size_t)row * HD + lane * 4);
-  const uint2 b = *reinterpret_cast<const uint2*>(dout + (size_t)row * HD + lane * 4);
-  const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
-  const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+  if (e >= Hkv * M * ROWS) return;
+  const int row = e % ROWS, tile = e / ROWS;  // tile = kvh * M + m
+  const int kvh = tile / M, m = tile % M;
+  const int t = m * BT + row / G, g = row % G;
+  const bool ok = row < BT * G && t < T;
   float s = 0.f;
+  if (ok) {
+    const size_t idx = ((size_t)t * H + kvh * G + g) * HD + lane * 4;
+    const uint2 a = *reinterpret_cast<const uint2*>(o + idx);
+    const uint2 b = *reinterpret_cast<const uint2*>(dout + idx);
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
 #pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const float2 x = __bfloat1622float2(a2[e]), y = __bfloat1622float2(b2[e]);
-    s += x.x * y.x + x.y * y.y;
+    for (int i = 0; i < 2; ++i) {
+      const float2 x = __bfloat1622float2(a2[i]), y = __bfloat1622float2(b2[i]);
+      s += x.x * y.x + x.y * y.y;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) dsum[row] = s;
+  if (lane == 0) {
+    rec[(size_t)tile * REC + row] = ok ? lse[(size_t)t * H + kvh * G + g] : INFINITY;
+    rec[(size_t)tile * REC + ROWS + row] = s;
+    if (row == 0) counters[tile] = 0;
+    if (e == 0) counters[Hkv * M] = 0;  // the ticket
+  }
 }
 
-// dK and dV of one (kv head, 64-key block): warp w owns keys k0 + 16 w ..
-// + 16; each step stages 32 packed query rows (q, dO, their lse2 and D).
-__global__ void __launch_bounds__(THREADS, 2) attn_bwd_dkdv_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dsum,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int H, int Hkv, int G, float qscale,
-    float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
+// The main kernel: one job (key block, kv head) a CTA, taken by ticket.
+__global__ void __launch_bounds__(THREADS, 1) attn_bwd_kernel(
+    const __grid_constant__ CUtensorMap q_map,  // [T, Hkv, G, HD]
+    const __grid_constant__ CUtensorMap o_map,  // dO, the same
+    const __grid_constant__ CUtensorMap k_map,  // [T, Hkv, HD]
+    const __grid_constant__ CUtensorMap v_map,
+    const float* __restrict__ rec,     // [Hkv, M, REC]
+    int* __restrict__ counters,        // [Hkv * M] folds done a row tile, then the ticket
+    float* __restrict__ dq_acc,        // [Hkv, M, ROWS, HD], dq_off layout
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int Hkv, int G, int BT, int M,
+    float qscale, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   unsigned char* sK = smem;
-  unsigned char* sV = sK + KV_KEYS * ROW;
-  unsigned char* sQ = sV + KV_KEYS * ROW;        // [2][KV_ROWS rows]
-  unsigned char* sO = sQ + 2 * KV_ROWS * ROW;    // dO, [2][KV_ROWS rows]
-  float* sL = reinterpret_cast<float*>(sO + 2 * KV_ROWS * ROW);  // [2][KV_ROWS]
-  float* sD = sL + 2 * KV_ROWS;
+  unsigned char* sV = sK + KV_BYTES;
+  unsigned char* sQ = sV + KV_BYTES;             // [STAGES] row tiles
+  unsigned char* sO = sQ + STAGES * TILE_BYTES;  // dO, [STAGES]
+  unsigned char* sS = sO + STAGES * TILE_BYTES;  // dS, [2]
+  float* sDQ = reinterpret_cast<float*>(sS + 2 * DS_BYTES);  // [2] dQ partials
+  float* sRec = sDQ + 2 * DQ_FLOATS;                          // [STAGES] records
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sRec + STAGES * REC);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
+  uint64_t* dq_full = empty + STAGES;
+  uint64_t* dq_empty = dq_full + 2;
+  int* s_job = reinterpret_cast<int*>(dq_empty + 2);
 
-  const int kvh = blockIdx.x, k0 = blockIdx.y * KV_KEYS;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g4 = lane / 4, t4 = lane % 4;
-  const int R = T * G;
-  const int r_begin = (k0 * G) / KV_ROWS * KV_ROWS;  // the first rows that see a key of the block
-  const int n_steps = (R - r_begin + KV_ROWS - 1) / KV_ROWS;
-
-  auto stage_step = [&](int s, int buf) {
-    const int r0 = r_begin + s * KV_ROWS;
-    stage_rows(sQ + buf * KV_ROWS * ROW, q, r0, KV_ROWS, R, H, kvh, G);
-    stage_rows(sO + buf * KV_ROWS * ROW, dout, r0, KV_ROWS, R, H, kvh, G);
-    if (threadIdx.x < KV_ROWS) {
-      const int gr = r0 + threadIdx.x;
-      const bool ok = gr < R;
-      const int t = ok ? gr / G : 0, g = ok ? gr - t * G : 0;
-      const size_t idx = (size_t)t * H + kvh * G + g;
-      cp4(sL + buf * KV_ROWS + threadIdx.x, lse + idx, ok);
-      cp4(sD + buf * KV_ROWS + threadIdx.x, dsum + idx, ok);
+  const int rows = BT * G;  // rows a TMA box fills
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS * 4);  // lane 0 of every consumer warp
     }
-  };
-
-  stage_keys(sK, k, k0, KV_KEYS, T, Hkv, kvh);
-  stage_keys(sV, v, k0, KV_KEYS, T, Hkv, kvh);
-  stage_step(0, 0);
-  cp_commit();
-
-  float dka[HD / 8][4], dva[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&dq_full[b], CONSUMERS * 4);
+      mbar_init(&dq_empty[b], 1);
+    }
+    mbar_fence_init();
+    *s_job = atomicAdd(counters + Hkv * M, 1);
   }
-  const int ja = k0 + 16 * warp + g4, jb = ja + 8;  // this thread's keys (rows g4, g4 + 8)
-  // ldmatrix row addresses: A (keys of the warp) and non-transposed B
-  // (rows of the step), and the transposed B of the step's rows
-  const int a_row = 16 * warp + (lane % 8) + ((lane / 8) % 2) * 8, a_chunk = lane / 16;
-  const int b_row = (lane % 8) + (lane / 16) * 8, b_chunk = (lane / 8) % 2;
-  const int bt_row = (lane % 8) + ((lane / 8) % 2) * 8, bt_chunk = lane / 16;
-
-  for (int s = 0; s < n_steps; ++s) {
-    const int buf = s & 1;
-    if (s + 1 < n_steps) {
-      stage_step(s + 1, buf ^ 1);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    const unsigned char* tq = sQ + buf * KV_ROWS * ROW;
-    const unsigned char* to = sO + buf * KV_ROWS * ROW;
-    const float* tl = sL + buf * KV_ROWS;
-    const float* td = sD + buf * KV_ROWS;
-    const int r0 = r_begin + s * KV_ROWS;
-
-    // S^T = K q^T and dP^T = V dO^T: [16 keys of the warp, 32 rows]
-    float st[KV_ROWS / 8][4], dpt[KV_ROWS / 8][4];
-#pragma unroll
-    for (int n = 0; n < KV_ROWS / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t ak[4], av[4];
-      ldmatrix_x4(ak, sK + swz(a_row, 2 * kk + a_chunk));
-      ldmatrix_x4(av, sV + swz(a_row, 2 * kk + a_chunk));
-#pragma unroll
-      for (int nn = 0; nn < KV_ROWS / 16; ++nn) {
-        uint32_t b[4];
-        ldmatrix_x4(b, tq + swz(16 * nn + b_row, 2 * kk + b_chunk));
-        mma_m16n8k16_bf16(st[2 * nn], ak, b[0], b[1]);
-        mma_m16n8k16_bf16(st[2 * nn + 1], ak, b[2], b[3]);
-        ldmatrix_x4(b, to + swz(16 * nn + b_row, 2 * kk + b_chunk));
-        mma_m16n8k16_bf16(dpt[2 * nn], av, b[0], b[1]);
-        mma_m16n8k16_bf16(dpt[2 * nn + 1], av, b[2], b[3]);
-      }
-    }
-    // P^T and dS^T in place; key j sees packed row r when j <= r / G
-#pragma unroll
-    for (int n = 0; n < KV_ROWS / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rl = 8 * n + 2 * t4 + (e & 1);
-        const int r = r0 + rl;
-        const int key = (e & 2) ? jb : ja;
-        const bool ok = r < R && key <= r / G;
-        const float p = ok ? exp2f(st[n][e] * qscale - tl[rl]) : 0.f;
-        dpt[n][e] = ok ? p * (dpt[n][e] - td[rl]) : 0.f;
-        st[n][e] = p;
-      }
-    }
-    // dV += P^T dO, dK += dS^T q over the step's 32 rows (2 k-steps)
-#pragma unroll
-    for (int kk = 0; kk < KV_ROWS / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(st[2 * kk][0], st[2 * kk][1]),
-                              pack_bf16(st[2 * kk][2], st[2 * kk][3]),
-                              pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
-                              pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
-      const uint32_t da[4] = {pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]),
-                              pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]),
-                              pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
-                              pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
-#pragma unroll
-      for (int nn = 0; nn < HD / 16; ++nn) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, to + swz(16 * kk + bt_row, 2 * nn + bt_chunk));
-        mma_m16n8k16_bf16(dva[2 * nn], pa, b[0], b[1]);
-        mma_m16n8k16_bf16(dva[2 * nn + 1], pa, b[2], b[3]);
-        ldmatrix_x4_trans(b, tq + swz(16 * kk + bt_row, 2 * nn + bt_chunk));
-        mma_m16n8k16_bf16(dka[2 * nn], da, b[0], b[1]);
-        mma_m16n8k16_bf16(dka[2 * nn + 1], da, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer before it is staged again
+  // the rows past BT G of every staged tile: no box writes them; zeros, once
+  for (int i = threadIdx.x; i < 2 * STAGES * 2 * (ROWS - rows) * 8; i += THREADS) {
+    const int chunk = i % 8, r = rows + (i / 8) % (ROWS - rows), box = i / (8 * (ROWS - rows));
+    *reinterpret_cast<uint4*>(sQ + box * TILE_BOX + r * 128 + chunk * 16) =
+        make_uint4(0u, 0u, 0u, 0u);
   }
+  fence_proxy_async();
+  __syncthreads();
+  const int job = *s_job;
+  const int n = job / Hkv, kvh = job % Hkv;
+  const int n_tiles = M - n * BN / BT;  // row tiles M - 1 down to the diagonal's
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
 
+  if (wg == CONSUMERS) {
+    regs_dealloc<24>();
+    const int warp = (threadIdx.x % 128) / 32;
+    if (warp == 0 && lane == 0) {
+      // ---- producer: K and V once, then the row tiles
+      tma_prefetch_map(&q_map);
+      tma_prefetch_map(&o_map);
+      mbar_arrive_expect_tx(kv_full, 2 * KV_BYTES);
+      tma_load_4d(sK, &k_map, kv_full, 0, kvh, n * BN, 0);
+      tma_load_4d(sK + KV_BOX, &k_map, kv_full, 64, kvh, n * BN, 0);
+      tma_load_4d(sV, &v_map, kv_full, 0, kvh, n * BN, 0);
+      tma_load_4d(sV + KV_BOX, &v_map, kv_full, 64, kvh, n * BN, 0);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int i = 0; i < n_tiles; ++i) {
+        const int m = M - 1 - i;
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_arrive_expect_tx(&full[stage], 4 * rows * 128 + REC * 4);
+        unsigned char* q_dst = sQ + stage * TILE_BYTES;
+        unsigned char* o_dst = sO + stage * TILE_BYTES;
+        tma_load_4d(q_dst, &q_map, &full[stage], 0, 0, kvh, m * BT);
+        tma_load_4d(q_dst + TILE_BOX, &q_map, &full[stage], 64, 0, kvh, m * BT);
+        tma_load_4d(o_dst, &o_map, &full[stage], 0, 0, kvh, m * BT);
+        tma_load_4d(o_dst + TILE_BOX, &o_map, &full[stage], 64, 0, kvh, m * BT);
+        bulk_load(sRec + stage * REC, rec + (size_t)(kvh * M + m) * REC, REC * 4, &full[stage]);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    } else if ((warp == 1 || warp == 2) && lane == 0) {
+      // ---- the dQ fold, warp 1 for buffer 0 (even tiles), warp 2 for
+      // buffer 1: key block 0 stores, block n adds once the row tile's
+      // counter reads n
+      const int b = warp - 1;
+      for (int i = b; i < n_tiles; i += 2) {
+        const int m = M - 1 - i;
+        int* cnt = counters + kvh * M + m;
+        float* dst = dq_acc + (size_t)(kvh * M + m) * DQ_FLOATS;
+        const float* src = sDQ + b * DQ_FLOATS;
+        // the turn first (block n - 1 is ahead: this read seldom waits)
+        while (n > 0 && ld_acquire(cnt) != n) {
+        }
+        mbar_wait(&dq_full[b], (i >> 1) & 1);
+        if (n == 0) {
+          bulk_store(dst, src, DQ_FLOATS * 4);
+        } else {
+          fence_proxy_async_global();
+          bulk_reduce_add_f32(dst, src, DQ_FLOATS * 4);
+        }
+        bulk_commit();
+        bulk_wait_all();  // the adds are done: the next block's turn
+        fence_proxy_async_global();
+        red_release_add(cnt, 1);
+        mbar_arrive(&dq_empty[b]);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns keys n BN + [64 wg, 64 wg + 64)
+    regs_alloc<240>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int key_a = n * BN + wg * 64 + warp * 16 + lane / 4, key_b = key_a + 8;
+    const int kl_a = key_a - n * BN;  // the thread's first key within the block
+    float dka[64], dva[64];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int j = h ? jb : ja;
-    if (j >= T) continue;
-    bf16* krow = dk + ((size_t)j * Hkv + kvh) * HD + 2 * t4;
-    bf16* vrow = dv + ((size_t)j * Hkv + kvh) * HD + 2 * t4;
+    for (int i = 0; i < 64; ++i) dka[i] = dva[i] = 0.f;
+    mbar_wait(kv_full, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+
+    for (int i = 0; i < n_tiles; ++i) {
+      const int m = M - 1 - i, t0 = m * BT, b = i & 1;
+      const unsigned char* q_t = sQ + stage * TILE_BYTES;
+      const unsigned char* o_t = sO + stage * TILE_BYTES;
+      const float* rec_t = sRec + stage * REC;
+      unsigned char* ds_t = sS + b * DS_BYTES;
+
+      // S^T = K Q^T and dP^T = V dO^T: [this warpgroup's 64 keys, 64 rows]
+      float st[32], dpt[32];
+      mbar_wait(&full[stage], phase);
+      keys_x_rows(st, sK, q_t, wg);
+      keys_x_rows(dpt, sV, o_t, wg);
+
+      // element 4j + e of S^T / dP^T is key (e & 2 ? b : a), row 8j + 2
+      // (lane % 4) + (e & 1) of the tile (token t0 + row / G); only the tiles
+      // that cross the block's diagonal are masked: bit 4j + e of `vis`
+      const bool diag = n * BN + BN - 1 > t0;
+      uint32_t vis = ~0u;
+      if (diag) {
+        vis = 0u;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(krow + 8 * n) =
-          pack_bf16(dka[n][2 * h] * scale, dka[n][2 * h + 1] * scale);
-      *reinterpret_cast<uint32_t*>(vrow + 8 * n) = pack_bf16(dva[n][2 * h], dva[n][2 * h + 1]);
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 8 * j + 2 * (lane % 4) + (e & 1);
+            if (causal_ok((e & 2) ? key_b : key_a, t0 + c / G)) vis |= 1u << (4 * j + e);
+          }
+        }
+      }
+      // P^T in place of S^T, then in bf16: the fragment of rows [16 kk,
+      // 16 kk + 16) is the A fragment of the kk-th step of dV += P^T dO,
+      // issued at once (it runs while dS is formed)
+      wgmma_wait<1>();
+      fence_regs(st);
+      if (diag) {
+        p_rows<true>(st, rec_t, vis, qscale, lane);
+      } else {
+        p_rows<false>(st, rec_t, vis, qscale, lane);
+      }
+      uint32_t pa[ROWS / 16][4], da[ROWS / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < ROWS / 16; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pa[kk][e] = pack_bf16(st[8 * kk + 2 * e], st[8 * kk + 2 * e + 1]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < ROWS / 16; ++kk) {
+        wgmma_m64n128k16_rs_tb(dva, pa[kk], smem_desc_sw128(o_t + kk * 2048, TILE_BOX, 1024), 1);
+      }
+      wgmma_commit();
+
+      // dS^T = P^T (dP^T - D) in place of dP^T (0 where P is masked), in
+      // bf16 the A fragments of dK += dS^T Q
+      wgmma_wait<1>();
+      fence_regs(dpt);
+      if (diag) {
+        ds_rows<true>(dpt, st, rec_t + ROWS, vis, lane);
+      } else {
+        ds_rows<false>(dpt, st, rec_t + ROWS, vis, lane);
+      }
+#pragma unroll
+      for (int kk = 0; kk < ROWS / 16; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) da[kk][e] = pack_bf16(dpt[8 * kk + 2 * e], dpt[8 * kk + 2 * e + 1]);
+      }
+      // dS as keys x rows (each key's 64 rows one 128-byte swizzled line):
+      // the MN-major A operand of dQ = dS K; da[kk][e] holds rows 16 kk +
+      // 8 (e / 2) + 2 (lane % 4), +1 of key (e & 1 ? b : a). Announced to
+      // the other warpgroup on barrier 1 + 2 wg + b, without waiting
+#pragma unroll
+      for (int kk = 0; kk < ROWS / 16; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kl = kl_a + 8 * (e & 1);
+          const int c = 16 * kk + 8 * (e >> 1) + 2 * (lane % 4);
+          *reinterpret_cast<uint32_t*>(ds_t + kl * 128 + (((c >> 3) ^ (kl & 7)) << 4) +
+                                       ((c & 7) << 1)) = da[kk][e];
+        }
+      }
+      fence_proxy_async();
+      named_barrier_arrive(1 + 2 * wg + b, CONSUMERS * 128);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < ROWS / 16; ++kk) {
+        wgmma_m64n128k16_rs_tb(dka, da[kk], smem_desc_sw128(q_t + kk * 2048, TILE_BOX, 1024), 1);
+      }
+      wgmma_commit();
+
+      // the dQ partial dS K over this warpgroup's 64 columns (K MN-major),
+      // once the other warpgroup's half of dS is in place
+      named_barrier_sync(1 + 2 * (1 - wg) + b, CONSUMERS * 128);
+      float dq[32];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        wgmma_m64n64k16_ss<1, 1>(dq, smem_desc_sw128(ds_t + kk * 2048, 16, 1024),
+                                 smem_desc_sw128(sK + wg * KV_BOX + kk * 2048, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(dva);
+      fence_regs(dka);
+#pragma unroll
+      for (int kk = 0; kk < ROWS / 16; ++kk) {
+        fence_regs(pa[kk]);  // read by the wgmma until here
+        fence_regs(da[kk]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);  // this stage's Q and dO are read
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+      wgmma_wait<0>();
+      fence_regs(dq);
+
+      // the partial -> the fold's buffer b (free once its last fold is done)
+      mbar_wait(&dq_empty[b], ((i >> 1) & 1) ^ 1);
+      float* sdq = sDQ + b * DQ_FLOATS;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = wg * 64 + 8 * j + 2 * (lane % 4);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = warp * 16 + lane / 4 + 8 * h;
+          *reinterpret_cast<float2*>(sdq + dq_off(r, col)) =
+              make_float2(dq[4 * j + 2 * h], dq[4 * j + 2 * h + 1]);
+        }
+      }
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&dq_full[b]);
+    }
+
+    // dK (times the softmax scale) and dV of this thread's two keys
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = h ? key_b : key_a;
+      if (key >= T) continue;
+      bf16* krow = dk + ((size_t)key * Hkv + kvh) * HD + 2 * (lane % 4);
+      bf16* vrow = dv + ((size_t)key * Hkv + kvh) * HD + 2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(krow + 8 * j) =
+            pack_bf16(dka[4 * j + 2 * h] * scale, dka[4 * j + 2 * h + 1] * scale);
+        *reinterpret_cast<uint32_t*>(vrow + 8 * j) = pack_bf16(dva[4 * j + 2 * h], dva[4 * j + 2 * h + 1]);
+      }
     }
   }
 }
 
-// dQ of one (kv head, 64-row block): warp w owns packed rows r0 + 16 w ..
-// + 16; each step stages 64 keys of K and V, up to the block's last token.
-__global__ void __launch_bounds__(THREADS, 2) attn_bwd_dq_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dsum,
-    bf16* __restrict__ dq, int T, int H, int Hkv, int G, float qscale, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* sQ = smem;
-  unsigned char* sO = sQ + Q_ROWS * ROW;
-  unsigned char* sK = sO + Q_ROWS * ROW;  // [2][Q_KEYS rows]
-  unsigned char* sV = sK + 2 * Q_KEYS * ROW;
-
-  const int kvh = blockIdx.x;
-  const int r0 = (gridDim.y - 1 - blockIdx.y) * Q_ROWS;  // the heaviest blocks first
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g4 = lane / 4, t4 = lane % 4;
-  const int R = T * G;
-  const int n_steps = (min(R, r0 + Q_ROWS) - 1) / G / Q_KEYS + 1;
-
-  stage_rows(sQ, q, r0, Q_ROWS, R, H, kvh, G);
-  stage_rows(sO, dout, r0, Q_ROWS, R, H, kvh, G);
-  stage_keys(sK, k, 0, Q_KEYS, T, Hkv, kvh);
-  stage_keys(sV, v, 0, Q_KEYS, T, Hkv, kvh);
-  cp_commit();
-
-  // this thread's rows (g4, g4 + 8 of the warp's 16), their tokens, lse2 and D
-  int rr[2], tt[2];
-  float l2[2], dd[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    rr[h] = r0 + 16 * warp + g4 + 8 * h;
-    const bool ok = rr[h] < R;
-    tt[h] = ok ? rr[h] / G : 0;
-    const size_t idx = (size_t)tt[h] * H + kvh * G + (ok ? rr[h] - tt[h] * G : 0);
-    l2[h] = ok ? lse[idx] : 0.f;
-    dd[h] = ok ? dsum[idx] : 0.f;
-  }
-  float dqa[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
-  }
-  const int a_row = 16 * warp + (lane % 8) + ((lane / 8) % 2) * 8, a_chunk = lane / 16;
-  const int b_row = (lane % 8) + (lane / 16) * 8, b_chunk = (lane / 8) % 2;
-  const int bt_row = (lane % 8) + ((lane / 8) % 2) * 8, bt_chunk = lane / 16;
-
-  for (int s = 0; s < n_steps; ++s) {
-    const int buf = s & 1;
-    if (s + 1 < n_steps) {
-      stage_keys(sK + (buf ^ 1) * Q_KEYS * ROW, k, (s + 1) * Q_KEYS, Q_KEYS, T, Hkv, kvh);
-      stage_keys(sV + (buf ^ 1) * Q_KEYS * ROW, v, (s + 1) * Q_KEYS, Q_KEYS, T, Hkv, kvh);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    const unsigned char* tk = sK + buf * Q_KEYS * ROW;
-    const unsigned char* tv = sV + buf * Q_KEYS * ROW;
-    const int k0 = s * Q_KEYS;
-
-    // S = q K^T and dP = dO V^T: [16 rows of the warp, 64 keys]
-    float sa[Q_KEYS / 8][4], dp[Q_KEYS / 8][4];
-#pragma unroll
-    for (int n = 0; n < Q_KEYS / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sa[n][e] = dp[n][e] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t aq[4], ao[4];
-      ldmatrix_x4(aq, sQ + swz(a_row, 2 * kk + a_chunk));
-      ldmatrix_x4(ao, sO + swz(a_row, 2 * kk + a_chunk));
-#pragma unroll
-      for (int nn = 0; nn < Q_KEYS / 16; ++nn) {
-        uint32_t b[4];
-        ldmatrix_x4(b, tk + swz(16 * nn + b_row, 2 * kk + b_chunk));
-        mma_m16n8k16_bf16(sa[2 * nn], aq, b[0], b[1]);
-        mma_m16n8k16_bf16(sa[2 * nn + 1], aq, b[2], b[3]);
-        ldmatrix_x4(b, tv + swz(16 * nn + b_row, 2 * kk + b_chunk));
-        mma_m16n8k16_bf16(dp[2 * nn], ao, b[0], b[1]);
-        mma_m16n8k16_bf16(dp[2 * nn + 1], ao, b[2], b[3]);
-      }
-    }
-    // dS in place of S
-#pragma unroll
-    for (int n = 0; n < Q_KEYS / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e / 2;
-        const int key = k0 + 8 * n + 2 * t4 + (e & 1);
-        const bool ok = rr[h] < R && key <= tt[h];
-        const float p = ok ? exp2f(sa[n][e] * qscale - l2[h]) : 0.f;
-        sa[n][e] = ok ? p * (dp[n][e] - dd[h]) : 0.f;
-      }
-    }
-    // dQ += dS K over the step's 64 keys (4 k-steps)
-#pragma unroll
-    for (int kk = 0; kk < Q_KEYS / 16; ++kk) {
-      const uint32_t da[4] = {pack_bf16(sa[2 * kk][0], sa[2 * kk][1]),
-                              pack_bf16(sa[2 * kk][2], sa[2 * kk][3]),
-                              pack_bf16(sa[2 * kk + 1][0], sa[2 * kk + 1][1]),
-                              pack_bf16(sa[2 * kk + 1][2], sa[2 * kk + 1][3])};
-#pragma unroll
-      for (int nn = 0; nn < HD / 16; ++nn) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, tk + swz(16 * kk + bt_row, 2 * nn + bt_chunk));
-        mma_m16n8k16_bf16(dqa[2 * nn], da, b[0], b[1]);
-        mma_m16n8k16_bf16(dqa[2 * nn + 1], da, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer before it is staged again
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (rr[h] >= R) continue;
-    const int g = rr[h] - tt[h] * G;
-    bf16* qrow = dq + ((size_t)tt[h] * H + kvh * G + g) * HD + 2 * t4;
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(qrow + 8 * n) =
-          pack_bf16(dqa[n][2 * h] * scale, dqa[n][2 * h + 1] * scale);
-    }
-  }
+// The post pass: dQ = the accumulator times the softmax scale, in bf16,
+// unpacked to [T, H, HD]; one thread 8 columns of a (token, head) row.
+__global__ void attn_bwd_dq_kernel(const float* __restrict__ dq_acc, bf16* __restrict__ dq, int T,
+                                   int H, int G, int BT, int M, float scale) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)T * H * (HD / 8)) return;
+  const int row = (int)(i / (HD / 8)), c8 = (int)(i % (HD / 8));
+  const int t = row / H, h = row % H;
+  const int kvh = h / G, g = h % G, m = t / BT;
+  const int r = (t - m * BT) * G + g;
+  const float* src = dq_acc + (size_t)(kvh * M + m) * DQ_FLOATS;
+  const float4 a = *reinterpret_cast<const float4*>(src + dq_off(r, 8 * c8));
+  const float4 b = *reinterpret_cast<const float4*>(src + dq_off(r, 8 * c8 + 4));
+  uint4 w;
+  w.x = pack_bf16(a.x * scale, a.y * scale);
+  w.y = pack_bf16(a.z * scale, a.w * scale);
+  w.z = pack_bf16(b.x * scale, b.y * scale);
+  w.w = pack_bf16(b.z * scale, b.w * scale);
+  *reinterpret_cast<uint4*>(dq + (size_t)row * HD + c8 * 8) = w;
 }
 
 }  // namespace
 
+extern "C" int svt_attention_bwd_block_keys() { return BN; }
+extern "C" int svt_attention_bwd_tile_rows() { return ROWS; }
+
 // K1-bwd. q, o, dout, dq [T, H, HD]; k, v, dk, dv [T, Hkv, HD] (bf16,
-// contiguous); lse [T, H] f32 (log2 space, as K1 writes it); dsum [T, H]
-// f32 scratch for D. Three launches on `stream`; no atomics.
+// contiguous); lse [T, H] f32 (log2 space, as K1 writes it). Scratch (the
+// wrapper's, see ops/attention.py `attention_bwd_tiles`): rec f32
+// [Hkv, M, 128], counters int32 [Hkv M + 1], dq_acc f32 [Hkv, M, 64, HD],
+// M = ceil(T / (64 / G)) row tiles. Three launches on `stream`.
 extern "C" int svt_attention_bwd(const void* q, const void* k, const void* v, const void* o,
-                                 const void* lse, const void* dout, void* dsum, void* dq, void* dk,
-                                 void* dv, int T, int H, int Hkv, int hd, void* stream) {
-  if (hd != HD || Hkv <= 0 || H % Hkv != 0 || T <= 0) return (int)cudaErrorInvalidValue;
+                                 const void* lse, const void* dout, void* rec, void* counters,
+                                 void* dq_acc, void* dq, void* dk, void* dv, int T, int H, int Hkv,
+                                 int hd, void* stream) {
+  if (hd != HD || Hkv <= 0 || H % Hkv != 0 || T <= 0 || H / Hkv > ROWS)
+    return (int)cudaErrorInvalidValue;
   const int G = H / Hkv;
+  const int BT = ROWS / G, M = (T + BT - 1) / BT, NB = (T + BN - 1) / BN;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const float scale = 1.f / sqrtf((float)hd);
   const float qscale = 1.4426950408889634f * scale;
-  const int rows = T * H;
-  attn_bwd_dot_kernel<<<(rows + 7) / 8, 256, 0, st>>>((const bf16*)o, (const bf16*)dout,
-                                                      (float*)dsum, rows);
-  cudaFuncSetAttribute(attn_bwd_dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, KV_SMEM);
-  attn_bwd_dkdv_kernel<<<dim3(Hkv, (T + KV_KEYS - 1) / KV_KEYS), THREADS, KV_SMEM, st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-      (const float*)dsum, (bf16*)dk, (bf16*)dv, T, H, Hkv, G, qscale, scale);
-  cudaFuncSetAttribute(attn_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Q_SMEM);
-  attn_bwd_dq_kernel<<<dim3(Hkv, (T * G + Q_ROWS - 1) / Q_ROWS), THREADS, Q_SMEM, st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-      (const float*)dsum, (bf16*)dq, T, H, Hkv, G, qscale, scale);
+  CUtensorMap q_map, o_map, k_map, v_map;
+  const uint64_t slot = (uint64_t)Hkv * HD * sizeof(bf16);
+  if (!svt_tensor_map_gqa(&q_map, q, T, Hkv, G, BT) ||
+      !svt_tensor_map_gqa(&o_map, dout, T, Hkv, G, BT) ||
+      !svt_tensor_map_rows(&k_map, k, T, Hkv, HD * sizeof(bf16), slot, BN) ||
+      !svt_tensor_map_rows(&v_map, v, T, Hkv, HD * sizeof(bf16), slot, BN))
+    return (int)cudaErrorInvalidValue;
+  const int records = Hkv * M * ROWS;
+  attn_bwd_prep_kernel<<<(records + 7) / 8, 256, 0, st>>>(
+      (const bf16*)o, (const bf16*)dout, (const float*)lse, (float*)rec, (int*)counters, T, H,
+      Hkv, G, BT, M);
+  cudaFuncSetAttribute(attn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)SMEM_BYTES);
+  attn_bwd_kernel<<<Hkv * NB, THREADS, SMEM_BYTES, st>>>(
+      q_map, o_map, k_map, v_map, (const float*)rec, (int*)counters, (float*)dq_acc, (bf16*)dk,
+      (bf16*)dv, T, Hkv, G, BT, M, qscale, scale);
+  const long long threads = (long long)T * H * (HD / 8);
+  attn_bwd_dq_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
+      (const float*)dq_acc, (bf16*)dq, T, H, G, BT, M, scale);
   return (int)cudaGetLastError();
 }

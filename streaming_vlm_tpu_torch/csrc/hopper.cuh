@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels:
-// mbarriers, TMA tile loads and their host-side tensor maps, wgmma shared
-// memory descriptors and the bf16 and s8 wgmma shapes the kernels use,
-// warpgroup register reallocation, named barriers, the warp-level bf16
-// mma and ldmatrix. Inline PTX only; nothing here launches or allocates.
-// Used by prefill_attention.cu (K1), int8_gemm.cu (K5's tiled path),
-// decode_attention.cu (K2, K4), decode_attention_raw.cu (K3), int4_gemv.cu
-// (K5-int4) and verify_attention.cu (K2-verify).
+// mbarriers, TMA tile loads and their host-side tensor maps, bulk copies and
+// reductions from shared to global memory, acquire / release counters,
+// wgmma shared memory descriptors and the bf16 and s8 wgmma shapes the
+// kernels use, warpgroup register reallocation, named barriers, the
+// warp-level bf16 mma and ldmatrix. Inline PTX only; nothing here launches
+// or allocates. Used by prefill_attention.cu (K1), int8_gemm.cu (K5's tiled
+// path), decode_attention.cu (K2, K4), decode_attention_raw.cu (K3),
+// int4_gemv.cu (K5-int4), verify_attention.cu (K2-verify) and
+// attention_bwd.cu (K1-bwd).
 #pragma once
 
 #include <cuda.h>
@@ -101,6 +103,48 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) of shared
+// memory -> global memory, as one bulk async-group member
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+
+// global[i] += shared[i] over `bytes` of f32 (the add done at L2), as one
+// bulk async-group member
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst, const void* src, uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::"l"(dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// returns once every committed bulk group has completed: its writes done
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// orders this thread's generic-proxy accesses of global memory with its
+// async-proxy ones (bulk copies and reductions)
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void red_release_add(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
@@ -115,6 +159,12 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// counts `threads` arrivals on named barrier `id` without waiting (the
+// waiting side calls named_barrier_sync with the same count)
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 template <int N>
@@ -247,6 +297,24 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64], const uin
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+// D[64 x 64] (+)= A[64 x 16] . B[16 x 64] in f32, A and B from shared
+// memory; TA / TB are the transpose bits (0: K-major, 1: MN-major, the 64
+// M / N values of one K index contiguous); scale_d = 0 overwrites D.
+// Accumulator layout as m64n128's, d[4j + e] for j < 8.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 // D[64 x 128] (+)= A[64 x 32] . B[128 x 32]^T in int32, s8 operands from
 // shared memory, both K-major (the only layout wgmma takes for 8-bit types);
 // scale_d = 0 overwrites D. Accumulator layout as the f32 form above.
@@ -345,6 +413,26 @@ static inline bool svt_tensor_map_rows(CUtensorMap* map, const void* base, int r
             const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 4-d tensor map over x [T, Hkv, G, 128] of bf16 (q, O or dO [T, H, 128]
+// with H = Hkv G): boxes of {64 columns, G heads, 1 kv head, box_t tokens}
+// in the 128-byte swizzle, addressed (column, head of the group, kv head,
+// token), so a box lands as box_t G rows of 128 bytes in K1's packed order
+// (row = token * G + head). Tokens past T read as zeros. Returns false if
+// the encoder refuses it.
+static inline bool svt_tensor_map_gqa(CUtensorMap* map, const void* base, int T, int Hkv, int G,
+                                      int box_t) {
+  svt_encode_tiled_fn fn = svt_encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t row = 128 * 2;
+  const cuuint64_t dims[4] = {128, (cuuint64_t)G, (cuuint64_t)Hkv, (cuuint64_t)T};
+  const cuuint64_t strides[3] = {row, row * G, row * G * Hkv};
+  const cuuint32_t box[4] = {64, (cuuint32_t)G, 1, (cuuint32_t)box_t};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // A 2-d int8 tensor map over a [rows, cols] matrix whose rows are

@@ -170,8 +170,12 @@ def lib() -> ctypes.CDLL:
         so.svt_decode_partials.restype = I
         so.svt_verify_attention.argtypes = [P] * 10 + [I] * 8 + [P]
         so.svt_verify_attention.restype = I
-        so.svt_attention_bwd.argtypes = [P] * 10 + [I] * 4 + [P]
+        so.svt_attention_bwd.argtypes = [P] * 12 + [I] * 4 + [P]
         so.svt_attention_bwd.restype = I
+        so.svt_attention_bwd_block_keys.argtypes = []
+        so.svt_attention_bwd_block_keys.restype = I
+        so.svt_attention_bwd_tile_rows.argtypes = []
+        so.svt_attention_bwd_tile_rows.restype = I
         so.svt_ce_rows.argtypes = [P] * 4 + [I, LL, I, P]
         so.svt_ce_rows.restype = I
         for fn in ("svt_decode_max_small_rows", "svt_decode_max_split", "svt_decode_max_parts",
@@ -207,5 +211,6 @@ def lib() -> ctypes.CDLL:
         so.int4_max_rows = so.svt_int4_max_rows()
         so.int8_block = (so.svt_int8_block_m(), so.svt_int8_block_k())
         so.prefill_block = (so.svt_prefill_block_rows(), so.svt_prefill_block_keys())
+        so.bwd_block = (so.svt_attention_bwd_block_keys(), so.svt_attention_bwd_tile_rows())
         _lib = so
     return _lib

@@ -556,6 +556,33 @@ def train_attention_bwd_plain(q_rot, k_rot, v, out, lse2, d_out, q_block: int = 
     return dq.reshape(T, H, hd), dk, dv
 
 
+# K1-bwd's tiling (csrc/attention_bwd.cu BN and ROWS): a CTA owns a block of
+# 128 keys of one kv head; a row tile holds the packed rows of 64 // G whole
+# tokens (63 at G = 7)
+BWD_BLOCK_KEYS = 128
+BWD_TILE_ROWS = 64
+
+
+def attention_bwd_tiles(T: int, G: int) -> Tuple[int, int]:
+    """K1-bwd's row tiles at T tokens and group G, as the kernel derives
+    them: (whole tokens a tile, 64 // G; tiles). The wrapper sizes its
+    scratch by them; tests/test_torch_bwd_plan.py models the schedule."""
+    bt = BWD_TILE_ROWS // G
+    return bt, -(-T // bt)
+
+
+def attention_bwd_scratch(T: int, H: int, Hkv: int, hd: int, device) -> Tuple[torch.Tensor, ...]:
+    """K1-bwd's scratch at T tokens, H query and Hkv kv heads, uninitialised
+    (the pre pass fills it): each row tile's (lse2, D) record f32 [Hkv, M,
+    2 * 64], the per-tile fold counters and the ticket int32 [Hkv M + 1] and
+    the dQ accumulator f32 [Hkv, M, 64, hd], M = `attention_bwd_tiles`' tiles.
+    On device "meta" it only reckons the bytes."""
+    M = attention_bwd_tiles(T, H // Hkv)[1]
+    return (torch.empty(Hkv, M, 2 * BWD_TILE_ROWS, dtype=torch.float32, device=device),
+            torch.empty(Hkv * M + 1, dtype=torch.int32, device=device),
+            torch.empty(Hkv, M, BWD_TILE_ROWS, hd, dtype=torch.float32, device=device))
+
+
 def _check_train_shapes(name: str, q_rot, k_rot, v) -> None:
     """Raise unless q [T, H, 128], k and v [T, Hkv, 128] with H = G Hkv, G <=
     TRAIN_GMAX, bf16 on a CUDA device (what K1 and K1-bwd take)."""
@@ -573,9 +600,13 @@ def _check_train_shapes(name: str, q_rot, k_rot, v) -> None:
 def attention_bwd(q_rot, k_rot, v, out, lse2, d_out):
     """K1-bwd: dq [T, H, hd], dk, dv [T, Hkv, hd] of causal GQA attention
     from the saved output and log2-space log-sum-exp (`train_attention_bwd_
-    plain`'s algebra), in the inputs' dtype. On the card: the D pass, the
-    dK/dV kernel and the dQ kernel (csrc/attention_bwd.cu), one counted
-    launch, no atomics (bitwise repeatable). On the CPU: the plain version."""
+    plain`'s algebra), in the inputs' dtype. On the card: a pre pass (D and
+    each row tile's (lse2, D) record), the main kernel (the five products
+    once, dQ partials folded in a fixed order: bitwise repeatable) and a
+    post pass rounding dQ (csrc/attention_bwd.cu; its row tiles
+    `attention_bwd_tiles`, its scratch `attention_bwd_scratch`), one
+    counted launch. On the CPU: the plain
+    version."""
     if q_rot.device.type == "cpu":
         dq, dk, dv = train_attention_bwd_plain(q_rot, k_rot, v, out, lse2, d_out)
         return dq.to(q_rot.dtype), dk.to(k_rot.dtype), dv.to(v.dtype)
@@ -591,11 +622,13 @@ def attention_bwd(q_rot, k_rot, v, out, lse2, d_out):
         raise ValueError(f"{name}: lse2 must be f32 [T, H]")
     from ._kernels import lib
 
+    if lib().bwd_block != (BWD_BLOCK_KEYS, BWD_TILE_ROWS):
+        raise RuntimeError(f"{name}: the library's tiles {lib().bwd_block} are not the schedule's")
     dq, dk, dv = torch.empty_like(q_rot), torch.empty_like(k_rot), torch.empty_like(v)
-    dsum = torch.empty(T, H, dtype=torch.float32, device=q_rot.device)
+    rec, counters, dq_acc = attention_bwd_scratch(T, H, Hkv, hd, q_rot.device)
     err = lib().svt_attention_bwd(
-        ptr(q_rot), ptr(k_rot), ptr(v), ptr(out), ptr(lse2), ptr(d_out), ptr(dsum), ptr(dq),
-        ptr(dk), ptr(dv), T, H, Hkv, hd, stream())
+        ptr(q_rot), ptr(k_rot), ptr(v), ptr(out), ptr(lse2), ptr(d_out), ptr(rec),
+        ptr(counters), ptr(dq_acc), ptr(dq), ptr(dk), ptr(dv), T, H, Hkv, hd, stream())
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
     launch_counts[name] += 1

@@ -527,9 +527,22 @@ def test_qlinear4_and_lm_head_on_card(cuda):
 def test_attention_bwd_on_card(cuda, T):
     """K1-bwd against the plain algebra in f32 from the same bf16 inputs: two
     bf16 ulps of each value plus two of the largest (as chip_smoke.py holds
-    it), and two calls bitwise equal (no atomics)."""
+    it), and two calls bitwise equal (dQ's partials fold in a fixed order).
+    Qwen2.5-VL-7B's heads (G = 7)."""
+    _check_attention_bwd(cuda, T, 28, 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 200])
+def test_attention_bwd_g8_on_card(cuda, T):
+    """As test_attention_bwd_on_card at Qwen2.5-VL-3B's heads (H 16, Hkv 2:
+    G = 8, a row tile of 8 whole tokens)."""
+    _check_attention_bwd(cuda, T, 16, 2)
+
+
+def _check_attention_bwd(cuda, T, H, Hkv):
     g = torch.Generator(device=cuda).manual_seed(T)
-    H, Hkv, hd = 28, 4, 128
+    hd = 128
 
     def rn(*s):
         return torch.randn(*s, generator=g, device=cuda).to(torch.bfloat16)
@@ -541,8 +554,21 @@ def test_attention_bwd_on_card(cuda, T):
     got = A.attention_bwd(q, k, v, o, lse2, do)
     want = A.train_attention_bwd_plain(q, k, v, o, lse2, do)
     for a, b, c in zip(got, want, A.attention_bwd(q, k, v, o, lse2, do)):
-        torch.testing.assert_close(a.float(), b, atol=2.0**-6 * float(b.abs().max()), rtol=2.0**-6)
         assert torch.equal(a, c)
+    if T == 1:
+        # one key: P = 1 and the exact dQ and dK are 0 (D = dP); each side
+        # holds only the f32 rounding of D - dP, two sums of hd exact
+        # products, each within (hd - 1) 2^-24 (twice that for an adder that
+        # truncates) of the products' magnitudes: 2^-15 of it bounds dS, so
+        # dQ = dS k scale and dK = sum over G heads of dS q scale
+        G, scale = H // Hkv, hd**-0.5
+        mag = (do.float().reshape(T, Hkv, G, hd).abs() * v.float()[:, :, None].abs()).sum(-1).max()
+        ds = 2.0**-15 * float(mag)
+        assert float(got[0].float().abs().max()) <= ds * float(k.float().abs().max()) * scale
+        assert float(got[1].float().abs().max()) <= G * ds * float(q.float().abs().max()) * scale
+        got, want = got[2:], want[2:]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b, atol=2.0**-6 * float(b.abs().max()), rtol=2.0**-6)
 
 
 @pytest.mark.gpu
