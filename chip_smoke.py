@@ -61,7 +61,11 @@ Phases; any failure exits non-zero:
    decode GEMV also with cold weights: each call rotates over copies of its
    weight past twice the 50 MB L2, as a decode step finds them). K3's bound
    counts the f32 work that its dtype chain keeps off the tensor cores at
-   the f32 rate beside its bytes.
+   the f32 rate beside its bytes. K1 is also held at the evaluation
+   harnesses' shapes (`_phase_k1_eval`): the batched MCQ forward's 8
+   right-padded lanes of T = 1024 at visible 0, VQA's raw-mode prefill of
+   T = 1024 over a fresh 2048-slot arena at visible 0 and its raw-mode
+   T = 1 steps at visible 700-1000, with device times beside SDPA's.
 4. reference: at 7B width (decoder cut to 4 layers), the streaming forward
    through the kernels (chunk prefill, then one decode token) in bf16
    against the plain full-attention oracle `language_forward` in f32 on the
@@ -78,6 +82,9 @@ Phases; any failure exits non-zero:
    bf16 arena, and with W8A8 weights over the int8 arena) against the f32
    oracle on the same tokens, and r, the largest logit difference between
    its rows and K2 decode steps over the same tokens (over max |logit|).
+   Then the batched MCQ forward (`eval.mcq`, 4 right-padded questions, two
+   with a vision crop; K1 once a layer) against `forward_full` in f32, each
+   question's option logits, under the same noise rule.
    Then training: `sft_loss` at 7B widths (decoder cut to 4 layers, T =
    2048, vision embeddings scattered in) and its text gradients through the
    kernels in bf16 (K1 with its log-sum-exp, K1-bwd, CE-row) against the
@@ -85,7 +92,7 @@ Phases; any failure exits non-zero:
    2e-2 and each leaf's relative L2 error <= 5e-2, or each within 2x the
    plain path's own error in bf16 (the noise floor).
 5. slices: Qwen2.5-VL-7B served through `serve.streaming_inference_frames`,
-   20 one-second chunks of 2 synthetic 476x840 frames each, three times:
+   18 one-second chunks of 2 synthetic 476x840 frames each, three times:
    slice A with random bf16 weights and the default StreamConfig (the
    pre-rotated bf16 arena: K1 + K2), slice B with the same weights and
    StreamConfig(kv_quant="int8", prerotate_arena=False) (the int8 raw
@@ -96,7 +103,7 @@ Phases; any failure exits non-zero:
    kernel call of its run went through the kernels, as many times as the
    path makes them (K5's by path: decode GEMV and tiled). Then three
    multi-stream slices, bench.py's multi-stream setup through
-   MultiStreamEngine on the W8A8 weights (warm round + reset_lane, 20
+   MultiStreamEngine on the W8A8 weights (warm round + reset_lane, 18
    rounds, the last lane idle in rounds 3 and 11, each lane its own frames
    and query): slice D, 6 lanes over the int8 pre-rotated arena (K1 and K2
    lane forms, K5 tiled at M = 6); slice E, 8 lanes with rot_quant="int8";
@@ -105,7 +112,7 @@ Phases; any failure exits non-zero:
    lanes' occupancy after eviction, and checks its launch counts. Slice G
    serves Qwen2-VL-7B (random W8A8 weights, all 28 layers and 32 vision
    blocks, kv_quant="int8") through bench.py's single-stream route:
-   `prewarm`, a throwaway warm chunk, a fresh `StreamingSession`, 20 chunks
+   `prewarm`, a throwaway warm chunk, a fresh `StreamingSession`, 18 chunks
    whose frames are uploaded and patchified on the card, the next chunk's
    encode launched behind each step, and bench.py's qa question at chunk
    10 (a larger bucket); it prints p50, max and the qa chunk. Slice H
@@ -152,7 +159,18 @@ Phases; any failure exits non-zero:
    K1-bwd's and CE-row's device time a call. Then a resume check at narrow
    widths (hidden 512, head_dim 128, 2 layers, vocab 4096): 6 micro-steps
    straight through against 4, a checkpoint and a fresh Trainer for the
-   last 2, bitwise.
+   last 2, bitwise. Slice N (run first, on slice A's bf16 weights, raw
+   clips bound as in M): the evaluation harnesses, the LiveCC baseline, the
+   demo and the CLI: `mcq_predict_batch` over 8 questions with mixed grids,
+   `VQAChat.generate` on an 8-frame video message (8 new tokens),
+   `infstream.generate_segments` (4 chunks, then a resume for 2), the
+   livesports streaming and livecc generators (3 chunks each),
+   `stream_segments` through a `LiveCaptionServer` to one SSE client on
+   localhost (3 chunks), a 2-lane `MultiLiveCaptionServer` (3 rounds), each with its
+   launch counts reset before it (its attention through K1 and K2 alone);
+   and `python -m streaming_vlm_tpu_torch soak` (random 3B W8A8, the CLI's
+   120 chunks) in a process started before the mutants' checks: exit 0,
+   constant occupancy, K1 and K2 alone and every W8A8 product through K5.
 
 The second-to-last line is a JSON object with each kernel's numbers; the
 last line is {"ok": true, "device": {...}}.
@@ -161,8 +179,10 @@ last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -197,7 +217,7 @@ PART_TOL = 1e-3
 # residual stream and of the logits alone costs ~2e-2 here; over the int8
 # arena the plain path's error includes the quantization)
 REF_LAYERS = 4
-N_CHUNKS = 20  # slice length: past visual_round=16, so eviction runs
+N_CHUNKS = 18  # slice length: past visual_round=16, so eviction runs (chunks 16 and 17)
 REF_NOISE_FACTOR = 2.0
 MUTANT_BUILDS = 8  # mutant copies whose kernels build at once (most compile one source)
 MUTANT_RUNS = 4  # mutant copies whose checks run at once on the card
@@ -403,7 +423,7 @@ LANE_VISIBLE = {1: ((9000,), (0,)), 4: ((1, 4501, 0, 100), (10240, 641, 9000, 1)
                 8: ((0, 1, 100, 641, 4501, 9000, 10240, 9000),)}
 K1_LANE_INSERT_AT = (0, 1, 641, 4501, 9000, 9600)
 # multi-stream slices: lanes, rounds, rounds in which the last lane idles
-MS_ROUNDS = 20
+MS_ROUNDS = 18  # past visual_round=16: eviction in rounds 16 and 17
 MS_IDLE_ROUNDS = (3, 11)
 _FAILED = []  # the checks of phase 3 that failed
 _TIMED = True  # False: phase 3's checks without its timings (the mutant copies)
@@ -835,6 +855,10 @@ def phase_kernels():
     stats["int8_gemm"] = _phase_k5(g)
     stats["int8_gemm"]["int4"] = _phase_k5_int4(g)
     stats["streaming_prefill_attention"]["lse"] = _phase_k1_lse(g, ka, va)
+    ev = _phase_k1_eval(g)
+    stats["streaming_prefill_attention"]["eval"] = ev
+    stats["streaming_prefill_attention"]["max_abs_err"] = max(
+        stats["streaming_prefill_attention"]["max_abs_err"], ev["max_abs_err"])
     stats["attention_bwd"] = _phase_k1_bwd(g)
     stats["ce_rows"] = _phase_ce_rows(g)
     if _FAILED:
@@ -1142,6 +1166,108 @@ def _phase_lanes(g) -> dict:
               f"{list(lens)}: {r['ragged_device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, {lib}, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return out
+
+
+# the evaluation harnesses' K1 shapes (phase 3): MCQ's batch as lanes at
+# visible 0 (B right-padded questions, the bucket T, each lane's real length
+# below it), VQA's prefill over a fresh raw arena of C_VQA slots at visible 0
+# (T_VQA, slice N's 8-frame prompt bucket) and its T = 1 steps over that
+# arena at visible VQA_STEPS
+MCQ_LANES, MCQ_T = 8, 1024
+MCQ_REAL = (200, 333, 512, 640, 768, 900, 1000, 1024)
+T_VQA, C_VQA = 1024, 2048
+VQA_STEPS = (700, 777, 1000)
+
+
+def _phase_k1_eval(g) -> dict:
+    """K1 at the shapes the evaluation harnesses give it, against its plain
+    version at phase 3's tolerance: the MCQ batch (MCQ_LANES lanes of MCQ_T
+    rows at visible 0, pre-rotated mode, the self block standing in for the
+    arena as `language_forward_lanes(arena=None)` passes it; rows past a
+    lane's real length repeat one pad row), VQA's raw-mode prefill at
+    visible 0 and its raw-mode T = 1 steps. Device times beside SDPA's for the same work and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from streaming_vlm_tpu_torch.ops import attention as A
+
+    dev = "cuda"
+    H, Hkv, hd = 28, 4, 128
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    B, T = MCQ_LANES, MCQ_T
+    # rows past a lane's real length hold one pad row each (the pad token's
+    # q, k and v at every pad position), as a right-padded batch has them
+    q, ks, vs = rn(B, T, H, hd), rn(B, T, Hkv, hd), rn(B, T, Hkv, hd)
+    pad = (torch.arange(T, device=dev)[None, :] >= torch.tensor(MCQ_REAL, device=dev)[:, None])
+    q, ks, vs = (torch.where(pad[..., None, None], x[:, -1:], x).contiguous() for x in (q, ks, vs))
+    mcq = (q, ks, vs, None, None, ks, vs, [0] * B)
+    err = _check_k1(A.streaming_prefill_attention(*mcq), A.prefill_attention_lanes_plain(*mcq),
+                    dict(lanes=B, T=T, visible_len=0, mode="prerotated", real=list(MCQ_REAL)))
+    r = {"mcq": dict(lanes=B, T=T, visible_len=0)}
+    if _TIMED:
+        f = lambda: A.streaming_prefill_attention(*mcq)  # noqa: E731
+        qq, kk, vv = (x.repeat_interleave(H // x.shape[2], dim=2).transpose(1, 2).contiguous()
+                      for x in (q, ks, vs))
+        flops = B * 4 * T * H * hd * (T + 1) / 2
+        r["mcq"].update(device_ms=_device_ms(f), plain_ms=_median_ms(
+            lambda: A.prefill_attention_lanes_plain(*mcq), reps=3, batch=2),
+            library_ms=_median_ms(lambda: F.scaled_dot_product_attention(qq, kk, vv,
+                                                                         is_causal=True)))
+        r["mcq"]["bound_ms"], r["mcq"]["bound_by"] = _bound(2 * _nbytes(q) + _nbytes(ks, vs),
+                                                            flops)
+        del qq, kk, vv
+
+    # VQA: a fresh raw arena (K un-rotated, rotated in the kernel from the
+    # slots' positions), its first T_VQA slots the prompt's block
+    ka, va = rn(C_VQA, Hkv, hd), rn(C_VQA, Hkv, hd)
+    ang = torch.randn(C_VQA, hd // 2, generator=g, device=dev)
+    cs = (torch.cat([ang.cos()] * 2, -1).contiguous(), torch.cat([ang.sin()] * 2, -1).contiguous())
+    qp, kp, vp = rn(T_VQA, H, hd), rn(T_VQA, Hkv, hd), rn(T_VQA, Hkv, hd)
+    pre = (qp, ka, va, *cs, kp, vp, 0)
+    err = max(err, _check_k1(A.streaming_prefill_attention(*pre), A.prefill_attention_plain(*pre),
+                             dict(T=T_VQA, visible_len=0, mode="raw", C=C_VQA)))
+    q1, k1, v1 = rn(1, H, hd), rn(1, Hkv, hd), rn(1, Hkv, hd)
+    for vis in VQA_STEPS:
+        step = (q1, ka, va, *cs, k1, v1, vis)
+        err = max(err, _check_k1(A.streaming_prefill_attention(*step),
+                                 A.prefill_attention_plain(*step),
+                                 dict(T=1, visible_len=vis, mode="raw", C=C_VQA)))
+    r["vqa_prefill"] = dict(T=T_VQA, visible_len=0, C=C_VQA)
+    r["vqa_step"] = dict(T=1, visible_len=VQA_STEPS[-1], C=C_VQA)
+    if _TIMED:
+        rep = lambda x: x.repeat_interleave(H // Hkv, dim=1).transpose(0, 1)[None].contiguous()  # noqa: E731
+        qq, kk, vv = qp.transpose(0, 1)[None].contiguous(), rep(kp), rep(vp)
+        f = lambda: A.streaming_prefill_attention(*pre)  # noqa: E731
+        r["vqa_prefill"].update(
+            device_ms=_device_ms(f), plain_ms=_median_ms(lambda: A.prefill_attention_plain(*pre)),
+            library_ms=_median_ms(lambda: F.scaled_dot_product_attention(qq, kk, vv,
+                                                                         is_causal=True)))
+        r["vqa_prefill"]["bound_ms"], r["vqa_prefill"]["bound_by"] = _bound(
+            2 * _nbytes(qp) + _nbytes(kp, vp), 4 * T_VQA * H * hd * (T_VQA + 1) / 2)
+        vis = VQA_STEPS[-1]
+        step = (q1, ka, va, *cs, k1, v1, vis)
+        f = lambda: A.streaming_prefill_attention(*step)  # noqa: E731
+        # SDPA over the same keys, rotated outside its timed call
+        kr = A._rotate_dup_half(ka[:vis], cs[0][:vis], cs[1][:vis]).to(torch.bfloat16)
+        qs, kk, vv = q1.transpose(0, 1)[None].contiguous(), rep(torch.cat([kr, k1])), rep(
+            torch.cat([va[:vis], v1]))
+        r["vqa_step"].update(
+            device_ms=_device_ms(f), plain_ms=_median_ms(lambda: A.prefill_attention_plain(*step)),
+            library_ms=_median_ms(lambda: F.scaled_dot_product_attention(qs, kk, vv)))
+        # K and V read once, positions' tables, q in and out
+        r["vqa_step"]["bound_ms"], r["vqa_step"]["bound_by"] = _bound(
+            _nbytes(ka[:vis], va[:vis], cs[0][:vis], cs[1][:vis], k1, v1) + 2 * _nbytes(q1),
+            4 * H * hd * (vis + 1))
+        for name, x in r.items():
+            shape = {k: v for k, v in x.items() if not k.startswith(("device", "plain", "lib", "bound"))}
+            print(f"  K1 {name} {shape}: "
+                  f"device {x['device_ms']:.4f} ms, plain {x['plain_ms']:.4f} ms, sdpa "
+                  f"{x['library_ms']:.4f} ms, bound {x['bound_ms']:.4f} ms ({x['bound_by']})")
+    r["max_abs_err"] = err
+    return r
 
 
 # K5 at the 7B path's shapes: (what, M, K, N, bias, f32 out). Text decode
@@ -1680,6 +1806,89 @@ def phase_reference(cfg, cases: str = "abcd"):
     del lm, lm32
     torch.cuda.empty_cache()
     return errs
+
+
+# phase 4's batched MCQ forward: 4 right-padded questions (their words, and
+# the grid of the video crop each carries or None), one K1 lane-form launch a
+# layer over the batch
+MCQ_REF = (("Which team scores next?", (1, 34, 60)), ("Is the ball in play?", None),
+           ("Who holds the ball at the end of this clip, and where on the pitch?", (2, 16, 28)),
+           ("How many players are in the frame right now?", None))
+
+
+def phase_mcq_reference(cfg) -> dict:
+    """At 7B width with the decoder cut to REF_LAYERS layers (the tower
+    whole): the batched MCQ forward (`eval.mcq`: the questions as lanes at
+    visible 0, K1 once a layer) in bf16 against `forward_full` in f32 on
+    the same weights, each question's last-row option logits, under phase
+    4's noise rule (at most REF_NOISE_FACTOR times the error of
+    `forward_full` in bf16, the plain path)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from streaming_vlm_tpu_torch.eval import mcq
+    from streaming_vlm_tpu_torch.models.qwen25_vl.model import forward_full, init_params
+    from streaming_vlm_tpu_torch.streaming.protocol import FakeTokenizer
+    from streaming_vlm_tpu_torch.video.ingest import patchify_frames
+
+    rcfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text,
+                                                             num_hidden_layers=REF_LAYERS))
+    model = init_params(rcfg, torch.Generator(device="cuda").manual_seed(3), device="cuda",
+                        dtype=torch.bfloat16)
+    m32 = copy.deepcopy(model).float()
+    tok = FakeTokenizer(cfg.tokens)
+    v = cfg.vision
+    rng = np.random.default_rng(9)
+    opt = mcq.option_token_ids(tok, ["A", "B", "C", "D"])
+    ids, vis, grids, spg, px = [], [], [], [], []
+    for q, grid in MCQ_REF:
+        n_vis = 0 if grid is None else int(np.prod(grid)) // v.spatial_merge_unit
+        ids.append(mcq.build_mcq_prompt_ids(rcfg, tok, q, n_vis))
+        if grid is None:
+            vis.append(None), grids.append(None), spg.append(None), px.append(None)
+            continue
+        frames = rng.integers(0, 256, (grid[0] * v.temporal_patch_size, grid[1] * v.patch_size,
+                                       grid[2] * v.patch_size, 3), dtype=np.uint8)
+        patches, _ = patchify_frames(frames, patch_size=v.patch_size,
+                                     temporal_patch_size=v.temporal_patch_size,
+                                     merge_size=v.spatial_merge_size)
+        px.append(torch.from_numpy(patches).cuda())
+        grids.append(np.asarray([grid]))
+        spg.append([1.0])
+        vis.append(mcq._encode(rcfg, model, px[-1], grids[-1]))
+    _reset_counts()
+    got = mcq._mcq_scores(rcfg, model, ids, [opt] * len(ids), vis, grids, spg, bucket=128)
+    torch.cuda.synchronize()
+    counts = {k: c for k, c in _counts().items() if c}
+    if counts != {"streaming_prefill_attention": REF_LAYERS}:
+        raise AssertionError(f"batched MCQ forward: launches {counts}, not K1 {REF_LAYERS} times")
+    worst, out = 0.0, {}
+    for b in range(len(ids)):
+        kw = dict(video_grid_thw=grids[b], second_per_grid_ts=spg[b])
+        o32 = forward_full(rcfg, m32, ids[b], pixel_patches=None if px[b] is None else px[b],
+                           **kw)[-1]
+        o16 = forward_full(rcfg, model, ids[b], pixel_patches=None if px[b] is None
+                           else px[b].to(torch.bfloat16), **kw)[-1]
+        scale = float(o32.abs().max())
+        err = float((got[b] - o32[opt]).abs().max()) / scale
+        # the noise floor: the plain bf16 path's error over the whole row, as
+        # phase 4's other cases take it (4 option logits alone can land near
+        # f32 by chance)
+        floor = float((o16 - o32).abs().max()) / scale
+        ok = math.isfinite(err) and err <= REF_NOISE_FACTOR * floor
+        print(f"  MCQ question {b} (len {len(ids[b])}, grid {MCQ_REF[b][1]}): option logits, "
+              f"{REF_LAYERS} layers, max|diff|/max|logit| vs the f32 oracle: kernels (bf16) "
+              f"{err:.3e}, plain bf16 {floor:.3e} (bound {REF_NOISE_FACTOR} x plain) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"batched MCQ forward (question {b}) disagrees with the oracle")
+        worst = max(worst, err)
+        out[f"q{b}"] = (err, floor)
+    del model, m32
+    torch.cuda.empty_cache()
+    return dict(worst=worst, **out)
 
 
 REF_VISION_BLOCKS = 4
@@ -2965,6 +3174,9 @@ class _RawClip:
         i = np.arange(self.n_frames, dtype=np.float64)
         self.frame_ts = np.stack([i / fps, (i + 1) / fps], -1)
 
+    def close(self) -> None:
+        pass
+
     def fetch(self, indices, out_w: int, out_h: int):
         import numpy as np
 
@@ -2976,8 +3188,9 @@ class _RawClip:
 
 @contextlib.contextmanager
 def _raw_clips():
-    """Bind `_RawClip` in place of ingest's VideoReader for slice M: the
-    card's machine has no FFmpeg libraries, so its clips are raw frames."""
+    """Bind `_RawClip` in place of ingest's VideoReader for slices M and N:
+    the card's machine has no FFmpeg libraries, so their clips are raw
+    frames."""
     from streaming_vlm_tpu_torch.video import ingest
 
     reader = ingest.VideoReader
@@ -2991,14 +3204,7 @@ def _raw_clips():
 def _train_annotation(root: Path, h: int, w: int, seconds: int, fps: int) -> str:
     """A raw clip (a moving gradient, `_RawClip`'s .npz) and a jsonl of one
     example over it: one phrase a second, a qa question at 2-3 s."""
-    import numpy as np
-
-    y, x = np.mgrid[0:h, 0:w]
-    frames = np.stack([np.stack([(x + y + 8 * i) & 0xFF, (64 + x // 2 + 4 * i) & 0xFF,
-                                 (128 + y // 2) & 0xFF], -1) for i in range(seconds * fps)])
-    clip = root / "clip.npz"
-    with open(clip, "wb") as f:
-        np.savez(f, frames=frames.astype(np.uint8), fps=np.float64(fps))
+    clip = _clip(root / "clip.npz", h, w, seconds, fps)
     text_stream = [[i + 0.1, i + 0.8, f"phrase {i} of the stream"] for i in range(seconds)]
     conv = [
         {"role": "user", "content": [{"type": "video", "video": str(clip), "video_start": 0.0,
@@ -3144,6 +3350,278 @@ def _narrow_cfg():
                                head_dim=128, mrope_section=(16, 24, 24))
     return dataclasses.replace(base, text=text,
                                vision=dataclasses.replace(base.vision, out_hidden_size=512))
+
+
+# slice N: the evaluation harnesses, the LiveCC baseline, the demo and the
+# CLI on slice A's bf16 weights (all 28 layers), FakeTokenizer, raw-frame
+# clips bound in place of ingest's reader (`_raw_clips`)
+EVAL_MCQ_GRIDS = ((1, 34, 60), (1, 18, 32), None, (2, 18, 32), None, (1, 34, 60), (2, 16, 28),
+                  None)
+EVAL_VQA = dict(frames=8, new_tokens=8, h=252, w=448)
+EVAL_INF_CHUNKS = (4, 2)  # infstream: the first run's chunks, then the resume's
+EVAL_CHUNKS = 3  # the livesports generators', the demo's and each multi-stream lane's
+EVAL_LANES = 2
+
+
+def _clip(path: Path, h: int, w: int, seconds: int, fps: int) -> str:
+    """A raw clip (`_RawClip`'s .npz) of a moving gradient."""
+    import numpy as np
+
+    y, x = np.mgrid[0:h, 0:w]
+    frames = np.stack([np.stack([(x + y + 8 * i) & 0xFF, (64 + x // 2 + 4 * i) & 0xFF,
+                                 (128 + y // 2) & 0xFF], -1) for i in range(seconds * fps)])
+    with open(path, "wb") as f:
+        np.savez(f, frames=frames.astype(np.uint8), fps=np.float64(fps))
+    return str(path)
+
+
+def _sse(url: str, timeout: float = 600.0) -> list:
+    """The `data:` payloads of an SSE stream, up to its `done` event."""
+    import urllib.request
+
+    got = []
+    with urllib.request.urlopen(url, timeout=timeout) as events:
+        for raw in events:
+            line = raw.decode().strip()
+            if line == "event: done":
+                break
+            if line.startswith("data:"):
+                got.append(json.loads(line[5:]))
+    return got
+
+
+# `python -m streaming_vlm_tpu_torch soak` (the CLI's defaults: random 3B
+# W8A8 weights, 120 chunks; fewer do not fill the default previous-text sink
+# and window, so the occupancy is not yet constant), then the process's
+# launch counts
+SOAK_RUN = (
+    "import json, runpy, sys\n"
+    "sys.argv = ['streaming_vlm_tpu_torch', 'soak']\n"
+    "runpy.run_module('streaming_vlm_tpu_torch', run_name='__main__', alter_sys=True)\n"
+    "from streaming_vlm_tpu_torch.ops import attention as A, quant as Q\n"
+    "print('COUNTS ' + json.dumps({**A.launch_counts, **Q.launch_counts,\n"
+    "      **{'int8_gemm/' + k: v for k, v in Q.path_counts.items()}}))\n"
+)
+SOAK_OUT = REPO / "build" / "soak_n.txt"
+
+
+def start_soak() -> subprocess.Popen:
+    """Slice N's CLI step, started early: it runs beside the mutant copies'
+    checks and phase 4, which time nothing, and slice N waits for it."""
+    SOAK_OUT.parent.mkdir(parents=True, exist_ok=True)
+    with open(SOAK_OUT, "w") as out:
+        return subprocess.Popen([sys.executable, "-c", SOAK_RUN], cwd=REPO, stdout=out,
+                                stderr=subprocess.STDOUT, text=True)
+
+
+def phase_eval(cfg, model, soak: subprocess.Popen) -> tuple:
+    """Slice N: the port's evaluation harnesses, baseline, demo and CLI at
+    the config's widths on `model` (bf16), FakeTokenizer, raw clips: (1)
+    `mcq_predict_batch` over 8 questions with mixed grids (K1 once a layer
+    for the batch); (2) `VQAChat.generate` on an 8-frame video message, 8
+    new tokens (K1 raw mode: the prefill, then each T = 1 step); (3)
+    `infstream.generate_segments`, 4 chunks, then a resume for 2 more;
+    (4) the livesports streaming and livecc generators, 3 chunks each; (5)
+    `stream_segments` through a `LiveCaptionServer` on localhost to one SSE
+    client, 3 chunks; (6) `MultiLiveCaptionServer`, 2 lanes x 3 rounds; each with
+    launch counts reset before it: its attention through K1 (and K2 where
+    it decodes) alone, no other kernel (bf16 weights). Then (7) `python -m
+    streaming_vlm_tpu_torch soak`, the process `start_soak` began (random
+    3B W8A8 weights, 120 chunks): exit 0, kv_constant, its attention
+    through K1 and K2 alone and every W8A8 product through K5 (the count
+    each forward and tower call makes). Returns (launch counts, stats)."""
+    import shutil
+    import threading
+
+    import numpy as np
+    import torch
+
+    from streaming_vlm_tpu_torch.baselines.livecc import LiveCCConfig
+    from streaming_vlm_tpu_torch.config import qwen25_vl_3b
+    from streaming_vlm_tpu_torch.demo.app import LiveCaptionServer, SegmentFeed, stream_segments
+    from streaming_vlm_tpu_torch.demo.multiapp import MultiLiveCaptionServer
+    from streaming_vlm_tpu_torch.eval import infstream, livesports, mcq
+    from streaming_vlm_tpu_torch.eval.vqa import VQAChat
+    from streaming_vlm_tpu_torch.ops import attention as A
+    from streaming_vlm_tpu_torch.streaming.protocol import FakeTokenizer
+    from streaming_vlm_tpu_torch.video.ingest import patchify_frames
+
+    L, v = cfg.text.num_hidden_layers, cfg.vision
+    k1, k2 = "streaming_prefill_attention", "streaming_decode_attention_full"
+    tok = FakeTokenizer(cfg.tokens)
+    root = REPO / "build" / "slice_n"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    clip8 = _clip(root / "clip8.npz", 476, 840, 8, 2)  # the streaming chunks' 476x840
+    clip_vqa = _clip(root / "vqa.npz", EVAL_VQA["h"], EVAL_VQA["w"], 4, 4)
+    totals, times = dict.fromkeys(_counts(), 0), {}
+    t_slice = time.perf_counter()
+
+    def step(name, fn, kernels, k1_launches=None):
+        """Run fn with counts reset: only `kernels` of the attention ones and
+        each of them, no other kernel; K1 k1_launches times when given (a
+        number, or a function of fn's result)."""
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        c = {k: n for k, n in _counts().items() if n}
+        print(f"  N {name}: {times[name]:.2f} s, launches {c}")
+        if callable(k1_launches):
+            k1_launches = k1_launches(out)
+        if set(c) != set(kernels) or (k1_launches is not None and c[k1] != k1_launches):
+            raise AssertionError(f"slice N {name}: launches {c}, want {kernels}"
+                                 + (f" with K1 {k1_launches} times" if k1_launches else ""))
+        for k, n in c.items():
+            totals[k] += n
+        return out
+
+    rng = np.random.default_rng(4)
+    with _raw_clips():
+        # (1) MCQ: 8 questions, 5 with a video crop each (4 grids), one pass
+        opt = mcq.option_token_ids(tok, ["A", "B", "C", "D"])
+        ids, patches, spg = [], [], []
+        for i, g in enumerate(EVAL_MCQ_GRIDS):
+            n_vis = 0 if g is None else int(np.prod(g)) // v.spatial_merge_unit
+            ids.append(mcq.build_mcq_prompt_ids(cfg, tok, f"Question {i}: what happens?" * (i + 1),
+                                                n_vis))
+            if g is None:
+                patches.append(None), spg.append(None)
+                continue
+            frames = rng.integers(0, 256, (g[0] * v.temporal_patch_size, g[1] * v.patch_size,
+                                           g[2] * v.patch_size, 3), dtype=np.uint8)
+            patches.append(patchify_frames(frames, patch_size=v.patch_size,
+                                           temporal_patch_size=v.temporal_patch_size,
+                                           merge_size=v.spatial_merge_size)[0])
+            spg.append(1.0)
+        picks = step("MCQ", lambda: mcq.mcq_predict_batch(
+            cfg, model, ids, [opt] * len(ids), pixel_patches=patches,
+            video_grid_thw=list(EVAL_MCQ_GRIDS), second_per_grid_ts=spg), (k1,), L)
+        assert len(picks) == len(ids) and all(0 <= p < 4 for p in picks), picks
+
+        # (2) VQA: 8 frames, 8 new tokens over the KV-cached raw arena: K1
+        # for the prefill and for each T = 1 step (one fewer than the tokens,
+        # or as many when <|im_end|> ended the answer early)
+        n_new = EVAL_VQA["new_tokens"]
+        chat = VQAChat(cfg, model, tok, lambda out: out, max_new_tokens=n_new,
+                       nframe=EVAL_VQA["frames"])
+        gen = step("VQA", lambda: chat.generate(
+            [{"type": "video", "value": clip_vqa},
+             {"type": "text", "value": "What moves in the video?"}]), (k1,),
+            lambda out: L * (1 + (len(out) - 1 if len(out) == n_new else len(out))))
+        assert len(gen) <= n_new, gen
+
+        # (3) Inf-Stream-Eval: 4 chunks, then a resume for 2 more
+        meta_part, meta = root / "part.jsonl", root / "meta.jsonl"
+        n_words = 2 * sum(EVAL_INF_CHUNKS)  # 0.5 s each
+        content = [[i * 0.5, i * 0.5 + 0.5, f"w{i}"] for i in range(n_words)]
+        meta_part.write_text(json.dumps(
+            {"video": clip8, "content": content[:2 * EVAL_INF_CHUNKS[0]]}) + "\n")
+        meta.write_text(json.dumps({"video": clip8, "content": content}) + "\n")
+        out = root / "inf.jsonl"
+        for m, n in zip((meta_part, meta), EVAL_INF_CHUNKS):
+            step(f"infstream {n} chunks", lambda m=m: infstream.generate_segments(
+                cfg=cfg, model=model, tokenizer=tok, eval_metadata=str(m), out_path=str(out),
+                start_time=0), (k1, k2), L * n)
+        lines = [json.loads(x) for x in out.read_text().splitlines()]
+        n0 = EVAL_INF_CHUNKS[0]
+        assert [(x["chunk_start"], x["chunk_end"]) for x in lines] == [
+            (0, n0), (n0, sum(EVAL_INF_CHUNKS))], lines
+
+        # (4) LiveSports: the streaming and the livecc generators, 3 chunks each
+        ev = {"event_id": "n1", "video": clip8, "begin": 0.0, "preasr_text": "earlier words",
+              "event_cc": "baseline", "title": "Final"}
+        lc = LiveCCConfig()
+        for name, end, gen_fn in (
+                ("livesports streaming", float(EVAL_CHUNKS), livesports.generate_commentary),
+                # LiveCC's clips: initial_fps_frames, then streaming_fps_frames each
+                ("livesports livecc", (lc.initial_fps_frames + (EVAL_CHUNKS - 1)
+                                       * lc.streaming_fps_frames) / lc.fps,
+                 livesports.generate_livecc_commentary)):
+            events = root / f"{name.split()[1]}.jsonl"
+            events.write_text(json.dumps({**ev, "end": end}) + "\n")
+            written = step(name, lambda e=events, f=gen_fn: f(
+                cfg=cfg, model=model, tokenizer=tok, events_path=str(e),
+                out_dir=str(root / e.stem)), (k1, k2), L * EVAL_CHUNKS)
+            assert len(written) == 1 and json.loads(Path(written[0]).read_text())["pred"]
+
+        # (5) the demo: stream_segments -> a feed -> one SSE client over HTTP
+        def demo():
+            feed = SegmentFeed()
+
+            def produce():
+                try:
+                    for seg in stream_segments(cfg=cfg, model=model, tokenizer=tok,
+                                               video_path=clip8, duration=float(EVAL_CHUNKS)):
+                        feed.push(seg)
+                finally:
+                    feed.finish()
+
+            srv = LiveCaptionServer(clip8, feed.subscribe, port=0)
+            srv.start_background()
+            th = threading.Thread(target=produce, daemon=True)
+            th.start()
+            try:
+                return _sse(f"http://127.0.0.1:{srv.port}/events")
+            finally:
+                th.join()
+                srv.shutdown()
+
+        segs = step("demo", demo, (k1, k2), L * EVAL_CHUNKS)
+        assert [s["start"] for s in segs] == [float(i) for i in range(EVAL_CHUNKS)], segs
+
+        # (6) the multi-stream demo: 2 lanes x 3 rounds on one card
+        def multi():
+            srv = MultiLiveCaptionServer(cfg, model, tok, [clip8] * EVAL_LANES,
+                                         duration=float(EVAL_CHUNKS), port=0)
+            srv.start_background()
+            try:
+                got = [_sse(f"http://127.0.0.1:{srv.port}/events/{i}") for i in range(EVAL_LANES)]
+                assert srv.wait(timeout=600.0)
+                return got
+            finally:
+                srv.shutdown()
+
+        lanes = step("multiapp", multi, (k1, k2))
+        assert [len(x) for x in lanes] == [EVAL_CHUNKS] * EVAL_LANES, lanes
+
+    # (7) the CLI: soak on random 3B W8A8 weights, a process of its own
+    t0 = time.perf_counter()
+    rc = soak.wait(timeout=900)
+    times["soak wait"] = time.perf_counter() - t0
+    text = SOAK_OUT.read_text()
+    if rc != 0:
+        print(text[-6000:])
+        raise AssertionError(f"soak exited {rc}")
+    report = json.loads(next(x for x in text.splitlines() if x.startswith("{")))
+    c = {k: n for k, n in json.loads(text.split("COUNTS ", 1)[1]).items() if n}
+    c3 = qwen25_vl_3b()
+    L3 = c3.text.num_hidden_layers
+    forwards = (c.get(k1, 0) + c.get(k2, 0)) / L3  # each prefill and decode step: once a layer
+    k5 = (7 * L3 + 1) * forwards + report["n_chunks"] * (5 * c3.vision.depth + 2)
+    print(f"  N soak (python -m streaming_vlm_tpu_torch soak, {report['n_chunks']} chunks, beside "
+          f"the mutants' checks and phase 4: its times are not measurements): waited "
+          f"{times['soak wait']:.2f} s, kv_constant {report['kv_constant']}, occupancy "
+          f"{report['kv_occupancy']}, launches {c} (K5: {k5:.0f} products expected)")
+    attn = {k for k in c if k in A.launch_counts}
+    if not report["kv_constant"] or attn != {k1, k2} or c.get("int8_gemm") != k5 \
+            or c["int8_gemm"] != c.get("int8_gemm/gemv", 0) + c.get("int8_gemm/tiled", 0):
+        raise AssertionError(f"soak: kv_constant {report['kv_constant']}, launches {c}")
+    for k, n in c.items():
+        totals[k] += n
+    # the multi-stream server's engines sit in reference cycles: their
+    # arenas go back to the allocator now, not at some later collection
+    # inside another slice
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_slice
+    print(f"  slice N: {wall:.1f} s ({', '.join(f'{k} {t:.1f}' for k, t in times.items())})")
+    shutil.rmtree(root, ignore_errors=True)
+    return totals, dict(wall_s=wall, step_s=times, soak=dict(
+        n_chunks=report["n_chunks"], kv_constant=report["kv_constant"],
+        kv_occupancy=report["kv_occupancy"]))
 
 
 def phase_train_resume() -> dict:
@@ -3315,8 +3793,8 @@ def main() -> int:
     ap.add_argument("--profile", type=Path, metavar="DIR",
                     help="trace the slices with torch.profiler; kernel tables -> "
                          "DIR/profile_slice_{a,...,i}.txt")
-    ap.add_argument("--slices", default="ABCDEFGHIJKLM",
-                    help="the slices of phase 5 to run (default all: ABCDEFGHIJKLM)")
+    ap.add_argument("--slices", default="ABCDEFGHIJKLMN",
+                    help="the slices of phase 5 to run (default all: ABCDEFGHIJKLMN)")
     args = ap.parse_args()
     if not (REPO / "streaming_vlm_tpu_torch").is_dir():
         raise SystemExit("chip_smoke.py must run from a checkout of the repository")
@@ -3371,6 +3849,11 @@ def main() -> int:
     print(f"  (at {time.perf_counter() - t_start:.1f} s)")
     print("  phase 3 against copies of the port with K1, K2, K3, K5, K5-int4, K2-verify, K1-bwd "
           "or CE-row broken on purpose")
+    soak = None
+    if "N" in args.slices:  # slice N's CLI process: beside the mutants and phase 4
+        soak = start_soak()
+        atexit.register(lambda: soak.poll() is None and soak.kill())
+        print("  slice N's soak started (python -m streaming_vlm_tpu_torch soak)")
     print("  " + json.dumps({"mutants": phase_mutants()}))
 
     from streaming_vlm_tpu_torch.config import StreamConfig, qwen2_vl_7b, qwen25_vl_7b
@@ -3388,6 +3871,8 @@ def main() -> int:
     print(f"  {cfg2.name} (its decoder's widths: the bf16 and W8A8 cases)")
     phase_reference(cfg2, cases="ac")
     phase_vision_reference(cfg2)
+    print(f"  {cfg.name}: the batched MCQ forward (K1 lanes at visible 0) against forward_full")
+    phase_mcq_reference(cfg)
     print(f"  {cfg.name}: the spec-decode verify forward")
     r_verify = phase_verify_reference(cfg)
     print(f"  {cfg.name}: training, sft_loss and its text gradients (K1, K1-bwd, CE-row)")
@@ -3441,6 +3926,12 @@ def main() -> int:
               {k1: L, k2: L * max_new, **k5(cfg.vision.depth, 5)}, False),
     }
     by_slice, slice_stats, loaded = {}, {}, "bf16"
+    # N: the evaluation harnesses, the LiveCC baseline, the demo and the CLI
+    # on these bf16 weights (the soak subprocess: random 3B W8A8)
+    if "N" in args.slices:
+        print(f"  slice N: eval harnesses, LiveCC, demo and CLI, bf16 weights, raw clips "
+              f"(at {time.perf_counter() - t_start:.1f} s)")
+        by_slice["N"], slice_stats["N"] = phase_eval(cfg, model, soak)
 
     def w8a8(c):  # the caller has dropped the model before
         torch.cuda.empty_cache()

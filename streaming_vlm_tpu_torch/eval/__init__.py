@@ -1,5 +1,7 @@
-"""Evaluation harnesses of the port: `soak` (constant KV occupancy and flat
-latency over a long stream) and `efficiency` (the paper's four attention
-policies). Ports of the JAX package's eval/soak.py and eval/efficiency.py."""
+"""Evaluation harnesses of the port (ports of the JAX package's eval/):
+`soak` and `efficiency` (the paper's four attention policies), `mcq` and
+`ovobench` (MCQ scoring), `vqa` and `vlmeval_compat` (VLMEvalKit-style
+chat), `infstream`, `livesports` and `gpt_competitor` (streaming
+commentary against judges), `judge` (A/B double votes)."""
 
-from . import efficiency, soak  # noqa: F401
+from . import efficiency, gpt_competitor, infstream, judge, livesports, mcq, ovobench, soak, vqa  # noqa: F401

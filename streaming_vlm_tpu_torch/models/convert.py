@@ -11,8 +11,13 @@ reader (`load_safetensors_state_dict`): the 8-byte little-endian header
 length, the JSON header, then one `torch.frombuffer` view per tensor over
 a copy-on-write memory map (bf16 read as 16-bit words and viewed as
 torch.bfloat16), so that neither `safetensors` nor `ml_dtypes` is needed.
-The JAX package's serving-checkpoint half (a pre-quantized msgpack blob
-through flax) is JAX-specific and not ported.
+
+The serving checkpoint (`save_serving_checkpoint` / `load_serving_checkpoint`,
+what the CLI's `convert` writes and `load_model` reads) is the port's own:
+the JAX package's `serving_config.json` (format 1) beside `model.pt`, the
+model's state dict (pre-quantized W8A8 with quant="int8") saved with
+`torch.save`. A JAX-written one (`params.msgpack`, flax) is refused:
+reading it needs flax (ROADMAP.md queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -21,13 +26,14 @@ import glob
 import json
 import mmap
 import os
+import dataclasses
 import struct
 import sys
 from typing import Dict, Mapping, Tuple
 
 import torch
 
-from ..config import ModelConfig, TextConfig, VisionConfig
+from ..config import ModelConfig, SpecialTokens, TextConfig, VisionConfig
 from .qwen25_vl.model import Qwen25VL
 
 # safetensors dtype -> (torch dtype read from the bytes, dtype it is viewed as)
@@ -252,3 +258,87 @@ def load_hf_checkpoint(
     cfg = config_from_hf_dir(model_dir)
     return cfg, model_from_state_dict(cfg, load_safetensors_state_dict(model_dir),
                                       device=device, dtype=dtype)
+
+
+SERVING_CONFIG = "serving_config.json"
+SERVING_WEIGHTS = "model.pt"
+
+
+def save_serving_checkpoint(out_dir: str, cfg: ModelConfig, model: Qwen25VL, *,
+                            quant: str = "int8") -> None:
+    """A serving checkpoint that starts without the safetensors parse and
+    the quantization pass: the JAX package's `serving_config.json`
+    (format 1, quant, config) and `model.pt`, the model's state dict
+    (quantized to W8A8 in place first when quant="int8" and it is not yet)
+    written with torch.save."""
+    from ..ops.quant import is_model_quantized, quantize_model
+
+    if quant == "int8":
+        if not is_model_quantized(model):
+            quantize_model(model)
+    elif quant != "none":
+        raise ValueError(f"quant must be 'int8' or 'none', got {quant!r}")
+    os.makedirs(out_dir, exist_ok=True)
+    meta = {
+        "format": 1,
+        "quant": quant,
+        "config": {
+            "name": cfg.name,
+            "dtype": cfg.dtype,
+            "vision": dataclasses.asdict(cfg.vision),
+            "text": dataclasses.asdict(cfg.text),
+            "tokens": dataclasses.asdict(cfg.tokens),
+        },
+    }
+    with open(os.path.join(out_dir, SERVING_CONFIG), "w") as f:
+        json.dump(meta, f, indent=1)
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+               os.path.join(out_dir, SERVING_WEIGHTS))
+
+
+def _tupled(d: Dict) -> Dict:
+    """JSON turns tuples into lists; the config's tuple fields want them back."""
+    return {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}
+
+
+def load_serving_checkpoint(
+    out_dir: str, *, device="cuda", dtype: torch.dtype = torch.bfloat16
+) -> Tuple[ModelConfig, Qwen25VL, str]:
+    """(cfg, model, quant) from `save_serving_checkpoint`'s directory, on the
+    card unless the caller passes device="cpu". A float checkpoint is cast
+    to `dtype`; a quantized one keeps its stored types (int8 weights, f32
+    scales, float biases and norms). A JAX-written checkpoint (flax
+    msgpack) raises ValueError."""
+    from ..ops.quant import quantize_model
+
+    weights = os.path.join(out_dir, SERVING_WEIGHTS)
+    if not os.path.exists(weights):
+        if os.path.exists(os.path.join(out_dir, "params.msgpack")):
+            raise ValueError(
+                f"{out_dir} is a JAX-written serving checkpoint (params.msgpack, flax); the port "
+                "does not read it (ROADMAP.md queue 1 item 7). Fix: convert the HF checkpoint "
+                "with `python -m streaming_vlm_tpu_torch convert`, or load the HF directory")
+        raise FileNotFoundError(f"{weights}: not a serving checkpoint of the port")
+    with open(os.path.join(out_dir, SERVING_CONFIG)) as f:
+        meta = json.load(f)
+    if meta["format"] != 1:
+        raise ValueError(f"{out_dir}: serving checkpoint format {meta['format']}, expected 1")
+    c = meta["config"]
+    cfg = ModelConfig(
+        name=c["name"],
+        dtype=c["dtype"],
+        vision=VisionConfig(**_tupled(c["vision"])),
+        text=TextConfig(**_tupled(c["text"])),
+        tokens=SpecialTokens(**_tupled(c["tokens"])),
+    )
+    sd = torch.load(weights, map_location="cpu", weights_only=True)
+    quant = meta["quant"]
+    float_dtype = dtype if quant == "none" else sd["text.embed.weight"].dtype
+    with torch.device("meta"):
+        m = Qwen25VL(cfg, dtype=float_dtype)
+        if quant == "int8":
+            quantize_model(m)  # the quantized modules' skeleton
+    m.to_empty(device=device)
+    m.load_state_dict({k: v.to(float_dtype) if v.is_floating_point() and quant == "none" else v
+                       for k, v in sd.items()})
+    return cfg, m.eval().requires_grad_(False), quant

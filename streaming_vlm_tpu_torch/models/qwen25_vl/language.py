@@ -54,6 +54,7 @@ from torch import nn
 from ...config import TextConfig
 from ...ops.attention import (
     gqa_attention_multi,
+    lane_lengths,
     streaming_decode_attention_full,
     streaming_decode_attention_int8,
     streaming_prefill_attention,
@@ -279,7 +280,7 @@ def language_forward_lanes(
     inputs_embeds: torch.Tensor,  # [B, T, D]
     q_positions: torch.Tensor,  # [B, 3, T] float32
     *,
-    arena: Tuple[Arena, Arena],  # READ-ONLY [B, L, C, Hkv, hd] x2, float or QuantKV
+    arena: Optional[Tuple[Arena, Arena]],  # READ-ONLY [B, L, C, Hkv, hd] x2, float or QuantKV
     arena_positions: Optional[torch.Tensor] = None,  # [B, 3, C] (raw-K arena)
     visible_len,  # B host ints, or (decode) an int32 [B] tensor on the device
     max_visible: Optional[int] = None,  # decode with a device tensor: its largest (host)
@@ -296,7 +297,10 @@ def language_forward_lanes(
 
     Prefill mode (no `extra`): K1 over each lane's arena (pre-rotated, or
     raw and rotated in the kernel from `arena_positions`) + its causal
-    block, visible_len host ints. Decode mode: `extra` is the ROTATED
+    block, visible_len host ints. With `arena=None` (prefill mode, every
+    visible length 0: B independent causal sequences, the batched MCQ
+    forward) no arena exists; K1 is given each layer's own K/V block in its
+    place, which it never reads at visible 0. Decode mode: `extra` is the ROTATED
     decode delta with rows < `extra_visible` visible and T == 1; K2 over a
     pre-rotated arena, K3 over a raw one, the lanes' lengths an int32
     device tensor (with max_visible) or host ints. An int8 arena is
@@ -319,16 +323,21 @@ def language_forward_lanes(
 
     if extra is None:
         acos2 = asin2 = None
-        if not arena_rotated:
+        if arena is None and any(lane_lengths(visible_len, B)):
+            raise ValueError("arena=None takes visible length 0 on every lane")
+        if arena is not None and not arena_rotated:
             C = arena_positions.shape[-1]
             ap = arena_positions.transpose(0, 1).reshape(3, B * C)
             a_cos, a_sin = mrope_cos_sin(ap, inv_freq, cfg.mrope_section)
             acos2 = torch.cat([a_cos, a_cos], dim=-1).view(B, C, hd)
             asin2 = torch.cat([a_sin, a_sin], dim=-1).view(B, C, hd)
         for l, layer in enumerate(lm.layers):
-            ak = as_float(lanes_layer(arena[0], l), cdt)
-            av = as_float(lanes_layer(arena[1], l), cdt)
             q, k_new, k_new_rot, v_new = _qkv(cfg, hidden, layer, q_cos, q_sin)
+            if arena is None:  # visible 0: the block stands in for the arena
+                ak, av = lane_rows(k_new_rot), lane_rows(v_new)
+            else:
+                ak = as_float(lanes_layer(arena[0], l), cdt)
+                av = as_float(lanes_layer(arena[1], l), cdt)
             attn = streaming_prefill_attention(
                 lane_rows(q), ak, av, acos2, asin2, lane_rows(k_new_rot), lane_rows(v_new),
                 visible_len,

@@ -3,8 +3,10 @@
 A copy of what the serve loop uses from the JAX package's
 streaming_vlm_tpu/video/ingest.py: the native reader (`VideoReader`, over
 the C++ library in video/native/svt_ingest.cc), `smart_resize`,
-`select_chunk_frames`, `patchify_frames` and `ChunkedVideoSource`, and
-`write_test_video` (a synthetic mp4 clip for the tests).
+`select_chunk_frames`, `patchify_frames` and `ChunkedVideoSource`,
+`write_test_video` (a synthetic mp4 clip for the tests), and the native
+encoder the caption renderer writes through (`VideoWriter`, with an
+optional AAC track) with `audio_rate`.
 tests/test_torch_imports.py holds the pure-numpy helpers bitwise equal to
 the JAX package's.
 
@@ -88,8 +90,64 @@ def _lib():
         ]
         lib.svt_close.argtypes = [ctypes.c_void_p]
         lib.svt_write_test_video.argtypes = [ctypes.c_char_p] + [ctypes.c_int] * 4
+        lib.svt_encoder_open2.restype = ctypes.c_void_p
+        lib.svt_encoder_open2.argtypes = [ctypes.c_char_p] + [ctypes.c_int] * 4
+        lib.svt_encoder_write.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8)]
+        lib.svt_encoder_write_audio.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_float), ctypes.c_int
+        ]
+        lib.svt_encoder_close.argtypes = [ctypes.c_void_p]
+        lib.svt_audio_rate.argtypes = [ctypes.c_char_p]
         _LIB = lib
     return _LIB
+
+
+class VideoWriter:
+    """Stream RGB frames into an mp4 through the native encoder; with
+    `audio_rate` set, also mono float32 PCM muxed as an AAC track."""
+
+    def __init__(self, path: str, w: int, h: int, fps: int, audio_rate: int = 0):
+        self._lib = _lib()
+        self._h = self._lib.svt_encoder_open2(path.encode(), w, h, fps, int(audio_rate))
+        if not self._h:
+            raise RuntimeError(f"svt_encoder_open failed for {path}")
+        self.w, self.h = w, h
+        self.audio_rate = int(audio_rate)
+
+    def write(self, frame: np.ndarray) -> None:
+        assert frame.shape == (self.h, self.w, 3) and frame.dtype == np.uint8
+        frame = np.ascontiguousarray(frame)
+        rc = self._lib.svt_encoder_write(
+            self._h, frame.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+        )
+        if rc != 0:
+            raise RuntimeError(f"svt_encoder_write failed: {rc}")
+
+    def write_audio(self, samples: np.ndarray) -> None:
+        """Append mono float32 PCM at the configured audio_rate."""
+        assert self.audio_rate > 0, "VideoWriter opened without audio_rate"
+        samples = np.ascontiguousarray(samples, np.float32).reshape(-1)
+        rc = self._lib.svt_encoder_write_audio(
+            self._h, samples.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), len(samples)
+        )
+        if rc != 0:
+            raise RuntimeError(f"svt_encoder_write_audio failed: {rc}")
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.svt_encoder_close(self._h)
+            self._h = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        self.close()
+
+
+def audio_rate(path: str) -> int:
+    """Sample rate of the file's first audio stream (0 = video-only)."""
+    return int(_lib().svt_audio_rate(path.encode()))
 
 
 def write_test_video(path: str, w: int = 128, h: int = 96, n_frames: int = 60, fps: int = 10) -> None:

@@ -396,6 +396,88 @@ def test_prefill_lane_form_on_card(cuda, raw):
 
 
 @pytest.mark.gpu
+def test_prefill_mcq_lanes_on_card(cuda):
+    """K1 at the batched MCQ forward's shape: B right-padded questions as
+    lanes at visible 0, the self block standing in for the arena (as
+    `language_forward_lanes(arena=None)` passes it), the rows past each
+    lane's real length one pad row repeated."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    B, T, H, Hkv, hd = 8, 1024, 28, 4, 128
+    real = torch.tensor([200, 333, 512, 640, 768, 900, 1000, 1024], device=cuda)
+
+    def rn(*s):
+        return torch.randn(*s, generator=g, device=cuda).to(torch.bfloat16)
+
+    q, ks, vs = rn(B, T, H, hd), rn(B, T, Hkv, hd), rn(B, T, Hkv, hd)
+    pad = torch.arange(T, device=cuda)[None, :] >= real[:, None]
+    q, ks, vs = (torch.where(pad[..., None, None], x[:, -1:], x).contiguous() for x in (q, ks, vs))
+    args = (q, ks, vs, None, None, ks, vs, [0] * B)
+    _assert_prefill_close(A.streaming_prefill_attention(*args),
+                          A.prefill_attention_lanes_plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,vis", [(1024, 0), (1, 700), (1, 777), (1, 1000)])
+def test_prefill_vqa_raw_shapes_on_card(cuda, T, vis):
+    """K1 raw mode at VQA's shapes: the prompt's prefill over a fresh raw
+    arena at visible 0, and the T = 1 greedy steps over it."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    H, Hkv, hd, Cc = 28, 4, 128, 2048
+
+    def rn(*s):
+        return torch.randn(*s, generator=g, device=cuda).to(torch.bfloat16)
+
+    ka, va = rn(Cc, Hkv, hd), rn(Cc, Hkv, hd)
+    ang = torch.randn(Cc, hd // 2, generator=g, device=cuda)
+    cs = (torch.cat([ang.cos()] * 2, -1).contiguous(), torch.cat([ang.sin()] * 2, -1).contiguous())
+    q, ks, vs = rn(T, H, hd), rn(T, Hkv, hd), rn(T, Hkv, hd)
+    args = (q, ka, va, *cs, ks, vs, vis)
+    _assert_prefill_close(A.streaming_prefill_attention(*args), A.prefill_attention_plain(*args))
+
+
+@pytest.mark.gpu
+def test_eval_forwards_run_the_kernels_on_card(cuda):
+    """The MCQ batch and VQA's generation on a tiny bf16 model widened to
+    head_dim 128 (what K1 takes): K1 launches once a layer for the MCQ
+    batch and for VQA's prefill and each of its T = 1 steps, and the MCQ
+    scores agree with the same batch's plain path on the CPU within bf16
+    noise."""
+    import dataclasses
+
+    import numpy as np
+
+    from streaming_vlm_tpu_torch.eval import mcq
+    from streaming_vlm_tpu_torch.eval.vqa import VQAChat
+    from streaming_vlm_tpu_torch.models.qwen25_vl.model import init_params
+    from streaming_vlm_tpu_torch.streaming.protocol import FakeTokenizer
+
+    tiny = qwen25_vl_tiny()
+    t = dataclasses.replace(tiny.text, hidden_size=256, num_attention_heads=4,
+                            num_key_value_heads=2, head_dim=128, mrope_section=(16, 24, 24))
+    cfg = dataclasses.replace(tiny, text=t, vision=dataclasses.replace(tiny.vision,
+                                                                      out_hidden_size=256))
+    model = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda,
+                        dtype=torch.bfloat16)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    cpu.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
+    tok = FakeTokenizer(cfg.tokens)
+    ids = [mcq.build_mcq_prompt_ids(cfg, tok, q, 0) for q in ("Short?", "A longer question?" * 9)]
+    opt = mcq.option_token_ids(tok, ["A", "B", "C"])
+    A.reset_launch_counts()
+    got = mcq._mcq_scores(cfg, model, ids, [opt] * 2, [None] * 2, [None] * 2, [None] * 2, 128)
+    assert A.launch_counts["streaming_prefill_attention"] == t.num_hidden_layers
+    want = mcq._mcq_scores(cfg, cpu, ids, [opt] * 2, [None] * 2, [None] * 2, [None] * 2, 128)
+    torch.testing.assert_close(got.cpu(), want, atol=0.05 * float(want.abs().max()), rtol=0)
+    chat = VQAChat(cfg, model, tok, lambda out: out, max_new_tokens=4)
+    A.reset_launch_counts()
+    out = chat.generate([{"type": "text", "value": "Say something."}])
+    steps = len(out) - 1 if len(out) == 4 else len(out)
+    assert A.launch_counts["streaming_prefill_attention"] == t.num_hidden_layers * (1 + steps)
+    assert sum(A.launch_counts.values()) == A.launch_counts["streaming_prefill_attention"]
+    assert np.all(np.asarray(out) >= 0)
+
+
+@pytest.mark.gpu
 def test_prefill_recompute_shape_on_card(cuda):
     """K1 at recompute mode's shape: visible 0, the causal self block alone,
     T long enough for many row tiles per CTA (plain in row blocks: rows
