@@ -220,7 +220,7 @@ REF_LAYERS = 4
 N_CHUNKS = 18  # slice length: past visual_round=16, so eviction runs (chunks 16 and 17)
 REF_NOISE_FACTOR = 2.0
 MUTANT_BUILDS = 8  # mutant copies whose kernels build at once (most compile one source)
-MUTANT_RUNS = 4  # mutant copies whose checks run at once on the card
+MUTANT_RUNS = 6  # mutant copies whose checks run at once on the card
 TRACE_PAD_S = 0.05  # host time between a trace's start or end and the traced calls
 # the H100 SXM's published peaks (dense bf16 and int8, f32 outside the
 # tensor cores, HBM3)
@@ -404,6 +404,17 @@ MUTANTS = {
         "lse[((size_t)b * T + t) * H + kvh * G + g] = m + log2f(den);",
         "lse[((size_t)b * T + t) * H + kvh * G + g] = m;", "'out': 'lse'",
     ),
+    "K1 full-block: the plan drops the block's last key tile": (
+        "K1", "ops/attention.py",
+        "units = np.concatenate([np.tile(prefill_units(T, G, v)[0] + n_self, Hkv) for v in vis])",
+        "units = np.concatenate([np.tile(prefill_units(T, G, v)[0] + n_self - int(not self_block), "
+        "Hkv) for v in vis])", "'mode': 'full-block'",
+    ),
+    "K1-bwd full-block: the first row tile skipped": (
+        "K1-bwd", "csrc/attention_bwd.cu",
+        "const int n_tiles = full_block ? M : M - n * BN / BT;",
+        "const int n_tiles = full_block ? M - 1 : M - n * BN / BT;", "'mode': 'full-block'",
+    ),
     "CE-row: the reduction skips the last warp": (
         "CE-row", "csrc/linear_ce.cu",
         "for (int w = 1; w < WARPS; ++w)",
@@ -424,6 +435,7 @@ LANE_VISIBLE = {1: ((9000,), (0,)), 4: ((1, 4501, 0, 100), (10240, 641, 9000, 1)
 K1_LANE_INSERT_AT = (0, 1, 641, 4501, 9000, 9600)
 # multi-stream slices: lanes, rounds, rounds in which the last lane idles
 MS_ROUNDS = 18  # past visual_round=16: eviction in rounds 16 and 17
+MS_LAYERS = 14  # the decoder of slices D-F, J and K, cut from 28 to keep the run in its limit
 MS_IDLE_ROUNDS = (3, 11)
 _FAILED = []  # the checks of phase 3 that failed
 _TIMED = True  # False: phase 3's checks without its timings (the mutant copies)
@@ -460,6 +472,17 @@ SRC = {  # kernel -> (source, the TPU kernel's pallas_call it replaces)
     "attention_bwd": (
         "streaming_vlm_tpu_torch/csrc/attention_bwd.cu",
         "streaming_vlm_tpu/models/qwen25_vl/language.py:147",
+    ),
+    # K1's and K1-bwd's full-block modes: no pallas_call; ring attention's
+    # steps over a key block wholly before the queries (XLA einsums, and
+    # their autodiff)
+    "full_block_attention": (
+        "streaming_vlm_tpu_torch/csrc/prefill_attention.cu",
+        "streaming_vlm_tpu/parallel/ring.py:45",
+    ),
+    "attention_bwd_full": (
+        "streaming_vlm_tpu_torch/csrc/attention_bwd.cu",
+        "streaming_vlm_tpu/parallel/ring.py:45",
     ),
     # CE-row: no pallas_call; the row pass of `_fused_ce_pass` (XLA)
     "ce_rows": (
@@ -860,6 +883,7 @@ def phase_kernels():
     stats["streaming_prefill_attention"]["max_abs_err"] = max(
         stats["streaming_prefill_attention"]["max_abs_err"], ev["max_abs_err"])
     stats["attention_bwd"] = _phase_k1_bwd(g)
+    stats.update(_phase_full_block(g))
     stats["ce_rows"] = _phase_ce_rows(g)
     if _FAILED:
         raise AssertionError("kernels disagree with their plain versions: " + "; ".join(_FAILED))
@@ -2993,6 +3017,107 @@ def _phase_k1_bwd(g) -> dict:
     return r
 
 
+# the full-block modes (ring attention's key blocks wholly before the
+# queries): T queries over T keys; 200 ends no K1 row tile (G = 7) and no
+# key tile; RING_T is the ring's block at T = 8192 over {"seq": 2}
+FULL_T = (200, 640, 2048)
+RING_T = 4096
+
+
+def _phase_full_block(g) -> dict:
+    """K1's and K1-bwd's full-block modes against their plain versions (the
+    checks labelled K1 and K1-bwd, mode 'full-block'):
+    K1's output (K1's tolerance) and log-sum-exp (LSE_TOL) against
+    `full_block_attention_plain` / `prefill_lse_plain` without the self
+    block, K1-bwd's (BWD_TOL, two calls bitwise) against
+    `train_attention_bwd_plain(..., causal=False)` from the plain f32
+    forward's O and lse, at T in FULL_T + (RING_T,) (7B widths, G = 7) and
+    T = 640 at G = 8; times both at the ring's block (T = RING_T) beside
+    their bounds, the plain versions and SDPA non-causal (forward; forward
+    + backward, and its backward alone as the library call of K1-bwd's
+    mode)."""
+    import torch
+    import torch.nn.functional as F
+
+    from streaming_vlm_tpu_torch.ops import attention as A
+
+    dev = "cuda"
+    hd = 128
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    err_f, err_b = 0.0, 0.0
+    for (H, Hkv), ts in (((16, 2), (640,)), ((28, 4), FULL_T + (RING_T,))):
+        for T in ts:
+            q, k, v, do = rn(T, H, hd), rn(T, Hkv, hd), rn(T, Hkv, hd), rn(T, H, hd)
+            cases = dict(T=T, G=H // Hkv, mode="full-block")
+            lse = torch.full((T, H), math.nan, device=dev)
+            out = A.full_block_attention(q, k, v, lse=lse)
+            with torch.no_grad():
+                ref, lse_f32 = A.full_block_attention_plain(q.float(), k.float(), v.float())
+            err_f = max(err_f, _check("K1", out, ref,
+                                      dict(cases, out="o"), K1_ATOL_FRAC * float(ref.abs().max()),
+                                      K1_RTOL))
+            ref_lse = A.prefill_lse_plain(q, k, None, None, None, T)
+            err_f = max(err_f, _check("K1", lse, ref_lse, dict(cases, out="lse"),
+                                      LSE_TOL * float(ref_lse.abs().max()), LSE_TOL))
+            o = ref.to(torch.bfloat16)
+            got = A.attention_bwd(q, k, v, o, lse_f32, do, causal=False)
+            want = A.train_attention_bwd_plain(q, k, v, o, lse_f32, do, BWD_PLAIN_ROWS,
+                                               causal=False)
+            again = A.attention_bwd(q, k, v, o, lse_f32, do, causal=False)
+            for name, a, b, c in zip(("dq", "dk", "dv"), got, want, again):
+                atol = BWD_TOL * float(b.float().abs().max())
+                err_b = max(err_b, _check("K1-bwd", a, b, dict(cases, grad=name), atol,
+                                          BWD_TOL))
+                _check_equal("K1-bwd", c, a, dict(cases, grad=name, repeat=True))
+            del got, want, again, ref
+            torch.cuda.empty_cache()
+    # timings at the ring's block: the last case's inputs
+    T = RING_T
+    fwd = lambda: A.full_block_attention(q, k, v, lse=lse)  # noqa: E731
+    bwd = lambda: A.attention_bwd(q, k, v, o, lse_f32, do, causal=False)  # noqa: E731
+    kf = dict(max_abs_err=err_f, T=T, ms=_median_ms(fwd, reps=5, batch=3),
+              device_ms=_device_ms(fwd, n=5),
+              plain_ms=_median_ms(lambda: A.full_block_attention_plain(q, k, v), reps=2, batch=1))
+    kb = dict(max_abs_err=err_b, T=T, ms=_median_ms(bwd, reps=5, batch=3),
+              device_ms=_device_ms(bwd, n=5),
+              plain_ms=_median_ms(lambda: A.train_attention_bwd_plain(
+                  q, k, v, o, lse_f32, do, BWD_PLAIN_ROWS, causal=False), reps=2, batch=1))
+    qq, kk, vv, _ = _sdpa_inputs(q, k, v, None)
+    qq, kk, vv = (x.requires_grad_() for x in (qq, kk, vv))
+    dd = do.transpose(0, 1)[None].contiguous()
+    with torch.no_grad():
+        kf["library_ms"] = _median_ms(lambda: F.scaled_dot_product_attention(qq, kk, vv),
+                                      reps=5, batch=3)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(F.scaled_dot_product_attention(qq, kk, vv), (qq, kk, vv), dd)
+
+    kb["sdpa_fwd_bwd_ms"] = _median_ms(sdpa_fwd_bwd, reps=5, batch=3)
+    sdpa_out = F.scaled_dot_product_attention(qq, kk, vv)
+    kb["library_ms"] = _median_ms(lambda: torch.autograd.grad(sdpa_out, (qq, kk, vv), dd,
+                                                              retain_graph=True), reps=5, batch=3)
+    del sdpa_out, qq, kk, vv, dd
+    f_flops = 4 * H * hd * T * T  # S and P.V over every (query, key) pair
+    kf["bound_ms"], kf["bound_by"] = _bound(_nbytes(q, k, v, q) + 4 * T * H, f_flops)
+    kb["bound_ms"], kb["bound_by"] = _bound(_nbytes(q, k, v, o, do, lse_f32) + _nbytes(q, k, v),
+                                            5 * 2 * H * hd * T * T)
+    if _TIMED:
+        for what, r in (("K1 full-block", kf), ("K1-bwd full-block", kb)):
+            dev_ms = r["device_ms"] or r["ms"]
+            print(f"  {what} T={T} over {T} keys: kernel {r['ms']:.4f} ms (device "
+                  f"{r['device_ms']:.4f} ms, {100 * r['bound_ms'] / dev_ms:.1f}% of the bound), "
+                  f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                  f"SDPA non-causal {'backward' if r is kb else 'forward'} {r['library_ms']:.4f} ms"
+                  + (f" (forward + backward {kb['sdpa_fwd_bwd_ms']:.4f} ms; K1 full + K1-bwd "
+                     f"full {kf['ms'] + kb['ms']:.4f} ms)" if r is kb else ""))
+    del q, k, v, o, do, lse, lse_f32
+    torch.cuda.empty_cache()
+    return {"full_block_attention": kf, "attention_bwd_full": kb}
+
+
 def _phase_ce_rows(g) -> dict:
     """CE-row against `ce_rows_plain` at the 7B vocabulary, rows in CE_ROWS,
     logits at each of CE_SCALES, targets 0 and V - 1 and masked rows among
@@ -3136,7 +3261,7 @@ def phase_train_reference(cfg) -> dict:
 
     leaf = {n: (rel_l2(grads[n], grads32[n]), rel_l2(grads16[n], grads32[n])) for n in grads32}
     worst = max(leaf, key=lambda n: leaf[n][0])
-    r = dict(T=T, layers=REF_LAYERS, labeled_tokens=count,
+    r = dict(T=T, layers=REF_LAYERS, labeled_tokens=count, noise={n: v[1] for n, v in leaf.items()},
              loss_rel_err=abs(loss - loss32) / abs(loss32),
              loss_rel_err_plain_bf16=abs(loss16 - loss32) / abs(loss32),
              grad_rel_l2_max=leaf[worst][0], grad_rel_l2_max_leaf=worst,
@@ -3683,6 +3808,624 @@ def phase_train_resume() -> dict:
     return r
 
 
+# ---- slice O: the parallel modes (parallel/), two ranks on the one card
+# over gloo (NCCL refuses two ranks on one device), then a one-rank NCCL
+# world. 7B widths, the decoder cut to PAR_LAYERS layers and the tower to
+# PAR_BLOCKS blocks. No speed is claimed: the ranks share the card's SMs and
+# memory, and gloo's hops go through the host.
+PAR_LAYERS, PAR_BLOCKS = 4, 4
+PAR_CHUNKS = 6  # O1: window_size PAR_WINDOW puts the evictions in the last two
+PAR_WINDOW = 4
+PAR_MAX_NEW = 8  # O1, O2, O6: tokens a chunk (every decode step is ~5 collectives a layer)
+PAR_ROUNDS = 4  # O2
+SP_T, PP_T, DP_T = 8192, 4096, 1024  # O3, O4 (a microbatch), O5
+# O1: chunk 0's logits of B's config (bf16 weights, raw int8 arena, K1 +
+# K3) under {"model": 2} against the unsharded engine's in one process, max
+# |diff| over the largest |logit|. The TP path differs from the unsharded
+# one only in its sums: o and down are row-parallel (two bf16 partials
+# summed after each is rounded), and K1 / K3 run plans cut for Hkv / tp kv
+# heads; bf16 activations carry no requantization, so that floor stays
+# near bf16 rounding. A planted fault reads it against the same engine with
+# layer 0's kv heads swapped between the ranks (_swap_kv_heads). On an
+# NVIDIA H100 80GB HBM3 at 700 W (tools/parallel_torch.py) the sound
+# reading is 1.650e-2 (the unsharded bf16 forward's own distance from the
+# f32 oracle is ~2e-2, phase 4) and the fault's 1.275; the limit is 1.9x
+# the one and 1/41 of the other.
+PAR_LOGIT_TOL = 2.0**-5
+# O1's and O2's W8A8 logits (C's config; O2's engines) against the
+# unsharded engine's: a loose sanity bound only. Every W8A8 product under TP
+# is bitwise the unsharded one (tests/test_torch_parallel_serve.py), but
+# random W8A8 weights requantize every activation row to int8, so an ulp of
+# the attention (another kv-head or lane plan) grows through 4 layers to
+# ~5e-2 of the largest logit: O2's data=2 case, whose only change is K1's
+# lane plan, read 4.97e-2 on an NVIDIA H100 80GB HBM3 at 700 W
+# (this script). Wrong splits are caught by the bf16 limit above.
+PAR_W8A8_LOGIT_TOL = 2.0**-3
+PAR_TIMEOUT = 600.0  # seconds for the world's parts
+
+
+def _par_cfg(cfg):
+    return dataclasses.replace(
+        cfg, text=dataclasses.replace(cfg.text, num_hidden_layers=PAR_LAYERS),
+        vision=dataclasses.replace(cfg.vision, depth=PAR_BLOCKS))
+
+
+def _par_w8a8(cfg):
+    import torch
+
+    from streaming_vlm_tpu_torch.models.qwen25_vl.model import random_quantized_model
+
+    return random_quantized_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                  device="cuda")
+
+
+def _par_bf16(cfg, seed: int = 3):
+    import torch
+
+    from streaming_vlm_tpu_torch.models.qwen25_vl.model import init_params
+
+    return init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), device="cuda",
+                       dtype=torch.bfloat16)
+
+
+class _FirstLogits:
+    """Records the first lm_logits call's output (a chunk's or round's
+    prefill) while active."""
+
+    def __enter__(self):
+        from streaming_vlm_tpu_torch.models.qwen25_vl import language
+
+        self.lang, self.real, self.logits = language, language.lm_logits, None
+
+        def spy(cfg, lm, hidden):
+            out = self.real(cfg, lm, hidden)
+            if self.logits is None:
+                self.logits = out.detach().float().clone()
+            return out
+
+        language.lm_logits = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.lang.lm_logits = self.real
+
+
+def _host_state(e) -> tuple:
+    """An engine's host accounting, as comparable values."""
+    import hashlib
+
+    import numpy as np
+
+    ids = np.asarray(e.table.token_ids())
+    pos = np.ascontiguousarray(e._positions()[:, : e.cached], np.float32)
+    return (hashlib.sha1(ids.tobytes()).hexdigest(), int(e.cached), int(e.uncached_tail),
+            hashlib.sha1(pos.tobytes()).hexdigest())
+
+
+def _par_chunks(cfg, eng, n, rng, expect=None, logits=False):
+    """n chunks of bench.py's client stream through eng.process_chunk:
+    (per chunk (tokens, host state), chunk 0's prefill logits when
+    `logits`, per chunk whether it evicted, the launches summed); each
+    chunk's launches checked against `expect` (per chunk) when given."""
+    import torch
+
+    from streaming_vlm_tpu_torch.streaming.protocol import FakeTokenizer, PromptBuilder
+
+    import collections
+
+    b = PromptBuilder(cfg.tokens, FakeTokenizer(cfg.tokens))
+    _, end_bias = b.measure_biases()
+    out, first, evicted, total = [], None, [], collections.Counter()
+    for i, (px, grid) in enumerate(_patches(cfg, rng, n)):
+        _reset_counts()
+        with _FirstLogits() as fl:
+            g, _ = eng.process_chunk(_client_segs(cfg, b, i, "What is happening?", grid), px,
+                                     grid)
+        torch.cuda.synchronize()
+        got = _counts()
+        total.update(got)
+        if expect is not None:
+            want = {k: expect.get(k, 0) for k in got}
+            if got != want:
+                raise AssertionError(f"chunk {i}: launches {got}, single-card path {want}")
+        if i == 0 and logits:
+            first = fl.logits.cpu()
+        eng.commit_assistant(g, end_bias, i)
+        evicted.append(eng.cached_after_evict < eng.cached_before_evict)
+        out.append((g.tolist(), _host_state(eng)))
+    return out, first, evicted, total
+
+
+def _swap_kv_heads(model, mesh, layer: int = 0) -> None:
+    """A planted tensor-parallel fault: layer `layer`'s k and v projections
+    of each rank take the other rank's kv heads (a wrong kv-head slice)."""
+    import torch
+
+    from streaming_vlm_tpu_torch.parallel.distributed import all_gather
+
+    g, r = mesh.group("model"), mesh.index("model")
+    lyr = model.text.layers[layer]
+    with torch.no_grad():
+        for lin in (lyr.k_proj, lyr.v_proj):
+            for p in (lin.weight, lin.bias):
+                if p is not None:
+                    p.copy_(all_gather(p, g, 0).chunk(2)[1 - r])
+
+
+def _rel_err(got, ref) -> float:
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def _par_o1(cfg, mesh_model, expect_c, expect_b):
+    """O1 on one rank: slice C's config under {"model": 2} for PAR_CHUNKS
+    chunks (launches per chunk checked), chunk 0's logits against the
+    unsharded engine on the same weights (a loose bound); then 2 chunks of
+    B's config (bf16), chunk 0's logits against the unsharded engine's (the
+    tight bound), and again with layer 0's kv heads swapped between the
+    ranks (the planted fault, which must read above it)."""
+    import numpy as np
+    import torch
+
+    from streaming_vlm_tpu_torch.config import SamplingConfig, StreamConfig
+    from streaming_vlm_tpu_torch.streaming.engine import StreamingEngine
+
+    greedy = SamplingConfig(do_sample=False)
+    stream_c = StreamConfig(kv_quant="int8", window_size=PAR_WINDOW, text_round=PAR_WINDOW,
+                            max_tokens_per_chunk=PAR_MAX_NEW)
+    model = _par_w8a8(cfg)
+    ref = StreamingEngine(cfg, model, stream_c, greedy)  # the same weights, before the cut
+    ref_logits = _par_chunks(cfg, ref, 1, np.random.default_rng(0), logits=True)[1]
+    del ref
+    torch.cuda.empty_cache()
+    eng = StreamingEngine(cfg, model, stream_c, greedy, mesh=mesh_model)
+    c, logits, evicted, counts = _par_chunks(cfg, eng, PAR_CHUNKS, np.random.default_rng(0),
+                                             expect_c, logits=True)
+    w8a8_err = _rel_err(logits, ref_logits)
+    del eng, model
+    torch.cuda.empty_cache()
+    stream_b = StreamConfig(kv_quant="int8", prerotate_arena=False,
+                            max_tokens_per_chunk=PAR_MAX_NEW)
+    model = _par_bf16(cfg)
+    ref = StreamingEngine(cfg, model, stream_b, greedy)  # before the cut
+    ref_logits = _par_chunks(cfg, ref, 1, np.random.default_rng(1), logits=True)[1]
+    del ref
+    eng = StreamingEngine(cfg, model, stream_b, greedy, mesh=mesh_model)
+    b, logits, _, counts_b = _par_chunks(cfg, eng, 2, np.random.default_rng(1), expect_b,
+                                         logits=True)
+    del eng
+    _swap_kv_heads(model, mesh_model)
+    eng = StreamingEngine(cfg, model, stream_b, greedy, mesh=mesh_model)
+    fault = _par_chunks(cfg, eng, 1, np.random.default_rng(1), logits=True)[1]
+    del eng, model
+    torch.cuda.empty_cache()
+    return dict(c=c, b=b, evicted=evicted, w8a8_logit_rel_err=w8a8_err,
+                logit_rel_err=_rel_err(logits, ref_logits),
+                fault_logit_rel_err=_rel_err(fault, ref_logits), counts=counts + counts_b)
+
+
+def _par_o2(cfg, mesh_data, mesh_model):
+    """O2 on one rank: MultiStreamEngine on {"data": 2} with 4 lanes (2 a
+    rank), then on {"model": 2} with 2 lanes, PAR_ROUNDS rounds each
+    (sampled): every lane's host state after each round, and round 0's
+    logits of this rank's lanes against the single-card engine's."""
+    import numpy as np
+    import torch
+
+    from streaming_vlm_tpu_torch.config import SamplingConfig, StreamConfig
+    from streaming_vlm_tpu_torch.streaming.multistream import MultiStreamEngine
+    from streaming_vlm_tpu_torch.streaming.protocol import FakeTokenizer, PromptBuilder
+
+    import collections
+
+    stream = StreamConfig(kv_quant="int8", max_tokens_per_chunk=PAR_MAX_NEW)
+    sampling = SamplingConfig()
+    out, counts = {}, collections.Counter()
+    for tag, mesh, B in (("data", mesh_data, 4), ("model", mesh_model, 2)):
+        def rounds(ms, n):
+            b = PromptBuilder(cfg.tokens, FakeTokenizer(cfg.tokens))
+            _, end_bias = b.measure_biases()
+            rng, states, first = np.random.default_rng(2), [], None
+            for r in range(n):
+                pats = _patches(cfg, rng, B)
+                grid = pats[0][1]
+                segs = [_client_segs(cfg, b, r, f"lane {i}?", grid) for i in range(B)]
+                with _FirstLogits() as fl:
+                    ve = ms.encode_round(np.stack([p for p, _ in pats]), grid)
+                    res = ms.process_round(segs, vis_embeds=ve, grid_thw=grid)
+                if first is None:
+                    first = fl.logits.cpu()
+                ms.commit_assistant([g for g, _ in res], end_bias, r)
+                states.append([(g.tolist(), _host_state(e)) for (g, _), e in zip(res, ms.engines)])
+            return states, first
+
+        model = _par_w8a8(cfg)
+        ms = MultiStreamEngine(cfg, model, stream, sampling, n_streams=B, mesh=mesh)
+        _reset_counts()
+        states, first = rounds(ms, PAR_ROUNDS)
+        torch.cuda.synchronize()
+        counts.update(_counts())
+        lo, hi = ms.lo, ms.hi
+        del ms
+        if tag == "model":
+            del model
+            torch.cuda.empty_cache()
+            model = _par_w8a8(cfg)
+        ref = MultiStreamEngine(cfg, model, stream, sampling, n_streams=B)
+        _, ref_first = rounds(ref, 1)
+        del ref, model
+        torch.cuda.empty_cache()
+        ref_first = ref_first[lo:hi]
+        out[tag] = dict(states=states, lanes=(lo, hi), logit_rel_err=_rel_err(first, ref_first))
+    out["counts"] = counts
+    return out
+
+
+def _par_batch(cfg, B: int, T: int, seed: int):
+    """A training batch at the decoder's widths: B examples of T tokens, the
+    first 2/5 unlabeled, T // 8 vision rows scattered in (two past T,
+    dropped)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    D, n_vis = cfg.text.hidden_size, T // 8
+    ids = rng.integers(0, cfg.text.vocab_size, (B, T))
+    labels = ids.copy()
+    labels[:, : 2 * T // 5] = -100
+    slots = np.stack([np.sort(rng.choice(2 * T // 5, n_vis, replace=False)) for _ in range(B)])
+    slots[:, -2:] = T
+    return {"input_ids": torch.from_numpy(ids).cuda(), "labels": torch.from_numpy(labels).cuda(),
+            "positions": torch.arange(T, dtype=torch.float32, device="cuda").expand(B, 3, T)
+            .contiguous(),
+            "vis_embeds": (torch.from_numpy(rng.standard_normal((B, n_vis, D))).float() * 0.02)
+            .to(torch.bfloat16).cuda(),
+            "vis_slots": torch.from_numpy(slots).cuda()}
+
+
+def _par_loss(cfg, mode, mesh, batch):
+    """(loss, grads by parameter name, launches) of sft_loss_sp / _pp on
+    `mesh`, or sft_loss (mode None) on one rank, fresh bf16 weights."""
+    import torch
+
+    from streaming_vlm_tpu_torch.parallel.pipeline import sft_loss_pp, split_stages
+    from streaming_vlm_tpu_torch.parallel.ring import sft_loss_sp
+    from streaming_vlm_tpu_torch.train import step as S
+
+    model = _par_bf16(cfg)
+    first = split_stages(cfg, model, mesh)[0] if mode == "pp" else 0
+    params = S.trained_params(model)
+    _reset_counts()
+    if mode == "sp":
+        loss, _ = sft_loss_sp(cfg, model, batch, mesh)
+    elif mode == "pp":
+        loss, _ = sft_loss_pp(cfg, model, batch, mesh)
+    else:
+        loss, _ = S.sft_loss(cfg, model, batch)
+    grads = torch.autograd.grad(loss, params)
+    torch.cuda.synchronize()
+    launches = _counts()
+
+    def name(n):  # a stage's layer i is the model's layer first + i
+        if n.startswith("layers."):
+            i, rest = n[len("layers."):].split(".", 1)
+            return f"layers.{first + int(i)}.{rest}"
+        return n
+
+    out = {name(n): g.float() for (n, _), g in zip(model.text.named_parameters(), grads)}
+    del model, params, grads
+    torch.cuda.empty_cache()
+    return float(loss.detach()), out, launches
+
+
+def _par_train_cmp(got: dict, ref: dict, noise: dict) -> tuple:
+    """(worst leaf, its rel L2 error, whether every leaf of `got` is within
+    max(TRAIN_GRAD_TOL, REF_NOISE_FACTOR * noise[leaf]))."""
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    errs = {n: rel(g, ref[n]) for n, g in got.items()}
+    worst = max(errs, key=errs.get)
+    ok = all(e <= max(TRAIN_GRAD_TOL, REF_NOISE_FACTOR * noise.get(n, 0.0)) for n, e in errs.items())
+    return worst, errs[worst], ok
+
+
+def _par_o3(cfg, mesh_seq, noise):
+    """O3: sft_loss_sp at T = SP_T over {"seq": 2} against the one-card
+    sft_loss on the same weights and batch (rank 0 runs it after)."""
+    import torch
+
+    batch = _par_batch(cfg, 1, SP_T, 5)
+    loss, grads, launches = _par_loss(cfg, "sp", mesh_seq, batch)
+    r = dict(loss=loss, launches={k: launches[k] for k in ("full_block_attention",
+                                                            "attention_bwd_full",
+                                                            "streaming_prefill_attention",
+                                                            "attention_bwd", "ce_rows")},
+             counts=launches)
+    if mesh_seq.rank == 0:
+        ref_loss, ref, _ = _par_loss(cfg, None, None, batch)
+        worst, err, ok = _par_train_cmp(grads, ref, noise)
+        r.update(ref_loss=ref_loss, loss_rel_err=abs(loss - ref_loss) / abs(ref_loss),
+                 grad_worst_leaf=worst, grad_rel_l2_max=err, grads_ok=ok)
+        del ref
+    del grads
+    torch.cuda.empty_cache()
+    return r
+
+
+def _par_o4(cfg, mesh_stage, noise):
+    """O4: sft_loss_pp over {"stage": 2} (2 layers a stage), 2 microbatches
+    of PP_T, against the one-card sft_loss; the replicated parameters'
+    gradients (embed, final_ln, lm_head) returned for the cross-rank check."""
+    import torch
+
+    batch = _par_batch(cfg, 2, PP_T, 6)
+    loss, grads, launches = _par_loss(cfg, "pp", mesh_stage, batch)
+    import hashlib
+
+    rep = {n: hashlib.sha1(g.cpu().numpy().tobytes()).hexdigest() for n, g in grads.items()
+           if not n.startswith("layers.")}
+    r = dict(loss=loss, replicated=rep, counts=launches)
+    ref_loss, ref, _ = _par_loss(cfg, None, None, batch)
+    worst, err, ok = _par_train_cmp(grads, ref, noise)
+    r.update(ref_loss=ref_loss, loss_rel_err=abs(loss - ref_loss) / abs(ref_loss),
+             grad_worst_leaf=worst, grad_rel_l2_max=err, grads_ok=ok)
+    del grads, ref
+    torch.cuda.empty_cache()
+    return r
+
+
+def _par_o5(cfg, mesh_data, tmp: str):
+    """O5: the Trainer in gspmd mode on {"data": 2}, 2 steps of B = 2
+    examples of DP_T tokens, against the one-card Trainer on the same
+    batches (rank 0 runs it after); each rank's AdamW moment bytes."""
+    import torch
+
+    from streaming_vlm_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    batches = [_par_batch(cfg, 2, DP_T, 7 + i) for i in range(2)]
+
+    def run(mesh, sub):
+        tc = TrainConfig(output_dir=f"{tmp}/{sub}", max_steps=2, warmup_steps=1, grad_accum=1,
+                         remat="none")
+        tr = Trainer(cfg, _par_bf16(cfg), tc, mesh=mesh)
+        _reset_counts()
+        ms = [{k: float(v) for k, v in tr._train_step(b).items()} for b in batches]
+        torch.cuda.synchronize()
+        inner = tr.opt_state["inner"]
+        moments = sum(t.numel() * t.element_size() for t in inner["mu"] + inner["nu"])
+        counts = _counts()
+        del tr
+        torch.cuda.empty_cache()
+        return ms, moments, counts
+
+    metrics, moments, counts = run(mesh_data, f"rank{mesh_data.rank}")
+    r = dict(metrics=metrics, moment_bytes=moments, counts=counts)
+    if mesh_data.rank == 0:
+        ref, ref_moments, _ = run(None, "one-card")
+        r.update(ref_metrics=ref, ref_moment_bytes=ref_moments)
+    return r
+
+
+def _slice_o_rank(rank: int, init_file: str, args: tuple, q) -> None:
+    """One rank of slice O's gloo world on cuda:0: O1-O5 in turn, each
+    part's result, seconds and peak memory sent to the parent; any
+    exception sent as the rank's failure."""
+    import traceback
+    from datetime import timedelta
+
+    try:
+        sys.path.insert(0, str(REPO))
+        import torch
+        import torch.distributed as dist
+
+        from streaming_vlm_tpu_torch.parallel.mesh import make_mesh
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                                world_size=2, timeout=timedelta(seconds=PAR_TIMEOUT - 60))
+        cfg, expect_c, expect_b, noise, tmp = args
+        meshes = {a: make_mesh({a: 2}) for a in ("model", "data", "seq", "stage")}
+        parts = (("O1", lambda: _par_o1(cfg, meshes["model"], expect_c, expect_b)),
+                 ("O2", lambda: _par_o2(cfg, meshes["data"], meshes["model"])),
+                 ("O3", lambda: _par_o3(cfg, meshes["seq"], noise)),
+                 ("O4", lambda: _par_o4(cfg, meshes["stage"], noise)),
+                 ("O5", lambda: _par_o5(cfg, meshes["data"], tmp)))
+        out = {}
+        for name, fn in parts:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            out[name] = dict(r, seconds=time.perf_counter() - t0, backend=dist.get_backend(),
+                             peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        q.put((rank, True, out))
+        dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001  (the parent fails the run with it)
+        q.put((rank, False, traceback.format_exc()))
+
+
+def _par_o6(cfg, init_file: str) -> dict:
+    """O6, in this process: a one-rank NCCL world, O1's W8A8 engine with
+    mesh {"model": 1} for 2 chunks, its tokens against the engine with no
+    mesh on the same weights (before the cut)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from streaming_vlm_tpu_torch.config import SamplingConfig, StreamConfig
+    from streaming_vlm_tpu_torch.parallel.distributed import initialize
+    from streaming_vlm_tpu_torch.parallel.mesh import make_mesh
+    from streaming_vlm_tpu_torch.streaming.engine import StreamingEngine
+
+    t0 = time.perf_counter()
+    initialize(device="cuda:0", init_method=f"file://{init_file}", world_size=1, rank=0)
+    try:
+        greedy = SamplingConfig(do_sample=False)
+        stream = StreamConfig(kv_quant="int8", window_size=PAR_WINDOW, text_round=PAR_WINDOW,
+                              max_tokens_per_chunk=PAR_MAX_NEW)
+        model, runs = _par_w8a8(cfg), {}
+        torch.cuda.reset_peak_memory_stats()
+        for tag, mesh in (("none", None), ("nccl", make_mesh({"model": 1}))):
+            eng = StreamingEngine(cfg, model, stream, greedy, mesh=mesh)
+            runs[tag] = [g for g, _ in _par_chunks(cfg, eng, 2, np.random.default_rng(0))[0]]
+            del eng
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    del model
+    torch.cuda.empty_cache()
+    return dict(equal=runs["none"] == runs["nccl"], backend=backend,
+                seconds=time.perf_counter() - t0, tokens=runs["nccl"],
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _spawn_world(target, argss: list, timeout: float) -> list:
+    """Start one process a rank (torch.multiprocessing, spawn: CUDA is live
+    here), collect each rank's (ok, result), join them all; a failed or
+    silent rank fails the run with its traceback."""
+    import queue as queue_mod
+
+    import torch.multiprocessing as tmp_mp
+
+    ctx = tmp_mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(*a, q)) for a in argss]
+    for p in procs:
+        p.start()
+    results, errors = {}, []
+    deadline = time.perf_counter() + timeout
+    try:
+        while len(results) + len(errors) < len(procs):
+            try:
+                rank, ok, value = q.get(timeout=max(1.0, deadline - time.perf_counter()))
+            except queue_mod.Empty:
+                raise AssertionError(f"slice O: a rank sent nothing within {timeout:.0f} s")
+            if ok:
+                results[rank] = value
+            else:
+                errors.append(f"rank {rank}:\n{value}")
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if errors:
+        raise AssertionError("slice O: a rank failed:\n" + "\n".join(errors))
+    return [results[r] for r in sorted(results)]
+
+
+def phase_parallel(cfg, noise: dict) -> tuple:
+    """Slice O (see PAR_*): one 2-rank gloo world on cuda:0 runs O1-O5, then
+    a one-rank NCCL world in this process runs O6. Checks that the ranks agree, the
+    comparisons with the one-card paths, and that each part's kernels
+    launched. Returns (launches summed over the ranks and parts, stats)."""
+    import collections
+    import tempfile
+
+    import torch
+
+    pcfg = _par_cfg(cfg)
+    L, max_new = PAR_LAYERS, PAR_MAX_NEW
+    vision = 5 * PAR_BLOCKS + 2
+    k1, k2, k3 = ("streaming_prefill_attention", "streaming_decode_attention_full",
+                  "streaming_decode_attention_int8")
+    expect_c = {k1: L, k2: L * max_new, "int8_gemm": 7 * L * (1 + max_new) + 1 + max_new + vision,
+                "int8_gemm/tiled": 7 * L + vision, "int8_gemm/gemv": 7 * L * max_new + 1 + max_new}
+    expect_b = {k1: L, k3: L * max_new}
+    stats, launches = {}, collections.Counter()
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        t0 = time.perf_counter()
+        ranks = _spawn_world(_slice_o_rank, [(r, f"{tmp}/store", (pcfg, expect_c, expect_b,
+                                                                   noise, tmp)) for r in (0, 1)],
+                             PAR_TIMEOUT)
+        world_s = time.perf_counter() - t0
+        o6 = _par_o6(pcfg, f"{tmp}/nccl_store")
+    r0, r1 = ranks
+    for part in ("O1", "O2", "O3", "O4", "O5"):
+        for r in ranks:
+            launches.update(r[part].get("counts", {}))
+        print(f"  {part}: {r0[part]['seconds']:.1f} s (rank 1 {r1[part]['seconds']:.1f} s), "
+              f"{r0[part]['backend']}, peak {r0[part]['peak_gib']:.2f} / "
+              f"{r1[part]['peak_gib']:.2f} GiB (rank 0 / 1)")
+    fails = []
+    # O1: ranks agree after every chunk; chunk 0's logits; evictions in the last two
+    o1 = (r0["O1"], r1["O1"])
+    if o1[0]["c"] != o1[1]["c"] or o1[0]["b"] != o1[1]["b"]:
+        fails.append("O1: the ranks' tokens or host state differ")
+    if not any(o1[0]["evicted"][-2:]):
+        fails.append("O1: no eviction in the last two chunks")
+    err = max(o["logit_rel_err"] for o in o1)
+    fault = min(o["fault_logit_rel_err"] for o in o1)
+    w8a8_err = max(o["w8a8_logit_rel_err"] for o in o1)
+    print(f"  O1: {PAR_CHUNKS} W8A8 chunks (evictions {o1[0]['evicted']}) + 2 raw-arena bf16 "
+          f"chunks, ranks agree: {o1[0]['c'] == o1[1]['c'] and o1[0]['b'] == o1[1]['b']}; chunk "
+          f"0 logits vs the unsharded engine, max |diff| / max |logit|: bf16 {err:.3e} (limit "
+          f"{PAR_LOGIT_TOL:.3e}), with layer 0's kv heads swapped between the ranks {fault:.3e} "
+          f"(must exceed the limit), W8A8 {w8a8_err:.3e} (loose bound "
+          f"{PAR_W8A8_LOGIT_TOL:.3e}); per-chunk launches equal the single-card path's")
+    if err > PAR_LOGIT_TOL:
+        fails.append(f"O1: chunk 0's bf16 logits differ by {err:.3e} of the largest")
+    if fault <= PAR_LOGIT_TOL:
+        fails.append(f"O1: a kv-head swap between the ranks reads {fault:.3e}, within the limit")
+    if w8a8_err > PAR_W8A8_LOGIT_TOL:
+        fails.append(f"O1: chunk 0's W8A8 logits differ by {w8a8_err:.3e} of the largest")
+    for tag in ("data", "model"):  # O2
+        a, b = r0["O2"][tag], r1["O2"][tag]
+        agree = a["states"] == b["states"]
+        e = max(a["logit_rel_err"], b["logit_rel_err"])
+        print(f"  O2 {tag}=2: lanes {a['lanes']} / {b['lanes']}, {PAR_ROUNDS} rounds, ranks "
+              f"agree: {agree}; round 0 W8A8 logits vs the single-card engine {e:.3e} (loose "
+              f"bound {PAR_W8A8_LOGIT_TOL:.3e})")
+        if not agree or e > PAR_W8A8_LOGIT_TOL:
+            fails.append(f"O2 {tag}: agree={agree} logit err {e:.3e}")
+    o3 = r0["O3"]
+    full = {k: r0["O3"]["launches"][k] + r1["O3"]["launches"][k]
+            for k in ("full_block_attention", "attention_bwd_full")}
+    print(f"  O3: sft_loss_sp T={SP_T} over seq=2: loss {o3['loss']:.6f} vs one card "
+          f"{o3['ref_loss']:.6f} (rel {o3['loss_rel_err']:.3e}); worst gradient leaf "
+          f"{o3['grad_worst_leaf']} rel L2 {o3['grad_rel_l2_max']:.3e}; full-block launches "
+          f"(both ranks) {full}")
+    if (o3["loss_rel_err"] > TRAIN_LOSS_TOL or not o3["grads_ok"] or not all(full.values())):
+        fails.append("O3: sp loss / gradients / full-block launches")
+    o4 = (r0["O4"], r1["O4"])
+    rep_equal = o4[0]["replicated"] == o4[1]["replicated"]
+    print(f"  O4: sft_loss_pp over stage=2, 2 microbatches of {PP_T}: loss {o4[0]['loss']:.6f} vs "
+          f"one card {o4[0]['ref_loss']:.6f}; worst leaf rank 0 {o4[0]['grad_worst_leaf']} "
+          f"{o4[0]['grad_rel_l2_max']:.3e}, rank 1 {o4[1]['grad_worst_leaf']} "
+          f"{o4[1]['grad_rel_l2_max']:.3e}; replicated gradients equal on both ranks: {rep_equal}")
+    if not (rep_equal and all(o["grads_ok"] and o["loss_rel_err"] <= TRAIN_LOSS_TOL for o in o4)):
+        fails.append("O4: pp loss / gradients / replicated parameters")
+    o5 = (r0["O5"], r1["O5"])
+    m, ref = o5[0]["metrics"], o5[0]["ref_metrics"]
+    close = all(abs(a[k] - b[k]) <= TRAIN_LOSS_TOL * abs(b[k]) for a, b in zip(m, ref)
+                for k in ("loss", "grad_norm")) and all(
+        a["labeled_tokens"] == b["labeled_tokens"] for a, b in zip(m, ref))
+    print(f"  O5: Trainer gspmd data=2, 2 steps: loss {[x['loss'] for x in m]} vs one card "
+          f"{[x['loss'] for x in ref]}, grad_norm {[x['grad_norm'] for x in m]} vs "
+          f"{[x['grad_norm'] for x in ref]}; AdamW moments {o5[0]['moment_bytes'] / 2**30:.3f} / "
+          f"{o5[1]['moment_bytes'] / 2**30:.3f} GiB a rank against "
+          f"{o5[0]['ref_moment_bytes'] / 2**30:.3f} GiB on one card")
+    if not close or m != o5[1]["metrics"]:
+        fails.append("O5: the Trainer's metrics")
+    print(f"  O6: one-rank {o6['backend']} world in this process, {o6['seconds']:.1f} s, peak "
+          f"{o6['peak_gib']:.2f} GiB: tokens bitwise equal to the engine with no mesh: "
+          f"{o6['equal']}")
+    if not o6["equal"] or o6["backend"] != "nccl":
+        fails.append("O6: the NCCL world's tokens")
+    if fails:
+        raise AssertionError("slice O: " + "; ".join(fails))
+    stats = dict(world_seconds=world_s, o1_logit_rel_err=err, o1_fault_logit_rel_err=fault,
+                 o1_w8a8_logit_rel_err=w8a8_err, o3=dict(
+        {k: v for k, v in o3.items() if k not in ("counts",)}, full_block_launches=full),
+        o5_moment_bytes=[o["moment_bytes"] for o in o5], o5_one_card=o5[0]["ref_moment_bytes"],
+        seconds={p: r0[p]["seconds"] for p in ("O1", "O2", "O3", "O4", "O5")},
+        peak_gib={p: [r[p]["peak_gib"] for r in ranks] for p in ("O1", "O2", "O3", "O4", "O5")})
+    return launches, stats
+
+
 def _pool(starts, n: int, timeout: float = 900.0) -> list:
     """Run the processes that `starts` (callables returning a Popen) start,
     n at a time, each next one as soon as any running one has ended; waits
@@ -3793,8 +4536,8 @@ def main() -> int:
     ap.add_argument("--profile", type=Path, metavar="DIR",
                     help="trace the slices with torch.profiler; kernel tables -> "
                          "DIR/profile_slice_{a,...,i}.txt")
-    ap.add_argument("--slices", default="ABCDEFGHIJKLMN",
-                    help="the slices of phase 5 to run (default all: ABCDEFGHIJKLMN)")
+    ap.add_argument("--slices", default="ABCDEFGHIJKLMNO",
+                    help="the slices of phase 5 to run (default all: ABCDEFGHIJKLMNO)")
     args = ap.parse_args()
     if not (REPO / "streaming_vlm_tpu_torch").is_dir():
         raise SystemExit("chip_smoke.py must run from a checkout of the repository")
@@ -3877,6 +4620,7 @@ def main() -> int:
     r_verify = phase_verify_reference(cfg)
     print(f"  {cfg.name}: training, sft_loss and its text gradients (K1, K1-bwd, CE-row)")
     train_ref = phase_train_reference(cfg)
+    train_noise = train_ref.pop("noise")  # each leaf's bf16 noise, for slice O's limits
 
     print(f"[5/5] slices: the serving entry points at 7B width (at {time.perf_counter() - t_start:.1f} s)")
     t0 = time.perf_counter()
@@ -3998,23 +4742,28 @@ def main() -> int:
         "F": (4, StreamConfig(kv_quant="int8", prerotate_arena=False)),
     }
     ms_stats = {}
-    if set(args.slices) & set("DEFJK") and loaded != "W8A8":
+    # D-F, J and K run the decoder cut to MS_LAYERS layers (the run's time
+    # limit; the tower whole)
+    cfg_ms = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text,
+                                                               num_hidden_layers=MS_LAYERS))
+    Lm = MS_LAYERS
+    if set(args.slices) & set("DEFJK"):
         del model
-        model, loaded = w8a8(cfg), "W8A8"
+        model, loaded = w8a8(cfg_ms), "W8A8 cut"
     for name, (B, stream) in ms_slices.items():
         if name not in args.slices:
             continue
         dec = k2 if stream.effective_prerotate else k3
         vision = B * vision25
-        decode = 7 * L * max_new + 1 + max_new
+        decode = 7 * Lm * max_new + 1 + max_new
         small = B <= Q.lib().int8_small_m
-        expect = {k1: L, dec: L * max_new, "int8_gemm": 7 * L + vision + decode,
-                  "int8_gemm/tiled": 7 * L + vision + (0 if small else decode),
+        expect = {k1: Lm, dec: Lm * max_new, "int8_gemm": 7 * Lm + vision + decode,
+                  "int8_gemm/tiled": 7 * Lm + vision + (0 if small else decode),
                   "int8_gemm/gemv": decode if small else 0}
-        print(f"  slice {name}: {B} lanes, W8A8 weights, kv_quant={stream.kv_quant} "
+        print(f"  slice {name}: {B} lanes, W8A8 weights ({Lm} layers), kv_quant={stream.kv_quant} "
               f"prerotate={stream.effective_prerotate} rot_quant={stream.rot_quant}")
         prof = args.profile / f"profile_slice_{name.lower()}.txt" if args.profile else None
-        by_slice[name], ms_stats[name] = phase_multistream(cfg, model, stream, B, expect, prof)
+        by_slice[name], ms_stats[name] = phase_multistream(cfg_ms, model, stream, B, expect, prof)
     print("  " + json.dumps({"multistream": ms_stats}))
 
     # J: snapshots (W8A8, C's stream; K1/K2, the raw arena's K1/K3, K5 both
@@ -4024,14 +4773,14 @@ def main() -> int:
         print(f"  slice J: snapshot / resume, W8A8 weights, kv_quant=int8, sampled; pre-rotated "
               f"and raw arenas, then {SNAP_LANES} lanes")
         by_slice["J"], slice_stats["J"] = phase_snapshots(
-            cfg, model, StreamConfig(kv_quant="int8"),
+            cfg_ms, model, StreamConfig(kv_quant="int8"),
             (k1, k2, k3, "int8_gemm/gemv", "int8_gemm/tiled"))
     if "K" in args.slices:
         print(f"  (at {time.perf_counter() - t_start:.1f} s)")
         print(f"  slice K: MultiStreamServer, {SERVER_CLIENTS} clients on {SERVER_LANES} lanes "
               f"(max_clients={SERVER_CLIENTS}), W8A8 weights, kv_quant=int8")
         by_slice["K"], slice_stats["K"] = phase_server(
-            cfg, model, StreamConfig(kv_quant="int8"),
+            cfg_ms, model, StreamConfig(kv_quant="int8"),
             (k1, k2, "int8_gemm/gemv", "int8_gemm/tiled"))
 
     # G: Qwen2-VL-7B (all 28 layers, 32 vision blocks), random W8A8 weights,
@@ -4052,8 +4801,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     # M: training (Trainer, StreamDataset, K1 + K1-bwd + CE-row), then the
     # resume / prefetch check at narrow widths
+    def memory(before: str) -> None:  # what the earlier slices left on the card
+        print(f"  before slice {before}: memory_allocated "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, memory_reserved "
+              f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+
     if "M" in args.slices:
         print(f"  (at {time.perf_counter() - t_start:.1f} s)")
+        memory("M")
         print(f"  slice M: training, {cfg.name} widths with {TRAIN_LAYERS} decoder layers, "
               f"random bf16 weights, a {TRAIN_CLIP} s 476x840 clip, grad_accum 2, max_steps 2, "
               f"remat full, prefetch 2")
@@ -4061,6 +4816,18 @@ def main() -> int:
             by_slice["M"], slice_stats["M"] = phase_train(cfg)
             slice_stats["M"]["resume"] = phase_train_resume()
         slice_stats["M"]["reference"] = train_ref
+    # O: the parallel modes, two ranks on this card over gloo, then a
+    # one-rank NCCL world
+    if "O" in args.slices:
+        torch.cuda.empty_cache()
+        print(f"  (at {time.perf_counter() - t_start:.1f} s)")
+        memory("O")
+        print(f"  slice O: parallel/ at {cfg.name} widths, {PAR_LAYERS} decoder layers, "
+              f"{PAR_BLOCKS} vision blocks: 2 ranks on cuda:0 over gloo (O1-O5), then 1 rank "
+              f"over NCCL (O6); no speed is claimed")
+        t0 = time.perf_counter()
+        by_slice["O"], slice_stats["O"] = phase_parallel(cfg, train_noise)
+        print(f"  slice O: {time.perf_counter() - t0:.1f} s")
     print("  " + json.dumps({"slices": slice_stats}))
 
     def launches(key):

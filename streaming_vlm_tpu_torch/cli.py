@@ -34,8 +34,6 @@ import json
 import sys
 
 DEVICES = ("cuda", "cpu")
-PARALLEL_REFUSED = ("train --mesh and --parallel_mode pp|sp are not ported (one card; the mesh "
-                    "modes are ROADMAP.md queue 1 item 5, parallelism)")
 
 
 def _add_device(p: argparse.ArgumentParser) -> None:
@@ -295,24 +293,25 @@ def cmd_train(argv):
     p.add_argument("--remat", default="full", choices=["none", "full", "dots"])
     p.add_argument(
         "--mesh", default=None,
-        help="device mesh as axis=N[,axis=N...]: not ported (ROADMAP.md queue 1 item 5); "
-             "any value is refused",
+        help="device mesh as axis=N[,axis=N...] (e.g. 'data=2,model=4' for FSDP+TP, "
+             "'stage=4' for pipeline, 'seq=4' for ring-attention sequence parallelism); "
+             "run one process a rank: python -m torch.distributed.run --nproc_per_node N "
+             "-m streaming_vlm_tpu_torch train ...",
     )
     p.add_argument(
         "--parallel_mode", default="gspmd", choices=["gspmd", "pp", "sp"],
-        help="how the loss distributes over --mesh: only 'gspmd' (one card) is ported",
+        help="how the loss distributes over --mesh (TrainConfig.parallel_mode); pp and sp "
+             "need --mesh",
     )
     _add_device(p)
     args = p.parse_args(argv)
-    if args.mesh or args.parallel_mode != "gspmd":  # refused before the model loads
-        raise ValueError(f"{PARALLEL_REFUSED}: got --mesh {args.mesh!r} --parallel_mode "
-                         f"{args.parallel_mode!r}")
+    mesh, device = _train_mesh(args)  # before the model loads
 
     from .data.dataset import StreamDataset
     from .streaming.protocol import hf_encode_fn
     from .train.trainer import TrainConfig, Trainer
 
-    cfg, model, tokenizer, dtype = load_model(args.model_path, device=args.device)
+    cfg, model, tokenizer, dtype = load_model(args.model_path, device=device)
     ds = StreamDataset(
         args.train_annotation_paths,
         cfg=cfg,
@@ -332,8 +331,33 @@ def cmd_train(argv):
             remat=args.remat,
             parallel_mode=args.parallel_mode,
         ),
+        mesh=mesh,
     )
     trainer.train(ds)
+
+
+def _train_mesh(args):
+    """train's mesh and device: none and --device without --mesh; with
+    --mesh, the process group from torchrun's environment (WORLD_SIZE > 1:
+    gloo on the CPU, NCCL on the cards, each rank on cuda:LOCAL_RANK) and
+    the named mesh over it. ValueError for pp / sp without --mesh, or a
+    mesh of more ranks than the world has."""
+    if not args.mesh:
+        if args.parallel_mode != "gspmd":
+            raise ValueError(f"train: --parallel_mode {args.parallel_mode} needs --mesh")
+        return None, args.device
+    import os
+
+    import torch.distributed as dist
+
+    from .parallel.distributed import initialize
+    from .parallel.mesh import make_mesh
+
+    shape = {k: int(v) for k, v in (kv.split("=", 1) for kv in args.mesh.split(","))}
+    device = args.device
+    if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        device = str(initialize(device="cpu" if args.device == "cpu" else None))
+    return make_mesh(shape), device
 
 
 def cmd_infstream(argv):

@@ -72,6 +72,13 @@
 //     zeros from TMA's out-of-bounds fill (and are masked: they follow every
 //     token); rows past T, and the rows 64 - BT G of a tile that no box
 //     reaches (zeroed once), carry lse2 = +inf in the record, so P = 0;
+//   * full-block mode (ring attention's blocks wholly before the queries,
+//     parallel/ring.py): no causal mask, so every CTA visits every row
+//     tile, from the last down to the first, and no tile is masked; keys
+//     past T arrive as zeros and move nothing (dQ gains dS . 0, their dK
+//     and dV are not stored). The folds keep the same fixed order (key
+//     block 0, 1, ... per row tile), so a call stays bitwise repeatable;
+//     O and lse2 may be a larger softmax's (the ring's whole row);
 //   * a pre pass computes D and packs (lse2, D) per row tile, and zeroes
 //     the counters and the ticket; a post pass scales dQ, rounds it to bf16
 //     and unpacks the rows. The accumulator is [Hkv, tiles, 64, 128] f32
@@ -237,7 +244,7 @@ __global__ void __launch_bounds__(THREADS, 1) attn_bwd_kernel(
     int* __restrict__ counters,        // [Hkv * M] folds done a row tile, then the ticket
     float* __restrict__ dq_acc,        // [Hkv, M, ROWS, HD], dq_off layout
     bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int Hkv, int G, int BT, int M,
-    float qscale, float scale) {
+    float qscale, float scale, int full_block) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -279,7 +286,8 @@ __global__ void __launch_bounds__(THREADS, 1) attn_bwd_kernel(
   __syncthreads();
   const int job = *s_job;
   const int n = job / Hkv, kvh = job % Hkv;
-  const int n_tiles = M - n * BN / BT;  // row tiles M - 1 down to the diagonal's
+  // row tiles M - 1 down to the diagonal's (full-block mode: down to 0)
+  const int n_tiles = full_block ? M : M - n * BN / BT;
   const int wg = threadIdx.x / 128;
   const int lane = threadIdx.x % 32;
 
@@ -370,7 +378,7 @@ __global__ void __launch_bounds__(THREADS, 1) attn_bwd_kernel(
       // element 4j + e of S^T / dP^T is key (e & 2 ? b : a), row 8j + 2
       // (lane % 4) + (e & 1) of the tile (token t0 + row / G); only the tiles
       // that cross the block's diagonal are masked: bit 4j + e of `vis`
-      const bool diag = n * BN + BN - 1 > t0;
+      const bool diag = !full_block && n * BN + BN - 1 > t0;
       uint32_t vis = ~0u;
       if (diag) {
         vis = 0u;
@@ -535,11 +543,12 @@ extern "C" int svt_attention_bwd_tile_rows() { return ROWS; }
 // contiguous); lse [T, H] f32 (log2 space, as K1 writes it). Scratch (the
 // wrapper's, see ops/attention.py `attention_bwd_tiles`): rec f32
 // [Hkv, M, 128], counters int32 [Hkv M + 1], dq_acc f32 [Hkv, M, 64, HD],
-// M = ceil(T / (64 / G)) row tiles. Three launches on `stream`.
+// M = ceil(T / (64 / G)) row tiles. full_block: the full-block mode (no
+// causal mask). Three launches on `stream`.
 extern "C" int svt_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                  const void* lse, const void* dout, void* rec, void* counters,
                                  void* dq_acc, void* dq, void* dk, void* dv, int T, int H, int Hkv,
-                                 int hd, void* stream) {
+                                 int hd, int full_block, void* stream) {
   if (hd != HD || Hkv <= 0 || H % Hkv != 0 || T <= 0 || H / Hkv > ROWS)
     return (int)cudaErrorInvalidValue;
   const int G = H / Hkv;
@@ -562,7 +571,7 @@ extern "C" int svt_attention_bwd(const void* q, const void* k, const void* v, co
                        (int)SMEM_BYTES);
   attn_bwd_kernel<<<Hkv * NB, THREADS, SMEM_BYTES, st>>>(
       q_map, o_map, k_map, v_map, (const float*)rec, (int*)counters, (float*)dq_acc, (bf16*)dk,
-      (bf16*)dv, T, Hkv, G, BT, M, qscale, scale);
+      (bf16*)dv, T, Hkv, G, BT, M, qscale, scale, full_block);
   const long long threads = (long long)T * H * (HD / 8);
   attn_bwd_dq_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
       (const float*)dq_acc, (bf16*)dq, T, H, G, BT, M, scale);

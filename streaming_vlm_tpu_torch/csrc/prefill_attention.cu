@@ -72,6 +72,13 @@
 //     runs the instantiation without it, the code it ran before the LSE
 //     existed: a runtime branch in the epilogue alone cost ~3.5% at T = 640
 //     (tools/ab_torch.py on an H100).
+//   * full-block mode (ring attention, parallel/ring.py): T queries over a
+//     key block that lies wholly before them, its keys pre-rotated, no
+//     causal self block, the log-sum-exp written. It is a plan with no
+//     self (diagonal) units (ops/attention.py `prefill_plan(...,
+//     self_block=False)`): the kernel walks the block as fully visible
+//     arena tiles, and the entry point, given no self block, points the
+//     self maps at the arena's (never read).
 //
 // Built by nvcc for sm_90a into a plain-C shared library (see
 // streaming_vlm_tpu_torch/ops/_kernels.py); the entry point returns
@@ -499,7 +506,8 @@ extern "C" int svt_prefill_block_keys() { return BN; }
 
 // K1 over B lanes. q, out [B, T, H, HD]; ka/va [B][C, Hkv, HD] with lanes
 // ka_lane / va_lane elements apart; acos2/asin2 [B, C, HD] (raw mode);
-// ks/vs [B, T, Hkv, HD]. plan: int32 on the device, [n_segs * 5 segments]
+// ks/vs [B, T, Hkv, HD], or both null in the full-block mode (a plan with
+// no self units). plan: int32 on the device, [n_segs * 5 segments]
 // [n_ctas + 1 CTA offsets][n_merges * 4 merges][B visible lengths]
 // (ops/attention.py prefill_plan), vis_max the largest of the lengths. Raw
 // mode (acos2 != null) rotates each lane's visible rows of ka into k_rot
@@ -534,15 +542,22 @@ extern "C" int svt_prefill_attention(
   }
   CUtensorMap ka_map, va_map, ks_map, vs_map;
   const uint64_t e = sizeof(bf16);
+  if ((ks == nullptr) != (vs == nullptr) || (ks == nullptr && vis_max == 0))
+    return (int)cudaErrorInvalidValue;
   if (!svt_tensor_map_rows(&ka_map, ka, arena_rows, Hkv, HD * e, slot_stride, BN, false, B,
                            (uint64_t)ka_lane * e) ||
       !svt_tensor_map_rows(&va_map, va, arena_rows, Hkv, HD * e, slot_stride, BN, false, B,
-                           (uint64_t)va_lane * e) ||
-      !svt_tensor_map_rows(&ks_map, ks, T, Hkv, HD * e, slot_stride, BN, false, B,
-                           (uint64_t)T * slot_stride) ||
-      !svt_tensor_map_rows(&vs_map, vs, T, Hkv, HD * e, slot_stride, BN, false, B,
-                           (uint64_t)T * slot_stride))
+                           (uint64_t)va_lane * e))
     return (int)cudaErrorInvalidValue;
+  if (ks == nullptr) {  // full-block mode: no self units in the plan
+    ks_map = ka_map;
+    vs_map = va_map;
+  } else if (!svt_tensor_map_rows(&ks_map, ks, T, Hkv, HD * e, slot_stride, BN, false, B,
+                                  (uint64_t)T * slot_stride) ||
+             !svt_tensor_map_rows(&vs_map, vs, T, Hkv, HD * e, slot_stride, BN, false, B,
+                                  (uint64_t)T * slot_stride)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const float qscale = 1.4426950408889634f / sqrtf((float)hd);
   auto kernel = lse != nullptr ? prefill_attention_kernel<true> : prefill_attention_kernel<false>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);

@@ -6,8 +6,9 @@ Port of streaming_vlm_tpu/demo/multiapp.py over the port's
 into shared rounds (on the card: one K1 lane-form launch a layer for the
 round's prefill, one K2 or K3 lane-form launch a layer a decode step, K5
 for a W8A8 model's products), amortising each weight read across all of
-them. The device mesh of the JAX app (`mesh=`) is not ported: it raises
-ValueError (ROADMAP.md queue 1 item 5).
+them. `mesh=` serves the lanes on a mesh of ranks (parallel/: TP over
+'model', lanes over 'data'); run the same app on every rank (torchrun),
+each lane fed from the same video on every rank; only rank 0 serves HTTP.
 
 Endpoints:
   * GET /            - dashboard: a grid of every stream, each a <video> +
@@ -118,10 +119,6 @@ class MultiLiveCaptionServer:
         dtype=None,
         mesh=None,
     ):
-        if mesh is not None:
-            raise ValueError(
-                "MultiLiveCaptionServer: mesh= is not ported (one card; device meshes are "
-                "ROADMAP.md queue 1 item 5, parallelism)")
         assert len(video_paths) >= 1
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -139,7 +136,7 @@ class MultiLiveCaptionServer:
 
         self.engine = MultiStreamEngine(
             cfg, model, self.stream, self.sampling, self.n,
-            dtype=dtype or model.text.embed.weight.dtype,
+            dtype=dtype or model.text.embed.weight.dtype, mesh=mesh,
         )
         if hasattr(tokenizer, "convert_tokens_to_ids"):  # HF tokenizer
             encode = hf_encode_fn(tokenizer)
@@ -149,11 +146,13 @@ class MultiLiveCaptionServer:
         _, end_bias = self.builder.measure_biases()
         self.server = MultiStreamServer(self.engine, end_bias=end_bias)
         self._threads: List[threading.Thread] = []
-        self.httpd = _make_httpd(self, host, port)
+        # under a mesh of several ranks only rank 0 answers HTTP
+        rank0 = self.engine.mesh is None or self.engine.mesh.rank == 0
+        self.httpd = _make_httpd(self, host, port) if rank0 else None
 
     @property
-    def port(self) -> int:
-        return self.httpd.server_address[1]
+    def port(self) -> Optional[int]:
+        return None if self.httpd is None else self.httpd.server_address[1]
 
     # ---------------------------------------------------------------- feeders
     def _decode_text(self, ids: np.ndarray) -> str:
@@ -186,7 +185,7 @@ class MultiLiveCaptionServer:
             if self.duration is not None:
                 total = min(total, self.duration)
             num_chunks = int((total + st.chunk_duration - 1) // st.chunk_duration)
-            client = self.server.attach(seed=self.sampling.seed + 1000 + i)
+            client = self.server.attach(seed=self.sampling.seed + 1000 + i, key=i)
             t_wall0 = _time.perf_counter()
             for c in range(num_chunks):
                 start = c * st.chunk_duration
@@ -240,11 +239,11 @@ class MultiLiveCaptionServer:
             self._threads.append(t)
 
     def start_background(self) -> None:
-        """Start the round scheduler, one feeder per video, and the HTTP
-        server — all on daemon threads."""
+        """Start the round scheduler, one feeder per video, and (rank 0) the
+        HTTP server — all on daemon threads."""
         self._start_workers()
-        ht = threading.Thread(target=self.httpd.serve_forever, daemon=True)
-        ht.start()
+        if self.httpd is not None:
+            threading.Thread(target=self.httpd.serve_forever, daemon=True).start()
 
     def wait(self, timeout: Optional[float] = None) -> bool:
         """Block until every feeder finished its video. True if all done."""
@@ -257,6 +256,14 @@ class MultiLiveCaptionServer:
         return all(not t.is_alive() for t in self._threads)
 
     def serve_forever(self) -> None:
+        """Rank 0 (or no mesh): serve HTTP until interrupted. Another rank:
+        run its feeders to their end, then its round loop until rank 0
+        stops."""
+        if self.httpd is None:
+            self._start_workers()
+            self.wait()
+            self.server.stop()
+            return
         print(
             f"multi-stream demo ({self.n} lanes): "
             f"http://{self.httpd.server_address[0]}:{self.port}/"
@@ -265,8 +272,9 @@ class MultiLiveCaptionServer:
         self.httpd.serve_forever()
 
     def shutdown(self) -> None:
-        self.httpd.shutdown()
-        self.httpd.server_close()
+        if self.httpd is not None:
+            self.httpd.shutdown()
+            self.httpd.server_close()
         self.server.stop()
 
 

@@ -127,6 +127,9 @@ class LanguageModel(nn.Module):
             else nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False, **factory)
         )
         self._inv_freq: Dict[torch.device, torch.Tensor] = {}
+        # the process group over which a tensor-parallel lm_head's vocab is
+        # split (parallel/tp.py): lm_logits gathers the logits over it
+        self.vocab_group = None
 
     def inv_freq(self, device: torch.device) -> torch.Tensor:
         """RoPE inverse frequencies (host numpy, uploaded once per device)."""
@@ -413,9 +416,23 @@ def lm_logits(cfg: TextConfig, lm: LanguageModel, hidden: torch.Tensor) -> torch
     embeddings: the quantized copy of embed) runs K5 or qdot4 with an f32
     output."""
     if isinstance(lm.lm_head, QUANTIZED_LINEARS):
-        return lm.lm_head(hidden, out_dtype=torch.float32)
-    w = lm.embed.weight if cfg.tie_word_embeddings else lm.lm_head.weight
-    return f32_product(hidden, w)
+        logits = lm.lm_head(hidden, out_dtype=torch.float32)
+    else:
+        w = lm.embed.weight if cfg.tie_word_embeddings else lm.lm_head.weight
+        logits = f32_product(hidden, w)
+    if lm.vocab_group is not None:  # a tensor-parallel head: each rank's vocab rows
+        from ...parallel.distributed import all_gather
+
+        logits = all_gather(logits, lm.vocab_group, logits.dim() - 1)
+    return logits
+
+
+def head_weight(cfg: TextConfig, lm: LanguageModel) -> torch.Tensor:
+    """The [V, D] matrix of the CE head (a tied model's embedding): the
+    whole matrix on every rank where it is sharded (parallel/tp.py)."""
+    mod = lm.embed if cfg.tie_word_embeddings else lm.lm_head
+    full = getattr(mod, "full_weight", None)
+    return full() if full is not None else mod.weight
 
 
 def init_kv_arena(

@@ -336,7 +336,7 @@ def vision_forward(
     geo: Dict[str, torch.Tensor],  # VisionTower.geometry(grid_thw, device)
 ) -> torch.Tensor:
     """Encode patches -> merged vision embeddings [S // merge_unit, out_hidden]."""
-    H, hd = cfg.num_heads, cfg.head_dim
+    hd = cfg.head_dim
     hidden = tower.patch_embed(pixel_patches).index_select(0, geo["patch_perm"])
     cos = torch.cos(geo["rope_angles"])[:, None, :]
     sin = torch.sin(geo["rope_angles"])[:, None, :]
@@ -347,7 +347,7 @@ def vision_forward(
     S = hidden.shape[0]
     for i, blk in enumerate(tower.blocks):
         x = blk.norm1(hidden)
-        q, k, v = blk.qkv(x).view(S, 3, H, hd).unbind(1)
+        q, k, v = blk.qkv(x).view(S, 3, -1, hd).unbind(1)  # -1: a TP rank's heads
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         if i in full_blocks:

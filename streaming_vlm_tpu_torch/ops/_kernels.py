@@ -170,7 +170,7 @@ def lib() -> ctypes.CDLL:
         so.svt_decode_partials.restype = I
         so.svt_verify_attention.argtypes = [P] * 10 + [I] * 8 + [P]
         so.svt_verify_attention.restype = I
-        so.svt_attention_bwd.argtypes = [P] * 12 + [I] * 4 + [P]
+        so.svt_attention_bwd.argtypes = [P] * 12 + [I] * 5 + [P]
         so.svt_attention_bwd.restype = I
         so.svt_attention_bwd_block_keys.argtypes = []
         so.svt_attention_bwd_block_keys.restype = I

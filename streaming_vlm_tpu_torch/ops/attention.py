@@ -72,6 +72,8 @@ launch_counts = {
     "streaming_verify_attention": 0,
     "streaming_decode_attention": 0,
     "attention_bwd": 0,
+    "full_block_attention": 0,  # K1's full-block mode (ring attention)
+    "attention_bwd_full": 0,  # K1-bwd's full-block mode
 }
 
 
@@ -203,22 +205,28 @@ class PrefillPlan(NamedTuple):
         return len(self.cta_segs) - 1
 
 
-def prefill_units(T: int, G: int, visible_len: int) -> Tuple[int, np.ndarray]:
+def prefill_units(T: int, G: int, visible_len: int,
+                  self_block: bool = True) -> Tuple[int, np.ndarray]:
     """(arena units, self units of each row tile): ceil(visible_len / BN)
-    arena tiles, and the self tiles up to each row tile's last token."""
+    arena tiles, and the self tiles up to each row tile's last token (none
+    in the full-block mode, self_block=False)."""
     R = T * G
     rt = np.arange(-(-R // PREFILL_BLOCK_ROWS))
     t_last = (np.minimum((rt + 1) * PREFILL_BLOCK_ROWS, R) - 1) // G
-    return -(-int(visible_len) // PREFILL_BLOCK_KEYS), t_last // PREFILL_BLOCK_KEYS + 1
+    n_self = t_last // PREFILL_BLOCK_KEYS + 1
+    return -(-int(visible_len) // PREFILL_BLOCK_KEYS), n_self * int(bool(self_block))
 
 
-def prefill_plan(T: int, G: int, Hkv: int, visible_len, n_sms: int) -> PrefillPlan:
+def prefill_plan(T: int, G: int, Hkv: int, visible_len, n_sms: int,
+                 self_block: bool = True) -> PrefillPlan:
     """K1's schedule over min(n_sms, units) CTAs (one per SM), for one
     stream (visible_len an int) or B lanes (a sequence of B lengths). A row
     tile whose units two or more CTAs share gets a partial slot per segment
-    and one merge."""
+    and one merge. self_block=False is the full-block mode: the arena's
+    tiles alone, no causal self tile (a key block wholly before the
+    queries)."""
     vis = lane_lengths(visible_len, 1)
-    n_self = prefill_units(T, G, 0)[1]
+    n_self = prefill_units(T, G, 0, self_block)[1]
     n_rt = len(n_self)
     # item i: head i // n_rt (lane head // Hkv, kv head head % Hkv), row tile i % n_rt
     units = np.concatenate([np.tile(prefill_units(T, G, v)[0] + n_self, Hkv) for v in vis])
@@ -252,7 +260,7 @@ def prefill_plan(T: int, G: int, Hkv: int, visible_len, n_sms: int) -> PrefillPl
 
 @functools.lru_cache(maxsize=32)
 def _prefill_plan_on(device: torch.device, T: int, G: int, Hkv: int, visible: Tuple[int, ...],
-                     n_sms: int) -> Tuple[PrefillPlan, torch.Tensor]:
+                     n_sms: int, self_block: bool = True) -> Tuple[PrefillPlan, torch.Tensor]:
     """The plan and its int32 copy on the device, laid out as the kernel
     reads it: segments, CTA offsets, merges, the lanes' visible lengths.
     Cached: the 28 layers of a chunk (or a multi-stream round) share one
@@ -260,7 +268,7 @@ def _prefill_plan_on(device: torch.device, T: int, G: int, Hkv: int, visible: Tu
     stream, so the host does not wait for the device work already queued
     (PyTorch's pinned allocator keeps the staging buffer until the copy has
     run)."""
-    plan = prefill_plan(T, G, Hkv, visible, n_sms)
+    plan = prefill_plan(T, G, Hkv, visible, n_sms, self_block)
     flat = np.concatenate([plan.segs.ravel(), plan.cta_segs, plan.merges.ravel(),
                            np.asarray(visible, np.int32)])
     staged = torch.from_numpy(flat.astype(np.int32)).pin_memory()
@@ -332,22 +340,24 @@ def prefill_lse_plain(
 ) -> torch.Tensor:
     """Plain version of K1's log-sum-exp output: for each query row, log2 of
     the sum of exp2 of its K1 logits over arena slots < visible_len and the
-    causal self block, in f32, with K1's q (scaled by softmax-scale *
-    log2(e), then rounded to q's dtype). Returns [T, H] f32: P = exp2(s2 -
-    lse2), and the natural log-sum-exp is lse2 * ln(2)."""
+    causal self block (none when k_self_rot is None: the full-block mode),
+    in f32, with K1's q (scaled by softmax-scale * log2(e), then rounded to
+    q's dtype). Returns [T, H] f32: P = exp2(s2 - lse2), and the natural
+    log-sum-exp is lse2 * ln(2)."""
     T, H, hd = q_rot.shape
-    Hkv = k_self_rot.shape[1]
+    Hkv = k_arena.shape[1]
     vis = int(visible_len)
     ka = k_arena[:vis]
     if acos2 is not None:
-        ka = _rotate_dup_half(ka, acos2[:vis], asin2[:vis]).to(k_self_rot.dtype)
+        ka = _rotate_dup_half(ka, acos2[:vis], asin2[:vis]).to(k_arena.dtype)
     qs = (q_rot.float() * (LOG2E / math.sqrt(hd))).to(q_rot.dtype).float()
     qg = qs.reshape(T, Hkv, H // Hkv, hd)
-    causal = torch.ones(T, T, dtype=torch.bool, device=q_rot.device).tril()
-    s2 = torch.einsum("tkgd,skd->tkgs", qg, k_self_rot.float())
-    s2 = s2.masked_fill(~causal[:, None, None, :], -math.inf)
-    if vis:
-        s2 = torch.cat([torch.einsum("tkgd,skd->tkgs", qg, ka.float()), s2], -1)
+    parts = [torch.einsum("tkgd,skd->tkgs", qg, ka.float())] if vis else []
+    if k_self_rot is not None:
+        causal = torch.ones(T, T, dtype=torch.bool, device=q_rot.device).tril()
+        s2 = torch.einsum("tkgd,skd->tkgs", qg, k_self_rot.float())
+        parts.append(s2.masked_fill(~causal[:, None, None, :], -math.inf))
+    s2 = torch.cat(parts, -1)
     m = s2.amax(dim=-1, keepdim=True)
     lse2 = m + torch.log2(torch.exp2(s2 - m).sum(dim=-1, keepdim=True))
     return lse2.reshape(T, H)
@@ -390,7 +400,7 @@ def streaming_prefill_attention(
     if q_rot.dim() == 3:  # one stream: the lane form at B = 1
         return streaming_prefill_attention(
             q_rot[None], k_arena[None], v_arena[None], _lead(acos2), _lead(asin2),
-            k_self_rot[None], v_self[None], [int(visible_len)], lse=_lead(lse))[0]
+            _lead(k_self_rot), _lead(v_self), [int(visible_len)], lse=_lead(lse))[0]
     B, T, H, hd = q_rot.shape
     vis = lane_lengths(visible_len, B)
     if len(vis) != B:
@@ -410,16 +420,20 @@ def streaming_prefill_attention(
         )
     name = "streaming_prefill_attention"
     C, Hkv = k_arena.shape[1], k_arena.shape[2]
-    check_cuda(name, q_rot, k_self_rot, v_self)
+    check_cuda(name, *(t for t in (q_rot, k_self_rot, v_self) if t is not None))
     ka_lane = _check_lanes(name, k_arena, (B, C, Hkv, hd))
     va_lane = _check_lanes(name, v_arena, (B, C, Hkv, hd))
-    tensors = [q_rot, k_arena, v_arena, k_self_rot, v_self]
+    tensors = [t for t in (q_rot, k_arena, v_arena, k_self_rot, v_self) if t is not None]
     if any(t.dtype != torch.bfloat16 for t in tensors):
         raise ValueError(f"{name}: the CUDA kernel takes bf16 q/k/v")
     if hd != 128 or H % Hkv:
         raise ValueError(f"{name}: unsupported shapes q={tuple(q_rot.shape)} arena={tuple(k_arena.shape)}")
-    if k_self_rot.shape != (B, T, Hkv, hd) or v_self.shape != (B, T, Hkv, hd):
+    self_block = k_self_rot is not None  # None: the full-block mode (no self block)
+    if self_block and (k_self_rot.shape != (B, T, Hkv, hd) or v_self.shape != (B, T, Hkv, hd)):
         raise ValueError(f"{name}: self block must be [B, T, Hkv, hd]")
+    if not self_block and (v_self is not None or acos2 is not None or min(vis) < 1):
+        raise ValueError(f"{name}: the full-block mode takes a pre-rotated key block of >= 1 "
+                         "keys and no self block")
     if not all(0 <= v <= C for v in vis):
         raise ValueError(f"{name}: visible lengths {vis} outside [0, {C}]")
     if (acos2 is None) != (asin2 is None):
@@ -437,7 +451,8 @@ def streaming_prefill_attention(
         raise RuntimeError(f"{name}: the library's tile {so.prefill_block} is not the plan's")
     dev = q_rot.device
     vis_max = max(vis)
-    plan, plan_dev = _prefill_plan_on(dev, T, H // Hkv, Hkv, tuple(vis), sm_count(dev))
+    plan, plan_dev = _prefill_plan_on(dev, T, H // Hkv, Hkv, tuple(vis), sm_count(dev),
+                                      self_block)
     out = torch.empty_like(q_rot)
     part_o = torch.empty(plan.n_partials, PREFILL_BLOCK_ROWS, hd, dtype=torch.float32, device=dev)
     part_ml = torch.empty(plan.n_partials, 2, PREFILL_BLOCK_ROWS, dtype=torch.float32, device=dev)
@@ -451,8 +466,36 @@ def streaming_prefill_attention(
     )
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
-    launch_counts[name] += 1
+    launch_counts[name if self_block else "full_block_attention"] += 1
     return out
+
+
+def full_block_attention_plain(q_rot, k_rot, v):
+    """Plain version of K1's full-block mode: `train_attention_plain`'s row
+    math with an all-true mask (every query sees every key). Returns (out
+    [T, H, hd] in v's dtype, log2-space log-sum-exp [T, H] f32)."""
+    T, H, hd = q_rot.shape
+    out, lse2 = train_attention_plain(q_rot, k_rot, v, causal=False, return_lse=True)
+    return out.reshape(T, H, hd), lse2
+
+
+def full_block_attention(q_rot: torch.Tensor, k_rot: torch.Tensor, v: torch.Tensor, *,
+                         lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1's full-block mode: T rotated queries [T, H, hd] over a block of S
+    pre-rotated keys k_rot, v [S, Hkv, hd] that lies wholly before them (no
+    causal self block, no mask but the block's end), [T, H, hd] in v's
+    dtype; given `lse` (f32 [T, H]) each row's log2-space log-sum-exp over
+    the block is written into it (ring attention merges blocks by it). On
+    the card K1 with a plan of the block's tiles alone (`prefill_plan(...,
+    self_block=False)`), counted as "full_block_attention"; on the CPU
+    `full_block_attention_plain`."""
+    if q_rot.device.type == "cpu":
+        out, lse2 = full_block_attention_plain(q_rot, k_rot, v)
+        if lse is not None:
+            lse.copy_(lse2)
+        return out
+    return streaming_prefill_attention(q_rot, k_rot, v, None, None, None, None, k_rot.shape[0],
+                                       lse=lse)
 
 
 # ---------------------------------------------------------------------------
@@ -462,7 +505,7 @@ def streaming_prefill_attention(
 TRAIN_GMAX = 8  # the largest GQA group training's kernels take
 
 
-def _attention_rows(q, k, v, r0: int):
+def _attention_rows(q, k, v, r0: int, causal: bool = True):
     """Causal attention of query rows r0 .. r0 + len(q) over keys k, v [S,
     Hkv, hd] with the JAX package's per-row math and dtype chain
     (`_gqa_attention_chunked`'s block): f32 logits, max-subtracted exp, P
@@ -473,6 +516,8 @@ def _attention_rows(q, k, v, r0: int):
     G = H // Hkv
     rows = torch.arange(r0, r0 + t, device=q.device)
     mask = torch.arange(S, device=q.device)[None, :] <= rows[:, None]
+    if not causal:
+        mask = torch.ones_like(mask)
     lg = torch.einsum("tkgd,skd->kgts", q.float().reshape(t, Hkv, G, hd), k.float())
     lg = torch.where(mask[None, None], lg * (1.0 / math.sqrt(hd)), NEG_INF)
     m = lg.amax(dim=-1, keepdim=True)
@@ -492,6 +537,7 @@ def train_attention_plain(
     q_block: int = 0,
     *,
     return_lse: bool = False,
+    causal: bool = True,
 ):
     """Plain causal GQA self-attention for training, differentiable by
     autograd: the JAX package's `_gqa_attention_chunked` (q_block > 0: row
@@ -508,9 +554,9 @@ def train_attention_plain(
         qi = q_rot[r0:r0 + step]
         if step < T and torch.is_grad_enabled():
             out, lse = torch.utils.checkpoint.checkpoint(
-                _attention_rows, qi, k_rot, v, r0, use_reentrant=False)
+                _attention_rows, qi, k_rot, v, r0, causal, use_reentrant=False)
         else:
-            out, lse = _attention_rows(qi, k_rot, v, r0)
+            out, lse = _attention_rows(qi, k_rot, v, r0, causal)
         outs.append(out)
         lses.append(lse)
     out = torch.cat(outs) if len(outs) > 1 else outs[0]
@@ -519,15 +565,18 @@ def train_attention_plain(
     return out, torch.cat(lses) * LOG2E
 
 
-def train_attention_bwd_plain(q_rot, k_rot, v, out, lse2, d_out, q_block: int = 0):
+def train_attention_bwd_plain(q_rot, k_rot, v, out, lse2, d_out, q_block: int = 0,
+                              causal: bool = True):
     """The backward algebra K1-bwd implements, in f32 from the given
     tensors: with the saved output O [T, H, hd] and log2-space log-sum-exp
     lse2 [T, H], P = exp2(s2 - lse2) over the causal keys (s2 = q.k *
     softmax-scale * log2(e)), D = rowsum(dO * O), dS = P (dP - D) with dP =
     dO.v; dQ = dS.k * scale, dK = dS^T.q * scale and dV = P^T.dO, dK and dV
     summed over each kv head's G query heads. Query rows are taken q_block
-    at a time (0: all at once). Returns f32 (dq [T, H, hd], dk, dv [T, Hkv,
-    hd])."""
+    at a time (0: all at once). causal=False is K1-bwd's full-block mode:
+    every key of the block visible to every query (out and lse2 may be a
+    larger softmax's: ring attention passes the whole row's). Returns f32
+    (dq [T, H, hd], dk, dv [T, Hkv, hd])."""
     T, H, hd = q_rot.shape
     Hkv = k_rot.shape[1]
     G = H // Hkv
@@ -544,9 +593,11 @@ def train_attention_bwd_plain(q_rot, k_rot, v, out, lse2, d_out, q_block: int = 
     keys = torch.arange(T, device=q_rot.device)
     for r0 in range(0, T, step):
         r1 = min(r0 + step, T)
-        causal = keys[None, :] <= torch.arange(r0, r1, device=q_rot.device)[:, None]
+        causal_ok = keys[None, :] <= torch.arange(r0, r1, device=q_rot.device)[:, None]
+        if not causal:
+            causal_ok = torch.ones_like(causal_ok)
         s2 = torch.einsum("tkgd,skd->kgts", qf[r0:r1], kf) * (LOG2E * scale)
-        p = torch.where(causal[None, None], torch.exp2(s2 - l2[r0:r1].permute(1, 2, 0)[..., None]),
+        p = torch.where(causal_ok[None, None], torch.exp2(s2 - l2[r0:r1].permute(1, 2, 0)[..., None]),
                         0.0)
         dp = torch.einsum("tkgd,skd->kgts", dof[r0:r1], vf)
         ds = p * (dp - dsum[r0:r1].permute(1, 2, 0)[..., None])
@@ -597,7 +648,7 @@ def _check_train_shapes(name: str, q_rot, k_rot, v) -> None:
         raise ValueError(f"{name}: the CUDA kernels take bf16 q/k/v, got {q_rot.dtype}")
 
 
-def attention_bwd(q_rot, k_rot, v, out, lse2, d_out):
+def attention_bwd(q_rot, k_rot, v, out, lse2, d_out, causal: bool = True):
     """K1-bwd: dq [T, H, hd], dk, dv [T, Hkv, hd] of causal GQA attention
     from the saved output and log2-space log-sum-exp (`train_attention_bwd_
     plain`'s algebra), in the inputs' dtype. On the card: a pre pass (D and
@@ -605,10 +656,12 @@ def attention_bwd(q_rot, k_rot, v, out, lse2, d_out):
     once, dQ partials folded in a fixed order: bitwise repeatable) and a
     post pass rounding dQ (csrc/attention_bwd.cu; its row tiles
     `attention_bwd_tiles`, its scratch `attention_bwd_scratch`), one
-    counted launch. On the CPU: the plain
-    version."""
+    counted launch. causal=False is the full-block mode (counted as
+    "attention_bwd_full"): every row tile against every key block, no mask
+    but the block's end, in the same fixed fold order. On the CPU: the
+    plain version."""
     if q_rot.device.type == "cpu":
-        dq, dk, dv = train_attention_bwd_plain(q_rot, k_rot, v, out, lse2, d_out)
+        dq, dk, dv = train_attention_bwd_plain(q_rot, k_rot, v, out, lse2, d_out, causal=causal)
         return dq.to(q_rot.dtype), dk.to(k_rot.dtype), dv.to(v.dtype)
     name = "attention_bwd"
     _check_train_shapes(name, q_rot, k_rot, v)
@@ -628,10 +681,11 @@ def attention_bwd(q_rot, k_rot, v, out, lse2, d_out):
     rec, counters, dq_acc = attention_bwd_scratch(T, H, Hkv, hd, q_rot.device)
     err = lib().svt_attention_bwd(
         ptr(q_rot), ptr(k_rot), ptr(v), ptr(out), ptr(lse2), ptr(d_out), ptr(rec),
-        ptr(counters), ptr(dq_acc), ptr(dq), ptr(dk), ptr(dv), T, H, Hkv, hd, stream())
+        ptr(counters), ptr(dq_acc), ptr(dq), ptr(dk), ptr(dv), T, H, Hkv, hd, int(not causal),
+        stream())
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
-    launch_counts[name] += 1
+    launch_counts[name if causal else "attention_bwd_full"] += 1
     return dq, dk, dv
 
 

@@ -67,6 +67,8 @@ from ..ops.quant import (
 )
 from ..ops.attention import reserve_decode_scratch
 from ..ops.sampling import sample_tokens
+from ..parallel.mesh import as_mesh
+from ..parallel.tp import shard_params_serving
 from ..utils.buckets import bucket_for
 from .segments import ASST_BODY, ASST_TAIL, Seg, SegmentTable
 
@@ -446,6 +448,7 @@ class StreamingEngine:
         sampling: SamplingConfig,
         dtype: torch.dtype = torch.bfloat16,
         allocate_arena: bool = True,  # False: the arena is owned elsewhere (a multi-stream lane)
+        mesh=None,  # parallel.mesh.Mesh or {axis: size}: tensor-parallel over 'model'
     ):
         if stream.kv_quant not in ("none", "int8"):
             raise ValueError(f"kv_quant must be 'none' or 'int8', got {stream.kv_quant!r}")
@@ -457,6 +460,14 @@ class StreamingEngine:
                 "offered: the port decodes a raw arena through kernel K3 only. Fix: leave "
                 "StreamConfig.decode_int8_kernel at None."
             )
+        # a mesh (run under torch.distributed, every rank the same calls):
+        # the model is cut to this rank's shards in place and the engine
+        # runs on the rank-local config (H / tp, Hkv / tp heads), so the
+        # arena holds this rank's kv heads; every rank samples the same
+        # token from the gathered logits with the same generator
+        self.mesh = as_mesh(mesh)
+        if self.mesh is not None:
+            cfg = shard_params_serving(cfg, model, self.mesh)
         self.cfg = cfg
         self.model = model
         self.stream = stream
@@ -505,8 +516,9 @@ class StreamingEngine:
         rotated copy is built and an int8 arena dequantized layer by layer).
         An int8 arena costs 1 + 4/hd bytes per element (data + f32
         per-(slot, head) scales), and so does a rotated copy with
-        rot_quant="int8"; a raw arena has no rotated copy. No check on the
-        CPU."""
+        rot_quant="int8"; a raw arena has no rotated copy. Under a mesh the
+        rank-local config counts this rank's kv heads (the per-card budget).
+        No check on the CPU."""
         if self.device.type != "cuda":
             return
         t = self.cfg.text
@@ -962,11 +974,15 @@ class StreamingEngine:
         over the pre-rotated float arena) and one host sync. Returns
         (generated ids including the final eos, count); the rounds taken
         are in `_spec_rounds`. Raises ValueError for a raw arena
-        (prerotate_arena=False) and for rot_quant="int8"."""
+        (prerotate_arena=False), for rot_quant="int8" and on an engine with
+        a mesh."""
         from .specdecode import SpecStatics, spec_commit_step, spec_prefill_step, spec_verify_step
 
         assert self._inflight is None
         st = self.stream
+        if self.mesh is not None:
+            raise ValueError("spec decode under a mesh is not ported (ROADMAP.md queue 1 item 5: "
+                             "spec decode under tensor parallelism). Fix: serve it with mesh=None.")
         if not st.effective_prerotate:
             raise ValueError("spec decode reads the pre-rotated arena; prerotate_arena=False is "
                              "not supported. Fix: leave StreamConfig.prerotate_arena on.")

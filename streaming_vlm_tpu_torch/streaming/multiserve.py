@@ -1,7 +1,6 @@
 """Multi-client serving over MultiStreamEngine's lanes.
 
-Port of streaming_vlm_tpu/streaming/multiserve.py (without its data-
-parallel mesh). Clients attach whenever they like, submit chunks at their
+Port of streaming_vlm_tpu/streaming/multiserve.py. Clients attach whenever they like, submit chunks at their
 own pace and read their generated ids back; the server runs batched
 rounds in which the lanes with a pending chunk are active and the rest
 ride along idle (state frozen: streaming/multistream.py). With
@@ -22,6 +21,16 @@ replayed, the undelivered chunks queued again.
     device are per thread, and the engine's buffers and the shared decode
     scratch were prepared there), whichever thread calls: the background
     thread, a client's `attach` or `snapshot`, or recovery's engine_factory.
+
+Over an engine with a mesh of several ranks (`MultiStreamEngine(mesh=)`:
+TP over 'model', lanes over 'data'), every rank runs the same server with
+the same clients and submissions, and the server keeps the ranks' rounds
+identical: a client attaches with a `key` that is its lane (no paging:
+max_clients <= lanes), and each round's schedule is rank 0's, broadcast to
+every rank, which waits for those clients' attach and chunks with the lock
+released (a rank's clients may attach after rank 0 scheduled them); rank
+0's stop() ends every rank's round loop. Recovery (engine_factory) is not
+offered there.
 """
 
 from __future__ import annotations
@@ -72,9 +81,10 @@ class StreamClient:
     holds its stream as a host snapshot); the scheduler restores it into a
     lane when its next chunk is picked up."""
 
-    def __init__(self, server: "MultiStreamServer", lane: Optional[int]):
+    def __init__(self, server: "MultiStreamServer", lane: Optional[int], key: int = -1):
         self._server = server
         self.lane = lane
+        self.key = key  # a multi-rank server's name for the client (its lane)
         self.chunk_index = 0  # this client's own chunk clock
         self._pending: "queue.Queue[Dict[str, Any]]" = queue.Queue()
         self._results: "queue.Queue[Tuple[int, np.ndarray]]" = queue.Queue()
@@ -208,6 +218,14 @@ class MultiStreamServer:
         max_recoveries: int = 3,
     ):
         self.engine = engine
+        self._sync = _RankSync(engine.mesh) if _multi_rank(engine.mesh) else None
+        if self._sync is not None and engine_factory is not None:
+            raise ValueError("MultiStreamServer: recovery (engine_factory) under a mesh of "
+                             "several ranks is not offered")
+        if self._sync is not None and (max_clients or engine.n) > engine.n:
+            raise ValueError("MultiStreamServer: under a mesh of several ranks each client "
+                             "keeps its lane (key); max_clients must not exceed the lanes")
+        self._agreed_stop = False
         self.engine_factory = engine_factory
         self.auto_recover = engine_factory is not None
         self.snapshot_every = snapshot_every
@@ -222,6 +240,9 @@ class MultiStreamServer:
         self._round = 0  # LRU clock
         self.swaps = 0  # page-outs performed
         self._lock = threading.Lock()
+        # a multi-rank round waits on it, releasing the lock, for the clients
+        # that rank 0 scheduled to attach and submit here; attach notifies
+        self._changed = threading.Condition(self._lock)
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
         self._wake = threading.Event()
@@ -259,7 +280,8 @@ class MultiStreamServer:
 
     # ------------------------------------------------------------- lifecycle
     def attach(self, seed: Optional[int] = None,
-               snapshot: Optional[Dict[str, Any]] = None) -> StreamClient:
+               snapshot: Optional[Dict[str, Any]] = None,
+               key: Optional[int] = None) -> StreamClient:
         """Admit a client: placed at once on a free lane, else (when
         oversubscribed) parked until first scheduled. With `snapshot` the
         client resumes that stream (moved from another server, process or
@@ -267,8 +289,13 @@ class MultiStreamServer:
         An incompatible snapshot (config, geometry, or a foreign "rng" on a
         sampling server) raises ValueError here: placement may happen later
         inside a round, where a failure would stop every client. Raises
-        RuntimeError once max_clients are attached."""
+        RuntimeError once max_clients are attached. Under a mesh of several
+        ranks `key` is required: the client's lane, the same on every
+        rank."""
         self._check_alive()
+        if self._sync is not None and (key is None or not 0 <= key < self.engine.n):
+            raise ValueError(f"attach: under a mesh of several ranks a client needs a key, its "
+                             f"lane in [0, {self.engine.n}), got {key!r}")
         if snapshot is not None:
             from .snapshot import check_geometry, check_rng, validate_snapshot
 
@@ -280,15 +307,18 @@ class MultiStreamServer:
                 raise RuntimeError(f"all {self.max_clients} client slots taken "
                                    f"({self.engine.n} lanes); detach a client, raise "
                                    f"max_clients, or serve with a larger n_streams")
-            client = StreamClient(self, None)
+            client = StreamClient(self, None, -1 if key is None else int(key))
             client._seed = seed
             if snapshot is not None:
                 client._parked = snapshot
                 client.chunk_index = int(snapshot["chunk_index"])
-            lane = self._free_lane()
+            lane = self._free_lane() if self._sync is None else key
+            if lane is not None and self._lanes[lane] is not None:
+                raise RuntimeError(f"attach: lane {lane} (key) is taken")
             if lane is not None:
                 self._place(client, lane)
             self._all.append(client)
+            self._changed.notify_all()
             return client
 
     def _free_lane(self) -> Optional[int]:
@@ -416,8 +446,9 @@ class MultiStreamServer:
         """Take at most one pending chunk per client and run one batched
         round; returns the number of active lanes (0: nothing to do, or a
         fault was recovered and the round's chunks queued again). Holds the
-        lock for the whole round. An exception fail-stops the server and is
-        raised, unless recovery takes it."""
+        lock for the whole round, but for a multi-rank round's wait for its
+        scheduled clients (_await_chunks). An exception fail-stops the
+        server and is raised, unless recovery takes it."""
         self._check_alive()
         with self._lock, self._on_device():
             try:
@@ -439,10 +470,14 @@ class MultiStreamServer:
     def _round_locked(self) -> int:
         # schedule: the oldest head-of-queue chunks first, one per client
         ready = [c for c in self._all if not c._pending.empty()]
-        if not ready:
-            return 0
         ready.sort(key=lambda c: c._pending.queue[0]["ticket"])
         chosen = ready[: self.engine.n]
+        if self._sync is not None:  # rank 0's schedule on every rank
+            keys, self._agreed_stop = self._sync.agree([c.key for c in chosen],
+                                                       self._stop.is_set(), self.engine.n)
+            chosen = [] if self._agreed_stop else self._await_chunks(keys)
+        if not chosen:
+            return 0
 
         # place parked chosen clients: free lanes first, then page out the
         # least recently active residents that are not in this round
@@ -516,6 +551,21 @@ class MultiStreamServer:
             self._inflight = None
         return len(admitted)
 
+    def _await_chunks(self, keys: List[int]) -> List[StreamClient]:
+        """The clients with `keys` once each is attached here and has its
+        next chunk queued (rank 0 scheduled them; this rank's attach or
+        submission may come later). The caller holds the lock; the wait
+        releases it, so that those attaches can run, and takes it back
+        before the check. Submissions are seen by the wait's timeout."""
+
+        def ready() -> bool:
+            return all(self._lanes[k] is not None and not self._lanes[k]._pending.empty()
+                       for k in keys)
+
+        while not ready():
+            self._changed.wait(timeout=0.001)
+        return [self._lanes[k] for k in keys]
+
     # ------------------------------------------------------------ recovery
     def _recover(self) -> None:
         """Rebuild the engine after a device fault and reconstruct every
@@ -567,12 +617,13 @@ class MultiStreamServer:
         assert self._thread is None
 
         def loop():
-            while not self._stop.is_set():
+            # several ranks: every call agrees with rank 0's, whose stop ends all
+            while not (self._agreed_stop if self._sync else self._stop.is_set()):
                 try:
                     n = self.run_round_once()
                 except BaseException:  # recorded, clients woken: the thread ends
                     return
-                if n == 0:
+                if n == 0 and not self._agreed_stop:
                     self._wake.wait(timeout=poll_s)
                     self._wake.clear()
 
@@ -581,8 +632,37 @@ class MultiStreamServer:
         self._thread.start()
 
     def stop(self) -> None:
+        """End the round loop (several ranks: rank 0's stop ends every
+        rank's loop; another rank's waits for it)."""
         if self._thread is not None:
             self._stop.set()
             self._wake.set()
             self._thread.join()
             self._thread = None
+
+
+def _multi_rank(mesh) -> bool:
+    return mesh is not None and int(np.prod(list(mesh.shape.values()))) > 1
+
+
+class _RankSync:
+    """Rank 0's round schedule on every rank of the mesh: [stop, n, keys...]
+    broadcast as an int64 tensor (on the card under NCCL, on the host
+    under gloo)."""
+
+    def __init__(self, mesh):
+        import torch.distributed as dist
+
+        axes = tuple(mesh.axis_names)
+        self.group, self.src = mesh.group(axes), mesh.ranks(axes)[0]
+        nccl = dist.get_backend(self.group) == "nccl"
+        self.device = torch.device("cuda", torch.cuda.current_device()) if nccl else "cpu"
+
+    def agree(self, keys: List[int], stop: bool, n: int) -> Tuple[List[int], bool]:
+        from ..parallel.distributed import broadcast
+
+        msg = torch.full((n + 2,), -1, dtype=torch.int64)
+        msg[0], msg[1] = int(stop), len(keys)
+        msg[2:2 + len(keys)] = torch.tensor(keys, dtype=torch.int64)
+        got = broadcast(msg.to(self.device), self.src, self.group).cpu()
+        return [int(k) for k in got[2:2 + int(got[1])]], bool(got[0])

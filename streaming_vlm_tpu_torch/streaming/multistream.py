@@ -1,7 +1,7 @@
-"""Multi-stream serving: B independent live streams on one card.
+"""Multi-stream serving: B independent live streams on one card, or on a
+mesh of ranks.
 
-Port of streaming_vlm_tpu/streaming/multistream.py (without its TP/DP
-mesh). One stream's decode reads every weight once
+Port of streaming_vlm_tpu/streaming/multistream.py. One stream's decode reads every weight once
 per token; B streams in lockstep rounds share each of those reads:
 
   1. every lane's eviction policy runs on the host (`evict_plan`), and the
@@ -29,6 +29,18 @@ Sampling: lane b draws from its own `torch.Generator`, seeded with
 `sampling.seed + b` (so lane 0 draws what a solo engine with the same
 SamplingConfig draws); `reset_lane(b)` reseeds it with
 `sampling.seed + b + n_streams * k` at its k-th reset unless given a seed.
+
+`mesh=` (parallel/, run under torch.distributed, every rank the same
+calls with the same inputs): tensor parallelism over 'model' for the
+weights and the arena's kv heads (`parallel.tp.shard_params_serving`), and data
+parallelism over 'data' for the lanes where n_streams % data == 0
+(`parallel.mesh._lane_axis`): rank r of the data line owns lanes [r B / d,
+(r + 1) B / d), their arena rows and their step. Every rank keeps every
+lane's host accounting (tables, positions, generators); the round's tokens
+are gathered over 'data' before `finish_round`, and each lane's generator
+state is copied from its owner after the round, so the host state stays
+identical on every rank. `snapshot_lane` / `restore_lane` take an owned
+lane.
 """
 
 from __future__ import annotations
@@ -41,6 +53,9 @@ import torch
 from ..config import ModelConfig, SamplingConfig, StreamConfig
 from ..models.qwen25_vl import language, model as vlm
 from ..ops.attention import reserve_decode_scratch
+from ..parallel.distributed import all_gather
+from ..parallel.mesh import _lane_axis, as_mesh
+from ..parallel.tp import shard_params_serving
 from .engine import (
     ChunkHandle,
     StreamingEngine,
@@ -66,8 +81,19 @@ class MultiStreamEngine:
         sampling: SamplingConfig,
         n_streams: int,
         dtype: torch.dtype = torch.bfloat16,
+        mesh=None,
     ):
         assert n_streams >= 1
+        self.mesh = as_mesh(mesh)
+        self._data_group = None
+        self.lo, self.hi = 0, n_streams  # the lanes this rank runs
+        if self.mesh is not None:
+            cfg = shard_params_serving(cfg, model, self.mesh)
+            if _lane_axis(self.mesh, n_streams) is not None:
+                d, r = self.mesh.size("data"), self.mesh.index("data")
+                self.lo, self.hi = r * n_streams // d, (r + 1) * n_streams // d
+                self._data_group = self.mesh.group("data")
+        self.nl = self.hi - self.lo
         self.cfg = cfg
         self.model = model
         self.stream = stream
@@ -82,11 +108,11 @@ class MultiStreamEngine:
         # int8 lanes: the arena is the marginal memory per stream, so halving
         # it raises the lane count one card holds
         self.k_arena, self.v_arena = language.init_kv_arena(
-            t, C, dtype, self.device, quant=stream.kv_quant, lead_dims=(n_streams,)
+            t, C, dtype, self.device, quant=stream.kv_quant, lead_dims=(self.nl,)
         )
-        self.ids_arena = torch.zeros(n_streams, C, dtype=torch.long, device=self.device)
+        self.ids_arena = torch.zeros(self.nl, C, dtype=torch.long, device=self.device)
         # the decode kernels' scratch, sized once for every round's largest call
-        reserve_decode_scratch(self.device, n_streams, t.num_key_value_heads, C,
+        reserve_decode_scratch(self.device, self.nl, t.num_key_value_heads, C,
                                t.num_attention_heads // t.num_key_value_heads, t.head_dim)
         self._ident_src = np.arange(C, dtype=np.int64)
         self._resets = [0] * n_streams
@@ -117,7 +143,7 @@ class MultiStreamEngine:
         st = self.stream
         C = st.kv_capacity
         item = torch.empty((), dtype=self.dtype).element_size()
-        kv_elems = self.n * t.num_hidden_layers * C * t.num_key_value_heads * t.head_dim
+        kv_elems = self.nl * t.num_hidden_layers * C * t.num_key_value_heads * t.head_dim
         int8 = int(kv_elems * (1 + 4.0 / t.head_dim))  # data + f32 per-(slot, head) scales
         arena = 2 * (int8 if st.kv_quant == "int8" else kv_elems * item)
         if not st.effective_prerotate:
@@ -130,9 +156,9 @@ class MultiStreamEngine:
         free, _ = torch.cuda.mem_get_info(self.device)
         if need > free:
             gb = 2**30
-            max_b = int(free / 1.1 / ((arena + rot) / self.n))
+            max_b = int(free / 1.1 / ((arena + rot) / self.nl))
             raise ValueError(
-                f"device memory exceeded: {self.n} stream arenas {arena / gb:.2f} GiB"
+                f"device memory exceeded: {self.nl} stream arenas {arena / gb:.2f} GiB"
                 + (f" + rotated copies {rot / gb:.2f} GiB" if rot else "")
                 + f" > free {free / gb:.2f} GiB. Fix: at this kv_capacity the card fits at "
                 f"most {max_b} streams (or set kv_quant='int8' to halve the arenas, "
@@ -159,9 +185,10 @@ class MultiStreamEngine:
         st = self.stream
         C = st.kv_capacity
         dev = self.device
+        nl = self.nl
         self.k_arena, self.v_arena, self.ids_arena = compact_arena_batched(
             self.k_arena, self.v_arena, self.ids_arena,
-            torch.from_numpy(np.tile(self._ident_src, (self.n, 1))).to(dev),
+            torch.from_numpy(np.tile(self._ident_src, (nl, 1))).to(dev),
         )
         vcfg = self.cfg.vision
         D = self.cfg.text.hidden_size
@@ -183,27 +210,27 @@ class MultiStreamEngine:
                 tokens_per_second=vcfg.tokens_per_second,
                 extra_text=1,
             )
-            slot_pos = {k: torch.from_numpy(np.tile(v, (self.n, 1))).to(dev)
+            slot_pos = {k: torch.from_numpy(np.tile(v, (nl, 1))).to(dev)
                         for k, v in desc.items()}
         else:
-            slot_pos = torch.zeros(self.n, 3, C, device=dev)
-        gens = [self._generator(0) for _ in range(self.n)]  # the lanes' own stay untouched
-        zeros, eos = [0] * self.n, [self.cfg.tokens.im_end] * self.n
+            slot_pos = torch.zeros(nl, 3, C, device=dev)
+        gens = [self._generator(0) for _ in range(nl)]  # the lanes' own stay untouched
+        zeros, eos = [0] * nl, [self.cfg.tokens.im_end] * nl
         n_run = 0
         for t_pad in buckets or st.prefill_buckets:
             if t_pad > C:
                 continue
-            tokens = torch.from_numpy(np.full((self.n, t_pad), self.cfg.tokens.pad,
+            tokens = torch.from_numpy(np.full((nl, t_pad), self.cfg.tokens.pad,
                                               np.int64)).to(dev)
             for max_new in max_new_list or (st.max_tokens_per_chunk,):
                 statics = lane._statics(t_pad, max_new, eos_threshold)
                 for n_vis in vis_variants:
-                    ve = None if n_vis is None else torch.zeros(self.n, n_vis, D,
+                    ve = None if n_vis is None else torch.zeros(nl, n_vis, D,
                                                                 dtype=self.dtype, device=dev)
-                    vs = None if n_vis is None else np.tile(np.arange(n_vis), (self.n, 1))
+                    vs = None if n_vis is None else np.tile(np.arange(n_vis), (nl, 1))
                     chunk_step_batched(statics, self.model, self.k_arena, self.v_arena,
                                        slot_pos, tokens, ve, vs, self.ids_arena, zeros, zeros,
-                                       eos, [max_new] * self.n, gens)
+                                       eos, [max_new] * nl, gens)
                     n_run += 1
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -254,6 +281,7 @@ class MultiStreamEngine:
             for b, p in enumerate(plans):
                 if p.changed:
                     src[b, : p.src.shape[0]] = p.src
+            src = src[self.lo:self.hi]  # this rank's lanes
             self.k_arena, self.v_arena, self.ids_arena = compact_arena_batched(
                 self.k_arena, self.v_arena, self.ids_arena, torch.from_numpy(src).to(self.device)
             )
@@ -428,11 +456,17 @@ class MultiStreamEngine:
         # an idle lane's generator does not advance (its stream resumes
         # exactly where a solo engine that skipped the round would)
         gens = [None if idle[b] else g for b, g in enumerate(self.generators)]
+        own = slice(self.lo, self.hi)  # this rank's lanes of the round's stacked inputs
+        if self.nl != self.n:
+            slot_pos = ({k: v[own] for k, v in slot_pos.items()} if isinstance(slot_pos, dict)
+                        else slot_pos[own])
+            ve = None if ve is None else ve[own]
+            vs = None if vs is None else vs[own]
         gen, n_gen = chunk_step_batched(
             statics, self.model, self.k_arena, self.v_arena, slot_pos,
-            torch.from_numpy(tokens).to(dev), ve, vs, self.ids_arena,
-            [e.cached for e in self.engines], [p["n_real"] for p in preps],
-            [p["eos"] for p in preps], budgets, gens,
+            torch.from_numpy(tokens[own]).to(dev), ve, vs, self.ids_arena,
+            [e.cached for e in self.engines][own], [p["n_real"] for p in preps][own],
+            [p["eos"] for p in preps][own], budgets[own], gens[own],
         )
         handles = []
         for p, e in zip(preps, self.engines):
@@ -446,6 +480,8 @@ class MultiStreamEngine:
         self._inflight = handles
         self._inflight_idle = idle
         self._gen_all = torch.cat([gen, n_gen[:, None]], dim=1)
+        if self._data_group is not None:  # every lane's tokens on every rank
+            self._gen_all = all_gather(self._gen_all, self._data_group, 0)
         return handles
 
     def finish_round(
@@ -459,6 +495,8 @@ class MultiStreamEngine:
         self._inflight = self._inflight_idle = None
         all_ = self._gen_all.cpu().numpy()  # fences the round's step
         self._gen_all = None
+        if self._data_group is not None:
+            self._sync_generators()
         out = []
         for b, (e, h) in enumerate(zip(self.engines, handles)):
             h.gen, h.n_gen = torch.from_numpy(all_[b, :-1]), int(all_[b, -1])
@@ -468,6 +506,23 @@ class MultiStreamEngine:
             else:
                 out.append(e.finish_chunk(h))
         return out
+
+    def _sync_generators(self) -> None:
+        """Each lane's generator state from the rank that owns the lane, on
+        every rank of the data line (only the owner's advanced)."""
+        states = torch.stack([g.get_state() for g in self.generators[self.lo:self.hi]])
+        every = all_gather(states, self._data_group, 0)
+        for b, g in enumerate(self.generators):
+            if not self.lo <= b < self.hi:
+                g.set_state(every[b].clone())
+
+    def _local(self, b: int) -> int:
+        """Lane b's index in this rank's arena (ValueError for another
+        rank's lane)."""
+        if not self.lo <= b < self.hi:
+            raise ValueError(f"lane {b} runs on another rank of the data axis "
+                             f"(this rank owns lanes {self.lo}..{self.hi - 1})")
+        return b - self.lo
 
     def process_round(self, *args, **kwargs) -> List[Optional[Tuple[np.ndarray, int]]]:
         return self.finish_round(self.process_round_async(*args, **kwargs))
@@ -505,7 +560,8 @@ class MultiStreamEngine:
         assert self._inflight is None, "snapshot_lane mid-round"
         snap = snapshot_host(self.engines[b])
         snap["rng"] = generator_state(self.generators[b])
-        snapshot_arena(snap, lane(self.k_arena, b), lane(self.v_arena, b), self.ids_arena[b])
+        lb = self._local(b)
+        snapshot_arena(snap, lane(self.k_arena, lb), lane(self.v_arena, lb), self.ids_arena[lb])
         return snap
 
     def restore_lane(self, b: int, snap: Dict) -> None:
@@ -523,7 +579,8 @@ class MultiStreamEngine:
         restore_host(eng, snap)
         if takes_rng(snap, self.generators[b]):
             self.generators[b].set_state(torch.from_numpy(np.array(snap["rng"], np.uint8)))
-        restore_arena(lane(self.k_arena, b), lane(self.v_arena, b), self.ids_arena[b], snap)
+        lb = self._local(b)
+        restore_arena(lane(self.k_arena, lb), lane(self.v_arena, lb), self.ids_arena[lb], snap)
         self.engines[b] = eng
 
 

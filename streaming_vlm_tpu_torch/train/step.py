@@ -146,6 +146,16 @@ def sft_loss(
     freeze_vision=False needs). The tower has no kernel (its plain
     attention). Returns (mean loss over labeled tokens, labeled-token
     count). `remat` as in `language_forward_train`."""
+    total, count = sft_loss_sums(cfg, model, batch, remat, grid_thw, attn_q_block)
+    return total / count.clamp_min(1), count.clamp_min(1)
+
+
+def sft_loss_sums(cfg: ModelConfig, model, batch: Dict[str, torch.Tensor], remat: str = "none",
+                  grid_thw: Optional[Tuple[int, int, int]] = None,
+                  attn_q_block: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`sft_loss`'s parts: (the NLL summed over the batch's labeled tokens
+    f32, their count), the count not clamped (a data-parallel rank sums
+    both over the data axis before the division)."""
     tcfg, lm = cfg.text, model.text
     ve, vs, pp = batch.get("vis_embeds"), batch.get("vis_slots"), batch.get("pixel_patches")
     if ve is None and pp is not None:
@@ -153,7 +163,7 @@ def sft_loss(
             raise ValueError("pixel_patches in batch need grid_thw")
         geo = model.vision.geometry([tuple(int(x) for x in grid_thw)], pp.device)
         ve = torch.stack([vision.vision_forward(cfg.vision, model.vision, p, geo) for p in pp])
-    w = lm.embed.weight if tcfg.tie_word_embeddings else lm.lm_head.weight
+    w = language.head_weight(tcfg, lm)
     totals, counts = [], []
     for b in range(batch["input_ids"].shape[0]):
         x = language.embed_tokens(tcfg, lm, batch["input_ids"][b].long())
@@ -166,8 +176,7 @@ def sft_loss(
         safe_t = torch.where(mask, targets, torch.zeros_like(targets))
         totals.append(fused_linear_ce(hidden[:-1], w, safe_t, mask))
         counts.append(mask.sum())
-    count = torch.stack(counts).sum().clamp_min(1)
-    return torch.stack(totals).sum() / count, count
+    return torch.stack(totals).sum(), torch.stack(counts).sum()
 
 
 # ---------------------------------------------------------------------------
@@ -218,6 +227,9 @@ class AdamW:
         self.warmup = max(warmup_steps, 1)
         self.decay_steps = max(total_steps, self.warmup + 1)
         self.b1, self.b2, self.eps = b1, b2, eps
+        # the clip's norm: the global norm of the gradients this rank holds;
+        # a sharded trainer sets the norm over every rank's shards
+        self.norm_fn = global_norm
 
     def lr(self, count: int) -> np.float32:
         return warmup_cosine_lr(count, self.learning_rate, self.warmup, self.decay_steps)
@@ -229,7 +241,7 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor], state: Dict[str, Any],
                params: Sequence[torch.Tensor]) -> Tuple[List[torch.Tensor], Dict[str, Any]]:
-        g_norm = global_norm(grads)
+        g_norm = self.norm_fn(grads)
         clip = bool(g_norm >= self.grad_clip)
         count = state["count"] + 1
         f32 = torch.float32

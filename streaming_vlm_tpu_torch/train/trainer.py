@@ -4,9 +4,20 @@ accumulation, checkpoint / auto-resume and jsonl metrics.
 Port of streaming_vlm_tpu/train/trainer.py (reference recipe: per-device
 batch 1, grad-accum 64, bf16, lr 1e-5, frozen ViT, save_steps 20,
 save_total_limit 10, auto-resume from the newest checkpoint holding a
-trainer_state.json). One process and one card: the JAX Trainer's mesh and
-its "pp" / "sp" parallel modes are not ported yet (ROADMAP.md, queue 1,
-item 5) and raise ValueError.
+trainer_state.json). With `mesh=` (run under torch.distributed, every
+rank the same calls and the same data) the JAX Trainer's parallel modes:
+"gspmd" is FSDP over 'data' times tensor parallelism over 'model'
+(parallel/tp.py: the weights cut by the training rules, each layer's shards
+gathered for its products and their gradients reduce-scattered; a batch of
+B % data == 0 examples split over 'data', else every data rank takes the
+whole batch at 1 / data of the loss; the labeled-token count, the loss sum
+and the gradient norm all-reduced, so the metrics and the norm the clip
+uses are the one-card ones); "pp" is GPipe over 'stage'
+(parallel/pipeline.py); "sp" is ring attention over 'seq'
+(parallel/ring.py). AdamW and MultiSteps update each rank's shards in
+place, their moments made at the shards' sizes. Rank 0 writes the metrics
+and trainer_state.json; every rank writes its own params / opt_state files
+(`-rank<r>` before .pt when the world has more than one rank).
 
 Checkpoints are in the port's own format: `checkpoint-<micro-step>/`
 holding params.pt (the model's state_dict), opt_state.pt (the optimizer's
@@ -34,7 +45,20 @@ from ..config import ModelConfig
 from ..data.dataset import StreamExample
 from ..models.qwen25_vl import model as vlm
 from ..utils.buckets import bucket_for
-from .step import MultiSteps, apply_updates, global_norm, make_optimizer, sft_loss, trained_params
+from ..parallel.distributed import all_reduce, sharded_norm
+from ..parallel.mesh import as_mesh, shard_opt_state
+from ..parallel.pipeline import sft_loss_pp, split_stages, stage_norm_fn
+from ..parallel.ring import sft_loss_sp
+from ..parallel.tp import shard_params, sharded_params
+from .step import (
+    MultiSteps,
+    apply_updates,
+    global_norm,
+    make_optimizer,
+    sft_loss,
+    sft_loss_sums,
+    trained_params,
+)
 
 
 @dataclasses.dataclass
@@ -59,7 +83,9 @@ class TrainConfig:
     # examples decoded ahead on a background thread while the card steps
     # (order-preserving, so a run equals prefetch=0's). 0 = synchronous.
     prefetch: int = 2
-    # the JAX Trainer's mesh modes; only "gspmd" (one card here) is ported
+    # how the loss distributes over the Trainer's mesh: "gspmd" (FSDP x
+    # TP), "pp" (GPipe over 'stage') or "sp" (ring attention over 'seq');
+    # "pp" / "sp" need mesh=
     parallel_mode: str = "gspmd"
 
 
@@ -83,10 +109,16 @@ _bucket = bucket_for  # one bucket-search (utils/buckets.py), two configs
 
 class Trainer:
     def __init__(self, cfg: ModelConfig, model, train_cfg: TrainConfig, *, mesh=None):
-        if mesh is not None or train_cfg.parallel_mode != "gspmd":
-            raise ValueError(
-                f"Trainer: parallel_mode={train_cfg.parallel_mode!r} and mesh= are not ported "
-                "(one card; the mesh modes are ROADMAP.md queue 1 item 5, parallelism)")
+        mode = train_cfg.parallel_mode
+        if mode not in ("gspmd", "pp", "sp"):
+            raise ValueError(f"parallel_mode must be 'gspmd', 'pp' or 'sp', got {mode!r}")
+        if mode != "gspmd" and mesh is None:
+            raise ValueError(f"Trainer: parallel_mode={mode!r} needs mesh=")
+        self.mesh = as_mesh(mesh)
+        if self.mesh is not None and mode == "gspmd":
+            cfg = shard_params(cfg, model, self.mesh)
+        elif mode == "pp":
+            split_stages(cfg, model, self.mesh)
         self.cfg = cfg
         self.tc = train_cfg
         self.model = model
@@ -101,17 +133,33 @@ class Trainer:
             train_cfg.grad_accum,
         )
         self.params = trained_params(model)  # model.text's, frozen tower
-        self.opt_state = self.optimizer.init(self.params)
+        self.opt_state = self.optimizer.init(self.params)  # moments at the shards' sizes
+        self._norm = global_norm
+        self._data_rep: list = []  # gspmd: gradients summed over 'data' after the step
+        if self.mesh is not None and mode == "gspmd":
+            shard_opt_state(self.opt_state, self.params)
+            placed = sharded_params(model)
+            axes = [ax for _, ax in placed]
+            self._norm = lambda grads: sharded_norm(grads, axes, self.mesh)
+            if "data" in self.mesh:
+                self._data_rep = [i for i, ax in enumerate(axes) if "data" not in ax]
+        elif mode == "pp":
+            self._norm = stage_norm_fn(model, self.mesh)
+        self.optimizer.opt.norm_fn = self._norm
+        self._rank = torch.distributed.get_rank() if torch.distributed.is_initialized() else 0
+        self._world = (torch.distributed.get_world_size()
+                       if torch.distributed.is_initialized() else 1)
         # self.step counts MICRO-batches; max_steps / save_steps / the LR
         # schedule are framed in OPTIMIZER steps (one per grad_accum
         # micro-batches), as the reference's HF Trainer counts them
         self.step = 0
         os.makedirs(train_cfg.output_dir, exist_ok=True)
-        self._metrics_f = open(os.path.join(train_cfg.output_dir, "metrics.jsonl"), "a")
+        self._metrics_f = (open(os.path.join(train_cfg.output_dir, "metrics.jsonl"), "a")
+                           if self._rank == 0 else None)
         # optional W&B mirror of the metrics stream (reference report_to=wandb);
         # gated on install + WANDB_PROJECT
         self._wandb = None
-        if os.environ.get("WANDB_PROJECT"):
+        if os.environ.get("WANDB_PROJECT") and self._rank == 0:
             try:
                 import wandb
 
@@ -126,11 +174,44 @@ class Trainer:
 
     # ------------------------------------------------------------------ step
     def _train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        loss, count = sft_loss(self.cfg, self.model, batch, remat=self.tc.remat)
-        grads = torch.autograd.grad(loss, self.params)
+        mode, mesh = self.tc.parallel_mode, self.mesh
+        if mode == "sp":
+            loss, count = sft_loss_sp(self.cfg, self.model, batch, mesh, remat=self.tc.remat)
+            grads = torch.autograd.grad(loss, self.params)
+        elif mode == "pp":
+            loss, count = sft_loss_pp(self.cfg, self.model, batch, mesh, remat=self.tc.remat)
+            grads = torch.autograd.grad(loss, self.params)
+        elif mesh is not None and "data" in mesh:
+            loss, count, grads = self._data_parallel_grads(batch)
+        else:
+            loss, count = sft_loss(self.cfg, self.model, batch, remat=self.tc.remat)
+            grads = torch.autograd.grad(loss, self.params)
         updates, self.opt_state = self.optimizer.update(grads, self.opt_state, self.params)
         apply_updates(self.params, updates)
-        return {"loss": loss.detach(), "labeled_tokens": count, "grad_norm": global_norm(grads)}
+        return {"loss": loss.detach(), "labeled_tokens": count, "grad_norm": self._norm(grads)}
+
+    def _data_parallel_grads(self, batch):
+        """The gspmd step's loss over 'data': B % data == 0 examples split
+        over the axis, else the whole batch on every data rank at 1 / data
+        of the loss; the sums and count all-reduced; the gradients of the
+        weights replicated over 'data' summed over it (the split ones are
+        reduce-scattered by their gathers)."""
+        mesh = self.mesh
+        d, g = mesh.size("data"), mesh.group("data")
+        B = batch["input_ids"].shape[0]
+        split = B % d == 0
+        if split:
+            i = mesh.index("data")
+            batch = {k: v.chunk(d, 0)[i] for k, v in batch.items()}
+        total, count = sft_loss_sums(self.cfg, self.model, batch, remat=self.tc.remat)
+        if split:
+            count = all_reduce(count, g)
+        n = count.clamp_min(1)
+        grads = list(torch.autograd.grad(total / n / (1 if split else d), self.params))
+        for j in self._data_rep:
+            grads[j] = all_reduce(grads[j], g)
+        loss = (all_reduce(total.detach(), g) if split else total.detach()) / n
+        return loss, n, grads
 
     @torch.no_grad()
     def _prepare_batch(self, ex: StreamExample) -> Dict[str, torch.Tensor]:
@@ -200,7 +281,7 @@ class Trainer:
                 metrics = self._train_step(batch)
                 self.step += 1
                 opt_boundary = self.step % ga == 0
-                if self.step % self.tc.log_every == 0:
+                if self.step % self.tc.log_every == 0 and self._rank == 0:
                     # float() is the loop's only sync with the card
                     rec = {
                         "step": self.step,
@@ -225,13 +306,24 @@ class Trainer:
         return self.model
 
     # ------------------------------------------------------------ checkpoints
+    def _file(self, path: str, name: str) -> str:
+        """A rank's own file of a checkpoint: params-rank1.pt, ... (the name
+        itself in a world of one)."""
+        if self._world > 1:
+            name = name.replace(".pt", f"-rank{self._rank}.pt")
+        return os.path.join(path, name)
+
     def save_checkpoint(self):
         path = os.path.join(self.tc.output_dir, f"checkpoint-{self.step}")
         os.makedirs(path, exist_ok=True)
         cpu = lambda t: t.detach().to("cpu", copy=True)  # noqa: E731
         torch.save({k: cpu(v) for k, v in self.model.state_dict().items()},
-                   os.path.join(path, "params.pt"))
-        torch.save(_map_tensors(self.opt_state, cpu), os.path.join(path, "opt_state.pt"))
+                   self._file(path, "params.pt"))
+        torch.save(_map_tensors(self.opt_state, cpu), self._file(path, "opt_state.pt"))
+        if self._world > 1:  # every rank's files are on disk before the state names them
+            torch.distributed.barrier()
+        if self._rank != 0:
+            return
         with open(os.path.join(path, "trainer_state.json"), "w") as f:
             json.dump({"step": self.step}, f)
         # prune old checkpoints (save_total_limit)
@@ -248,8 +340,8 @@ class Trainer:
         with open(os.path.join(path, "trainer_state.json")) as f:
             self.step = json.load(f)["step"]
         dev = self._device
-        self.model.load_state_dict(torch.load(os.path.join(path, "params.pt")))
-        state = torch.load(os.path.join(path, "opt_state.pt"))
+        self.model.load_state_dict(torch.load(self._file(path, "params.pt")))
+        state = torch.load(self._file(path, "opt_state.pt"))
         self.opt_state = _map_tensors(state, lambda t: t.to(dev))
 
 

@@ -254,8 +254,11 @@ def test_cpu_wrappers_do_not_count_launches():
     qt, kt = _t(x["q"][:8]), _t(x["ks"][:8])
     out, lse2 = A.train_attention_plain(qt, kt, kt, return_lse=True)
     A.attention_bwd(qt, kt, kt, out.reshape(qt.shape), lse2, qt)
+    A.full_block_attention(qt, kt, kt, lse=torch.empty(lse2.shape))  # the full-block modes
+    A.attention_bwd(qt, kt, kt, out.reshape(qt.shape), lse2, qt, causal=False)
     assert A.launch_counts == {
         "streaming_prefill_attention": 0, "streaming_decode_attention_full": 0,
         "streaming_decode_attention_int8": 0, "streaming_decode_attention": 0,
-        "streaming_verify_attention": 0, "attention_bwd": 0,
+        "streaming_verify_attention": 0, "attention_bwd": 0, "full_block_attention": 0,
+        "attention_bwd_full": 0,
     }

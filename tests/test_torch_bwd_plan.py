@@ -13,7 +13,11 @@ widths (H 28, Hkv 4: G = 7) and 3B's (H 16, Hkv 2: G = 8):
   agrees with `train_attention_bwd_plain` within the card's tolerance;
 - a simulation of the schedule on 132 SMs puts its makespan near the ideal
   (the triangle's tiles over the SMs), where ascending tile order or a
-  descending fold would not.
+  descending fold would not;
+- the full-block mode (ring attention's blocks wholly before the queries)
+  visits the whole rectangle of (key block, row tile) pairs once, in the
+  same fixed fold order, and its tiled model agrees with the plain
+  algebra without the mask.
 
 The kernel runs only on the card (tests/test_torch_cuda.py and chip_smoke.py
 hold it to the same tolerance)."""
@@ -51,12 +55,13 @@ class BwdSchedule(NamedTuple):
     jobs: list
 
 
-def attention_bwd_schedule(T: int, G: int, Hkv: int) -> BwdSchedule:
+def attention_bwd_schedule(T: int, G: int, Hkv: int, full: bool = False) -> BwdSchedule:
     """The kernel's index math: job j = n Hkv + kv head (n = key block),
-    its tiles M - 1 down to n * 128 // tile_tokens."""
+    its tiles M - 1 down to n * 128 // tile_tokens (the full-block mode,
+    `full`: down to 0)."""
     bt, n_tiles = A.attention_bwd_tiles(T, G)
     n_blocks = -(-T // BN)
-    jobs = [(n, kvh, range(n_tiles - 1, n * BN // bt - 1, -1))
+    jobs = [(n, kvh, range(n_tiles - 1, -1 if full else n * BN // bt - 1, -1))
             for n in range(n_blocks) for kvh in range(Hkv)]
     return BwdSchedule(bt, n_tiles, n_blocks, jobs)
 
@@ -113,18 +118,19 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
-def bwd_by_schedule(q, k, v, o, lse2, do):
+def bwd_by_schedule(q, k, v, o, lse2, do, full: bool = False):
     """K1-bwd's algebra in the kernel's order: per job (key block, kv head)
     the row tiles as it visits them, S and dP in f32 from the bf16 inputs,
     P and dS rounded to bf16 for the products (the kernel's A fragments and
     its dS in shared memory), dK and dV summed over the block's tiles in
     f32; each tile's dQ partials folded in f32 in the order its counter
     admits them (the first stored, the rest added). Outputs rounded to
-    bf16, dQ and dK times the softmax scale."""
+    bf16, dQ and dK times the softmax scale. `full`: the full-block mode
+    (every tile, no mask)."""
     T, H, hd = q.shape
     Hkv = k.shape[1]
     G = H // Hkv
-    sch = attention_bwd_schedule(T, G, Hkv)
+    sch = attention_bwd_schedule(T, G, Hkv, full)
     bt = sch.tile_tokens
     scale = 1.0 / math.sqrt(hd)
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
@@ -142,6 +148,8 @@ def bwd_by_schedule(q, k, v, o, lse2, do):
             qt, dot = qf[toks, heads].reshape(-1, hd), dof[toks, heads].reshape(-1, hd)
             lt, dt = lse2[toks, heads].reshape(-1), dsum[toks, heads].reshape(-1)
             vis = keys[:, None] <= toks.repeat_interleave(G)[None, :]
+            if full:
+                vis = torch.ones_like(vis)
             st = kb @ qt.T  # S^T [keys, rows]
             pt = torch.where(vis, torch.exp2(st * (A.LOG2E * scale) - lt), 0.0)
             dst = torch.where(vis, pt * (vb @ dot.T - dt), 0.0)
@@ -177,6 +185,49 @@ def test_tiled_model_matches_the_plain_algebra(T, G):
     o = o.reshape(T, H, HD).to(torch.bfloat16)
     got = bwd_by_schedule(q, k, v, o, lse2, do)
     want = A.train_attention_bwd_plain(q, k, v, o, lse2, do)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=TOL * float(b.abs().max()), rtol=TOL)
+
+
+@pytest.mark.parametrize("G", sorted(WIDTHS))
+@pytest.mark.parametrize("T", [1, 200, 640, 4096])
+def test_full_block_schedule_visits_every_pair_once_in_a_fixed_fold_order(T, G):
+    """The full-block mode (ring attention's key blocks wholly before the
+    queries): every CTA visits every row tile, the last one down, so each
+    (key block, row tile) pair once; each tile's folders are blocks 0 ..
+    n_blocks - 1, folding in that order, each waiting on an earlier
+    ticket."""
+    Hkv = WIDTHS[G][1]
+    sch = attention_bwd_schedule(T, G, Hkv, full=True)
+    ticket = {(n, kvh): i for i, (n, kvh, _) in enumerate(sch.jobs)}
+    seen, folders = Counter(), {}
+    for n, kvh, tiles in sch.jobs:
+        assert list(tiles) == list(range(sch.n_tiles - 1, -1, -1))
+        seen.update((kvh, n, m) for m in tiles)
+        for m in tiles:
+            folders.setdefault((kvh, m), []).append(n)
+        if n > 0:
+            assert ticket[(n - 1, kvh)] < ticket[(n, kvh)]
+    assert set(seen) == {(kvh, n, m) for kvh in range(Hkv) for n in range(sch.n_blocks)
+                         for m in range(sch.n_tiles)} and set(seen.values()) == {1}
+    assert all(ns == list(range(sch.n_blocks)) for ns in folders.values())
+
+
+@pytest.mark.parametrize("G", sorted(WIDTHS))
+@pytest.mark.parametrize("T", [63, 200])
+def test_full_block_tiled_model_matches_the_plain_algebra(T, G):
+    """The full-block mode's tiled model against
+    `train_attention_bwd_plain(..., causal=False)` (O and lse from the
+    all-true mask's forward), within the card's tolerance."""
+    H, Hkv = WIDTHS[G]
+    rng = np.random.default_rng(T * 10 + G + 1)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s, np.float32)).to(torch.bfloat16)
+                   for s in ((T, H, HD), (T, Hkv, HD), (T, Hkv, HD), (T, H, HD)))
+    with torch.no_grad():
+        o, lse2 = A.full_block_attention_plain(q.float(), k.float(), v.float())
+    o = o.to(torch.bfloat16)
+    got = bwd_by_schedule(q, k, v, o, lse2, do, full=True)
+    want = A.train_attention_bwd_plain(q, k, v, o, lse2, do, causal=False)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=TOL * float(b.abs().max()), rtol=TOL)
 

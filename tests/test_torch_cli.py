@@ -208,8 +208,13 @@ def test_the_same_argv_makes_the_same_library_calls(cmd, argv, monkeypatch):
 
 @pytest.mark.parametrize("argv", ["--mesh data=2", "--parallel_mode pp", "--parallel_mode sp"])
 def test_train_refuses_a_mesh_and_pp_sp(argv, monkeypatch):
+    """The refusals that stay true, before the model loads: a mesh of more
+    ranks than the world (one process, no torchrun) and pp / sp without a
+    mesh. The working modes run under torchrun
+    (test_train_under_torchrun_with_a_mesh)."""
     monkeypatch.setattr(cli, "load_model", lambda *a, **kw: pytest.fail("loaded a model"))
-    with pytest.raises(ValueError, match="queue 1 item 5"):
+    match = "needs 2 ranks, the world has 1" if "mesh" in argv else "needs --mesh"
+    with pytest.raises(ValueError, match=match):
         cli.cmd_train(f"--model_path m --train_annotation_paths a {argv}".split())
 
 
@@ -325,3 +330,40 @@ def test_convert_round_trips_through_load_model(hf_dir, tmp_path, quant):
     if quant == "none":
         assert is_model_quantized(cli.load_model(str(out), "float32", "int8", device="cpu")[1])
     assert np.isfinite(float(next(iter(sd.values())).float().sum()))
+
+
+def test_train_under_torchrun_with_a_mesh(hf_dir, tmp_path):
+    """`python -m torch.distributed.run --nproc_per_node 2 -m
+    streaming_vlm_tpu_torch train --device cpu --mesh seq=2 --parallel_mode
+    sp` over the tiny HF directory: two gloo ranks train one step of ring
+    attention; rank 0 writes the metrics and the trainer state, each rank
+    its own parameter file."""
+    import json
+
+    from streaming_vlm_tpu_torch.video import ingest
+
+    vid = str(tmp_path / "clip.mp4")
+    ingest.write_test_video(vid, w=56, h=56, n_frames=20, fps=10)
+    conv = [{"role": "user", "content": [{"type": "video", "video": vid, "video_start": 0.0,
+                                          "video_end": 2.0, "previous": "earlier words"}]},
+            {"role": "assistant", "content": [{"type": "text", "text_stream": [
+                [0.0, 0.9, "hello"], [1.0, 1.9, "world"]]}]}]
+    ann = tmp_path / "train.jsonl"
+    ann.write_text(json.dumps(conv) + "\n")
+    out = tmp_path / "run"
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(REPO))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2",
+           "--standalone", "-m", "streaming_vlm_tpu_torch", "train", "--device", "cpu",
+           "--mesh", "seq=2", "--parallel_mode", "sp", "--model_path", str(hf_dir),
+           "--train_annotation_paths", str(ann), "--output_dir", str(out), "--max_steps", "1",
+           "--grad_accum", "1", "--save_steps", "1", "--text_sink", "4",
+           "--text_sliding_window", "4", "--remat", "none"]
+    r = subprocess.run(cmd, env=env, cwd=str(tmp_path), capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    rows = [json.loads(x) for x in (out / "metrics.jsonl").read_text().splitlines()]
+    assert len(rows) == 1 and np.isfinite(rows[0]["loss"]) and rows[0]["labeled_tokens"] > 0
+    ck = out / "checkpoint-1"
+    assert sorted(p.name for p in ck.iterdir()) == [
+        "opt_state-rank0.pt", "opt_state-rank1.pt", "params-rank0.pt", "params-rank1.pt",
+        "trainer_state.json"]

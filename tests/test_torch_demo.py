@@ -192,13 +192,19 @@ def _sse(base, i, timeout=300.0):
 def test_multiapp_matches_solo_runs_and_refuses_a_mesh(both, videos):
     """Two lanes of different resolutions batched in one server's rounds:
     each lane's segments over HTTP equal a solo stream_segments run on its
-    video (greedy); the pages and ranges are served; mesh= raises."""
+    video (greedy); the pages and ranges are served. The server runs on a
+    mesh (mesh={"model": 1}: the parallel path's modules and engine, a world
+    of one), and a mesh of more ranks than the world raises."""
+    import copy
+
     _, model = both
     kw = dict(stream=tcfg.StreamConfig(**STREAM), sampling=tcfg.SamplingConfig(do_sample=False),
               video=tcfg.VideoConfig(**VIDEO), duration=4.0, port=0, dtype=torch.float32)
-    with pytest.raises(ValueError, match="queue 1 item 5"):
-        multiapp.MultiLiveCaptionServer(CFG, model, TOK, videos, mesh=object(), **kw)
-    srv = multiapp.MultiLiveCaptionServer(CFG, model, TOK, videos, **kw)
+    with pytest.raises(ValueError, match="needs 2 ranks, the world has 1"):
+        multiapp.MultiLiveCaptionServer(CFG, copy.deepcopy(model), TOK, videos,
+                                        mesh={"model": 2}, **kw)
+    srv = multiapp.MultiLiveCaptionServer(CFG, copy.deepcopy(model), TOK, videos,
+                                          mesh={"model": 1}, **kw)
     srv.start_background()
     base = f"http://127.0.0.1:{srv.port}"
     try:

@@ -230,3 +230,18 @@ def test_eval_baseline_and_demo_text_copies_equal_the_jax_package():
         for w in (56, 448, 1280):
             assert render._bubble_layout(text, w) == jrender._bubble_layout(text, w)
     assert multiproc.local_mt([1, 2, 3], abs, workers=2) == jmp.local_mt([1, 2, 3], abs, workers=2)
+
+
+def test_parallel_modules_are_held_and_their_rule_tables_equal_the_jax_package():
+    """parallel/ is among the modules the import checks above walk, and its
+    copies of the JAX package's sharding rule tables are equal, pattern for
+    pattern and axis for axis, in order."""
+    from streaming_vlm_tpu.parallel import mesh as jmesh
+    from streaming_vlm_tpu_torch.parallel import mesh as tmesh
+
+    names = {f"streaming_vlm_tpu_torch.parallel.{m}"
+             for m in ("distributed", "mesh", "tp", "ring", "pipeline")}
+    assert names <= set(_port_modules())
+    for want, got in ((jmesh.TEXT_TP_RULES, tmesh.TEXT_TP_RULES),
+                      (jmesh.VISION_TP_RULES, tmesh.VISION_TP_RULES)):
+        assert [(p, tuple(s)) for p, s in got] == [(p, tuple(s)) for p, s in want]

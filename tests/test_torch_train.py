@@ -382,9 +382,16 @@ def test_trainer_equals_jax_trainer_and_resumes(annotation, weights, jax_run, tm
 
 
 def test_trainer_refuses_the_unported_mesh_modes(weights, tmp_path):
+    """The refusals that stay true: pp and sp without a mesh, an unknown
+    mode, and a mesh of more ranks than the world (the working modes:
+    tests/test_torch_parallel_train.py)."""
     model = _port_model(weights[1])
     for kw in (dict(parallel_mode="pp"), dict(parallel_mode="sp")):
-        with pytest.raises(ValueError, match="queue 1 item 5"):
+        with pytest.raises(ValueError, match="needs mesh="):
             ttrainer.Trainer(CFG, model, ttrainer.TrainConfig(output_dir=str(tmp_path), **kw))
-    with pytest.raises(ValueError, match="queue 1 item 5"):
-        ttrainer.Trainer(CFG, model, ttrainer.TrainConfig(output_dir=str(tmp_path)), mesh=object())
+    with pytest.raises(ValueError, match="parallel_mode must be"):
+        ttrainer.Trainer(CFG, model, ttrainer.TrainConfig(output_dir=str(tmp_path),
+                                                          parallel_mode="tp"))
+    with pytest.raises(ValueError, match="needs 2 ranks, the world has 1"):
+        ttrainer.Trainer(CFG, model, ttrainer.TrainConfig(output_dir=str(tmp_path)),
+                         mesh={"data": 2})

@@ -76,7 +76,7 @@ def main() -> int:
             raise RuntimeError(f"{name}: nvcc failed\n{text[-3000:]}")
         regs[name] = c._ptxas_lines(text, "attn_bwd_kernel")
         so = ctypes.CDLL(str(d / "k.so"))
-        so.svt_attention_bwd.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        so.svt_attention_bwd.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         so.svt_attention_bwd.restype = ctypes.c_int
         libs[name] = so
 
@@ -96,7 +96,7 @@ def main() -> int:
     def call(so):
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         err = so.svt_attention_bwd(*(A.ptr(t) for t in (q, k, v, o, lse2, do, rec, cnt, acc, dq, dk,
-                                                         dv)), T, H, Hkv, hd, A.stream())
+                                                         dv)), T, H, Hkv, hd, 0, A.stream())
         if err:
             raise RuntimeError(f"cudaError {err}")
         return dq, dk, dv
