@@ -293,6 +293,20 @@ MUTANTS = {
         "p0 = mg[2], n = mg[3];",
         "p0 = mg[2], n = mg[3] - 1;", None,
     ),
+    # K1's pipelined loop: the next tile's S = Q K^T issued over the stage
+    # of the tile whose P . V is pending (a stage index off by one); O's
+    # rescale skipped where a row's alpha is below 1 but not below 1/2 (the
+    # skip is exact only where every alpha is 1)
+    "K1: the pipelined S of the next tile reads the current stage's K": (
+        "K1", "csrc/prefill_attention.cu",
+        "const unsigned char* k_next = sK + stage * KV_BYTES;",
+        "const unsigned char* k_next = sK + pv_stage * KV_BYTES;", None,
+    ),
+    "K1: the rescale skip taken when a row's alpha is below 1": (
+        "K1", "csrc/prefill_attention.cu",
+        "if (__any_sync(0xffffffffu, alpha_a != 1.f || alpha_b != 1.f)) {",
+        "if (__any_sync(0xffffffffu, alpha_a < 0.5f || alpha_b < 0.5f)) {", None,
+    ),
     "plan: a CTA's last segment runs one key tile past its share": (
         "K1", "ops/attention.py",
         "min(hi, starts[i + 1]) - starts[i]",
@@ -2128,6 +2142,9 @@ def _ptxas_lines(text: str, kernel: str) -> str:
             mine = kernel in line
         elif mine and ("spill" in line or "Used" in line):
             lines.append(line.replace("ptxas info    :", "").strip())
+    # ptxas's warnings name the function: e.g. wgmma products it had to
+    # serialize (a pipeline that waits where the source overlaps)
+    lines += [line.strip() for line in text.splitlines() if "warning" in line and kernel in line]
     return "ptxas: " + "; ".join(lines)
 
 
@@ -2730,46 +2747,45 @@ def phase_server(cfg, model, stream, expect: tuple) -> tuple:
     def run(fault_round=None):
         swap_ms, round_s, calls = [], [], [0]
 
-        def engine():
-            ms = MultiStreamEngine(cfg, model, stream, SamplingConfig(), SERVER_LANES)
-            for name in ("snapshot_lane", "restore_lane"):
-                fn = getattr(ms, name)
+        def swap(fn, *a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a)
+            torch.cuda.synchronize()
+            swap_ms.append((time.perf_counter() - t0) * 1e3)
+            return r
 
-                def swap(*a, fn=fn):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    r = fn(*a)
-                    torch.cuda.synchronize()
-                    swap_ms.append((time.perf_counter() - t0) * 1e3)
-                    return r
+        # timed swaps and rounds, and the injected fault, by subclasses: a
+        # wrapper set on an instance that closes over its bound method would
+        # be a reference cycle holding the engine, its arena and the model
+        # until the cycle collector runs
+        class Engine(MultiStreamEngine):
+            def snapshot_lane(self, *a):
+                return swap(super().snapshot_lane, *a)
 
-                setattr(ms, name, swap)
-            return ms
+            def restore_lane(self, *a):
+                return swap(super().restore_lane, *a)
 
-        ms = engine()
-        if fault_round is not None:
-            step = ms.process_round
-
-            def faulty(*a, **k):
+            def process_round(self, *a, **k):
                 calls[0] += 1
                 if calls[0] == fault_round:
                     raise RuntimeError("UNAVAILABLE: device fault injected by chip_smoke.py")
-                return step(*a, **k)
+                return super().process_round(*a, **k)
 
-            ms.process_round = faulty
-        srv = MultiStreamServer(ms, end_bias=end_bias, max_clients=SERVER_CLIENTS,
-                                engine_factory=engine if fault_round else None,
-                                snapshot_every=4)
-        rounds = srv._round_locked
+        class Server(MultiStreamServer):
+            def _round_locked(self):
+                t0 = time.perf_counter()
+                n = super()._round_locked()
+                if n:
+                    round_s.append(time.perf_counter() - t0)
+                return n
 
-        def timed_round():
-            t0 = time.perf_counter()
-            n = rounds()
-            if n:
-                round_s.append(time.perf_counter() - t0)
-            return n
+        def engine():
+            return Engine(cfg, model, stream, SamplingConfig(), SERVER_LANES)
 
-        srv._round_locked = timed_round
+        ms = engine()
+        srv = Server(ms, end_bias=end_bias, max_clients=SERVER_CLIENTS,
+                     engine_factory=engine if fault_round else None, snapshot_every=4)
         clients = [srv.attach(seed=1000 + k) for k in range(SERVER_CLIENTS)]
         builders = [PromptBuilder(cfg.tokens, tok) for _ in range(SERVER_CLIENTS)]
         t0 = time.perf_counter()
@@ -3089,8 +3105,11 @@ def _phase_full_block(g) -> dict:
     qq, kk, vv = (x.requires_grad_() for x in (qq, kk, vv))
     dd = do.transpose(0, 1)[None].contiguous()
     with torch.no_grad():
-        kf["library_ms"] = _median_ms(lambda: F.scaled_dot_product_attention(qq, kk, vv),
-                                      reps=5, batch=3)
+        sdpa = lambda: F.scaled_dot_product_attention(qq, kk, vv)  # noqa: E731
+        kf["library_ms"] = _median_ms(sdpa, reps=5, batch=3)
+        kf["library_backend"] = (_sdpa_backend([e.name for e in _traced_calls(sdpa, 1).events()
+                                                if str(e.device_type).endswith("CUDA")])
+                                 if _TIMED else None)
 
     def sdpa_fwd_bwd():
         torch.autograd.grad(F.scaled_dot_product_attention(qq, kk, vv), (qq, kk, vv), dd)
@@ -3111,6 +3130,7 @@ def _phase_full_block(g) -> dict:
                   f"{r['device_ms']:.4f} ms, {100 * r['bound_ms'] / dev_ms:.1f}% of the bound), "
                   f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
                   f"SDPA non-causal {'backward' if r is kb else 'forward'} {r['library_ms']:.4f} ms"
+                  + (f" ({kf['library_backend']})" if r is kf else "")
                   + (f" (forward + backward {kb['sdpa_fwd_bwd_ms']:.4f} ms; K1 full + K1-bwd "
                      f"full {kf['ms'] + kb['ms']:.4f} ms)" if r is kb else ""))
     del q, k, v, o, do, lse, lse_f32
@@ -4586,6 +4606,12 @@ def main() -> int:
             ("K1-bwd post pass (dQ to bf16)", "attention_bwd.cu", "attn_bwd_dq_kernel"),
             ("CE-row", "linear_ce.cu", "ce_rows_kernel")):
         print(f"  {what} " + _ptxas_lines(text[src], kernel))
+    # K1's consumers hold O, S and P (160 registers) through the key loop
+    # at setmaxnreg's 240: a spill there is a load and a store a tile
+    for kernel in ("prefill_attention_kernelILb0E", "prefill_attention_kernelILb1E"):
+        line = _ptxas_lines(text["prefill_attention.cu"], kernel)
+        if " 0 bytes spill stores, 0 bytes spill loads" not in line:
+            raise AssertionError(f"K1 ({kernel}) spills: {line}")
 
     print(f"[3/5] kernels vs plain versions (at {time.perf_counter() - t_start:.1f} s)")
     kstats = phase_kernels()
@@ -4809,6 +4835,13 @@ def main() -> int:
     if "M" in args.slices:
         print(f"  (at {time.perf_counter() - t_start:.1f} s)")
         memory("M")
+        # then what only the cycle collector frees: tensors held by reference
+        # cycles (none expected: such a cycle would leak a model from a
+        # long-lived server until the collector happens to run)
+        n_cyclic = gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  ({n_cyclic} objects in reference cycles collected)")
+        memory("M, after gc.collect()")
         print(f"  slice M: training, {cfg.name} widths with {TRAIN_LAYERS} decoder layers, "
               f"random bf16 weights, a {TRAIN_CLIP} s 476x840 clip, grad_accum 2, max_steps 2, "
               f"remat full, prefetch 2")

@@ -21,10 +21,39 @@
 //     where it is exactly the A fragment of O += P V, whose V is read from
 //     shared memory MN-major (the descriptor's transpose bit). S, P, the
 //     running (m, l) and O never leave registers inside the key loop;
-//   * K/V tiles of BN = 128 keys arrive by TMA into a ring of STAGES
-//     stages (the 128-byte swizzle the wgmma descriptors read), issued by
-//     one producer thread ahead of the consumers and tracked by mbarriers
-//     (full: bytes landed; empty: both warpgroups are done with a stage).
+//   * the key loop keeps the tensor cores fed through the softmax (the
+//     schedule of FlashAttention-3, Shah et al. 2024, sections 3.1-3.2).
+//     Run serially, a warpgroup's tile is S = Q K^T, a wait, the softmax
+//     (16384 exp2f a tile on the SFU, ~1024 clocks against the products'
+//     ~2048), P . V, a wait: the tensor cores idle through every softmax,
+//     and the two warpgroups, waiting on the same stage, softmax at the
+//     same time. Instead, within a warpgroup, S of tile j + 1 is issued
+//     (and committed) together with P . V of tile j, and wgmma_wait<1>
+//     returns with S done and P . V still in flight: the softmax of tile
+//     j + 1 runs under it, O's rescale and P's packing after it. Between
+//     the warpgroups, named barriers (BAR_TURN + wg) hand a turn back and
+//     forth: a warpgroup issues its two products only in its turn, then
+//     passes the turn on and runs its softmax while the other's products
+//     run (ping-pong). The operations and their order per tile are the
+//     serial loop's, so the output and log-sum-exp are bitwise what it
+//     gave (tools/ab_torch.py hashes both), but where a P or an alpha falls
+//     under 2^-126: they come from the SFU's ex2.approx.ftz, which flushes
+//     those to 0 where exp2f keeps them subnormal; exp2f's range check and
+//     two scalings a call cost 3-4% of the loop at every shape measured.
+//     O's rescale is skipped where every alpha of a warp's rows is exactly
+//     1 (exact). Registers: O (64), S (64) and P (32) a thread; setmaxnreg
+//     gives the consumers 240, the producer 24; ptxas spills nothing;
+//   * K/V tiles of BN = 128 keys arrive by TMA into a ring of STAGES = 3
+//     stages (the 128-byte swizzle the wgmma descriptors read; 3 x 64 KB
+//     + the Q tiles' 32 KB: 225 KB of shared memory), issued by one
+//     producer thread ahead of the consumers and tracked by mbarriers
+//     (full: bytes landed; empty: both warpgroups are done with a stage's
+//     K, once S over it is done, or with its V, once P . V is: K is handed
+//     back half a tile earlier). A consumer holds two stages at once (S of
+//     tile j + 1, P . V of tile j), so two stages left the producer no
+//     tile to load ahead: 3 stages were 1.24x as fast as 2 in the
+//     full-block mode at T = 4096 and at T = 640 over 9600 slots
+//     (tools/ab_torch.py, medians of 6, NVIDIA H100 80GB HBM3 at 700 W);
 //     TMA rather than cp.async: the producer spends no registers or
 //     instructions on addresses, the consumers none on copies, and keys at
 //     or past the limit (visible_len for the arena, T for the self block)
@@ -40,7 +69,7 @@
 //   * a grid sized to the card: the work of a call is the list of (kv
 //     head, 128-row tile, key tile) units, in that order, cut into one
 //     contiguous, equal share for each of n_ctas <= #SMs persistent CTAs
-//     (one per SM: 160 KB of shared memory, 384 threads). A share that
+//     (one per SM: 225 KB of shared memory, 384 threads). A share that
 //     covers a row tile's keys only in part stores its unnormalised
 //     log2-space partials (m, l, O) and a second small pass merges them.
 //     So T = 640 (4 x 35 row tiles x ~77 key tiles) and T = 64 (16 row
@@ -72,13 +101,25 @@
 //     runs the instantiation without it, the code it ran before the LSE
 //     existed: a runtime branch in the epilogue alone cost ~3.5% at T = 640
 //     (tools/ab_torch.py on an H100).
+//   * a segment's Q: each thread's 8 16-byte loads are issued together,
+//     the next segment's once this one's last P . V is done. Issued one
+//     after another, each waited a memory latency: 15% of the time at T =
+//     10240 visible 0, 24% of the MCQ batch's (tools/ab_torch.py). Issued
+//     before a wgmma fence, they held the warpgroup's next products;
 //   * full-block mode (ring attention, parallel/ring.py): T queries over a
 //     key block that lies wholly before them, its keys pre-rotated, no
-//     causal self block, the log-sum-exp written. It is a plan with no
+//     causal self block, the log-sum-exp written. It replaces the XLA
+//     einsums and online softmax of a ring step over an earlier block
+//     (streaming_vlm_tpu/parallel/ring.py:45). It is a plan with no
 //     self (diagonal) units (ops/attention.py `prefill_plan(...,
 //     self_block=False)`): the kernel walks the block as fully visible
 //     arena tiles, and the entry point, given no self block, points the
-//     self maps at the arena's (never read).
+//     self maps at the arena's (never read). Bound: 4 H hd T S operations,
+//     240.5 GFLOP at T = S = 4096 (7B heads), 0.2432 ms at the bf16 peak.
+//     Device time there (tools/ab_torch.py in turns, medians of 6, NVIDIA
+//     H100 80GB HBM3, 700.00 W): 0.4017 ms, 60.5% of the bound, against
+//     0.4911 ms for the serial loop it replaced; SDPA's non-causal forward
+//     (cuDNN) took 0.3703 ms in chip_smoke.py's run on that card.
 //
 // Built by nvcc for sm_90a into a plain-C shared library (see
 // streaming_vlm_tpu_torch/ops/_kernels.py); the entry point returns
@@ -97,7 +138,7 @@ constexpr int HD = 128;        // head dim (the wrapper rejects others)
 constexpr int BM = 128;        // packed query rows per work tile
 constexpr int BN = 128;        // keys per K/V tile
 constexpr int CONSUMERS = 2;   // warpgroups of 64 rows each
-constexpr int STAGES = 2;      // K/V ring depth
+constexpr int STAGES = 3;      // K/V ring depth
 constexpr int THREADS = (CONSUMERS + 1) * 128;  // + one producer warpgroup
 constexpr int WG_ROWS = BM / CONSUMERS;
 constexpr int Q_BYTES = WG_ROWS * HD * 2;   // one warpgroup's Q tile: 16 KB
@@ -106,14 +147,28 @@ constexpr int BOX_BYTES = KV_BYTES / 2;     // one TMA box: 64 of the 128 column
 constexpr int SEG_INTS = 5;                 // kv head, row tile, unit begin, unit end, partial
 constexpr int MERGE_INTS = 4;               // kv head, row tile, first partial, count
 constexpr int MERGE_ROWS = 16;              // rows per CTA of the merge pass
+// named barriers: 1 + wg, a consumer warpgroup's own (its Q tile); BAR_TURN
+// + wg, warpgroup wg's turn to issue its products (ping-pong)
+constexpr int BAR_TURN = 3;
 constexpr size_t SMEM_BYTES =
-    1024 + CONSUMERS * Q_BYTES + 2 * STAGES * KV_BYTES + 3 * STAGES * sizeof(uint64_t);
+    1024 + CONSUMERS * Q_BYTES + 2 * STAGES * KV_BYTES + 4 * STAGES * sizeof(uint64_t);
 
 static_assert(HD == 128 && BN == 128 && WG_ROWS == 64, "wgmma shapes below assume these");
+static_assert(WG_ROWS * (HD / 8) % 128 == 0, "a warpgroup's Q tile in whole 16-byte loads a thread");
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// 2^x by the SFU's instruction alone: the same bits as exp2f wherever the
+// result is at least 2^-126 (exp2f is this instruction plus a range check
+// and two scalings that keep smaller results subnormal); here they flush to
+// 0, a P or an alpha under 2^-126 of the row's largest term, which is 1
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // the self block's causal limit: key j is visible to token t
@@ -142,7 +197,8 @@ __global__ void __launch_bounds__(THREADS, 1) prefill_attention_kernel(
   unsigned char* sV = sK + STAGES * KV_BYTES;
   uint64_t* kfull = reinterpret_cast<uint64_t*>(sV + STAGES * KV_BYTES);
   uint64_t* vfull = kfull + STAGES;
-  uint64_t* empty = vfull + STAGES;
+  uint64_t* kempty = vfull + STAGES;
+  uint64_t* vempty = kempty + STAGES;
 
   const int wg = threadIdx.x / 128;
   const int seg_begin = cta_segs[blockIdx.x];
@@ -152,7 +208,8 @@ __global__ void __launch_bounds__(THREADS, 1) prefill_attention_kernel(
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&kfull[s], 1);
       mbar_init(&vfull[s], 1);
-      mbar_init(&empty[s], CONSUMERS * 4);  // lane 0 of every consumer warp
+      mbar_init(&kempty[s], CONSUMERS * 4);  // lane 0 of every consumer warp
+      mbar_init(&vempty[s], CONSUMERS * 4);
     }
     mbar_fence_init();
   }
@@ -160,7 +217,7 @@ __global__ void __launch_bounds__(THREADS, 1) prefill_attention_kernel(
 
   if (wg == CONSUMERS) {
     // ---- producer: one thread keeps the K/V ring full
-    regs_dealloc<40>();
+    regs_dealloc<24>();
     if (threadIdx.x % 128 == 0) {
       tma_prefetch_map(&ka_map);
       tma_prefetch_map(&va_map);
@@ -177,12 +234,13 @@ __global__ void __launch_bounds__(THREADS, 1) prefill_attention_kernel(
           const CUtensorMap* km = arena ? &ka_map : &ks_map;
           const CUtensorMap* vm = arena ? &va_map : &vs_map;
           const int key0 = (arena ? u : u - n_arena) * BN;
-          mbar_wait(&empty[stage], phase ^ 1);
           unsigned char* k_dst = sK + stage * KV_BYTES;
           unsigned char* v_dst = sV + stage * KV_BYTES;
+          mbar_wait(&kempty[stage], phase ^ 1);
           mbar_arrive_expect_tx(&kfull[stage], KV_BYTES);
           tma_load_4d(k_dst, km, &kfull[stage], 0, kvh, key0, b);
           tma_load_4d(k_dst + BOX_BYTES, km, &kfull[stage], 64, kvh, key0, b);
+          mbar_wait(&vempty[stage], phase ^ 1);
           mbar_arrive_expect_tx(&vfull[stage], KV_BYTES);
           tma_load_4d(v_dst, vm, &vfull[stage], 0, kvh, key0, b);
           tma_load_4d(v_dst + BOX_BYTES, vm, &vfull[stage], 64, kvh, key0, b);
@@ -194,7 +252,8 @@ __global__ void __launch_bounds__(THREADS, 1) prefill_attention_kernel(
       }
       // stay until the consumers have released every stage in flight
       for (int s = 0; s < STAGES; ++s) {
-        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_wait(&kempty[stage], phase ^ 1);
+        mbar_wait(&vempty[stage], phase ^ 1);
         if (++stage == STAGES) {
           stage = 0;
           phase ^= 1;
@@ -203,7 +262,7 @@ __global__ void __launch_bounds__(THREADS, 1) prefill_attention_kernel(
     }
   } else {
     // ---- consumers: warpgroup wg owns rows [wg * 64, wg * 64 + 64) of a tile
-    regs_alloc<232>();
+    regs_alloc<240>();
     const int tid = threadIdx.x % 128;
     const int warp = tid / 32;
     const int lane = tid % 32;
@@ -211,6 +270,34 @@ __global__ void __launch_bounds__(THREADS, 1) prefill_attention_kernel(
     unsigned char* q_tile = sQ + wg * Q_BYTES;
     int stage = 0;
     uint32_t phase = 0;
+    if (wg == 1) named_barrier_arrive(BAR_TURN, 256);  // warpgroup 0 takes the first turn
+
+    // Q of a segment: this thread's 8 16-byte chunks of the warpgroup's
+    // rows, loaded together into registers; the next segment's are issued
+    // once this one's last P . V is done (a load in flight when a wgmma
+    // fence is reached holds the warpgroup's next products), so that their
+    // latency hides behind the epilogue
+    constexpr int Q_LOADS = WG_ROWS * (HD / 8) / 128;
+    uint4 qx[Q_LOADS];
+    auto load_q = [&](int sj) {
+      const int* sg = segs + sj * SEG_INTS;
+      const int b = sg[0] / Hkv, kvh = sg[0] % Hkv;  // lane, kv head
+      const int r0 = sg[1] * BM + wg * WG_ROWS;
+      const bf16* qb = q + (size_t)b * T * H * HD;
+#pragma unroll
+      for (int j = 0; j < Q_LOADS; ++j) {
+        const int i = tid + 128 * j;
+        const int gr = r0 + i / (HD / 8);
+        qx[j] = make_uint4(0u, 0u, 0u, 0u);
+        if (gr < R) {
+          const int t = gr / G;
+          const int g = gr - t * G;
+          qx[j] = *reinterpret_cast<const uint4*>(
+              qb + ((size_t)t * H + kvh * G + g) * HD + (i % (HD / 8)) * 8);
+        }
+      }
+    };
+    load_q(seg_begin);
 
     for (int si = seg_begin; si < seg_end; ++si) {
       const int* sg = segs + si * SEG_INTS;
@@ -218,28 +305,22 @@ __global__ void __launch_bounds__(THREADS, 1) prefill_attention_kernel(
       const int rt = sg[1], u_begin = sg[2], u_end = sg[3], part = sg[4];
       const int r0 = rt * BM + wg * WG_ROWS;  // this warpgroup's first packed row
       const int n_arena = (vis[b] + BN - 1) / BN;
-      const bf16* qb = q + (size_t)b * T * H * HD;
 
-      // Q: scaled by softmax-scale * log2(e) in f32, rounded to bf16, stored
-      // in the 128-byte swizzle (two 64-column halves of 8 KB)
+      // Q (in qx): scaled by softmax-scale * log2(e) in f32, rounded to
+      // bf16, stored in the 128-byte swizzle (two 64-column halves of 8 KB)
       named_barrier_sync(1 + wg, 128);  // the last segment's reads of q_tile are done
-      for (int i = tid; i < WG_ROWS * (HD / 8); i += 128) {
+#pragma unroll
+      for (int j = 0; j < Q_LOADS; ++j) {
+        const int i = tid + 128 * j;
         const int row = i / (HD / 8);
         const int c16 = i % (HD / 8);  // 16-byte chunk of the row
-        const int gr = r0 + row;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (gr < R) {
-          const int t = gr / G;
-          const int g = gr - t * G;
-          const uint4 x = *reinterpret_cast<const uint4*>(
-              qb + ((size_t)t * H + kvh * G + g) * HD + c16 * 8);
-          const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-          uint32_t* w = reinterpret_cast<uint32_t*>(&v);
+        uint4 v;
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&qx[j]);
+        uint32_t* w = reinterpret_cast<uint32_t*>(&v);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 f = __bfloat1622float2(h[e]);
-            w[e] = pack_bf16(f.x * qscale, f.y * qscale);
-          }
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(h[e]);
+          w[e] = pack_bf16(f.x * qscale, f.y * qscale);
         }
         const int half = c16 / 8;
         const int chunk = (c16 % 8) ^ (row % 8);
@@ -257,30 +338,17 @@ __global__ void __launch_bounds__(THREADS, 1) prefill_attention_kernel(
 #pragma unroll
       for (int i = 0; i < 64; ++i) o[i] = 0.f;
       float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+      float alpha_a, alpha_b;
+      float s[64];             // S of the tile in the softmax, then of the next one
+      uint32_t p[BN / 16][4];  // P of the tile whose P . V is pending, bf16
 
-      for (int u = u_begin; u < u_end; ++u) {
-        const bool arena = u < n_arena;
-        const int key0 = (arena ? u : u - n_arena) * BN;
-        const unsigned char* k_tile = sK + stage * KV_BYTES;
-        const unsigned char* v_tile = sV + stage * KV_BYTES;
-
-        // S = Q K^T (log2-space logits)
-        float s[64];
-        mbar_wait(&kfull[stage], phase);
-        wgmma_fence();
-#pragma unroll
-        for (int k = 0; k < HD / 16; ++k) {
-          const int half = k / 4, kk = k % 4;
-          const uint64_t da = smem_desc_sw128(q_tile + half * (Q_BYTES / 2) + kk * 32, 16, 1024);
-          const uint64_t db = smem_desc_sw128(k_tile + half * BOX_BYTES + kk * 32, 16, 1024);
-          wgmma_m64n128k16_ss(s, da, db, k > 0);
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(s);
-
+      // mask S of unit u where needed, then one online-softmax step in log2
+      // space: m and l updated, alpha (O's rescale) out
+      auto softmax = [&](int u) {
         // mask the tile that holds visible_len (the last arena tile) and the
         // self tiles on the diagonal; every other tile is wholly visible
+        const bool arena = u < n_arena;
+        const int key0 = (arena ? u : u - n_arena) * BN;
         const bool masked = arena ? u + 1 == n_arena : key0 + BN - 1 > t_first;
         if (masked) {
           // the lane's visible length, read back from the plan (kept out of
@@ -294,8 +362,7 @@ __global__ void __launch_bounds__(THREADS, 1) prefill_attention_kernel(
             s[i] = ok ? s[i] : -INFINITY;
           }
         }
-
-        // online softmax in log2 space; rows a (i & 2 == 0) and b
+        // rows a (i & 2 == 0) and b
         float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
         for (int i = 0; i < 64; i += 4) {
@@ -311,57 +378,132 @@ __global__ void __launch_bounds__(THREADS, 1) prefill_attention_kernel(
         // a row with no visible key so far keeps m = -inf: subtract 0
         const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
         const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
-        const float alpha_a = exp2f(m_a - base_a), alpha_b = exp2f(m_b - base_b);
+        alpha_a = ex2(m_a - base_a);
+        alpha_b = ex2(m_b - base_b);
         m_a = mn_a;
         m_b = mn_b;
         float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
         for (int i = 0; i < 64; i += 4) {
-          s[i] = exp2f(s[i] - base_a);
-          s[i + 1] = exp2f(s[i + 1] - base_a);
-          s[i + 2] = exp2f(s[i + 2] - base_b);
-          s[i + 3] = exp2f(s[i + 3] - base_b);
+          s[i] = ex2(s[i] - base_a);
+          s[i + 1] = ex2(s[i + 1] - base_a);
+          s[i + 2] = ex2(s[i + 2] - base_b);
+          s[i + 3] = ex2(s[i + 3] - base_b);
           sum_a += s[i] + s[i + 1];
           sum_b += s[i + 2] + s[i + 3];
         }
         l_a = l_a * alpha_a + sum_a;
         l_b = l_b * alpha_b + sum_b;
+      };
+      // O *= alpha, skipped where every alpha of the warp's rows is exactly 1
+      // (the running maxima unchanged: exact), then P in bf16 from S. The S
+      // fragment of keys [16k, 16k + 16) is the A fragment of the k-th step
+      // of P . V
+      auto rescale_and_pack = [&]() {
+        if (__any_sync(0xffffffffu, alpha_a != 1.f || alpha_b != 1.f)) {
 #pragma unroll
-        for (int i = 0; i < 64; i += 4) {
-          o[i] *= alpha_a;
-          o[i + 1] *= alpha_a;
-          o[i + 2] *= alpha_b;
-          o[i + 3] *= alpha_b;
+          for (int i = 0; i < 64; i += 4) {
+            o[i] *= alpha_a;
+            o[i + 1] *= alpha_a;
+            o[i + 2] *= alpha_b;
+            o[i + 3] *= alpha_b;
+          }
         }
-        // P in bf16: the S fragment of keys [16k, 16k + 16) is the A
-        // fragment of the k-th step of P . V
-        uint32_t p[BN / 16][4];
 #pragma unroll
         for (int k = 0; k < BN / 16; ++k) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) p[k][e] = pack_bf16(s[8 * k + 2 * e], s[8 * k + 2 * e + 1]);
         }
-
-        // O += P V
-        mbar_wait(&vfull[stage], phase);
-        wgmma_fence();
+      };
+      // the products, issued and committed, not waited: S = Q K^T (log2-space
+      // logits) over a K tile, O += P V over a V tile
+      auto issue_qk = [&](const unsigned char* k_tile) {
+#pragma unroll
+        for (int k = 0; k < HD / 16; ++k) {
+          const int half = k / 4, kk = k % 4;
+          const uint64_t da = smem_desc_sw128(q_tile + half * (Q_BYTES / 2) + kk * 32, 16, 1024);
+          const uint64_t db = smem_desc_sw128(k_tile + half * BOX_BYTES + kk * 32, 16, 1024);
+          wgmma_m64n128k16_ss(s, da, db, k > 0);
+        }
+        wgmma_commit();
+      };
+      auto issue_pv = [&](const unsigned char* v_tile) {
 #pragma unroll
         for (int k = 0; k < BN / 16; ++k) {
           const uint64_t db = smem_desc_sw128(v_tile + k * 16 * 128, BOX_BYTES, 1024);
           wgmma_m64n128k16_rs_tb(o, p[k], db, 1);
         }
         wgmma_commit();
-        wgmma_wait<0>();
+      };
+      // a stage's K is free once S over it is done, its V once P . V over
+      // it is (O and P free too): each released to the producer as soon as
+      // both warpgroups are done with it
+      auto release_k = [&](int st) {
+        fence_regs(s);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&kempty[st]);
+      };
+      auto release_v = [&](int st) {
         fence_regs(o);
 #pragma unroll
         for (int k = 0; k < BN / 16; ++k) fence_regs(p[k]);  // read by the wgmma until here
         __syncwarp();
-        if (lane == 0) mbar_arrive(&empty[stage]);
+        if (lane == 0) mbar_arrive(&vempty[st]);
+      };
+      auto advance = [&]() {
         if (++stage == STAGES) {
           stage = 0;
           phase ^= 1;
         }
+      };
+
+      // the first tile: S alone in this warpgroup's turn
+      mbar_wait(&kfull[stage], phase);
+      named_barrier_sync(BAR_TURN + wg, 256);
+      wgmma_fence();
+      issue_qk(sK + stage * KV_BYTES);
+      named_barrier_arrive(BAR_TURN + (wg ^ 1), 256);
+      wgmma_wait<0>();
+      release_k(stage);
+      softmax(u_begin);
+      rescale_and_pack();
+      int pv_stage = stage;  // the stage whose P . V is next
+      uint32_t pv_phase = phase;
+      advance();
+
+      // each later tile: in one turn S of this tile, then P . V of the one
+      // before; the softmax of this tile runs while P . V is in flight and
+      // while the other warpgroup's products run
+      for (int u = u_begin + 1; u < u_end; ++u) {
+        const unsigned char* k_next = sK + stage * KV_BYTES;
+        mbar_wait(&kfull[stage], phase);
+        mbar_wait(&vfull[pv_stage], pv_phase);
+        named_barrier_sync(BAR_TURN + wg, 256);
+        wgmma_fence();
+        issue_qk(k_next);
+        issue_pv(sV + pv_stage * KV_BYTES);
+        named_barrier_arrive(BAR_TURN + (wg ^ 1), 256);
+        wgmma_wait<1>();  // S done; P . V in flight
+        release_k(stage);
+        softmax(u);
+        wgmma_wait<0>();
+        release_v(pv_stage);
+        rescale_and_pack();
+        pv_stage = stage;
+        pv_phase = phase;
+        advance();
       }
+
+      // the last tile's P . V. Warpgroup 1's last turn of the CTA hands none
+      // on: warpgroup 0 has no turn left to take
+      mbar_wait(&vfull[pv_stage], pv_phase);
+      named_barrier_sync(BAR_TURN + wg, 256);
+      wgmma_fence();
+      issue_pv(sV + pv_stage * KV_BYTES);
+      if (wg == 0 || si + 1 < seg_end) named_barrier_arrive(BAR_TURN + (wg ^ 1), 256);
+      wgmma_wait<0>();
+      release_v(pv_stage);
+      if (si + 1 < seg_end) load_q(si + 1);
 
 #pragma unroll
       for (int off = 1; off <= 2; off <<= 1) {

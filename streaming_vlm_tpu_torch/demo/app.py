@@ -187,7 +187,7 @@ class LiveCaptionServer:
         port: int = 7860,
     ):
         self.video_path = video_path
-        outer = self
+        self.segment_source = segment_source
 
         class Handler(BaseHTTPRequestHandler):
             def log_message(self, *a):  # quiet
@@ -202,26 +202,23 @@ class LiveCaptionServer:
                     self.end_headers()
                     self.wfile.write(body)
                 elif self.path.startswith("/video"):
-                    outer._serve_video(self)
+                    serve_file_range(self, self.server.video_path)
                 elif self.path.startswith("/events"):
-                    outer._serve_events(self)
+                    serve_sse(self, self.server.segment_source())
                 else:
                     self.send_response(404)
                     self.end_headers()
 
+        # what the handler serves rides the HTTP server (`self.server`), not
+        # a closure over this object: a class is freed only by the cycle
+        # collector, and one closing over this object would keep the caption
+        # source (an engine and its model) alive after the server is dropped
         self.httpd = ThreadingHTTPServer((host, port), Handler)
-        self.segment_source = segment_source
+        self.httpd.video_path, self.httpd.segment_source = video_path, segment_source
 
     @property
     def port(self) -> int:
         return self.httpd.server_address[1]
-
-    # -------------------------------------------------------------- endpoints
-    def _serve_video(self, h: BaseHTTPRequestHandler) -> None:
-        serve_file_range(h, self.video_path)
-
-    def _serve_events(self, h: BaseHTTPRequestHandler) -> None:
-        serve_sse(h, self.segment_source())
 
     # ------------------------------------------------------------------- run
     def serve_forever(self):

@@ -148,7 +148,8 @@ class MultiLiveCaptionServer:
         self._threads: List[threading.Thread] = []
         # under a mesh of several ranks only rank 0 answers HTTP
         rank0 = self.engine.mesh is None or self.engine.mesh.rank == 0
-        self.httpd = _make_httpd(self, host, port) if rank0 else None
+        self.httpd = (_make_httpd(self.n, self.video_paths, self.feeds, host, port)
+                      if rank0 else None)
 
     @property
     def port(self) -> Optional[int]:
@@ -278,7 +279,12 @@ class MultiLiveCaptionServer:
         self.server.stop()
 
 
-def _make_httpd(outer: MultiLiveCaptionServer, host: str, port: int):
+def _make_httpd(n: int, video_paths: Sequence[str], feeds: Sequence[_Feed], host: str,
+                port: int):
+    """The dashboard's HTTP server over lanes 0..n-1. It is given what it
+    serves, not the MultiLiveCaptionServer: its handler class is freed only
+    by the cycle collector, and must not keep the engine and its model alive
+    after the server is dropped."""
     import re
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -289,7 +295,7 @@ def _make_httpd(outer: MultiLiveCaptionServer, host: str, port: int):
         if not m:
             return None
         i = int(m.group(1))
-        return i if i < outer.n else None
+        return i if i < n else None
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):  # quiet
@@ -305,7 +311,7 @@ def _make_httpd(outer: MultiLiveCaptionServer, host: str, port: int):
 
         def do_GET(self):
             if self.path == "/" or self.path.startswith("/index"):
-                self._html(DASHBOARD.replace("__N__", str(outer.n)))
+                self._html(DASHBOARD.replace("__N__", str(n)))
                 return
             i = parse_idx(self.path, "/stream")
             if i is not None:
@@ -319,11 +325,11 @@ def _make_httpd(outer: MultiLiveCaptionServer, host: str, port: int):
                 return
             i = parse_idx(self.path, "/video")
             if i is not None:
-                self._serve_video(outer.video_paths[i])
+                self._serve_video(video_paths[i])
                 return
             i = parse_idx(self.path, "/events")
             if i is not None:
-                self._serve_events(outer.feeds[i])
+                self._serve_events(feeds[i])
                 return
             self.send_response(404)
             self.end_headers()

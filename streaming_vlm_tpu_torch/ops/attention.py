@@ -277,6 +277,7 @@ def _prefill_plan_on(device: torch.device, T: int, G: int, Hkv: int, visible: Tu
 
 def prefill_attention_by_plan(
     q_rot, k_arena, v_arena, acos2, asin2, k_self_rot, v_self, visible_len: int, n_sms: int,
+    self_block: bool = True,
 ) -> torch.Tensor:
     """K1's schedule in plain PyTorch, f32 math: the raw arena rotated once
     (and rounded to v's dtype), the scaled q rounded to q's dtype, then for
@@ -284,12 +285,15 @@ def prefill_attention_by_plan(
     units with the kernel's masks, the output of whole segments normalised
     and the partials of split row tiles merged in log2 space. Returns [T,
     H, hd] in v's dtype; equal to `prefill_attention_plain` up to f32
-    summation order."""
+    summation order. self_block=False is the full-block mode (the arena's
+    first visible_len slots are a key block wholly before the queries; no
+    self block, k_self_rot and v_self unread): equal to
+    `full_block_attention_plain`'s output up to f32 summation order."""
     T, H, hd = q_rot.shape
     Hkv = k_arena.shape[1]
     G, R, vis = H // Hkv, T * H // Hkv, int(visible_len)
     bm, bn = PREFILL_BLOCK_ROWS, PREFILL_BLOCK_KEYS
-    plan = prefill_plan(T, G, Hkv, vis, n_sms)
+    plan = prefill_plan(T, G, Hkv, vis, n_sms, self_block)
     ka = k_arena[:vis]
     if acos2 is not None:
         ka = _rotate_dup_half(ka, acos2[:vis], asin2[:vis]).to(v_arena.dtype)

@@ -39,6 +39,7 @@ import contextlib
 import itertools
 import queue
 import threading
+import weakref
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -82,7 +83,10 @@ class StreamClient:
     lane when its next chunk is picked up."""
 
     def __init__(self, server: "MultiStreamServer", lane: Optional[int], key: int = -1):
-        self._server = server
+        # weak: the server holds its clients, and a reference cycle would keep
+        # a dropped server's engine (its arena and the model) alive until the
+        # cycle collector runs
+        self._server_ref = weakref.ref(server)
         self.lane = lane
         self.key = key  # a multi-rank server's name for the client (its lane)
         self.chunk_index = 0  # this client's own chunk clock
@@ -96,6 +100,13 @@ class StreamClient:
         # boundary and the chunks delivered since
         self._recovery_snapshot: Optional[Dict[str, Any]] = None
         self._journal: List[Dict[str, Any]] = []
+
+    @property
+    def _server(self) -> "MultiStreamServer":
+        server = self._server_ref()
+        if server is None:
+            raise RuntimeError("this client's MultiStreamServer is gone")
+        return server
 
     def submit(
         self,

@@ -140,7 +140,8 @@ class Trainer:
             shard_opt_state(self.opt_state, self.params)
             placed = sharded_params(model)
             axes = [ax for _, ax in placed]
-            self._norm = lambda grads: sharded_norm(grads, axes, self.mesh)
+            mesh = self.mesh  # not self: a closure over the Trainer would be a cycle
+            self._norm = lambda grads: sharded_norm(grads, axes, mesh)
             if "data" in self.mesh:
                 self._data_rep = [i for i, ax in enumerate(axes) if "data" not in ax]
         elif mode == "pp":

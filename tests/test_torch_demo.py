@@ -123,6 +123,46 @@ def test_segment_feed_replays_to_late_subscribers():
     assert list(first) == [{"i": 1}] and list(feed.subscribe()) == [{"i": 0}, {"i": 1}]
 
 
+def test_servers_free_their_engines_without_the_collector(both):
+    """A demo server dropped after use frees its engine's arena by
+    reference counting alone, the cycle collector off: its HTTP handler
+    class, which only the collector frees, must hold no reference to the
+    server. A LiveCaptionServer whose caption source closes over a session
+    that ran a chunk, served in the background and shut down; a
+    MultiLiveCaptionServer (its own 2-lane engine), built and closed."""
+    import gc
+    import weakref
+
+    _, model = both
+    from streaming_vlm_tpu_torch.serve import StreamingSession
+
+    def live():
+        session = StreamingSession(CFG, model, TOK, stream=tcfg.StreamConfig(**STREAM),
+                                   dtype=torch.float32)
+        frames = np.random.default_rng(0).integers(0, 256, (2, 56, 56, 3), dtype=np.uint8)
+        session.run_chunk(0, 0.0, frames_u8=session.engine.upload_frames(frames),
+                          grid_thw=(1, 4, 4))
+        srv = app.LiveCaptionServer("unused.mp4", lambda: iter([session.previous_text]), port=0)
+        srv.start_background()
+        srv.shutdown()
+        return weakref.ref(session.engine.k_arena)
+
+    def multi():
+        srv = multiapp.MultiLiveCaptionServer(CFG, model, TOK, ["a.mp4", "b.mp4"], port=0,
+                                              stream=tcfg.StreamConfig(**STREAM),
+                                              dtype=torch.float32)
+        srv.httpd.server_close()
+        return weakref.ref(srv.engine.k_arena)
+
+    gc.collect()
+    gc.disable()
+    try:
+        for make in (live, multi):
+            assert make()() is None, make.__name__
+    finally:
+        gc.enable()
+
+
 def test_stream_segments_equals_the_jax_package(both, videos):
     params, model = both
     want = _segments("jax", params, videos[0])

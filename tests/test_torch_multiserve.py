@@ -107,6 +107,32 @@ def _server(model, n=2, stream=None, **kw):
     return MultiStreamServer(ms, end_bias=END_BIAS, **kw)
 
 
+def test_dropped_server_frees_its_engine_without_the_collector(model):
+    """A MultiStreamServer dropped after a delivered chunk frees its
+    engine's arena by reference counting alone (the cycle collector off),
+    though its client lives on: a client holds its server weakly, and
+    refuses further use once the server is gone."""
+    import gc
+    import weakref
+
+    srv = _server(model)
+    c = srv.attach()
+    segs, patches = _chunk(_builder(), 0, "narrate the game", 7)
+    c.submit(segs, pixel_patches=patches, grid_thw=GRID)
+    srv.run_round_once()
+    assert c.get(timeout=60)[0] == 0
+    arena = weakref.ref(srv.engine.k_arena)
+    gc.collect()
+    gc.disable()
+    try:
+        del srv
+        assert arena() is None
+        with pytest.raises(RuntimeError, match="gone"):
+            c.submit(segs, pixel_patches=patches, grid_thw=GRID)
+    finally:
+        gc.enable()
+
+
 def test_server_rounds_match_solo(model):
     """Client A streams 4 chunks; B attaches at A's chunk 2 and streams 2;
     every delivered generation equals the solo engines'; close frees the

@@ -1,7 +1,12 @@
 """Two checkouts of the port on one card, in turns: the one-stream device
 times of K1 (T=640 over 9600 visible slots), K2 and K3 (int8; visible
 9000), and K2-verify at T = 2, 8 and 16 (visible 9000, e_delta 28,
-extra_visible 5), each timed twice; K1-bwd's device time at training's T = 8192
+extra_visible 5), each timed twice; K1 also in its full-block mode at T =
+4096 over 4096 keys, at T = 10240 visible 0, over 8 lanes of T = 1024 at
+visible 0 (the MCQ batch) and with its log-sum-exp at T = 8192 visible 0,
+each timed twice, and a hash of its output and log-sum-exp at T = 640 over
+9600 and in the full-block mode at T = 4096 (the same seeded inputs in
+every run: equal hashes mean bitwise equal results); K1-bwd's device time at training's T = 8192
 (7B heads; O and the log-sum-exp from K1's forward), timed twice;
 K5-int4's device time with cold weights (each
 call rotates over copies of its weight past 100 MB, twice the L2) at every
@@ -28,7 +33,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 CODE = r'''
-import contextlib, io, json, sys
+import contextlib, hashlib, io, json, sys
 sys.path.insert(0, ".")
 import torch
 import chip_smoke as c
@@ -45,12 +50,35 @@ qd, ksm, vsm = rn(H, hd), rn(21, Hkv, hd), rn(21, Hkv, hd)
 pos = (torch.rand(C, 3, generator=g, device=dev) * torch.tensor([C, 50.0, 50.0], device=dev)).floor()
 kw = dict(e_delta=20, mrope_section=(16, 24, 24), rope_theta=1e6)
 verify = {T: (rn(T, H, hd), rn(28 + T, Hkv, hd), rn(28 + T, Hkv, hd)) for T in (2, 8, 16)}
+qf, kf, vf = rn(4096, H, hd), rn(4096, Hkv, hd), rn(4096, Hkv, hd)
+q10, k10, v10 = rn(10240, H, hd), rn(10240, Hkv, hd), rn(10240, Hkv, hd)
+qm, km, vm = rn(8, 1024, H, hd), rn(8, 1024, Hkv, hd), rn(8, 1024, Hkv, hd)
+lse_f, lse_640 = torch.empty(4096, H, device=dev), torch.empty(640, H, device=dev)
 only = sys.argv[sys.argv.index("--only") + 1].split(",") if "--only" in sys.argv else None
 want = lambda name: only is None or name in only  # noqa: E731
 out = {}
+
+def digest(*ts):
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+if want("K1"):
+    out["K1 hashes"] = {
+        "T=640 over 9600 (out, lse)": digest(
+            A.streaming_prefill_attention(q, ka, va, None, None, ks, vs, 9600),
+            (A.streaming_prefill_attention(q, ka, va, None, None, ks, vs, 9600, lse=lse_640), lse_640)[1]),
+        "full-block T=4096 (out, lse)": digest(A.full_block_attention(qf, kf, vf, lse=lse_f), lse_f)}
 for _ in range(2):
     if want("K1"):
         out.setdefault("K1", []).append(c._device_ms(lambda: A.streaming_prefill_attention(q, ka, va, None, None, ks, vs, 9600), n=50))
+        out.setdefault("K1 full-block T=4096", []).append(c._device_ms(lambda: A.full_block_attention(qf, kf, vf, lse=lse_f), n=20))
+        out.setdefault("K1 T=10240 visible 0", []).append(c._device_ms(lambda: A.streaming_prefill_attention(q10, k10, v10, None, None, k10, v10, 0), n=10))
+        out.setdefault("K1 MCQ 8 lanes x 1024", []).append(c._device_ms(lambda: A.streaming_prefill_attention(qm, km, vm, None, None, km, vm, [0] * 8), n=20))
+        lse8 = torch.empty(8192, H, device=dev)
+        out.setdefault("K1 with lse T=8192 visible 0", []).append(c._device_ms(lambda: A.streaming_prefill_attention(q10[:8192], k10[:8192], v10[:8192], None, None, k10[:8192], v10[:8192], 0, lse=lse8), n=10))
     if want("K2"):
         out.setdefault("K2", []).append(c._device_ms(lambda: A.streaming_decode_attention_full(qd, ka, va, ksm, vsm, 9000, 7, e_delta=20), n=200))
     if want("K3"):
