@@ -9,7 +9,8 @@ Phases; any failure exits non-zero:
 2. build: compiles the port's kernels (streaming_vlm_tpu_torch/csrc, nvcc,
    sm_90a, one nvcc per source in parallel) into build/torch_kernels/, and
    prints -Xptxas -v registers and spills of K1-K5's, K2-verify's, K1-bwd's
-   and CE-row's kernels.
+   (both modes) and CE-row's kernels, and the CTAs a cluster of K1-bwd's
+   full-block kernel and how many such clusters the card holds at once.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes (Qwen2.5-VL-7B attention geometry: H=28, Hkv=4,
    hd=128, arena C=10240): K1 prefill (both arena modes; T in {640, 200,
@@ -426,8 +427,25 @@ MUTANTS = {
     ),
     "K1-bwd full-block: the first row tile skipped": (
         "K1-bwd", "csrc/attention_bwd.cu",
-        "const int n_tiles = full_block ? M : M - n * BN / BT;",
-        "const int n_tiles = full_block ? M - 1 : M - n * BN / BT;", "'mode': 'full-block'",
+        "const int n_tiles = FULL ? M : M - n * BN / BT;",
+        "const int n_tiles = FULL ? M - 1 : M - n * BN / BT;", "'mode': 'full-block'",
+    ),
+    # K1-bwd's clusters (full-block mode): each producer multicasts the
+    # peer's half of Q's and dO's columns into its own half (the head dim
+    # permuted in both CTAs); rank 1 decodes the cluster's ticket to the
+    # next kv head, so the two CTAs of a cluster load halves of different
+    # heads (every (block, kv head) still once: at the checked shapes every
+    # cluster is resident, so no fold waits on a cluster that cannot start)
+    "K1-bwd full-block: the multicast fills each CTA's half with the peer's columns": (
+        "K1-bwd", "csrc/attention_bwd.cu",
+        "const int c0 = 64 * (int)rank;",
+        "const int c0 = 64 * (int)peer;", "'mode': 'full-block'",
+    ),
+    "K1-bwd full-block: rank 1 decodes the cluster's ticket to the next kv head": (
+        "K1-bwd", "csrc/attention_bwd.cu",
+        "job = (2 * (ticket / Hkv) + (int)rank) * Hkv + ticket % Hkv;",
+        "job = (2 * (ticket / Hkv) + (int)rank) * Hkv + (ticket + (int)rank) % Hkv;",
+        "'mode': 'full-block'",
     ),
     "CE-row: the reduction skips the last warp": (
         "CE-row", "csrc/linear_ce.cu",
@@ -3051,7 +3069,8 @@ def _phase_full_block(g) -> dict:
     T = 640 at G = 8; times both at the ring's block (T = RING_T) beside
     their bounds, the plain versions and SDPA non-causal (forward; forward
     + backward, and its backward alone as the library call of K1-bwd's
-    mode)."""
+    mode). Causal K1-bwd at BWD_T[-1] before and after all of that must be
+    bitwise equal (mode 'causal': the clusters share K1-bwd's scratch)."""
     import torch
     import torch.nn.functional as F
 
@@ -3063,6 +3082,17 @@ def _phase_full_block(g) -> dict:
     def rn(*shape):
         return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
 
+    # causal K1-bwd at BWD_T's last shape, before and after the full-block
+    # calls: bitwise equal (no scratch or counter left dirty by the
+    # clusters); O and the log-sum-exp from the plain forward, as in
+    # _phase_k1_bwd, so that K1's own checks stay apart
+    H, Hkv, T = 28, 4, BWD_T[-1]
+    qc, kc, vc, doc = rn(T, H, hd), rn(T, Hkv, hd), rn(T, Hkv, hd), rn(T, H, hd)
+    with torch.no_grad():
+        oc, lc = A.train_attention_plain(qc.float(), kc.float(), vc.float(), BWD_PLAIN_ROWS,
+                                         return_lse=True)
+    oc = oc.reshape(T, H, hd).to(torch.bfloat16)
+    causal_before = A.attention_bwd(qc, kc, vc, oc, lc, doc)
     err_f, err_b = 0.0, 0.0
     for (H, Hkv), ts in (((16, 2), (640,)), ((28, 4), FULL_T + (RING_T,))):
         for T in ts:
@@ -3119,6 +3149,11 @@ def _phase_full_block(g) -> dict:
     kb["library_ms"] = _median_ms(lambda: torch.autograd.grad(sdpa_out, (qq, kk, vv), dd,
                                                               retain_graph=True), reps=5, batch=3)
     del sdpa_out, qq, kk, vv, dd
+    for name, a, b in zip(("dq", "dk", "dv"), A.attention_bwd(qc, kc, vc, oc, lc, doc),
+                          causal_before):
+        _check_equal("K1-bwd", a, b, dict(T=qc.shape[0], G=7, grad=name, mode="causal",
+                                          after="full-block calls"))
+    del qc, kc, vc, doc, lc, oc, causal_before
     f_flops = 4 * H * hd * T * T  # S and P.V over every (query, key) pair
     kf["bound_ms"], kf["bound_by"] = _bound(_nbytes(q, k, v, q) + 4 * T * H, f_flops)
     kb["bound_ms"], kb["bound_by"] = _bound(_nbytes(q, k, v, o, do, lse_f32) + _nbytes(q, k, v),
@@ -4602,6 +4637,7 @@ def main() -> int:
             ("K5 decode GEMV, bf16 in and out", "int8_gemm.cu", "gemv_kernelI13__nv_bfloat16S"),
             ("K5-int4, one row tile (4 dtype forms)", "int4_gemv.cu", "Li1EE"),
             ("K1-bwd (the five products)", "attention_bwd.cu", "attn_bwd_kernel"),
+            ("K1-bwd full-block (clusters of two)", "attention_bwd.cu", "attn_bwd_full_kernel"),
             ("K1-bwd pre pass (D, records)", "attention_bwd.cu", "attn_bwd_prep_kernel"),
             ("K1-bwd post pass (dQ to bf16)", "attention_bwd.cu", "attn_bwd_dq_kernel"),
             ("CE-row", "linear_ce.cu", "ce_rows_kernel")):
@@ -4612,6 +4648,12 @@ def main() -> int:
         line = _ptxas_lines(text["prefill_attention.cu"], kernel)
         if " 0 bytes spill stores, 0 bytes spill loads" not in line:
             raise AssertionError(f"K1 ({kernel}) spills: {line}")
+    from streaming_vlm_tpu_torch.ops.attention import attention_bwd_clusters
+
+    width, resident = attention_bwd_clusters()
+    print(f"  K1-bwd full-block launches clusters of {width} CTAs, {resident} resident at once")
+    if width != 2:
+        raise AssertionError(f"K1-bwd full-block: clusters of {width}, not 2")
 
     print(f"[3/5] kernels vs plain versions (at {time.perf_counter() - t_start:.1f} s)")
     kstats = phase_kernels()

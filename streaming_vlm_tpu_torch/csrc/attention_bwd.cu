@@ -73,12 +73,31 @@
 //     token); rows past T, and the rows 64 - BT G of a tile that no box
 //     reaches (zeroed once), carry lse2 = +inf in the record, so P = 0;
 //   * full-block mode (ring attention's blocks wholly before the queries,
-//     parallel/ring.py): no causal mask, so every CTA visits every row
-//     tile, from the last down to the first, and no tile is masked; keys
-//     past T arrive as zeros and move nothing (dQ gains dS . 0, their dK
-//     and dV are not stored). The folds keep the same fixed order (key
-//     block 0, 1, ... per row tile), so a call stays bitwise repeatable;
-//     O and lse2 may be a larger softmax's (the ring's whole row);
+//     parallel/ring.py; its own instantiation, attn_bwd_full_kernel): no
+//     causal mask, so every CTA visits every row tile, from the last down
+//     to the first, and no tile is masked, and all the CTAs of a kv head
+//     visit the same tiles in the same order. So they run as clusters of
+//     two (key blocks 2c and 2c + 1 of one kv head): each producer issues
+//     half of a tile's boxes (Q's and dO's columns [64 r, 64 r + 64), lse2
+//     or D of the record) by TMA multicast into both CTAs, whose full
+//     barriers expect the whole tile and whose empty barriers count the
+//     consumer warps of both (the peer's arriving remotely), which halves
+//     the tile traffic out of L2. Each CTA folds its own dQ partial in the
+//     causal mode's order (key block 0, 1, 2, ...), so a call stays
+//     bitwise repeatable. Rank 0 takes the cluster's ticket and rank 1
+//     reads it from rank 0's shared memory: block n waits on block n - 1,
+//     its peer or the previous cluster's rank 1, which took an earlier
+//     ticket and so runs, and no residency of clusters can deadlock. With
+//     an odd count of key blocks the last cluster's rank 1 owns keys past T
+//     only: they arrive as zeros, its partial is an exact 0 (dS . 0) and
+//     its dK and dV are not stored. Summing the pair's two dQ partials in
+//     distributed shared memory before the fold (half the f32 traffic into
+//     L2, half the chain) was built and measured slower, whether the
+//     consumers pushed their half to the peer or the fold warp read the
+//     peer's (PERF.md §6). A cluster barrier ends
+//     the kernel (the peer's producer writes into this CTA's shared memory
+//     and its consumers arrive on its barriers until their end). O and
+//     lse2 may be a larger softmax's (the ring's whole row);
 //   * a pre pass computes D and packs (lse2, D) per row tile, and zeroes
 //     the counters and the ticket; a post pass scales dQ, rounds it to bf16
 //     and unpacks the rows. The accumulator is [Hkv, tiles, 64, 128] f32
@@ -94,6 +113,13 @@
 // ~0.2-0.3 ms: 3.9 GB of f32 partials reduced in L2 at 128-key blocks),
 // and each warpgroup's chain of products and elementwise work per tile,
 // with its registers at the limit (dK and dV take 128 of the 240).
+// The full-block mode at T = 4096 over 4096 keys (same card and limit):
+// 1.3038 ms of device time, 46.6% of its 0.6080 ms bound, against 1.3899
+// for one CTA a block without multicast (the previous design; tools/ab_torch.py
+// in turns, medians of 6: 1.4014 against 1.3053, bitwise equal outputs);
+// SDPA's non-causal backward (cuDNN) took 1.2957 ms in the same
+// chip_smoke.py run. What is left (tools/profile_k1_bwd_torch.py --full):
+// the dQ product (~0.17 ms) and the fold (~0.06 ms).
 //
 // Built by nvcc for sm_90a into the port's plain-C shared library (see
 // streaming_vlm_tpu_torch/ops/_kernels.py); the entry point returns
@@ -234,17 +260,21 @@ __global__ void attn_bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __r
   }
 }
 
-// The main kernel: one job (key block, kv head) a CTA, taken by ticket.
-__global__ void __launch_bounds__(THREADS, 1) attn_bwd_kernel(
-    const __grid_constant__ CUtensorMap q_map,  // [T, Hkv, G, HD]
-    const __grid_constant__ CUtensorMap o_map,  // dO, the same
-    const __grid_constant__ CUtensorMap k_map,  // [T, Hkv, HD]
-    const __grid_constant__ CUtensorMap v_map,
+// The main kernel's body. Causal (FULL false): one job (key block, kv head)
+// a CTA, taken by ticket. FULL (the full-block mode): a cluster of two CTAs
+// a job (key blocks 2c and 2c + 1, kv head), taken by rank 0's ticket; the
+// two share each row tile's loads (multicast).
+template <bool FULL>
+__device__ __forceinline__ void attn_bwd_body(
+    const CUtensorMap& q_map,  // [T, Hkv, G, HD]
+    const CUtensorMap& o_map,  // dO, the same
+    const CUtensorMap& k_map,  // [T, Hkv, HD]
+    const CUtensorMap& v_map,
     const float* __restrict__ rec,     // [Hkv, M, REC]
     int* __restrict__ counters,        // [Hkv * M] folds done a row tile, then the ticket
     float* __restrict__ dq_acc,        // [Hkv, M, ROWS, HD], dq_off layout
     bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int Hkv, int G, int BT, int M,
-    float qscale, float scale, int full_block) {
+    float qscale, float scale) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -261,20 +291,26 @@ __global__ void __launch_bounds__(THREADS, 1) attn_bwd_kernel(
   uint64_t* dq_full = empty + STAGES;
   uint64_t* dq_empty = dq_full + 2;
   int* s_job = reinterpret_cast<int*>(dq_empty + 2);
+  // FULL: this CTA's rank in its cluster (key block 2c + rank), the other
+  // CTA's
+  const uint32_t rank = FULL ? cluster_rank() : 0u, peer = rank ^ 1u;
+  constexpr int PAIR = FULL ? 2 : 1;  // CTAs whose consumers read a stage
 
   const int rows = BT * G;  // rows a TMA box fills
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CONSUMERS * 4);  // lane 0 of every consumer warp
+      mbar_init(&empty[s], PAIR * CONSUMERS * 4);  // lane 0 of every consumer warp (of the pair)
     }
     for (int b = 0; b < 2; ++b) {
       mbar_init(&dq_full[b], CONSUMERS * 4);
       mbar_init(&dq_empty[b], 1);
     }
     mbar_fence_init();
-    *s_job = atomicAdd(counters + Hkv * M, 1);
+    // FULL: rank 0 takes the cluster's ticket; rank 1's word is defined
+    // but never read (a job, were it read, not an address out of range)
+    *s_job = rank == 0 ? atomicAdd(counters + Hkv * M, 1) : 0;
   }
   // the rows past BT G of every staged tile: no box writes them; zeros, once
   for (int i = threadIdx.x; i < 2 * STAGES * 2 * (ROWS - rows) * 8; i += THREADS) {
@@ -283,11 +319,21 @@ __global__ void __launch_bounds__(THREADS, 1) attn_bwd_kernel(
         make_uint4(0u, 0u, 0u, 0u);
   }
   fence_proxy_async();
-  __syncthreads();
-  const int job = *s_job;
+  int job;
+  if constexpr (FULL) {
+    // both CTAs started, their barriers initialised: then each reads the
+    // cluster's ticket c Hkv + kv head from rank 0, and takes key block 2c
+    // + rank
+    cluster_sync();
+    const int ticket = ld_cluster_s32(mapa(s_job, 0));
+    job = (2 * (ticket / Hkv) + (int)rank) * Hkv + ticket % Hkv;
+  } else {
+    __syncthreads();
+    job = *s_job;
+  }
   const int n = job / Hkv, kvh = job % Hkv;
   // row tiles M - 1 down to the diagonal's (full-block mode: down to 0)
-  const int n_tiles = full_block ? M : M - n * BN / BT;
+  const int n_tiles = FULL ? M : M - n * BN / BT;
   const int wg = threadIdx.x / 128;
   const int lane = threadIdx.x % 32;
 
@@ -311,11 +357,24 @@ __global__ void __launch_bounds__(THREADS, 1) attn_bwd_kernel(
         mbar_arrive_expect_tx(&full[stage], 4 * rows * 128 + REC * 4);
         unsigned char* q_dst = sQ + stage * TILE_BYTES;
         unsigned char* o_dst = sO + stage * TILE_BYTES;
-        tma_load_4d(q_dst, &q_map, &full[stage], 0, 0, kvh, m * BT);
-        tma_load_4d(q_dst + TILE_BOX, &q_map, &full[stage], 64, 0, kvh, m * BT);
-        tma_load_4d(o_dst, &o_map, &full[stage], 0, 0, kvh, m * BT);
-        tma_load_4d(o_dst + TILE_BOX, &o_map, &full[stage], 64, 0, kvh, m * BT);
-        bulk_load(sRec + stage * REC, rec + (size_t)(kvh * M + m) * REC, REC * 4, &full[stage]);
+        const float* rec_m = rec + (size_t)(kvh * M + m) * REC;
+        if constexpr (FULL) {
+          // half the boxes, into both CTAs: columns [64 rank, 64 rank + 64)
+          // of Q and dO, and lse2 (rank 0) or D (rank 1) of the record
+          const int c0 = 64 * (int)rank;
+          tma_load_4d_multicast(q_dst + rank * TILE_BOX, &q_map, &full[stage], c0, 0, kvh,
+                                m * BT, 0b11);
+          tma_load_4d_multicast(o_dst + rank * TILE_BOX, &o_map, &full[stage], c0, 0, kvh,
+                                m * BT, 0b11);
+          bulk_load_multicast(sRec + stage * REC + rank * ROWS, rec_m + rank * ROWS, ROWS * 4,
+                              &full[stage], 0b11);
+        } else {
+          tma_load_4d(q_dst, &q_map, &full[stage], 0, 0, kvh, m * BT);
+          tma_load_4d(q_dst + TILE_BOX, &q_map, &full[stage], 64, 0, kvh, m * BT);
+          tma_load_4d(o_dst, &o_map, &full[stage], 0, 0, kvh, m * BT);
+          tma_load_4d(o_dst + TILE_BOX, &o_map, &full[stage], 64, 0, kvh, m * BT);
+          bulk_load(sRec + stage * REC, rec_m, REC * 4, &full[stage]);
+        }
         if (++stage == STAGES) {
           stage = 0;
           phase ^= 1;
@@ -324,7 +383,8 @@ __global__ void __launch_bounds__(THREADS, 1) attn_bwd_kernel(
     } else if ((warp == 1 || warp == 2) && lane == 0) {
       // ---- the dQ fold, warp 1 for buffer 0 (even tiles), warp 2 for
       // buffer 1: key block 0 stores, block n adds once the row tile's
-      // counter reads n
+      // counter reads n (FULL: block n - 1 is the peer, or the previous
+      // cluster's rank 1, which took an earlier ticket)
       const int b = warp - 1;
       for (int i = b; i < n_tiles; i += 2) {
         const int m = M - 1 - i;
@@ -378,7 +438,7 @@ __global__ void __launch_bounds__(THREADS, 1) attn_bwd_kernel(
       // element 4j + e of S^T / dP^T is key (e & 2 ? b : a), row 8j + 2
       // (lane % 4) + (e & 1) of the tile (token t0 + row / G); only the tiles
       // that cross the block's diagonal are masked: bit 4j + e of `vis`
-      const bool diag = !full_block && n * BN + BN - 1 > t0;
+      const bool diag = !FULL && n * BN + BN - 1 > t0;
       uint32_t vis = ~0u;
       if (diag) {
         vis = 0u;
@@ -470,7 +530,10 @@ __global__ void __launch_bounds__(THREADS, 1) attn_bwd_kernel(
         fence_regs(da[kk]);
       }
       __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[stage]);  // this stage's Q and dO are read
+      if (lane == 0) {  // this stage's Q and dO are read (FULL: the peer's producer also fills it)
+        mbar_arrive(&empty[stage]);
+        if constexpr (FULL) mbar_arrive_cluster(mapa(&empty[stage], peer));
+      }
       if (++stage == STAGES) {
         stage = 0;
         phase ^= 1;
@@ -511,6 +574,30 @@ __global__ void __launch_bounds__(THREADS, 1) attn_bwd_kernel(
       }
     }
   }
+  // FULL: the peer's producer writes into this CTA's shared memory and its
+  // consumers arrive on this CTA's barriers until their own end
+  if constexpr (FULL) cluster_sync();
+}
+
+__global__ void __launch_bounds__(THREADS, 1) attn_bwd_kernel(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap o_map,
+    const __grid_constant__ CUtensorMap k_map, const __grid_constant__ CUtensorMap v_map,
+    const float* __restrict__ rec, int* __restrict__ counters, float* __restrict__ dq_acc,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int Hkv, int G, int BT, int M,
+    float qscale, float scale) {
+  attn_bwd_body<false>(q_map, o_map, k_map, v_map, rec, counters, dq_acc, dk, dv, T, Hkv, G, BT,
+                       M, qscale, scale);
+}
+
+// The full-block mode: clusters of two CTAs, ceil(blocks / 2) a kv head.
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(THREADS, 1) attn_bwd_full_kernel(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap o_map,
+    const __grid_constant__ CUtensorMap k_map, const __grid_constant__ CUtensorMap v_map,
+    const float* __restrict__ rec, int* __restrict__ counters, float* __restrict__ dq_acc,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int Hkv, int G, int BT, int M,
+    float qscale, float scale) {
+  attn_bwd_body<true>(q_map, o_map, k_map, v_map, rec, counters, dq_acc, dk, dv, T, Hkv, G, BT,
+                      M, qscale, scale);
 }
 
 // The post pass: dQ = the accumulator times the softmax scale, in bf16,
@@ -538,6 +625,22 @@ __global__ void attn_bwd_dq_kernel(const float* __restrict__ dq_acc, bf16* __res
 
 extern "C" int svt_attention_bwd_block_keys() { return BN; }
 extern "C" int svt_attention_bwd_tile_rows() { return ROWS; }
+
+// The full-block mode's launch shape on the current device: the CTAs of a
+// cluster (compiled in) and how many such clusters can be resident at once.
+extern "C" int svt_attention_bwd_clusters(int* width, int* resident) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, attn_bwd_full_kernel);
+  if (e != cudaSuccess) return (int)e;
+  *width = a.requiredClusterWidth;
+  cudaFuncSetAttribute(attn_bwd_full_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)SMEM_BYTES);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.requiredClusterWidth, 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = SMEM_BYTES;
+  return (int)cudaOccupancyMaxActiveClusters(resident, attn_bwd_full_kernel, &cfg);
+}
 
 // K1-bwd. q, o, dout, dq [T, H, HD]; k, v, dk, dv [T, Hkv, HD] (bf16,
 // contiguous); lse [T, H] f32 (log2 space, as K1 writes it). Scratch (the
@@ -567,11 +670,19 @@ extern "C" int svt_attention_bwd(const void* q, const void* k, const void* v, co
   attn_bwd_prep_kernel<<<(records + 7) / 8, 256, 0, st>>>(
       (const bf16*)o, (const bf16*)dout, (const float*)lse, (float*)rec, (int*)counters, T, H,
       Hkv, G, BT, M);
-  cudaFuncSetAttribute(attn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)SMEM_BYTES);
-  attn_bwd_kernel<<<Hkv * NB, THREADS, SMEM_BYTES, st>>>(
-      q_map, o_map, k_map, v_map, (const float*)rec, (int*)counters, (float*)dq_acc, (bf16*)dk,
-      (bf16*)dv, T, Hkv, G, BT, M, qscale, scale, full_block);
+  if (full_block) {
+    cudaFuncSetAttribute(attn_bwd_full_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)SMEM_BYTES);
+    attn_bwd_full_kernel<<<Hkv * 2 * ((NB + 1) / 2), THREADS, SMEM_BYTES, st>>>(
+        q_map, o_map, k_map, v_map, (const float*)rec, (int*)counters, (float*)dq_acc, (bf16*)dk,
+        (bf16*)dv, T, Hkv, G, BT, M, qscale, scale);
+  } else {
+    cudaFuncSetAttribute(attn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)SMEM_BYTES);
+    attn_bwd_kernel<<<Hkv * NB, THREADS, SMEM_BYTES, st>>>(
+        q_map, o_map, k_map, v_map, (const float*)rec, (int*)counters, (float*)dq_acc, (bf16*)dk,
+        (bf16*)dv, T, Hkv, G, BT, M, qscale, scale);
+  }
   const long long threads = (long long)T * H * (HD / 8);
   attn_bwd_dq_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
       (const float*)dq_acc, (bf16*)dq, T, H, G, BT, M, scale);

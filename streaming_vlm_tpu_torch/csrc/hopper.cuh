@@ -3,10 +3,12 @@
 // reductions from shared to global memory, acquire / release counters,
 // wgmma shared memory descriptors and the bf16 and s8 wgmma shapes the
 // kernels use, warpgroup register reallocation, named barriers, the
-// warp-level bf16 mma and ldmatrix. Inline PTX only; nothing here launches
-// or allocates. Used by prefill_attention.cu (K1), int8_gemm.cu (K5's tiled
-// path), decode_attention.cu (K2, K4), decode_attention_raw.cu (K3),
-// int4_gemv.cu (K5-int4), verify_attention.cu (K2-verify) and
+// warp-level bf16 mma and ldmatrix, and for thread block clusters: TMA
+// multicast, mapa, remote mbarrier arrivals, the cluster barrier, the
+// CTA's rank and shared::cluster loads. Inline PTX only; nothing here
+// launches or allocates. Used by prefill_attention.cu (K1), int8_gemm.cu
+// (K5's tiled path), decode_attention.cu (K2, K4), decode_attention_raw.cu
+// (K3), int4_gemv.cu (K5-int4), verify_attention.cu (K2-verify) and
 // attention_bwd.cu (K1-bwd).
 #pragma once
 
@@ -153,6 +155,68 @@ __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
 // async proxy (wgmma operand reads)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- thread block clusters ---------------------------------------------------
+
+// this CTA's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the shared::cluster address of `p` (a variable of this CTA's shared
+// memory) in the shared memory of the cluster's CTA `rank`
+__device__ __forceinline__ uint32_t mapa(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+// one arrival on an mbarrier of a CTA of the cluster (`remote` from mapa),
+// with the default (CTA-scope) release: a consumer handing a stage back to
+// the peer's producer (the cluster-scope form, .release.cluster, made
+// K1-bwd's full-block mode ~22% slower on an H100; PERF.md §6)
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t remote) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(remote) : "memory");
+}
+
+// every thread of every CTA of the cluster: arrive (release), then wait
+// (acquire); not required to be warp-uniform
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// 4 bytes of a CTA of the cluster's shared memory (`remote` from mapa)
+__device__ __forceinline__ int ld_cluster_s32(uint32_t remote) {
+  int v;
+  asm volatile("ld.shared::cluster.s32 %0, [%1];\n" : "=r"(v) : "r"(remote) : "memory");
+  return v;
+}
+
+// one box of a 4-d tensor map -> the same offset of the shared memory of
+// every CTA of the cluster in `cta_mask`, completion counted in bytes on
+// the mbarrier at `bar`'s offset in each
+__device__ __forceinline__ void tma_load_4d_multicast(void* dst, const CUtensorMap* map,
+                                                      uint64_t* bar, int c0, int c1, int c2,
+                                                      int c3, uint16_t cta_mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4, %5, %6}], [%2], %7;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "h"(cta_mask)
+      : "memory");
+}
+
+// bulk_load to the same offset of every CTA of the cluster in `cta_mask`
+__device__ __forceinline__ void bulk_load_multicast(void* dst, const void* src, uint32_t bytes,
+                                                    uint64_t* bar, uint16_t cta_mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar)), "h"(cta_mask)
+      : "memory");
 }
 
 // ---- named barriers and register reallocation ------------------------------

@@ -176,6 +176,8 @@ def lib() -> ctypes.CDLL:
         so.svt_attention_bwd_block_keys.restype = I
         so.svt_attention_bwd_tile_rows.argtypes = []
         so.svt_attention_bwd_tile_rows.restype = I
+        so.svt_attention_bwd_clusters.argtypes = [P, P]
+        so.svt_attention_bwd_clusters.restype = I
         so.svt_ce_rows.argtypes = [P] * 4 + [I, LL, I, P]
         so.svt_ce_rows.restype = I
         for fn in ("svt_decode_max_small_rows", "svt_decode_max_split", "svt_decode_max_parts",

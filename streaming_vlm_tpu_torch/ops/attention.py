@@ -638,6 +638,20 @@ def attention_bwd_scratch(T: int, H: int, Hkv: int, hd: int, device) -> Tuple[to
             torch.empty(Hkv, M, BWD_TILE_ROWS, hd, dtype=torch.float32, device=device))
 
 
+def attention_bwd_clusters() -> Tuple[int, int]:
+    """K1-bwd's full-block kernel on the current CUDA device: (CTAs a
+    cluster, as compiled; clusters that can be resident at once)."""
+    import ctypes
+
+    from ._kernels import lib
+
+    width, resident = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib().svt_attention_bwd_clusters(ctypes.addressof(width), ctypes.addressof(resident))
+    if err:
+        raise RuntimeError(f"attention_bwd_clusters: cudaError {err}")
+    return width.value, resident.value
+
+
 def _check_train_shapes(name: str, q_rot, k_rot, v) -> None:
     """Raise unless q [T, H, 128], k and v [T, Hkv, 128] with H = G Hkv, G <=
     TRAIN_GMAX, bf16 on a CUDA device (what K1 and K1-bwd take)."""
@@ -662,8 +676,10 @@ def attention_bwd(q_rot, k_rot, v, out, lse2, d_out, causal: bool = True):
     `attention_bwd_tiles`, its scratch `attention_bwd_scratch`), one
     counted launch. causal=False is the full-block mode (counted as
     "attention_bwd_full"): every row tile against every key block, no mask
-    but the block's end, in the same fixed fold order. On the CPU: the
-    plain version."""
+    but the block's end, in the same fixed fold order, by its own kernel in
+    clusters of two CTAs (key blocks 2c and 2c + 1, each row tile loaded
+    once for both; see `attention_bwd_clusters`). On the CPU: the plain
+    version."""
     if q_rot.device.type == "cpu":
         dq, dk, dv = train_attention_bwd_plain(q_rot, k_rot, v, out, lse2, d_out, causal=causal)
         return dq.to(q_rot.dtype), dk.to(k_rot.dtype), dv.to(v.dtype)

@@ -15,9 +15,13 @@ widths (H 28, Hkv 4: G = 7) and 3B's (H 16, Hkv 2: G = 8):
   (the triangle's tiles over the SMs), where ascending tile order or a
   descending fold would not;
 - the full-block mode (ring attention's blocks wholly before the queries)
+  runs as clusters of two CTAs (key blocks 2c and 2c + 1 of a kv head, an
+  odd count's last CTA over keys past T only, which folds an exact 0): it
   visits the whole rectangle of (key block, row tile) pairs once, in the
-  same fixed fold order, and its tiled model agrees with the plain
-  algebra without the mask.
+  same fixed fold order; a CTA waits only on its peer or on a cluster with
+  an earlier ticket, so a simulation with only some clusters resident
+  still finishes; its tiled model agrees with the plain algebra without
+  the mask, and two runs of it are bitwise equal.
 
 The kernel runs only on the card (tests/test_torch_cuda.py and chip_smoke.py
 hold it to the same tolerance)."""
@@ -64,6 +68,62 @@ def attention_bwd_schedule(T: int, G: int, Hkv: int, full: bool = False) -> BwdS
     jobs = [(n, kvh, range(n_tiles - 1, -1 if full else n * BN // bt - 1, -1))
             for n in range(n_blocks) for kvh in range(Hkv)]
     return BwdSchedule(bt, n_tiles, n_blocks, jobs)
+
+
+class Cluster(NamedTuple):
+    """A cluster of the full-block mode, in ticket order: the cluster index
+    c of kv head `kvh`, its CTAs' key blocks (rank r: 2c + r; an odd
+    count's last cluster's rank 1 has block `n_blocks`, keys past T only)
+    and the row tiles both visit, in order."""
+
+    c: int
+    kvh: int
+    blocks: tuple
+    tiles: range
+
+
+def attention_bwd_clusters(T: int, G: int, Hkv: int) -> list:
+    """The full-block kernel's index math: cluster ticket t = c Hkv + kv
+    head, taken by rank 0 and read by rank 1; rank r takes key block 2c +
+    r; every row tile, the last one down."""
+    _, n_tiles = A.attention_bwd_tiles(T, G)
+    n_blocks = -(-T // BN)
+    out = []
+    for ticket in range(Hkv * (-(-n_blocks // 2))):
+        c, kvh = ticket // Hkv, ticket % Hkv
+        out.append(Cluster(c, kvh, (2 * c, 2 * c + 1), range(n_tiles - 1, -1, -1)))
+    return out
+
+
+def run_clusters(T: int, G: int, Hkv: int, resident: int, tickets=None):
+    """Steps to finish the full-block kernel with at most `resident`
+    clusters on the card at once, or None on a deadlock. Clusters start in
+    ticket order (`tickets`: a permutation of the kernel's, to show a
+    deadlock being caught) as slots free; each step, every resident cluster
+    folds its next row tile if the tile's count names its rank 0's block
+    (2c; its rank 1 folds next, as the count then names 2c + 1), adding
+    two; a cluster leaves after its last tile."""
+    clusters = attention_bwd_clusters(T, G, Hkv)
+    if tickets is not None:
+        clusters = [clusters[t] for t in tickets]
+    count = Counter()  # (kv head, tile) -> folds done
+    queue, running, steps = list(clusters), [], 0
+    while queue or running:
+        while queue and len(running) < resident:
+            running.append([queue.pop(0), 0])
+        moved = False
+        for job in running:
+            cl, i = job
+            m = cl.tiles[i]
+            if count[(cl.kvh, m)] == cl.blocks[0]:
+                count[(cl.kvh, m)] += 2
+                job[1] += 1
+                moved = True
+        running = [job for job in running if job[1] < len(job[0].tiles)]
+        if not moved:
+            return None
+        steps += 1
+    return steps
 
 
 def _last_block(T: int, bt: int, m: int) -> int:
@@ -126,7 +186,8 @@ def bwd_by_schedule(q, k, v, o, lse2, do, full: bool = False):
     f32; each tile's dQ partials folded in f32 in the order its counter
     admits them (the first stored, the rest added). Outputs rounded to
     bf16, dQ and dK times the softmax scale. `full`: the full-block mode
-    (every tile, no mask)."""
+    (every tile, no mask; an odd count's last CTA, over keys past T only,
+    adds an exact 0 after the last block, left out here)."""
     T, H, hd = q.shape
     Hkv = k.shape[1]
     G = H // Hkv
@@ -193,43 +254,104 @@ def test_tiled_model_matches_the_plain_algebra(T, G):
 @pytest.mark.parametrize("T", [1, 200, 640, 4096])
 def test_full_block_schedule_visits_every_pair_once_in_a_fixed_fold_order(T, G):
     """The full-block mode (ring attention's key blocks wholly before the
-    queries): every CTA visits every row tile, the last one down, so each
-    (key block, row tile) pair once; each tile's folders are blocks 0 ..
-    n_blocks - 1, folding in that order, each waiting on an earlier
-    ticket."""
+    queries): every CTA of every cluster visits every row tile, the last
+    one down, so each (key block, row tile) pair once (an odd count's last
+    CTA visits keys past T only); each tile folds blocks 0 .. n_blocks - 1
+    in that order (its count names the next), cluster c holding blocks 2c
+    and 2c + 1."""
     Hkv = WIDTHS[G][1]
     sch = attention_bwd_schedule(T, G, Hkv, full=True)
-    ticket = {(n, kvh): i for i, (n, kvh, _) in enumerate(sch.jobs)}
-    seen, folders = Counter(), {}
-    for n, kvh, tiles in sch.jobs:
-        assert list(tiles) == list(range(sch.n_tiles - 1, -1, -1))
-        seen.update((kvh, n, m) for m in tiles)
-        for m in tiles:
-            folders.setdefault((kvh, m), []).append(n)
-        if n > 0:
-            assert ticket[(n - 1, kvh)] < ticket[(n, kvh)]
-    assert set(seen) == {(kvh, n, m) for kvh in range(Hkv) for n in range(sch.n_blocks)
-                         for m in range(sch.n_tiles)} and set(seen.values()) == {1}
+    clusters = attention_bwd_clusters(T, G, Hkv)
+    assert len(clusters) == Hkv * (-(-sch.n_blocks // 2))
+    seen = Counter()
+    for cl in clusters:
+        assert list(cl.tiles) == list(range(sch.n_tiles - 1, -1, -1))
+        assert cl.blocks == (2 * cl.c, 2 * cl.c + 1)
+        seen.update((cl.kvh, n, m) for n in cl.blocks for m in cl.tiles)
+    real = {(kvh, n, m) for kvh in range(Hkv) for n in range(sch.n_blocks)
+            for m in range(sch.n_tiles)}
+    assert real <= set(seen) and set(seen.values()) == {1}
+    past = set(seen) - real  # the odd count's last CTA: its keys start at T or later
+    assert {n for _, n, _ in past} <= {sch.n_blocks} and (len(past) > 0) == (sch.n_blocks % 2 == 1)
+    assert all(n * BN >= T for _, n, _ in past)
+    folders = {}
+    for cl in clusters:  # in ticket order, as they start
+        for n in cl.blocks:
+            if n < sch.n_blocks:
+                for m in cl.tiles:
+                    folders.setdefault((cl.kvh, m), []).append(n)
     assert all(ns == list(range(sch.n_blocks)) for ns in folders.values())
 
 
 @pytest.mark.parametrize("G", sorted(WIDTHS))
-@pytest.mark.parametrize("T", [63, 200])
-def test_full_block_tiled_model_matches_the_plain_algebra(T, G):
-    """The full-block mode's tiled model against
-    `train_attention_bwd_plain(..., causal=False)` (O and lse from the
-    all-true mask's forward), within the card's tolerance."""
+@pytest.mark.parametrize("T", [200, 640, 4096])
+def test_cluster_waits_only_on_an_earlier_ticket(T, G):
+    """Block n folds a tile after block n - 1 of the same kv head: for rank
+    1 that is its peer (the cluster's CTAs start together), for rank 0 the
+    previous cluster's rank 1, whose ticket is earlier: it was running
+    before, so the wait ends."""
+    Hkv = WIDTHS[G][1]
+    clusters = attention_bwd_clusters(T, G, Hkv)
+    ticket = {(cl.c, cl.kvh): t for t, cl in enumerate(clusters)}
+    assert sorted(ticket.values()) == list(range(len(clusters)))
+    holder = {(n, cl.kvh): (cl.c, cl.kvh) for cl in clusters for n in cl.blocks}
+    for (n, kvh), owner in holder.items():
+        if n > 0:
+            waited = holder[(n - 1, kvh)]
+            assert waited == owner if n % 2 else ticket[waited] < ticket[owner]
+
+
+@pytest.mark.parametrize("G", sorted(WIDTHS))
+@pytest.mark.parametrize("T", [200, 640, 4096])
+def test_clusters_finish_with_only_some_resident(T, G):
+    """Whatever number of clusters the card holds at once (1, 3, or all of
+    them), the full-block kernel's folds finish; handing out the last
+    clusters' tickets first, with one resident, would deadlock, and the
+    simulation sees it."""
+    Hkv = WIDTHS[G][1]
+    clusters = attention_bwd_clusters(T, G, Hkv)
+    n_tiles = A.attention_bwd_tiles(T, G)[1]
+    for resident in (1, 3, len(clusters)):
+        steps = run_clusters(T, G, Hkv, resident)
+        assert steps is not None and steps >= n_tiles
+    if len(clusters) > Hkv:
+        backwards = sorted(range(len(clusters)), key=lambda t: -clusters[t].c)
+        assert run_clusters(T, G, Hkv, 1, tickets=backwards) is None
+
+
+def _full_block_inputs(T: int, G: int, seed: int):
     H, Hkv = WIDTHS[G]
-    rng = np.random.default_rng(T * 10 + G + 1)
+    rng = np.random.default_rng(seed)
     q, k, v, do = (torch.from_numpy(rng.standard_normal(s, np.float32)).to(torch.bfloat16)
                    for s in ((T, H, HD), (T, Hkv, HD), (T, Hkv, HD), (T, H, HD)))
     with torch.no_grad():
         o, lse2 = A.full_block_attention_plain(q.float(), k.float(), v.float())
-    o = o.to(torch.bfloat16)
+    return q, k, v, o.to(torch.bfloat16), lse2, do
+
+
+@pytest.mark.parametrize("G", sorted(WIDTHS))
+@pytest.mark.parametrize("T", [63, 200, 640])
+def test_full_block_tiled_model_matches_the_plain_algebra(T, G):
+    """The full-block mode's tiled model against
+    `train_attention_bwd_plain(..., causal=False)` (O and lse from the
+    all-true mask's forward), within the card's tolerance: one key block
+    (T = 63: a cluster whose rank 1 sees keys past T only), two (200) and
+    five (640: an odd count)."""
+    q, k, v, o, lse2, do = _full_block_inputs(T, G, T * 10 + G + 1)
     got = bwd_by_schedule(q, k, v, o, lse2, do, full=True)
     want = A.train_attention_bwd_plain(q, k, v, o, lse2, do, causal=False)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=TOL * float(b.abs().max()), rtol=TOL)
+
+
+@pytest.mark.parametrize("G", sorted(WIDTHS))
+def test_full_block_tiled_model_is_bitwise_repeatable(G):
+    """Two runs of the full-block model give the same bits (the fold order
+    is fixed by the counts, not by timing)."""
+    q, k, v, o, lse2, do = _full_block_inputs(200, G, G)
+    first = bwd_by_schedule(q, k, v, o, lse2, do, full=True)
+    again = bwd_by_schedule(q, k, v, o, lse2, do, full=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def makespan(T, G, Hkv, *, tiles_up=False, fold_down=False, fold=0.3):

@@ -7,7 +7,9 @@ visible 0 (the MCQ batch) and with its log-sum-exp at T = 8192 visible 0,
 each timed twice, and a hash of its output and log-sum-exp at T = 640 over
 9600 and in the full-block mode at T = 4096 (the same seeded inputs in
 every run: equal hashes mean bitwise equal results); K1-bwd's device time at training's T = 8192
-(7B heads; O and the log-sum-exp from K1's forward), timed twice;
+(7B heads; O and the log-sum-exp from K1's forward) and in its full-block
+mode at T = 4096 over 4096 keys (from K1's full-block forward), each timed
+twice, with a hash of each one's dq, dk and dv;
 K5-int4's device time with cold weights (each
 call rotates over copies of its weight past 100 MB, twice the L2) at every
 7B decode product (q_proj and k/v_proj with their bias, o_proj,
@@ -90,9 +92,16 @@ if want("K1-bwd"):
     qb, kb, vb, dob = rn(T8, H, hd), rn(T8, Hkv, hd), rn(T8, Hkv, hd), rn(T8, H, hd)
     lb = torch.empty(T8, H, device=dev)
     ob = A.streaming_prefill_attention(qb, kb, vb, None, None, kb, vb, 0, lse=lb)
+    out["K1-bwd hashes"] = {"T=8192 (dq, dk, dv)": digest(*A.attention_bwd(qb, kb, vb, ob, lb, dob))}
     out["K1-bwd T=8192"] = [c._device_ms(lambda: A.attention_bwd(qb, kb, vb, ob, lb, dob), n=5) for _ in range(2)]
     del qb, kb, vb, dob, lb, ob
     torch.cuda.empty_cache()
+    dof, lf = rn(4096, H, hd), torch.empty(4096, H, device=dev)
+    of = A.full_block_attention(qf, kf, vf, lse=lf)
+    full_bwd = lambda: A.attention_bwd(qf, kf, vf, of, lf, dof, causal=False)  # noqa: E731
+    out["K1-bwd hashes"]["full-block T=4096 (dq, dk, dv)"] = digest(*full_bwd())
+    out["K1-bwd full-block T=4096"] = [c._device_ms(full_bwd, n=10) for _ in range(2)]
+    del dof, lf, of
 from streaming_vlm_tpu_torch.ops import quant as Q
 for what, K, N, bias in () if not want("K5-int4") else (("q_proj", 3584, 3584, True), ("k/v_proj", 3584, 512, True),
                          ("o_proj", 3584, 3584, False), ("gate/up_proj", 3584, 18944, False),
